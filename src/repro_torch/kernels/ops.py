@@ -1,0 +1,98 @@
+"""Public kernel entry points the models call, dispatched by DEVICE.
+
+A tensor on the CPU runs the kernel's plain PyTorch version (the tests'
+lane); any other tensor goes to the CUDA kernel's wrapper, which
+launches it or raises — there is no fallback from a device tensor to the
+plain version, and no environment variable picks the lane.
+"""
+from __future__ import annotations
+
+import math
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
+
+# every kernel wrapper of the package, for launch accounting
+KERNELS = {"qmatmul": qmatmul_cuda, "qmatmul4": qmatmul4_cuda,
+           "decode_attention": decode_attention_cuda,
+           "flash_attention": flash_attention_cuda}
+
+
+def _plain(t) -> bool:
+    return t.device.type == "cpu"
+
+
+def decode_attention(q, ck, cv, pos):
+    """Single-token decode attention over a ring-buffer cache. q (B, KVp,
+    Gp, hd); ck/cv (B, buf, KVp, hd) post-write; ``pos`` the absolute
+    position -> (B, KVp, Gp, hd)."""
+    if _plain(q):
+        return ref.decode_attention_ref(q, ck, cv, pos)
+    return decode_attention_cuda(q.contiguous(), ck, cv, pos)
+
+
+def flash_attention(q, k, v, block_q: int, block_k: int):
+    """Causal attention, q (B, S, KV, G, hd), k/v (B, S, KV, hd). The
+    blocks shape the plain version's loop only; the kernel tiles itself."""
+    if _plain(q):
+        from repro_torch.models.attention import _blocked_causal_attention
+        return _blocked_causal_attention(q, k, v, block_q, block_k)
+    return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous())
+
+
+def is_wire_struct(w) -> bool:
+    """True for a quantized wire struct ({codes|codes_packed, scale, mu})."""
+    return isinstance(w, dict) and ("codes" in w or "codes_packed" in w)
+
+
+def qdense(x, w, n_contract: int = 1, out_dtype=None):
+    """Quantized dense contraction: trailing axes of ``x`` against the
+    ``n_contract`` leading axes of wire-struct ``w`` through the
+    dequantize-fused qmatmul/qmatmul4 kernels.
+
+    ``w`` is {codes (K..., N...) uint8 | codes_packed (..., N/2), scale,
+    mu} with per-tensor (size-1) or per-output-column metadata. The
+    trailing axes of ``x`` whose product equals prod(K...) are the
+    contraction; output is x-batch-axes + (N...) in ``out_dtype``
+    (default ``x.dtype``)."""
+    out_dtype = out_dtype or x.dtype
+    packed = "codes_packed" in w
+    codes = w["codes_packed"] if packed else w["codes"]
+    k = math.prod(codes.shape[:n_contract])
+    out_tail = list(codes.shape[n_contract:])
+    if packed:
+        out_tail[-1] *= 2
+    # peel trailing x axes until they cover the contraction size
+    i, tail = x.dim(), 1
+    while tail < k:
+        i -= 1
+        tail *= x.shape[i]
+    if tail != k:
+        raise ValueError(f"qdense: x {tuple(x.shape)} cannot contract with "
+                         f"codes {tuple(codes.shape)} over {n_contract} axes")
+    batch = tuple(x.shape[:i])
+    x2 = x.reshape(-1, k)
+    codes2 = codes.reshape(k, -1)
+    n = codes2.shape[1] * (2 if packed else 1)
+
+    def _meta2d(v):
+        """scale/mu -> the (1, 1) / (1, N) layout qmatmul expects: size-1
+        metadata is per tensor; otherwise drop the contraction axes and
+        broadcast over the flattened output columns."""
+        if v.numel() == 1:
+            return v.reshape(1, 1)
+        v = v[(0,) * n_contract]
+        return v.broadcast_to(tuple(out_tail)).reshape(1, n)
+
+    scale, mu = _meta2d(w["scale"]), _meta2d(w["mu"])
+    if _plain(x):
+        out = (ref.qmatmul4_ref(x2, codes2, scale, mu, out_dtype) if packed
+               else ref.qmatmul_ref(x2, codes2, scale, mu, out_dtype))
+    else:
+        fn = qmatmul4_cuda if packed else qmatmul_cuda
+        out = fn(x2.contiguous(), codes2.contiguous(), scale.contiguous(),
+                 mu.contiguous(), out_dtype)
+    return out.reshape(batch + tuple(out_tail))

@@ -1,0 +1,73 @@
+"""Plain PyTorch versions of every kernel (the allclose targets, and the
+CPU lane of ``kernels.ops``). The causal flash-attention kernel's plain
+version is ``models.attention._blocked_causal_attention``."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def quantize_ref(x, scale, mu, bits: int):
+    """Asymmetric uniform quantization to uint8 codes (bits <= 8)."""
+    levels = (1 << bits) - 1
+    codes = torch.clamp(torch.round((x.float() - mu) / scale), 0, levels)
+    return codes.to(torch.uint8 if bits <= 8 else torch.int32)
+
+
+def dequantize_ref(codes, scale, mu, dtype=torch.bfloat16):
+    return (codes.float() * scale + mu).to(dtype)
+
+
+def qmatmul_ref(x, w_codes, scale, mu, out_dtype=torch.float32):
+    """x (M,K) x dequant(w_codes (K,N)) -> (M,N), f32 accumulation."""
+    w = w_codes.float() * scale + mu
+    return (x.float() @ w).to(out_dtype)
+
+
+def pack_int4_ref(codes):
+    """(..., N) codes in [0,15] -> (..., N//2) bytes (low nibble = even
+    column)."""
+    lo = codes[..., 0::2].to(torch.uint8)
+    hi = codes[..., 1::2].to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_int4_ref(packed):
+    lo = (packed & 0xF).to(torch.int32)
+    hi = ((packed >> 4) & 0xF).to(torch.int32)
+    return torch.stack([lo, hi], dim=-1).reshape(
+        packed.shape[:-1] + (packed.shape[-1] * 2,))
+
+
+def quantize_pack4_ref(x, scale, mu):
+    return pack_int4_ref(quantize_ref(x, scale, mu, 4))
+
+
+def qmatmul4_ref(x, packed, scale, mu, out_dtype=torch.float32):
+    w = unpack_int4_ref(packed).float() * scale + mu
+    return (x.float() @ w).to(out_dtype)
+
+
+def decode_attention_ref(q, ck, cv, pos):
+    """Single-token decode attention over a ring-buffer KV cache.
+
+    q (B, KVp, Gp, hd) the post-RoPE query of ONE token; ck/cv
+    (B, buf, KVp, hd) the cache AFTER the token's K/V were written at
+    slot ``pos % buf`` (any storage dtype); ``pos`` the absolute
+    position. Scores and PV accumulate in f32; probabilities and V are
+    rounded to the query dtype first, as the reference does. Returns
+    (B, KVp, Gp, hd) in the query dtype."""
+    hd = q.shape[-1]
+    buf = ck.shape[1]
+    pos = int(pos)
+    sc = torch.einsum("bkgd,bskd->bkgs", q.float(),
+                      ck.to(q.dtype).float()) * hd ** -0.5
+    # wrapped ring (pos+1 >= buf): every slot live; else slots 0..pos%buf
+    idx = torch.arange(buf, device=q.device)
+    valid = (pos + 1 >= buf) | (idx <= pos % buf)
+    sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype).float(),
+                       cv.to(q.dtype).float())
+    return out.to(q.dtype)

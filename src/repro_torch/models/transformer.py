@@ -1,0 +1,353 @@
+"""Decoder-stack assembly (dense attention + MLP blocks).
+
+Parameters keep the reference's stacked layout: ``num_periods``
+repetitions of a ``period`` of blocks, each period position's leaves
+stacked over periods on a leading axis, so layer ``l`` is period
+``l // period_len`` at position ``l % period_len``. Weights cross from
+the JAX package as NumPy arrays through ``params_from_numpy``.
+
+The reference runs a segment ``[start, stop)`` as one masked
+``lax.scan`` over every block (inactive blocks are exact identities) so
+that one compiled program serves every cut. PyTorch runs eagerly, so
+here a segment is a Python loop over exactly the layers ``[start,
+stop)`` — the same function without the masked work. Caches are updated
+IN PLACE: the segment functions write each layer's K/V into its slice of
+the stacked cache tree and return that same tree.
+
+MoE and SSM blocks are not ported yet (ROADMAP Queue 1, model zoo):
+every entry point raises ``NotImplementedError`` on such a config.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import rope as rope_lib
+from repro_torch.models.attention import (NEG_INF, DEFAULT_BLOCK_K,
+                                          DEFAULT_BLOCK_Q, _out_proj,
+                                          _project_qkv, _windowed_attention,
+                                          attention_decode, attention_forward,
+                                          attn_init, init_kv_cache)
+from repro_torch.models.common import (embed_init, norm_apply, norm_init,
+                                       to_storage)
+from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def period_len(cfg: ModelConfig) -> int:
+    a = cfg.attn_every if cfg.attn_every > 1 else 1
+    m = cfg.moe.every if cfg.moe is not None else 1
+    return math.lcm(a, m)
+
+
+def num_periods(cfg: ModelConfig) -> int:
+    p = period_len(cfg)
+    assert cfg.num_layers % p == 0, (cfg.num_layers, p)
+    return cfg.num_layers // p
+
+
+def model_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for block kinds the port does not run yet."""
+    for pos in range(period_len(cfg)):
+        if cfg.block_kind(pos) != ATTN or cfg.uses_moe(pos):
+            raise NotImplementedError(
+                f"{cfg.name}: MoE and SSM blocks are not ported to "
+                "repro_torch yet (ROADMAP Queue 1, model zoo)")
+
+
+# ---------------------------------------------------------------------------
+# Params
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda"):
+    """Seeded random weights in the stacked layout (f32, as the
+    reference keeps them; activations run in ``cfg.dtype``).
+    ``generator`` must live on ``device``."""
+    check_supported(cfg)
+    plen, nper = period_len(cfg), num_periods(cfg)
+    vp, d = cfg.padded_vocab(), cfg.d_model
+    params = {"embed": embed_init((vp, d), generator, device=device),
+              "final_norm": norm_init(cfg.norm, d, device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init((d, vp), generator, device=device)
+
+    def stacked_norm():
+        return tree_map(lambda t: t.expand((nper,) + t.shape).clone(),
+                        norm_init(cfg.norm, d, device))
+
+    blocks = []
+    for _ in range(plen):
+        bp = {"norm1": stacked_norm(),
+              "attn": attn_init(cfg, generator, device, lead=(nper,))}
+        if cfg.d_ff:
+            bp["norm2"] = stacked_norm()
+            bp["mlp"] = mlp_init(cfg, generator, device, lead=(nper,))
+        blocks.append(bp)
+    params["blocks"] = blocks
+    return params
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
+    """Carry a reference ``init_params`` tree across as tensors on
+    ``device``: NumPy leaves, stacked periods, the reference layouts
+    (``wq (D, H_pad, hd)``, ``wo (H_pad, hd, D)``)."""
+    check_supported(cfg)
+    params = tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),
+                      tree)
+    nper = num_periods(cfg)
+    if len(params["blocks"]) != period_len(cfg) or any(
+            t.shape[0] != nper for t in tree_leaves(params["blocks"])):
+        raise ValueError(f"params do not stack {nper} periods of "
+                         f"{period_len(cfg)} blocks for {cfg.name}")
+    return params
+
+
+def block_at(params, cfg: ModelConfig, layer: int):
+    """(block param tree, period position) of global block ``layer``."""
+    per, pos = divmod(layer, period_len(cfg))
+    return tree_map(lambda t: t[per], params["blocks"][pos]), pos
+
+
+# ---------------------------------------------------------------------------
+# Caches
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda"):
+    """Per-period-position stacked ring caches (leading axis = periods)."""
+    check_supported(cfg)
+    return [init_kv_cache(cfg, batch, max_len, dtype, device,
+                          lead=(num_periods(cfg),))
+            for _ in range(period_len(cfg))]
+
+
+def _cache_at(caches, cfg: ModelConfig, layer: int):
+    """Layer ``layer``'s slice of a stacked cache tree — views, so writes
+    land in the tree."""
+    per, pos = divmod(layer, period_len(cfg))
+    return {k: v[per] for k, v in caches[pos].items()}
+
+
+# ---------------------------------------------------------------------------
+# Block application
+
+# matmul-weight keys with a dequantize-fused kernel route: wire structs at
+# these positions pass through _dequant_block intact and execute via
+# ops.qdense (the qmatmul/qmatmul4 kernels) inside attention/mlp.
+KERNEL_ROUTED = {"attn": ("wq", "wk", "wv", "wo"),
+                 "mlp": ("w_gate", "w_up", "w_down")}
+
+
+def _dequant_block(bp, cfg):
+    """Block weights may arrive as int8/int4 wire structs {codes |
+    codes_packed, scale, mu}. Structs under ``KERNEL_ROUTED`` stay packed
+    for the qmatmul kernels; any other struct dequantizes here."""
+    dt = model_dtype(cfg)
+
+    def dequant(node):
+        if "codes" in node:
+            codes = node["codes"].float()
+        else:
+            p = node["codes_packed"]              # int4: two codes per byte
+            codes = torch.stack([(p & 0xF), (p >> 4) & 0xF], dim=-1).reshape(
+                p.shape[:-1] + (p.shape[-1] * 2,)).float()
+        return (codes * node["scale"] + node["mu"]).to(dt)
+
+    def walk(node, parent=None):
+        if isinstance(node, dict):
+            if ops.is_wire_struct(node) and "scale" in node:
+                return node if parent == "routed" else dequant(node)
+            return {k: walk(v, "routed" if parent in KERNEL_ROUTED
+                            and k in KERNEL_ROUTED[parent] else k)
+                    for k, v in node.items()}
+        return node
+
+    return walk(bp)
+
+
+def _block_apply(bp, cfg, pos, x, positions, *, cache=None,
+                 decode_pos=None):
+    """One block. Returns (x, cache); ``cache`` is updated in place when
+    given (decode)."""
+    bp = _dequant_block(bp, cfg)
+    h = norm_apply(cfg.norm, bp["norm1"], x)
+    if cache is not None:
+        mixed, cache = attention_decode(bp["attn"], cfg, h, cache, decode_pos)
+    else:
+        mixed = attention_forward(bp["attn"], cfg, h, positions)
+    x = x + mixed
+    if "mlp" in bp:
+        x = x + mlp_apply(bp["mlp"], cfg,
+                          norm_apply(cfg.norm, bp["norm2"], x))
+    return x, cache
+
+
+def _embed(params, cfg, tokens):
+    return params["embed"][tokens.long()].to(model_dtype(cfg))
+
+
+def _unembed(params, cfg, x):
+    x = norm_apply(cfg.norm, params["final_norm"], x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head.to(x.dtype)
+    vp = cfg.padded_vocab()
+    if vp != cfg.vocab_size:                  # mask padded vocab columns
+        col = torch.arange(vp, device=x.device)
+        logits = torch.where(col < cfg.vocab_size, logits, -1e30)
+    return logits
+
+
+embed_tokens = _embed
+unembed = _unembed
+apply_block = _block_apply
+
+
+# ---------------------------------------------------------------------------
+# Segment forward (partitioned execution)
+
+def segment_forward(params, cfg: ModelConfig, h, start: int, stop: int, *,
+                    positions=None, collect: bool = False):
+    """Apply blocks ``[start, stop)`` to hidden state ``h`` (B, S, D).
+
+    ``collect=True`` additionally returns the activation ENTERING every
+    block of the stack, shape (L, B, S, D) — the Alg. 1 calibration's
+    ``acts`` (blocks outside the segment pass their input through).
+    Returns ``h_out`` or ``(h_out, acts)``."""
+    b, s, _ = h.shape
+    if positions is None:
+        positions = rope_lib.text_positions(b, s, device=h.device)
+    acts = []
+    for layer in range(cfg.num_layers if collect else stop):
+        if collect:
+            acts.append(h)
+        if start <= layer < stop:
+            bp, pos = block_at(params, cfg, layer)
+            h, _ = _block_apply(bp, cfg, pos, h, positions)
+    if collect:
+        return h, torch.stack(acts)
+    return h
+
+
+def segment_logits(params, cfg: ModelConfig, h, start: int, stop: int, *,
+                   positions=None):
+    """``segment_forward`` + unembed at the LAST position -> (B, V)."""
+    h = segment_forward(params, cfg, h, start, stop, positions=positions)
+    return _unembed(params, cfg, h[:, -1:, :])[:, -1, :]
+
+
+# ---------------------------------------------------------------------------
+# Segment prefill / extend / decode (cut-point-partitioned KV cache)
+
+def _attn_prefill_with_cache(ap, cfg, h, positions, cache):
+    """Full-context attention over ``h`` that also writes the last
+    min(s, buf) keys/values into the ring ``cache`` (in place)."""
+    s = h.shape[1]
+    q, k, v = _project_qkv(ap, cfg, h)
+    qr = rope_lib.apply_rope(cfg.rope, q, positions, cfg.rope_theta)
+    kr = rope_lib.apply_rope(cfg.rope, k, positions, cfg.rope_theta)
+    bq, bk = min(DEFAULT_BLOCK_Q, s), min(DEFAULT_BLOCK_K, s)
+    if cfg.sliding_window is not None and s > cfg.sliding_window:
+        out = _windowed_attention(qr, kr, v, cfg.sliding_window, bq)
+    else:
+        out = ops.flash_attention(qr, kr, v, bq, bk)
+    out = _out_proj(ap, cfg, out, h.dtype)
+    buf = cache["k"].shape[1]
+    take = min(s, buf)
+    for name, t in (("k", kr), ("v", v)):
+        w = to_storage(t[:, s - take:], cache[name].dtype)
+        if take == buf:
+            # ring layout: position pos0 + i lands in slot (pos0 + i) % buf
+            cache[name][:] = torch.roll(w, (s - take) % buf, dims=1)
+        else:
+            cache[name][:, :take] = w
+    return out, cache
+
+
+def segment_prefill(params, cfg: ModelConfig, h, caches, start: int,
+                    stop: int, *, positions=None):
+    """Blocks ``[start, stop)`` over the prompt ``h`` (B, S, D), filling
+    their slices of the stacked ``caches`` (an ``init_cache`` tree) in
+    place. Returns ``(h_out, caches)``."""
+    b, s, _ = h.shape
+    if positions is None:
+        positions = rope_lib.text_positions(b, s, device=h.device)
+    for layer in range(start, stop):
+        bp, _ = block_at(params, cfg, layer)
+        bp = _dequant_block(bp, cfg)
+        mixed, _ = _attn_prefill_with_cache(
+            bp["attn"], cfg, norm_apply(cfg.norm, bp["norm1"], h),
+            positions, _cache_at(caches, cfg, layer))
+        h = h + mixed
+        if "mlp" in bp:
+            h = h + mlp_apply(bp["mlp"], cfg,
+                              norm_apply(cfg.norm, bp["norm2"], h))
+    return h, caches
+
+
+def _attn_extend_with_cache(ap, cfg, h, positions, cache, pos0: int):
+    """Multi-token attention against a PARTIALLY POPULATED ring cache:
+    project/RoPE the ``s`` incoming rows at absolute ``positions``, write
+    their K/V into the cache at ``pos0`` (in place), then attend every row
+    against the whole ring under a per-row validity mask (ring index <=
+    row position), reading K/V back through the cache's storage dtype.
+    Callers guarantee ``pos0 + s <= buf`` (slot == position)."""
+    b, s, _ = h.shape
+    buf = cache["k"].shape[1]
+    q, k, v = _project_qkv(ap, cfg, h)
+    qr = rope_lib.apply_rope(cfg.rope, q, positions, cfg.rope_theta)
+    kr = rope_lib.apply_rope(cfg.rope, k, positions, cfg.rope_theta)
+    cache["k"][:, pos0:pos0 + s] = to_storage(kr, cache["k"].dtype)
+    cache["v"][:, pos0:pos0 + s] = to_storage(v, cache["v"].dtype)
+    hd = qr.shape[-1]
+    kb = cache["k"].to(qr.dtype).float()
+    vb = cache["v"].to(qr.dtype)
+    mask = positions[0][:, None] >= torch.arange(buf, device=h.device)[None]
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qr.float(), kb) * hd ** -0.5
+    sc = torch.where(mask, sc, NEG_INF)
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vb.dtype).float(),
+                      vb.float())
+    out = pv / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).to(qr.dtype)
+    return _out_proj(ap, cfg, out, h.dtype), cache
+
+
+def segment_extend(params, cfg: ModelConfig, h, caches, pos0: int,
+                   start: int, stop: int):
+    """Blocks ``[start, stop)`` over ``s`` NEW rows ``h`` (B, S, D)
+    entering at absolute position ``pos0``, extending their ring caches
+    in place (the monolithic prefill of a decode session is one such
+    extend from ``pos0 = 0``). Returns ``(h_out, caches)``."""
+    b, s, _ = h.shape
+    positions = rope_lib.text_positions(b, s, offset=pos0, device=h.device)
+    for layer in range(start, stop):
+        bp, _ = block_at(params, cfg, layer)
+        bp = _dequant_block(bp, cfg)
+        mixed, _ = _attn_extend_with_cache(
+            bp["attn"], cfg, norm_apply(cfg.norm, bp["norm1"], h),
+            positions, _cache_at(caches, cfg, layer), pos0)
+        h = h + mixed
+        if "mlp" in bp:
+            h = h + mlp_apply(bp["mlp"], cfg,
+                              norm_apply(cfg.norm, bp["norm2"], h))
+    return h, caches
+
+
+def segment_decode_step(params, cfg: ModelConfig, x, caches, pos: int,
+                        start: int, stop: int):
+    """One decode step over blocks ``[start, stop)``: ``x`` (B, 1, D) the
+    hidden state entering block ``start``, ``pos`` the token's absolute
+    position. Updates the caches in place; returns ``(x_out, caches)``."""
+    for layer in range(start, stop):
+        bp, p = block_at(params, cfg, layer)
+        x, _ = _block_apply(bp, cfg, p, x, None,
+                            cache=_cache_at(caches, cfg, layer),
+                            decode_pos=pos)
+    return x, caches

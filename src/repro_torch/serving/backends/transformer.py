@@ -1,0 +1,306 @@
+"""``TransformerBackend`` — decoder LMs behind the ``ModelBackend``
+protocol, so a transformer goes through the same calibrate →
+``build_store`` → serve pipeline as the paper's classifiers.
+
+Mapping onto the protocol:
+
+  * partitionable layers = the decoder blocks (the embedding table always
+    stays on-device and carries no payload term; the embed row of
+    ``transformer_layer_specs`` is dropped).
+  * "logits" = next-token logits at the LAST sequence position, shape
+    (B, V), with y = the next token.
+  * the forward family runs ``transformer.segment_forward`` over exactly
+    the layers a call needs; the backend's device is its parameters'
+    device, and inputs (NumPy arrays or tensors) move to it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import noise as noise_lib
+from repro_torch.core.cost_model import (LayerSpec, kv_bytes_row as _kv_row,
+                                         transformer_layer_specs)
+from repro_torch.core.partition import DeviceSegment, split_blocks
+from repro_torch.core.quantizer import fake_quant
+from repro_torch.models import rope as rope_lib
+from repro_torch.models import transformer as T
+from repro_torch.serving.backends.base import ModelBackend, to_device
+from repro_torch.serving.decode.cache import paged_kv_ctx
+from repro_torch.tree import tree_map
+
+_STACKED_CACHE_SLOTS = 4     # stacked quantized trees kept per backend
+
+
+@dataclasses.dataclass
+class TransformerBackend(ModelBackend):
+    """cfg: ModelConfig; params: a ``transformer.init_params`` /
+    ``params_from_numpy`` tree (its device is the backend's). ``seq_len``
+    is the reference sequence length requests are planned at; ``mode``
+    follows ``transformer_layer_specs`` ("prefill" | "decode")."""
+    cfg: ModelConfig
+    params: dict
+    seq_len: int
+    mode: str = "prefill"
+    # context length decode streams are planned against (the KV cache is
+    # allocated at this length); None = no cache-feasibility term
+    decode_max_len: Optional[int] = None
+    # KV page size in ring slots: set -> admission prices streams at their
+    # page-rounded actual context instead of decode_max_len
+    kv_page_tokens: Optional[int] = None
+
+    supports_decode = True
+
+    @property
+    def num_layers(self) -> int:
+        return self.cfg.num_layers
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed"].device
+
+    def layer_specs(self, batch: int = 1,
+                    seq_len: Optional[int] = None) -> List[LayerSpec]:
+        specs = transformer_layer_specs(
+            self.cfg, seq_len or self.seq_len, batch=batch,
+            mode=self.mode)[1:]                      # drop the embed row
+        return self.refine_specs(specs, batch=batch)
+
+    def decode_layer_specs(self, batch: int = 1,
+                           context_len: Optional[int] = None) -> List[LayerSpec]:
+        """ONE decode step's per-layer terms at a ``context_len`` (default
+        ``decode_max_len`` or ``seq_len``) context; cost overrides are
+        measured on prefill and deliberately not applied."""
+        ctx = context_len or self.decode_max_len or self.seq_len
+        return transformer_layer_specs(self.cfg, ctx, batch=batch,
+                                       mode="decode")[1:]
+
+    def kv_bytes_row(self, batch: int = 1, tokens: Optional[int] = None):
+        """Cumulative device-KV bytes by cut point for ONE decode stream:
+        the dense worst case (``decode_max_len`` slots per attention
+        layer), or with ``kv_page_tokens`` and the stream's ``tokens``
+        its page-rounded context."""
+        if self.decode_max_len is None:
+            return None
+        if tokens is None or self.kv_page_tokens is None:
+            ctx = self.decode_max_len
+        else:
+            ctx = paged_kv_ctx(int(tokens), self.kv_page_tokens,
+                               self.decode_max_len)
+        cache = self.__dict__.setdefault("_kv_row_cache", {})
+        key = (batch, ctx)
+        row = cache.get(key)
+        if row is None:
+            row = cache[key] = _kv_row(
+                self.decode_layer_specs(batch, context_len=ctx))
+        return row
+
+    def input_elements(self) -> float:
+        return float(self.seq_len)                   # token ids per example
+
+    def _tokens(self, x):
+        return to_device(x, self.device)
+
+    def _p(self, params):
+        return self.params if params is None else params
+
+    # -- decode entry points -----------------------------------------------
+    def embed(self, tokens, params=None):
+        return T.embed_tokens(self._p(params), self.cfg, self._tokens(tokens))
+
+    def decode_segment(self, x, caches, pos, start, stop, params=None):
+        return T.segment_decode_step(self._p(params), self.cfg, x, caches,
+                                     pos, start, stop)
+
+    def extend_segment(self, h, caches, pos0, start, stop, params=None):
+        return T.segment_extend(self._p(params), self.cfg, h, caches, pos0,
+                                start, stop)
+
+    def hidden_logits(self, h, params=None):
+        """Unembed hidden state ``h`` (B, S, D) -> (B, V) at the last
+        position."""
+        return T.unembed(self._p(params), self.cfg, h[:, -1:, :])[:, -1, :]
+
+    # -- forward family ---------------------------------------------------
+    def forward(self, x, params=None):
+        params = self._p(params)
+        h = T.embed_tokens(params, self.cfg, self._tokens(x))
+        return T.segment_logits(params, self.cfg, h, 0, self.num_layers)
+
+    def forward_from_layer(self, a, start: int, params=None):
+        return T.segment_logits(self._p(params), self.cfg, a, start,
+                                self.num_layers)
+
+    def layer_activations(self, x, params=None):
+        params = self._p(params)
+        h = T.embed_tokens(params, self.cfg, self._tokens(x))
+        h, acts = T.segment_forward(params, self.cfg, h, 0, self.num_layers,
+                                    collect=True)
+        return list(acts), T.unembed(params, self.cfg, h[:, -1:, :])[:, -1, :]
+
+    def with_layer_quantized(self, layer: int, bits: int):
+        per, pos = divmod(layer, T.period_len(self.cfg))
+
+        def quantize_slice(t):
+            t = t.clone()
+            t[per] = fake_quant(t[per], bits)
+            return t
+
+        blocks = list(self.params["blocks"])
+        blocks[pos] = tree_map(quantize_slice, blocks[pos])
+        return {**self.params, "blocks": blocks}
+
+    def calibrate_probes(self, x, probe_bits: int = noise_lib.PROBE_BITS):
+        """All L per-layer noise energies from one clean pass plus suffix
+        passes. The weight probe of layer l resumes from the clean
+        activation entering l with only block l fake-quantized (per
+        period slice, as ``with_layer_quantized``) — the same function
+        as a full forward of the perturbed model, whose layers below l
+        are untouched. The clean suffix from that activation is the clean
+        logits themselves."""
+        cfg, L = self.cfg, self.num_layers
+        acts, logits = self.layer_activations(x)
+        b, s = acts[0].shape[:2]
+        positions = rope_lib.text_positions(b, s, device=self.device)
+        e_w, e_x = np.zeros(L), np.zeros(L)
+        for l in range(L):
+            bp, pos = T.block_at(self.params, cfg, l)
+            qbp = tree_map(lambda t: fake_quant(t, probe_bits), bp)
+            h, _ = T.apply_block(qbp, cfg, pos, acts[l], positions)
+            d_w = T.segment_logits(self.params, cfg, h, l + 1, L) - logits
+            e_w[l] = float(torch.sum(torch.square(d_w.float())))
+            d_x = T.segment_logits(self.params, cfg,
+                                   fake_quant(acts[l], probe_bits), l, L) \
+                - logits
+            e_x[l] = float(torch.sum(torch.square(d_x.float())))
+        return e_w, e_x, logits
+
+    # -- device-segment execution ---------------------------------------
+    def _device_blocks(self, p: int):
+        return [T.block_at(self.params, self.cfg, l)[0] for l in range(p)]
+
+    def _stack_segment(self, seg_params: list):
+        """Scatter the per-layer quantized trees back into the stacked
+        period representation (full precision beyond p)."""
+        plen = T.period_len(self.cfg)
+        blocks = [tree_map(torch.clone, bp) for bp in self.params["blocks"]]
+        for l, layer_tree in enumerate(seg_params):
+            per, pos = divmod(l, plen)
+
+            def put(full, q, per=per):
+                full[per] = q
+                return full
+
+            tree_map(put, blocks[pos], layer_tree)
+        return {**self.params, "blocks": blocks}
+
+    def split(self, plan) -> DeviceSegment:
+        return split_blocks(self._device_blocks(plan.p), plan,
+                            self.layer_specs())
+
+    def stacked_for(self, seg: DeviceSegment, plan) -> dict:
+        """The quantized segment scattered into a full stacked tree, built
+        on first execution and cached per DEPLOYED plan (bounded)."""
+        key = (plan.p, tuple(int(b) for b in np.asarray(seg.bits_w)),
+               int(seg.bits_x))
+        cache = self.__dict__.setdefault("_stacked_cache", {})
+        if key not in cache:
+            while len(cache) >= _STACKED_CACHE_SLOTS:
+                cache.pop(next(iter(cache)))
+            cache[key] = self._stack_segment(seg.params)
+        return cache[key]
+
+    def run_device_segment(self, seg: DeviceSegment, plan, x):
+        params = self.stacked_for(seg, plan)
+        h = T.embed_tokens(params, self.cfg, self._tokens(x))
+        h = T.segment_forward(params, self.cfg, h, 0, plan.p)
+        return fake_quant(h, int(seg.bits_x))
+
+    # -- quantized-kernel device segment ---------------------------------
+    def qstacked_for(self, seg: DeviceSegment, plan) -> dict:
+        """``stacked_for``'s kernel twin: the routed projection/MLP
+        weights (``transformer.KERNEL_ROUTED``) are carried as per-period
+        quantized WIRE STRUCTS ({codes, scale, mu}) that the models run
+        through the dequantize-fused qmatmul/qmatmul4 kernels. Plans
+        deploying > 8 bits fall back to ``stacked_for`` (the uint8 wire
+        cannot carry them)."""
+        bits_w = [int(b) for b in np.asarray(seg.bits_w)]
+        if any(b > 8 for b in bits_w):
+            return self.stacked_for(seg, plan)
+        key = (plan.p, tuple(bits_w), int(seg.bits_x))
+        cache = self.__dict__.setdefault("_qstacked_cache", {})
+        if key not in cache:
+            while len(cache) >= _STACKED_CACHE_SLOTS:
+                cache.pop(next(iter(cache)))
+            cache[key] = self._build_qstacked(int(plan.p), bits_w)
+        return cache[key]
+
+    def _build_qstacked(self, p: int, bits_w: list) -> dict:
+        """For each period position, routed leaves become per-period,
+        per-tensor quantized structs at the deployed per-layer bit-widths
+        (filler bits for periods beyond the cut, never executed); the
+        other leaves are fake-quantized on the ACTIVE periods, mirroring
+        ``_stack_segment`` + ``split_blocks`` leaf for leaf. A position
+        whose active bits are all <= 4 packs two codes per byte."""
+        plen, nper = T.period_len(self.cfg), T.num_periods(self.cfg)
+        dev = self.device
+
+        def build_pos(pos: int):
+            active = [per * plen + pos < p for per in range(nper)]
+            abits = [bits_w[per * plen + pos]
+                     for per in range(nper) if active[per]]
+            pack = bool(abits) and max(abits) <= 4
+            fill = 4 if pack else 8
+            bits = np.array([bits_w[per * plen + pos] if active[per]
+                             else fill for per in range(nper)], np.float64)
+            levels = torch.as_tensor(2.0 ** bits - 1.0, dtype=torch.float32,
+                                     device=dev)
+            amask = torch.as_tensor(active, device=dev)
+
+            def meta(leaf):
+                axes = tuple(range(1, leaf.dim()))
+                shape = (nper,) + (1,) * (leaf.dim() - 1)
+                mu = torch.amin(leaf, dim=axes, keepdim=True)
+                phi = torch.amax(leaf, dim=axes, keepdim=True)
+                lv = levels.reshape(shape)
+                scale = torch.clamp((phi - mu) / lv, min=1e-12)
+                codes = torch.minimum(torch.clamp(
+                    torch.round((leaf - mu) / scale), min=0), lv)
+                return codes, scale, mu
+
+            def struct(leaf):
+                codes, scale, mu = meta(leaf)
+                out = {"scale": scale.float(), "mu": mu.float()}
+                codes = codes.to(torch.uint8)
+                if pack and leaf.shape[-1] % 2 == 0:
+                    out["codes_packed"] = \
+                        codes[..., 0::2] | (codes[..., 1::2] << 4)
+                else:
+                    out["codes"] = codes
+                return out
+
+            def dense_fq(leaf):
+                codes, scale, mu = meta(leaf)
+                fq = (codes * scale + mu).to(leaf.dtype)
+                mask = amask.reshape((nper,) + (1,) * (leaf.dim() - 1))
+                return torch.where(mask, fq, leaf)
+
+            routed = T.KERNEL_ROUTED
+
+            def walk(node, parent=None):
+                if isinstance(node, dict):
+                    return {k: (struct(v)
+                                if parent in routed and k in routed[parent]
+                                and not isinstance(v, dict)
+                                else walk(v, k))
+                            for k, v in node.items()}
+                return dense_fq(node)
+
+            return walk(self.params["blocks"][pos])
+
+        return {**self.params,
+                "blocks": [build_pos(pos) for pos in range(plen)]}

@@ -1,0 +1,68 @@
+"""Shared helpers of the ``test_torch_*`` parity tests: arrays and trees
+cross from the JAX package to the PyTorch port as NumPy (bfloat16 and
+float8 by their bit patterns, which NumPy cannot hand to torch
+directly), plus the small configs both packages run."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro.configs.base import get_config as jax_get_config
+from repro_torch.configs.base import get_config as torch_get_config
+
+# NumPy dtype name -> (same-width integer view, torch dtype)
+_BIT_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
+              "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
+def to_torch(a, device="cpu") -> torch.Tensor:
+    """A JAX/NumPy array as a torch tensor with the same bits."""
+    a = np.array(a)                      # a writable, contiguous copy
+    view = _BIT_VIEWS.get(a.dtype.name)
+    if view is None:
+        return torch.from_numpy(a).to(device)
+    ints, tdt = view
+    t = torch.from_numpy(a.view(ints))
+    return t.view(tdt).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A torch tensor as NumPy (low-precision floats widened to f32)."""
+    t = t.detach().cpu()
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        t = t.float()
+    return t.numpy()
+
+
+def tree_to_torch(tree, device="cpu"):
+    if isinstance(tree, dict):
+        return {k: tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_torch(v, device) for v in tree]
+    return to_torch(tree, device)
+
+
+def lm_weights(tcfg, seed: int = 0):
+    """One seeded weight tree for both packages: the port's init (the
+    reference's stacked layout, cheaper than compiling the reference's
+    vmapped init) as NumPy leaves, ready for ``jnp.asarray`` and
+    ``transformer.params_from_numpy``."""
+    from repro_torch.models import transformer as TT
+    from repro_torch.tree import tree_map
+    params = TT.init_params(tcfg, torch.Generator().manual_seed(seed),
+                            device="cpu")
+    return tree_map(lambda t: t.numpy(), params)
+
+
+def lm_configs(tp_pad: int = 1):
+    """The example's 4-layer f32 smollm-8m, as (jax cfg, torch cfg);
+    ``tp_pad=16`` pads its 4/2 heads to 2 x 8 and a 250-token vocab to
+    256, so padded heads and masked vocab columns run."""
+    kw = dict(name="smollm-8m", num_layers=4, d_model=256, num_heads=4,
+              num_kv_heads=2, head_dim=64, d_ff=768,
+              vocab_size=256 if tp_pad == 1 else 250,
+              tp_pad=tp_pad, dtype="float32")
+    return (dataclasses.replace(jax_get_config("smollm-135m"), **kw),
+            dataclasses.replace(torch_get_config("smollm-135m"), **kw))

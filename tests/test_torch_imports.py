@@ -1,0 +1,78 @@
+"""Guards of the port's two contracts that need no GPU:
+
+* ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
+  anything of the JAX package ``repro`` (the card's machine has no JAX);
+* dispatch is by device: only a CPU tensor reaches a kernel's plain
+  version. A ``meta`` tensor stands in for a device tensor — with the
+  kernel loader made to fail, every entry point must raise instead of
+  returning the plain result.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.kernels import build, ops
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], (ast.Constant, ast.JoinedStr)):
+            arg = node.args[0]
+            text = arg.value if isinstance(arg, ast.Constant) else "".join(
+                v.value for v in arg.values if isinstance(v, ast.Constant))
+            yield str(text).split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax_and_no_reference_package(path):
+    bad = [(mod, line) for mod, line in _imported_roots(path)
+           if mod in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _meta_calls():
+    m = dict(device="meta")
+    q = torch.empty(2, 4, 4, 64, **m)
+    cache = torch.empty(2, 32, 4, 64, dtype=torch.bfloat16, **m)
+    x = torch.empty(2, 3, 64, **m)
+    w = {"codes": torch.empty(64, 32, dtype=torch.uint8, **m),
+         "scale": torch.empty(1, 1, **m), "mu": torch.empty(1, 1, **m)}
+    w4 = {"codes_packed": torch.empty(64, 16, dtype=torch.uint8, **m),
+          "scale": torch.empty(1, 1, **m), "mu": torch.empty(1, 1, **m)}
+    fq = torch.empty(1, 16, 2, 2, 64, **m)
+    fk = torch.empty(1, 16, 2, 64, **m)
+    return {"decode_attention": lambda: ops.decode_attention(q, cache, cache,
+                                                             5),
+            "flash_attention": lambda: ops.flash_attention(fq, fk, fk, 16,
+                                                           16),
+            "qmatmul": lambda: ops.qdense(x, w),
+            "qmatmul4": lambda: ops.qdense(x, w4)}
+
+
+@pytest.mark.parametrize("name", sorted(ops.KERNELS))
+def test_device_tensors_never_take_the_plain_version(name, monkeypatch):
+    def no_kernels(*args, **kwargs):
+        raise RuntimeError("kernel loader unavailable")
+
+    monkeypatch.setattr(build, "library", no_kernels)
+    monkeypatch.setattr(build, "launcher", no_kernels)
+    before = ops.KERNELS[name].launches
+    with pytest.raises((RuntimeError, ValueError)):
+        _meta_calls()[name]()
+    assert ops.KERNELS[name].launches == before

@@ -1,0 +1,203 @@
+"""The port's kernel plain versions against the JAX package: its pure-jnp
+oracles (``repro.kernels.ref``) and its Pallas kernels run in interpret
+mode, on the same NumPy inputs. The CUDA kernels themselves run only on
+the card (``chip_smoke.py`` holds each against these plain versions).
+
+Tolerances: f32 products summed in another order differ by a few ulp
+of the row sum, so f32 outputs agree to 1e-4 (the reference's own
+kernel tests use 2e-6 against a same-order oracle); bf16 and float8
+caches round probabilities and values to bf16, so 2e-2 as in
+tests/test_decode_kernels.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention_pallas
+from repro.kernels.flash_attention import flash_attention
+from repro.models.attention import \
+    _blocked_causal_attention as jax_blocked_attention
+from repro_torch.kernels import ops, ref
+from repro_torch.models.attention import _blocked_causal_attention
+from tests._torch_parity import to_numpy, to_torch
+
+TOL_F32 = 1e-4
+TOL_BF16 = 2e-2
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+def _meta(rng, n, per_column):
+    shape = (1, n) if per_column else (1, 1)
+    scale = rng.uniform(0.005, 0.02, shape).astype(np.float32)
+    mu = rng.uniform(-0.5, 0.0, shape).astype(np.float32)
+    return scale, mu
+
+
+class TestQMatmul:
+    """qmatmul (int8 codes) and qmatmul4 (packed nibbles) plain versions
+    == the reference oracle and the interpret-mode Pallas kernels, at a
+    576-wide contraction no 512 tile divides."""
+
+    @staticmethod
+    def _case(packed, per_column):
+        rng = _rng(1)
+        m, k, n = 6, 576, 128
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        codes = rng.integers(0, 16 if packed else 256, (k, n), np.uint8)
+        scale, mu = _meta(rng, n, per_column)
+        w = (codes[:, 0::2] | (codes[:, 1::2] << 4)).astype(np.uint8) \
+            if packed else codes
+        t_fn = ref.qmatmul4_ref if packed else ref.qmatmul_ref
+        got = to_numpy(t_fn(to_torch(x), to_torch(w), to_torch(scale),
+                            to_torch(mu)))
+        return x, w, scale, mu, got
+
+    @pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+    @pytest.mark.parametrize("per_column", [False, True],
+                             ids=["per_tensor", "per_column"])
+    def test_plain_matches_reference(self, packed, per_column):
+        x, w, scale, mu, got = self._case(packed, per_column)
+        j_fn = jref.qmatmul4_ref if packed else jref.qmatmul_ref
+        np.testing.assert_allclose(got, np.asarray(j_fn(x, w, scale, mu)),
+                                   atol=TOL_F32, rtol=TOL_F32)
+
+    @pytest.mark.parametrize("packed,per_column", [(False, True),
+                                                   (True, False)],
+                             ids=["int8_per_column", "int4_per_tensor"])
+    def test_plain_matches_pallas(self, packed, per_column, monkeypatch):
+        """The interpret-mode Pallas kernels, through the reference's
+        qdense (which picks tiles dividing K = 576)."""
+        x, w, scale, mu, got = self._case(packed, per_column)
+        key = "codes_packed" if packed else "codes"
+        monkeypatch.setenv("REPRO_KERNELS", "interpret")
+        pallas = np.asarray(jops.qdense(
+            jnp.asarray(x), {key: w, "scale": scale, "mu": mu}))
+        np.testing.assert_allclose(got, pallas, atol=TOL_F32, rtol=TOL_F32)
+
+    def test_qdense_layouts(self, monkeypatch):
+        """Trailing-axis peeling and the ``_meta2d`` layout: a 3-D QKV
+        output and a 2-axis output-projection contraction with
+        per-head-dim metadata, through both packages' qdense."""
+        monkeypatch.setenv("REPRO_KERNELS", "reference")
+        rng = _rng(2)
+        x = rng.standard_normal((2, 3, 64)).astype(np.float32)
+        wq = {"codes": rng.integers(0, 256, (64, 4, 16), np.uint8),
+              "scale": rng.uniform(0.01, 0.02, (1, 1, 16)).astype(np.float32),
+              "mu": rng.uniform(-1, 0, (1, 1, 16)).astype(np.float32)}
+        out = rng.standard_normal((2, 3, 4, 16)).astype(np.float32)
+        wo = {"codes_packed": rng.integers(0, 256, (4, 16, 32), np.uint8),
+              "scale": np.float32(0.01).reshape(1, 1, 1),
+              "mu": np.float32(-0.1).reshape(1, 1, 1)}
+        for a, w, nc in ((x, wq, 1), (out, wo, 2)):
+            tw = {k: to_torch(v) for k, v in w.items()}
+            got = to_numpy(ops.qdense(to_torch(a), tw, n_contract=nc))
+            want = np.asarray(jops.qdense(jnp.asarray(a), w, n_contract=nc))
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got, want, atol=TOL_F32, rtol=TOL_F32)
+
+
+class TestDecodeAttention:
+    """One-query ring-buffer attention: f32, bf16 and float8 caches, on a
+    partially filled ring and on a wrapped one, GQA groups of 4."""
+
+    B, KVP, GP, BUF, HD = 2, 2, 4, 64, 64
+
+    def _inputs(self, cache_dtype):
+        rng = _rng(3)
+        q = rng.standard_normal((self.B, self.KVP, self.GP, self.HD))
+        kv = rng.standard_normal((2, self.B, self.BUF, self.KVP, self.HD))
+        ck = jnp.asarray(kv[0], jnp.float32).astype(cache_dtype)
+        cv = jnp.asarray(kv[1], jnp.float32).astype(cache_dtype)
+        return jnp.asarray(q, jnp.float32), ck, cv
+
+    @pytest.mark.parametrize("cache_dtype,tol", [
+        (jnp.float32, TOL_F32), (jnp.bfloat16, TOL_BF16),
+        (jnp.float8_e4m3fn, TOL_BF16)], ids=["f32", "bf16", "float8"])
+    @pytest.mark.parametrize("pos", [5, 100], ids=["partial", "wrapped"])
+    def test_plain_matches_reference(self, cache_dtype, tol, pos):
+        q, ck, cv = self._inputs(cache_dtype)
+        got = to_numpy(ops.decode_attention(to_torch(q), to_torch(ck),
+                                            to_torch(cv), pos))
+        want = np.asarray(jref.decode_attention_ref(q, ck, cv, pos))
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+    def test_plain_matches_pallas(self):
+        """The interpret-mode Pallas kernel on a wrapped float8 ring, two
+        cache blocks."""
+        q, ck, cv = self._inputs(jnp.float8_e4m3fn)
+        got = to_numpy(ops.decode_attention(to_torch(q), to_torch(ck),
+                                            to_torch(cv), 100))
+        pallas = np.asarray(decode_attention_pallas(q, ck, cv, 100,
+                                                    block_k=32,
+                                                    interpret=True))
+        np.testing.assert_allclose(got, pallas, atol=TOL_BF16,
+                                   rtol=TOL_BF16)
+
+
+class TestFlashAttention:
+    """Causal GQA attention: the port's blocked plain version == the
+    reference's blocked version and its interpret-mode flash kernel."""
+
+    @staticmethod
+    def _case(block):
+        rng = _rng(4)
+        b, s, kv, g, hd = 1, 32, 2, 2, 64
+        q = rng.standard_normal((b, s, kv, g, hd)).astype(np.float32)
+        k = rng.standard_normal((b, s, kv, hd)).astype(np.float32)
+        v = rng.standard_normal((b, s, kv, hd)).astype(np.float32)
+        got = to_numpy(_blocked_causal_attention(
+            to_torch(q), to_torch(k), to_torch(v), block, block))
+        return q, k, v, got
+
+    @pytest.mark.parametrize("block", [32, 8], ids=["one_block", "4x4"])
+    def test_plain_matches_reference(self, block):
+        q, k, v, got = self._case(block)
+        want = np.asarray(jax_blocked_attention(q, k, v, block, block))
+        np.testing.assert_allclose(got, want, atol=TOL_F32, rtol=TOL_F32)
+
+    def test_plain_matches_pallas(self):
+        """The interpret-mode Pallas kernel with 2 x 2 causal blocks (the
+        fully masked one skipped)."""
+        q, k, v, got = self._case(8)
+        pallas = np.asarray(flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=16,
+            block_k=16, interpret=True))
+        np.testing.assert_allclose(got, pallas, atol=TOL_F32, rtol=TOL_F32)
+
+    def test_dispatch_on_cpu_is_the_plain_version(self):
+        rng = _rng(5)
+        q = to_torch(rng.standard_normal((1, 16, 1, 2, 64)).astype(np.float32))
+        k = to_torch(rng.standard_normal((1, 16, 1, 64)).astype(np.float32))
+        v = to_torch(rng.standard_normal((1, 16, 1, 64)).astype(np.float32))
+        assert (ops.flash_attention(q, k, v, 8, 8)
+                == _blocked_causal_attention(q, k, v, 8, 8)).all()
+
+
+class TestPackingOracles:
+    """Integer oracles match bit for bit."""
+
+    def test_quantize_pack_unpack(self):
+        rng = _rng(6)
+        x = rng.standard_normal((8, 32)).astype(np.float32)
+        scale, mu = np.float32(0.25), np.float32(-2.0)
+        for bits in (4, 8):
+            np.testing.assert_array_equal(
+                to_numpy(ref.quantize_ref(to_torch(x), scale, mu, bits)),
+                np.asarray(jref.quantize_ref(x, scale, mu, bits)))
+        np.testing.assert_array_equal(
+            to_numpy(ref.quantize_pack4_ref(to_torch(x), scale, mu)),
+            np.asarray(jref.quantize_pack4_ref(x, scale, mu)))
+        packed = rng.integers(0, 256, (4, 8), np.uint8)
+        np.testing.assert_array_equal(
+            to_numpy(ref.unpack_int4_ref(to_torch(packed))),
+            np.asarray(jref.unpack_int4_ref(jnp.asarray(packed))))
+        codes = rng.integers(0, 256, (4, 8), np.uint8)
+        np.testing.assert_allclose(
+            to_numpy(ref.dequantize_ref(to_torch(codes), 0.5, 1.0,
+                                        dtype=to_torch(x).dtype)),
+            np.asarray(jref.dequantize_ref(codes, 0.5, 1.0, jnp.float32)))
+
