@@ -12,16 +12,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    the main path's shapes and time kernel, plain version, the closest
    single PyTorch library call (a yardstick only — the port never calls
    it) and the card's lower bound for the same work;
-4. the main path on smollm-135m at its registered shape (30 layers,
+4. the request loop on smollm-135m at its registered shape (30 layers,
    d_model 576, 9/3 heads padded to 4 x 4 by tp_pad=16, d_ff 1536, vocab
    49152, bf16) with seeded random weights: register -> calibrate ->
    build_store (3 contexts) -> serve -> execute -> generate, with every
    kernel's launch counter zeroed before and read after; a profile of
    the served stream's decode steps follows, and a small input is then
-   checked against the plain versions on the CPU.
+   checked against the plain versions on the CPU;
+5. the serving launcher (``repro_torch.launch.serve``) on the same
+   full-width model, batch 4, 64-token prompts, 32 new tokens, once each
+   at --quant 0, 8 and 4, counters zeroed before each run: quantize
+   seconds, prefill seconds, decode tokens/s and launches per kernel;
+   after a quantized run its served weights are dequantized through
+   ``ops.dequantize_tensor`` (|w - deq| <= scale / 2) and the tree is
+   compared byte for byte with the one the plain versions build on the
+   CPU.
 
-The line before the last is the ``kernels`` JSON record; the last line
-is ``{"ok": true, "device": {...}}``.
+After the last phase every kernel must have launched in the runs of the
+paths that use it. The line before the last is the ``kernels`` JSON
+record; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16, data sheet
+F32_OPS_PER_S = 67e12              # H100 SXM f32 off the tensor cores
 SEED = 0
 
 
@@ -44,9 +54,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -257,8 +267,98 @@ def check_flash_attention(torch, timer, records, calib_batch, seq):
     emit({"timing": "flash_attention", **records["flash_attention"]})
 
 
+def check_quantize(torch, timer, records):
+    """quantize (8 and 4 bits), quantize_pack4 and dequantize (f32 and
+    bf16 out) bit for bit against their plain versions on every stacked
+    block leaf of full-width smollm-135m, per channel and per tensor, as
+    ``quantize_stacked`` lays them out ((P * rows, N) with (P, N|1)
+    metadata), and on a ragged (577, 1538); timed on the w_gate leaf."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.quantizer import stacked_grid
+    from repro_torch.kernels import quantize as qk
+    from repro_torch.kernels import ref
+    cfg = get_config("smollm-135m")
+    L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
+    hd = cfg.resolved_head_dim()
+    kvp, gp = cfg.padded_heads()
+    leaves = {"wq": (L, d, kvp * gp, hd), "wk": (L, d, kvp, hd),
+              "wv": (L, d, kvp, hd), "wo": (L, kvp * gp, hd, d),
+              "w_gate": (L, d, ff), "w_up": (L, d, ff), "w_down": (L, ff, d),
+              "ragged": (1, 577, 1538)}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = {"quantize": 0, "quantize_pack4": 0, "dequantize": 0.0}
+
+    def held(name, got, want, **what):
+        if name == "quantize_pack4":
+            got, want = ref.unpack_int4_ref(got), ref.unpack_int4_ref(want)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        worst[name] = max(worst[name], err)
+        cases[name] = cases.get(name, 0) + 1
+        if err != 0:
+            raise AssertionError(f"{name} {what}: max |err| {err} != 0")
+
+    for wname, shape in leaves.items():
+        leaf = torch.randn(shape, generator=g, device="cuda") * 0.05
+        p, n = shape[0], shape[-1]
+        flat = leaf.reshape(-1, n)
+        cases = {}
+        for per_channel in (True, False):
+            for bits in (8, 4):
+                meta = stacked_grid(leaf, bits, per_channel)
+                s2 = meta["scale"].reshape(p, -1)
+                m2 = meta["mu"].reshape(p, -1)
+                what = dict(leaf=wname, shape=list(flat.shape),
+                            per_channel=per_channel, bits=bits)
+                codes = qk.quantize_cuda(flat, s2, m2, bits)
+                held("quantize", codes, qk.quantize_plain(flat, s2, m2, bits),
+                     **what)
+                if bits == 4:
+                    held("quantize_pack4", qk.quantize_pack4_cuda(flat, s2, m2),
+                         qk.quantize_pack4_plain(flat, s2, m2), **what)
+                for out in (torch.float32, torch.bfloat16):
+                    held("dequantize", qk.dequantize_cuda(codes, s2, m2, out),
+                         qk.dequantize_plain(codes, s2, m2, out), **what,
+                         out=str(out))
+        emit({"check": "quantize_kernels", "leaf": wname,
+              "rows_n": list(flat.shape), "cases": cases, "tol": 0,
+              "per_channel": [True, False], "bits": [8, 4],
+              "dequantize_out": ["float32", "bfloat16"]})
+    # timing: the w_gate leaf, per channel, as the launcher quantizes it
+    leaf = torch.randn(leaves["w_gate"], generator=g, device="cuda") * 0.05
+    x = leaf.reshape(-1, ff)
+    meta8, meta4 = stacked_grid(leaf, 8), stacked_grid(leaf, 4)
+    s8, m8 = meta8["scale"].reshape(L, -1), meta8["mu"].reshape(L, -1)
+    s4, m4 = meta4["scale"].reshape(L, -1), meta4["mu"].reshape(L, -1)
+    codes = qk.quantize_cuda(x, s8, m8, 8)
+    timed = {
+        "quantize": (lambda: qk.quantize_cuda(x, s8, m8, 8),
+                     lambda: qk.quantize_plain(x, s8, m8, 8),
+                     lambda: x.to(torch.uint8), nbytes(x, s8, m8, codes),
+                     "uint8 codes"),
+        "quantize_pack4": (lambda: qk.quantize_pack4_cuda(x, s4, m4),
+                           lambda: qk.quantize_pack4_plain(x, s4, m4), None,
+                           nbytes(x, s4, m4) + x.numel() // 2,
+                           "packed int4"),
+        "dequantize": (lambda: qk.dequantize_cuda(codes, s8, m8),
+                       lambda: qk.dequantize_plain(codes, s8, m8),
+                       lambda: codes.to(torch.bfloat16),
+                       nbytes(codes, s8, m8) + 2 * codes.numel(),
+                       "bf16 out")}
+    for name, (fn, plain, cast, moved, out) in timed.items():
+        ms, plain_ms = timer(fn), timer(plain)
+        b, by = bound_ms(moved, 2 * x.numel(), F32_OPS_PER_S)
+        records[name] = dict(
+            max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=by, library_ms=None,
+            timed=f"w_gate leaf ({x.shape[0]}, {ff}) f32, per-column "
+                  f"({L}, {ff}) metadata, {out}")
+        emit({"timing": name, **records[name], "bytes": moved,
+              "same_bytes_cast_ms": timer(cast) if cast else None})
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phase 4: the request loop
 
 def cycle_batch(rng, vocab: int, n: int, seq: int):
     """Next-token task t[i+1] = (t[i] + 1) % V, as the repo's LM example."""
@@ -267,7 +367,7 @@ def cycle_batch(rng, vocab: int, n: int, seq: int):
     return toks[:, :seq].astype(np.int32), toks[:, seq].astype(np.int32)
 
 
-def main_path(torch, ops, calib_batch: int, seq: int):
+def request_loop(torch, ops, calib_batch: int, seq: int):
     from repro_torch.configs.base import get_config
     from repro_torch.core.cost_model import (Channel, DeviceProfile,
                                              ObjectiveWeights)
@@ -370,11 +470,7 @@ def main_path(torch, ops, calib_batch: int, seq: int):
                                          extra.device_cache_dtype}})
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in ops.KERNELS.items()}
-    emit({"main_path_launches": launches})
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    emit({"request_loop_launches": launches})
     return cfg, params, backend, launches, dep, prompt
 
 
@@ -435,6 +531,97 @@ def reference_check(torch, cfg, params, backend):
                              f"max |err| {err} > {tol}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the serving launcher
+
+def launch_serve(torch, ops, batch: int = 4, prompt_len: int = 64,
+                 gen: int = 32):
+    """``repro_torch.launch.serve.run`` on full-width smollm-135m at
+    --quant 0, 8 and 4, each run with the counters zeroed before and read
+    after (its served-weight check included). Returns the launches of
+    each run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    cfg = get_config("smollm-135m")
+    runs = {}
+    for quant in (0, 8, 4):
+        torch.cuda.synchronize()
+        for f in ops.KERNELS.values():
+            f.launches = 0
+        out = serve.run(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
+                        quant=quant, device="cuda", seed=SEED)
+        toks = out["tokens"]
+        if toks.shape != (batch, gen) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"launch --quant {quant} gave {toks!r}")
+        quantize_launches = (ops.KERNELS["quantize"].launches
+                             + ops.KERNELS["quantize_pack4"].launches)
+        check = {}
+        if quant:
+            check = served_weights_check(torch, ops, out, quant)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in ops.KERNELS.items()}
+        runs[f"launch_q{quant}"] = launches
+        emit({"launch_serve": {
+            "arch": cfg.name, "layers": cfg.num_layers, "quant": quant,
+            "batch": batch, "prompt_len": prompt_len, "gen": gen,
+            "quantize_s": out["quantize_s"],
+            "quantize_launches": quantize_launches,
+            "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+            "decode_tokens_per_s": batch * (gen - 1) / out["decode_s"],
+            "generate_s": out["generate_s"],
+            "generate_tokens_per_s": batch * gen / out["generate_s"],
+            "first_row": toks[0, :8].tolist(), **check,
+            "launches": launches}})
+        del out
+    return runs
+
+
+def served_weights_check(torch, ops, out, quant):
+    """Every served leaf dequantized on the card through
+    ``ops.dequantize_tensor`` (int4 unpacked by plain ops first) is
+    within half a step of its weight; the card's quantized tree is byte
+    for byte the one the plain versions build on the CPU."""
+    from repro_torch.core.quantizer import quantize_params_for_serving
+    from repro_torch.kernels import ref
+    from repro_torch.tree import tree_leaves, tree_map
+    params, weights = out["params"], out["weights"]
+    worst, n = 0.0, 0
+    for part in ("attn", "mlp"):
+        for k, w in params["blocks"][0][part].items():
+            if not ops.is_wire_struct(w):
+                continue
+            leaf = weights["blocks"][0][part][k]
+            p, cols = leaf.shape[0], leaf.shape[-1]
+            codes = w["codes"] if "codes" in w else \
+                ref.unpack_int4_ref(w["codes_packed"]).to(torch.uint8)
+            s2, m2 = w["scale"].reshape(p, -1), w["mu"].reshape(p, -1)
+            deq = ops.dequantize_tensor(codes.reshape(-1, cols), s2, m2,
+                                        torch.float32)
+            rows = leaf.reshape(p, -1, cols)
+            err = ((rows - deq.reshape(rows.shape)).abs()
+                   / s2.reshape(p, 1, -1)).max().item()
+            worst, n = max(worst, err), n + 1
+    if n != 7 or not worst <= 0.5 + 1e-4:
+        raise AssertionError(f"--quant {quant}: {n} served leaves, max "
+                             f"|w - deq| / scale {worst} > 0.5 + 1e-4")
+    t0 = time.perf_counter()
+    plain = quantize_params_for_serving(tree_map(lambda t: t.cpu(), weights),
+                                        quant)
+    plain_s = time.perf_counter() - t0
+    got, want = tree_leaves(params), tree_leaves(plain)
+    differ = [i for i, (a, b) in enumerate(zip(got, want))
+              if a.dtype != b.dtype or a.shape != b.shape
+              or not torch.equal(a.cpu(), b)]
+    same = len(got) == len(want) and not differ
+    if not same:
+        raise AssertionError(f"--quant {quant}: the card's quantized tree "
+                             f"differs from the CPU plain build at leaves "
+                             f"{differ} of {len(want)}")
+    return {"served_leaves": n, "max_err_over_scale": worst,
+            "tree_equals_cpu_plain": same, "cpu_plain_quantize_s": plain_s}
+
+
 SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
                        "src/repro/kernels/qmatmul.py:68"),
            "qmatmul4": ("src/repro_torch/csrc/qmatmul.cu",
@@ -442,7 +629,22 @@ SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
            "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:127"),
            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                               "src/repro/kernels/flash_attention.py:98")}
+                               "src/repro/kernels/flash_attention.py:98"),
+           "quantize": ("src/repro_torch/csrc/quantize.cu",
+                        "src/repro/kernels/quantize.py:80"),
+           "quantize_pack4": ("src/repro_torch/csrc/quantize.cu",
+                              "src/repro/kernels/quantize.py:127"),
+           "dequantize": ("src/repro_torch/csrc/quantize.cu",
+                          "src/repro/kernels/quantize.py:101")}
+
+# the kernels each path's run must launch
+EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
+                             "flash_attention"),
+            "launch_q0": ("decode_attention", "flash_attention"),
+            "launch_q8": ("quantize", "qmatmul", "dequantize",
+                          "decode_attention", "flash_attention"),
+            "launch_q4": ("quantize_pack4", "qmatmul4", "dequantize",
+                          "decode_attention", "flash_attention")}
 
 
 def main() -> int:
@@ -485,12 +687,24 @@ def main() -> int:
     check_qmatmul(torch, timer, records)
     check_decode_attention(torch, timer, records)
     check_flash_attention(torch, timer, records, calib_batch, seq)
+    check_quantize(torch, timer, records)
     del timer
 
-    cfg, params, backend, launches, dep, prompt = main_path(
+    cfg, params, backend, loop_launches, dep, prompt = request_loop(
         torch, ops, calib_batch, seq)
     profile_decode(torch, dep, prompt)
     reference_check(torch, cfg, params, backend)
+    del params, backend, dep
+    runs = {"request_loop": loop_launches,
+            **launch_serve(torch, ops)}
+
+    missing = [f"{k} in {run}" for run, names in EXPECTED.items()
+               for k in names if runs[run][k] == 0]
+    launches = {k: sum(r[k] for r in runs.values()) for k in ops.KERNELS}
+    missing += [k for k, n in launches.items() if n == 0]
+    emit({"launches_by_run": runs, "launches": launches})
+    if missing:
+        raise AssertionError(f"kernels never launched: {missing}")
 
     print(smi, flush=True)
     kernels = []

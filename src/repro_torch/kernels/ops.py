@@ -9,6 +9,9 @@ from __future__ import annotations
 
 import math
 
+import torch
+
+from repro_torch.kernels import quantize as qk
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -17,7 +20,10 @@ from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
 # every kernel wrapper of the package, for launch accounting
 KERNELS = {"qmatmul": qmatmul_cuda, "qmatmul4": qmatmul4_cuda,
            "decode_attention": decode_attention_cuda,
-           "flash_attention": flash_attention_cuda}
+           "flash_attention": flash_attention_cuda,
+           "quantize": qk.quantize_cuda,
+           "quantize_pack4": qk.quantize_pack4_cuda,
+           "dequantize": qk.dequantize_cuda}
 
 
 def _plain(t) -> bool:
@@ -96,3 +102,68 @@ def qdense(x, w, n_contract: int = 1, out_dtype=None):
         out = fn(x2.contiguous(), codes2.contiguous(), scale.contiguous(),
                  mu.contiguous(), out_dtype)
     return out.reshape(batch + tuple(out_tail))
+
+
+def _quant_meta(a, scale, mu):
+    """scale/mu of a 2-D operand ``a`` (R, N) -> one float32 (G, N) or
+    (G, 1) layout, contiguous on ``a``'s device. Each may be a number or
+    a tensor of 1 value (per tensor), N values (per column), or 2-D (G, N)
+    / (G, 1) with G dividing R (one metadata row per R/G rows)."""
+    if a.dim() != 2:
+        raise ValueError(f"quantize/dequantize take a 2-D operand, got "
+                         f"{tuple(a.shape)}")
+    r, n = a.shape
+
+    def norm(v, what):
+        v = torch.as_tensor(v, dtype=torch.float32, device=a.device)
+        if v.dim() == 2 and v.shape[1] in (1, n) and v.shape[0] >= 1 \
+                and r % v.shape[0] == 0:
+            return v
+        if v.numel() in (1, n):
+            return v.reshape(1, -1)
+        raise ValueError(f"{what} {tuple(v.shape)} does not fit a ({r}, {n}) "
+                         f"operand")
+
+    s, m = norm(scale, "scale"), norm(mu, "mu")
+    shape = torch.broadcast_shapes(s.shape, m.shape)
+    if r % shape[0]:
+        raise ValueError(f"scale {tuple(s.shape)} / mu {tuple(m.shape)} do "
+                         f"not share a row grouping of {r} rows")
+    return s.expand(shape).contiguous(), m.expand(shape).contiguous()
+
+
+def quantize_tensor(x, scale, mu, bits: int = 8):
+    """x (R, N) float -> uint8 codes clip(round((x - mu) / scale), 0,
+    2^bits - 1), bits <= 8; metadata as :func:`_quant_meta` takes it."""
+    scale, mu = _quant_meta(x, scale, mu)
+    if not 1 <= bits <= 8:
+        raise ValueError(f"quantize_tensor: bits must be in 1..8, got {bits}")
+    if _plain(x):
+        return qk.quantize_plain(x, scale, mu, bits)
+    return qk.quantize_cuda(x.contiguous(), scale, mu, bits)
+
+
+def dequantize_tensor(codes, scale, mu, out_dtype=torch.bfloat16):
+    """codes (R, N) uint8 -> codes * scale + mu in ``out_dtype``."""
+    scale, mu = _quant_meta(codes, scale, mu)
+    if _plain(codes):
+        return qk.dequantize_plain(codes, scale, mu, out_dtype)
+    return qk.dequantize_cuda(codes.contiguous(), scale, mu, out_dtype)
+
+
+def quantize_pack4(x, scale, mu):
+    """Fused quantize + int4 packing: x (R, N) float, N even -> (R, N/2)
+    uint8, two 4-bit codes per byte (low nibble = even column)."""
+    scale, mu = _quant_meta(x, scale, mu)
+    if x.shape[1] % 2:
+        raise ValueError(f"quantize_pack4: int4 packing pairs adjacent "
+                         f"columns, N = {x.shape[1]} is odd")
+    if _plain(x):
+        return qk.quantize_pack4_plain(x, scale, mu)
+    return qk.quantize_pack4_cuda(x.contiguous(), scale, mu)
+
+
+def pack_int4(codes):
+    """(..., N) codes in [0, 15] -> (..., N/2) bytes, plain ops on every
+    device (the reference has no kernel for it either)."""
+    return ref.pack_int4_ref(codes)

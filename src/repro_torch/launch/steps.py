@@ -1,0 +1,30 @@
+"""Step functions the launchers execute (cfg baked in by closure): a
+full-sequence prefill that builds the decode caches, and one decode step
+against them."""
+from __future__ import annotations
+
+from typing import Callable
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as T
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
+    def prefill_step(params, batch):
+        if batch.get("embeds") is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: embeds= (frontend archs) are not ported to "
+                "repro_torch yet (ROADMAP Queue 1, model zoo)")
+        logits, caches, _ = T.prefill(params, cfg, batch["tokens"],
+                                      positions=batch.get("positions"),
+                                      max_len=max_len)
+        return logits, caches
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    def serve_step(params, token, caches, pos):
+        return T.decode_step(params, cfg, token, caches, pos)
+
+    return serve_step

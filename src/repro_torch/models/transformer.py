@@ -14,8 +14,13 @@ stop)`` — the same function without the masked work. Caches are updated
 IN PLACE: the segment functions write each layer's K/V into its slice of
 the stacked cache tree and return that same tree.
 
+The whole-model ``forward`` / ``prefill`` / ``decode_step`` (what the
+serving launcher calls) are the segment functions over ``[0, L)``
+between the embedding and the unembedding.
+
 MoE and SSM blocks are not ported yet (ROADMAP Queue 1, model zoo):
-every entry point raises ``NotImplementedError`` on such a config.
+every entry point raises ``NotImplementedError`` on such a config, and
+the whole-model entry points on a frontend (``embeds=``) config.
 """
 from __future__ import annotations
 
@@ -351,3 +356,49 @@ def segment_decode_step(params, cfg: ModelConfig, x, caches, pos: int,
                             cache=_cache_at(caches, cfg, layer),
                             decode_pos=pos)
     return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Whole model (the serving launcher's entry points)
+
+def _check_text(cfg: ModelConfig) -> None:
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: frontend (embeds=) archs are not ported to "
+            "repro_torch yet (ROADMAP Queue 1, model zoo)")
+
+
+def _zero_aux(device) -> dict:
+    """The reference's router-loss dict; dense blocks add nothing to it."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("lb_loss", "z_loss", "dropped_frac")}
+
+
+def forward(params, cfg: ModelConfig, tokens, *, positions=None):
+    """tokens (B, S) -> (logits (B, S, V), aux)."""
+    _check_text(cfg)
+    h = segment_forward(params, cfg, _embed(params, cfg, tokens), 0,
+                        cfg.num_layers, positions=positions)
+    return _unembed(params, cfg, h), _zero_aux(h.device)
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, positions=None,
+            max_len: int, cache_dtype=torch.bfloat16):
+    """Forward over the prompt ``tokens`` (B, S) that also builds fresh
+    ``max_len``-slot decode caches -> (logits (B, S, V), caches, aux)."""
+    _check_text(cfg)
+    h = _embed(params, cfg, tokens)
+    caches = init_cache(cfg, h.shape[0], max_len, cache_dtype,
+                        device=h.device)
+    h, caches = segment_prefill(params, cfg, h, caches, 0, cfg.num_layers,
+                                positions=positions)
+    return _unembed(params, cfg, h), caches, _zero_aux(h.device)
+
+
+def decode_step(params, cfg: ModelConfig, token, caches, pos):
+    """token (B, 1) at absolute position ``pos`` -> (logits (B, 1, V),
+    caches), the caches updated in place."""
+    _check_text(cfg)
+    x, caches = segment_decode_step(params, cfg, _embed(params, cfg, token),
+                                    caches, int(pos), 0, cfg.num_layers)
+    return _unembed(params, cfg, x), caches

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions on the card, at edge
 shapes the smoke run does not reach: ragged M/N/K, float32 activations,
-head dim 128, odd sequence lengths, a ring of one slot.
+head dim 128, odd sequence lengths, a ring of one slot; for the quantize
+kernels ragged rows and columns, a single row, N = 2 packed, grouped
+(G, N) metadata and every bit width, bit for bit.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
@@ -12,6 +14,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels import quantize as qk
 from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
 from repro_torch.models.attention import _blocked_causal_attention
 
@@ -90,3 +93,119 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         flash_attention_cuda(torch.zeros(1, 4, 1, 1, 32, device="cuda"),
                              torch.zeros(1, 4, 1, 32, device="cuda"),
                              torch.zeros(1, 4, 1, 32, device="cuda"))
+
+
+def _grid(gen, x, groups, per_col, levels):
+    """(G, N) or (G, 1) min/max grid of x (R, N) over groups of rows."""
+    r, n = x.shape
+    xg = x.float().reshape(groups, r // groups, n)
+    dims = (1,) if per_col else (1, 2)
+    mu = torch.amin(xg, dim=dims).reshape(groups, -1)
+    phi = torch.amax(xg, dim=dims).reshape(groups, -1)
+    scale = torch.clamp((phi - mu) / levels, min=1e-12)
+    return scale.contiguous(), mu.contiguous()
+
+
+QUANT_SHAPES = [(1, 2), (1, 7), (3, 2), (5, 130), (33, 66), (64, 1538),
+                (577, 1538)]
+
+
+@pytest.mark.parametrize("r,n", QUANT_SHAPES)
+@pytest.mark.parametrize("groups", [1, "rows"])
+@pytest.mark.parametrize("per_col", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernels_bitwise(gen, r, n, groups, per_col, dtype):
+    """quantize at 2..8 bits and quantize_pack4 (even N) equal their plain
+    versions byte for byte; ``groups="rows"`` gives every row its own
+    metadata row (G = R)."""
+    g = r if groups == "rows" else 1
+    x = (torch.randn(r, n, generator=gen, device="cuda") * 3).to(dtype)
+    for bits in range(2, 9):
+        scale, mu = _grid(gen, x, g, per_col, (1 << bits) - 1)
+        got = qk.quantize_cuda(x, scale, mu, bits)
+        assert torch.equal(got, qk.quantize_plain(x, scale, mu, bits))
+    if n % 2 == 0:
+        scale, mu = _grid(gen, x, g, per_col, 15)
+        got = qk.quantize_pack4_cuda(x, scale, mu)
+        assert got.shape == (r, n // 2)
+        assert torch.equal(got, qk.quantize_pack4_plain(x, scale, mu))
+
+
+def test_quantize_kernel_rounds_half_to_even(gen):
+    """Exact ties (x - mu) / scale = k + 1/2 go to the even k."""
+    x = (torch.arange(-8, 120, device="cuda", dtype=torch.float32)
+         * 0.5).reshape(2, 64)
+    one, zero = torch.ones(1, 1, device="cuda"), torch.zeros(1, 1,
+                                                            device="cuda")
+    got = qk.quantize_cuda(x, one, zero, 5)
+    assert torch.equal(got, qk.quantize_plain(x, one, zero, 5))
+    assert got[0, 9].item() == 0 and got[0, 11].item() == 2 \
+        and got[0, 13].item() == 2
+
+
+@pytest.mark.parametrize("r,n", QUANT_SHAPES)
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("per_col", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_dequantize_kernel_bitwise(gen, r, n, groups, per_col, out_dtype):
+    g = groups if r % groups == 0 else 1
+    codes = torch.randint(0, 256, (r, n), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    scale, mu = _grid(gen, torch.randn(r, n, generator=gen, device="cuda"),
+                      g, per_col, 255)
+    got = qk.dequantize_cuda(codes, scale, mu, out_dtype)
+    assert got.dtype == out_dtype
+    assert torch.equal(got, qk.dequantize_plain(codes, scale, mu, out_dtype))
+
+
+def test_quantize_stacked_leaf_in_one_launch(gen):
+    """A stacked (P, K, N) leaf: (P, N) metadata, one launch, the same
+    bytes as quantizing each period on its own."""
+    from repro_torch.core.quantizer import quantize_stacked
+    leaf = torch.randn(5, 96, 130, generator=gen, device="cuda") * 0.05
+    for bits, key, fn in ((8, "codes", qk.quantize_cuda),
+                          (4, "codes_packed", qk.quantize_pack4_cuda)):
+        before = fn.launches
+        q = quantize_stacked(leaf, bits)
+        assert fn.launches == before + 1
+        for p in range(5):
+            one = quantize_stacked(leaf[p:p + 1], bits)
+            assert torch.equal(q[key][p], one[key][0])
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_card_quantizes_as_the_cpu(gen, bits, per_channel):
+    """Grids and codes built on the card are the CPU's byte for byte. A
+    CUDA tensor divided by a Python number is multiplied by its
+    reciprocal instead (an ulp off the quotient in places), so the grid
+    step divides by a tensor on the device."""
+    from repro_torch.core.quantizer import grid_step, quantize, \
+        quantize_stacked
+    leaf = torch.randn(6, 96, 130, generator=gen, device="cuda") * 0.05
+    got = quantize_stacked(leaf, bits, per_channel=per_channel)
+    want = quantize_stacked(leaf.cpu(), bits, per_channel=per_channel)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    for a, b in zip(quantize(leaf[0], bits), quantize(leaf[0].cpu(), bits)):
+        assert torch.equal(a.cpu(), b)
+    span = torch.rand(1 << 16, generator=gen, device="cuda")
+    exact = grid_step(span, 255)
+    assert torch.equal(exact.cpu(), grid_step(span.cpu(), 255))
+    assert (span / 255 != exact).any()       # the reciprocal product
+
+
+def test_quantize_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x = torch.randn(4, 6, device="cuda")
+    one, zero = torch.ones(1, 1, device="cuda"), torch.zeros(1, 1,
+                                                            device="cuda")
+    with pytest.raises(ValueError, match="odd"):
+        qk.quantize_pack4_cuda(torch.randn(4, 5, device="cuda"), one, zero)
+    with pytest.raises(ValueError):
+        qk.quantize_cuda(x.t(), one, zero)                    # not contiguous
+    with pytest.raises(ValueError):
+        qk.quantize_cuda(x, torch.ones(3, 1, device="cuda"),  # 3 !| 4 rows
+                         torch.zeros(3, 1, device="cuda"))
+    with pytest.raises(ValueError):
+        qk.dequantize_cuda(x, one, zero)                      # not uint8

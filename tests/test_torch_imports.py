@@ -57,12 +57,18 @@ def _meta_calls():
           "scale": torch.empty(1, 1, **m), "mu": torch.empty(1, 1, **m)}
     fq = torch.empty(1, 16, 2, 2, 64, **m)
     fk = torch.empty(1, 16, 2, 64, **m)
+    qx = torch.empty(8, 16, **m)
+    qc = torch.empty(8, 16, dtype=torch.uint8, **m)
+    qm = torch.empty(1, 16, **m)
     return {"decode_attention": lambda: ops.decode_attention(q, cache, cache,
                                                              5),
             "flash_attention": lambda: ops.flash_attention(fq, fk, fk, 16,
                                                            16),
             "qmatmul": lambda: ops.qdense(x, w),
-            "qmatmul4": lambda: ops.qdense(x, w4)}
+            "qmatmul4": lambda: ops.qdense(x, w4),
+            "quantize": lambda: ops.quantize_tensor(qx, qm, qm, 8),
+            "quantize_pack4": lambda: ops.quantize_pack4(qx, qm, qm),
+            "dequantize": lambda: ops.dequantize_tensor(qc, qm, qm)}
 
 
 @pytest.mark.parametrize("name", sorted(ops.KERNELS))
