@@ -9,9 +9,16 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    versions; TF32 is switched off for the plain versions' matmuls;
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc``;
 3. hold each kernel against its plain PyTorch version on the card at
-   the main path's shapes and time kernel, plain version, the closest
-   single PyTorch library call (a yardstick only — the port never calls
-   it) and the card's lower bound for the same work;
+   the main path's shapes (qmatmul/qmatmul4 at M = 2, 4 and 128 on every
+   projection, flash attention at the calibration shape and S = 100 in
+   bf16 and once in f32, quantize on a bf16 leaf as well), with a second
+   call bitwise equal to the first, and time kernel, plain version, the
+   closest single PyTorch library call (a yardstick only — the port
+   never calls it) and the card's lower bound for the same work. The
+   Timer queues every rep behind a device sleep and reports the median
+   and minimum of the event pairs, so a time is the card's and not the
+   wrapper's host time; the build's ptxas report of the redesigned
+   kernels (registers, spills) and their SASS's HMMA count print first;
 4. the request loop on smollm-135m at its registered shape (30 layers,
    d_model 576, 9/3 heads padded to 4 x 4 by tp_pad=16, d_ff 1536, vocab
    49152, bf16) with seeded random weights: register -> calibrate ->
@@ -36,6 +43,8 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -62,29 +71,62 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
 
 
 class Timer:
-    """Mean device milliseconds of one call, by CUDA events around each of
-    ``reps`` launches after a warm-up, with the 50 MB L2 flushed before
-    every launch (the main path finds weights and caches cold)."""
+    """Device milliseconds of one call by CUDA events, median and minimum
+    over ``reps`` calls after a warm-up, with the 50 MB L2 flushed before
+    every call (the main path finds weights and caches cold).
+
+    Every rep (a read of a 128 MB buffer that evicts L2 without leaving
+    dirty lines, a start event, the call, an end event) is queued behind
+    a ``torch.cuda._sleep`` that keeps the card busy until the host has
+    queued all of them, so an event pair holds the call's device time and
+    not the wrapper's host time. The result carries the host's enqueue
+    time and the sleep's device time beside the times; the sleep is
+    doubled and the measurement repeated while the host fell behind."""
+
+    SLEEP_CYCLES_PER_MS = 2_000_000    # ~the H100's 1.98 GHz boost clock
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.zeros(32 << 20, dtype=torch.float32,
+                                 device="cuda")
+        self.flush.amax()           # load the reduction kernel once
+        torch.cuda.synchronize()
 
-    def __call__(self, fn, reps: int = 20) -> float:
+    def __call__(self, fn, reps: int = 20) -> dict:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(reps):
-            self.flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            total += start.elapsed_time(end)
-        return total / reps
+        t0 = time.perf_counter()            # host time of one rep, queued
+        self.flush.amax()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        sleep_ms = max(2.0, 3 * reps * host_ms)
+        for _ in range(4):
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+            before, after = (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True))
+            before.record()
+            torch.cuda._sleep(int(sleep_ms * self.SLEEP_CYCLES_PER_MS))
+            after.record()
+            t0 = time.perf_counter()
+            for start, end in ev:
+                self.flush.amax()
+                start.record()
+                fn()
+                end.record()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            slept_ms = before.elapsed_time(after)
+            if enqueue_ms < slept_ms:
+                break
+            sleep_ms *= 2
+        times = [s.elapsed_time(e) for s, e in ev]
+        return {"ms": statistics.median(times), "ms_min": min(times),
+                "reps": reps, "enqueue_ms": enqueue_ms,
+                "sleep_ms": slept_ms, "queued_ahead": enqueue_ms < slept_ms}
 
 
 def nbytes(*tensors) -> int:
@@ -94,10 +136,28 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version
 
+def quantized_weight(torch, g, k, n, levels, per_col):
+    """A (K, N) weight ~ N(0, 1/K) on a per-tensor or per-column grid of
+    ``levels`` steps: (codes uint8, scale, mu, bf16 dequantized weight)."""
+    w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
+    dims = (0,) if per_col else (0, 1)
+    mu = torch.amin(w, dim=dims, keepdim=True).reshape(1, -1)
+    scale = ((torch.amax(w, dim=dims, keepdim=True).reshape(1, -1) - mu)
+             / levels).clamp(min=1e-12)
+    codes = torch.clamp(torch.round((w - mu) / scale), 0,
+                        levels).to(torch.uint8)
+    w_deq = (codes.float() * scale + mu).to(torch.bfloat16)
+    return codes, scale.contiguous(), mu.contiguous(), w_deq
+
+
 def check_qmatmul(torch, timer, records):
-    """qmatmul (int8, per tensor and per column) and qmatmul4 (packed) at
-    every projection shape of a smollm-135m block, decode M = 2 and
-    prefill M = 128; timed on the MLP up-projection at decode M."""
+    """qmatmul (int8) and qmatmul4 (packed; the skinny split-K route at M
+    <= 16, the tiled one above) at every projection shape of a
+    smollm-135m block, per tensor and per column, at decode M = 2 (the
+    request loop) and 4 (the launcher) and prefill M = 128, each call
+    repeated for bitwise equality; timed on the MLP up-projection at M = 2
+    (and M = 4 for qmatmul4) beside ``matmul`` on the dequantized bf16
+    weight."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -107,65 +167,69 @@ def check_qmatmul(torch, timer, records):
     for packed in (False, True):
         name = "qmatmul4" if packed else "qmatmul"
         levels = 15 if packed else 255
+        fn = qmatmul4_cuda if packed else qmatmul_cuda
+        plain = ref.qmatmul4_ref if packed else ref.qmatmul_ref
         for wname, (k, n) in shapes.items():
-            w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
             for per_col in (False, True):
-                dims = (0,) if per_col else (0, 1)
-                mu = torch.amin(w, dim=dims, keepdim=True).reshape(1, -1)
-                scale = ((torch.amax(w, dim=dims, keepdim=True)
-                          .reshape(1, -1) - mu) / levels).clamp(min=1e-12)
-                codes = torch.clamp(torch.round((w - mu) / scale), 0,
-                                    levels).to(torch.uint8)
+                codes, scale, mu, _ = quantized_weight(torch, g, k, n, levels,
+                                                       per_col)
                 if packed:
                     codes = ref.pack_int4_ref(codes)
-                fn = qmatmul4_cuda if packed else qmatmul_cuda
-                plain = ref.qmatmul4_ref if packed else ref.qmatmul_ref
-                for m in (2, 128):
+                for m in (2, 4, 128):
                     x = torch.randn(m, k, generator=g, device="cuda").to(
                         torch.bfloat16)
                     for out_dtype, tol_of in (
                             (torch.float32, lambda r: 1e-3),
                             (torch.bfloat16, lambda r: 2 ** -7 * r)):
-                        got = fn(x, codes, scale.contiguous(),
-                                 mu.contiguous(), out_dtype)
+                        got = fn(x, codes, scale, mu, out_dtype)
+                        again = fn(x, codes, scale, mu, out_dtype)
                         want = plain(x, codes, scale, mu, out_dtype)
                         torch.cuda.synchronize()
                         err = (got.float() - want.float()).abs().max().item()
                         tol = tol_of(want.float().abs().max().item())
+                        same = bool(torch.equal(got, again))
                         emit({"check": name, "weight": wname, "m": m,
                               "k": k, "n": n, "per_column": per_col,
                               "out": str(out_dtype), "max_abs_err": err,
-                              "tol": tol})
-                        if not err <= tol:
+                              "tol": tol, "repeat_bitwise": same})
+                        if not (err <= tol and same):
                             raise AssertionError(
                                 f"{name} {wname} m={m} per_col={per_col} "
-                                f"{out_dtype}: max |err| {err} > {tol}")
+                                f"{out_dtype}: max |err| {err} > {tol} or "
+                                f"a second call differs ({same})")
                         if out_dtype == torch.bfloat16 and not per_col:
                             worst[name] = max(worst.get(name, 0.0), err)
         # timing: decode M on the MLP up-projection, per-tensor metadata
         # (the serving path's per-period-per-tensor structs), bf16 out
         k, n = shapes["w_up"]
-        w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
-        mu, scale = w.min().reshape(1, 1), ((w.max() - w.min()) / levels
-                                            ).reshape(1, 1)
-        codes = torch.clamp(torch.round((w - mu) / scale), 0,
-                            levels).to(torch.uint8)
-        w_deq = (codes.float() * scale + mu).to(torch.bfloat16)
+        codes, scale, mu, w_deq = quantized_weight(torch, g, k, n, levels,
+                                                   False)
         if packed:
             codes = ref.pack_int4_ref(codes)
-        x = torch.randn(2, k, generator=g, device="cuda").to(torch.bfloat16)
-        fn = qmatmul4_cuda if packed else qmatmul_cuda
-        plain = ref.qmatmul4_ref if packed else ref.qmatmul_ref
-        ms = timer(lambda: fn(x, codes, scale, mu, torch.bfloat16))
-        plain_ms = timer(lambda: plain(x, codes, scale, mu, torch.bfloat16))
-        lib_ms = timer(lambda: torch.matmul(x, w_deq))
-        b, by = bound_ms(nbytes(x, codes, scale, mu) + 2 * n * 2,
-                         2 * 2 * k * n)
-        records[name] = dict(max_abs_err=worst[name], ms=ms,
-                             plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                             library_ms=lib_ms,
-                             timed=f"x (2, {k}) bf16 @ codes ({k}, {n}), "
-                                   "per-tensor, bf16 out")
+        rec = {}
+        for m in ((2, 4) if packed else (2,)):
+            x = torch.randn(m, k, generator=g, device="cuda").to(
+                torch.bfloat16)
+            t = timer(lambda: fn(x, codes, scale, mu, torch.bfloat16))
+            lib = timer(lambda: torch.matmul(x, w_deq))
+            b, by = bound_ms(nbytes(x, codes, scale, mu) + 2 * m * n,
+                             2 * m * k * n)
+            if m == 2:
+                plain_t = timer(lambda: plain(x, codes, scale, mu,
+                                              torch.bfloat16))
+                rec.update(max_abs_err=worst[name], ms=t["ms"],
+                           ms_min=t["ms_min"], plain_ms=plain_t["ms"],
+                           bound_ms=b, bound_by=by, library_ms=lib["ms"],
+                           library_ms_min=lib["ms_min"],
+                           timed=f"x (2, {k}) bf16 @ codes ({k}, {n}), "
+                                 "per-tensor, bf16 out")
+            else:
+                rec[f"m{m}"] = dict(ms=t["ms"], ms_min=t["ms_min"],
+                                    bound_ms=b, library_ms=lib["ms"],
+                                    library_ms_min=lib["ms_min"])
+            emit({"timing": name, "m": m, "kernel": t, "library": lib,
+                  "bound_ms": b})
+        records[name] = rec
         emit({"timing": name, **records[name]})
 
 
@@ -201,20 +265,22 @@ def check_decode_attention(torch, timer, records):
     ck, cv = (to_storage(kv[0], torch.float8_e4m3fn),
               to_storage(kv[1], torch.float8_e4m3fn))
     n_valid = pos + 1
-    ms = timer(lambda: decode_attention_cuda(q, ck, cv, pos))
-    plain_ms = timer(lambda: ref.decode_attention_ref(q, ck, cv, pos))
+    t = timer(lambda: decode_attention_cuda(q, ck, cv, pos))
+    plain_t = timer(lambda: ref.decode_attention_ref(q, ck, cv, pos))
     qs = q.reshape(b, kvp * gp, 1, hd)
     ks = ck[:, :n_valid].to(torch.bfloat16).permute(0, 2, 1, 3)
     vs = cv[:, :n_valid].to(torch.bfloat16).permute(0, 2, 1, 3)
     ks = ks.repeat_interleave(gp, dim=1).contiguous()
     vs = vs.repeat_interleave(gp, dim=1).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = timer(lambda: sdpa(qs, ks, vs))
+    lib = timer(lambda: sdpa(qs, ks, vs))
     live = 2 * b * n_valid * kvp * hd * ck.element_size()
     bnd, by = bound_ms(nbytes(q) * 2 + live, 4 * b * kvp * gp * n_valid * hd)
+    emit({"timing": "decode_attention", "kernel": t, "library": lib})
     records["decode_attention"] = dict(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-        bound_by=by, library_ms=lib_ms,
+        max_abs_err=worst, ms=t["ms"], ms_min=t["ms_min"],
+        plain_ms=plain_t["ms"], bound_ms=bnd, bound_by=by,
+        library_ms=lib["ms"], library_ms_min=lib["ms_min"],
         timed=f"B={b} KVp={kvp} Gp={gp} hd={hd}, float8 ring of {buf}, "
               f"pos {pos} ({n_valid} live slots)")
     emit({"timing": "decode_attention", **records["decode_attention"]})
@@ -222,48 +288,61 @@ def check_decode_attention(torch, timer, records):
 
 def check_flash_attention(torch, timer, records, calib_batch, seq):
     """Causal GQA at the calibration shape (the calibration batch of
-    ``seq`` tokens, KV = G = 4, hd = 64, bf16) and at a ragged length."""
+    ``seq`` tokens, KV = G = 4, hd = 64, bf16: the tensor-core route) and
+    at a ragged S = 100, both checked and timed beside SDPA; the float32
+    (CUDA-core) route checked once at S = 100. Each call is repeated for
+    bitwise equality."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.models.attention import _blocked_causal_attention
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     kvh, grp, hd = 4, 4, 64
-    tol = 2e-2      # bf16 outputs; the plain version rounds p to bf16
-    worst = 0.0
-    for b, s in ((calib_batch, seq), (2, 100)):
-        q = torch.randn(b, s, kvh, grp, hd, generator=g, device="cuda").to(
-            torch.bfloat16)
-        k = torch.randn(b, s, kvh, hd, generator=g, device="cuda").to(
-            torch.bfloat16)
-        v = torch.randn(b, s, kvh, hd, generator=g, device="cuda").to(
-            torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst, rec = 0.0, {}
+    for b, s, dt in ((calib_batch, seq, torch.bfloat16),
+                     (2, 100, torch.bfloat16), (2, 100, torch.float32)):
+        q = torch.randn(b, s, kvh, grp, hd, generator=g, device="cuda").to(dt)
+        k = torch.randn(b, s, kvh, hd, generator=g, device="cuda").to(dt)
+        v = torch.randn(b, s, kvh, hd, generator=g, device="cuda").to(dt)
+        # bf16 outputs and probabilities; f32 as the GPU tests hold it
+        tol = 2e-2 if dt == torch.bfloat16 else 1e-4
         got = flash_attention_cuda(q, k, v)
+        again = flash_attention_cuda(q, k, v)
         want = _blocked_causal_attention(q, k, v, s, s)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        emit({"check": "flash_attention", "b": b, "s": s, "max_abs_err": err,
-              "tol": tol})
-        if not err <= tol:
-            raise AssertionError(f"flash attention b={b} s={s}: max |err| "
-                                 f"{err} > {tol}")
+        same = bool(torch.equal(got, again))
+        emit({"check": "flash_attention", "b": b, "s": s, "dtype": str(dt),
+              "max_abs_err": err, "tol": tol, "repeat_bitwise": same})
+        if not (err <= tol and same):
+            raise AssertionError(f"flash attention b={b} s={s} {dt}: max "
+                                 f"|err| {err} > {tol} or a second call "
+                                 f"differs ({same})")
+        if dt == torch.float32:
+            continue
         worst = max(worst, err)
+        t = timer(lambda: flash_attention_cuda(q, k, v))
+        qs = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * grp, s, hd)
+        ks = k.permute(0, 2, 1, 3).repeat_interleave(grp, dim=1)
+        vs = v.permute(0, 2, 1, 3).repeat_interleave(grp, dim=1)
+        qs, ks, vs = qs.contiguous(), ks.contiguous(), vs.contiguous()
+        lib = timer(lambda: sdpa(qs, ks, vs, is_causal=True))
+        pairs = s * (s + 1) // 2                   # causal (query, key) pairs
+        bnd, by = bound_ms(nbytes(q, k, v) + nbytes(q),
+                           4 * b * kvh * grp * pairs * hd)
+        emit({"timing": "flash_attention", "b": b, "s": s, "kernel": t,
+              "library": lib, "bound_ms": bnd})
         if (b, s) == (calib_batch, seq):
-            timed = (q, k, v)
-    q, k, v = timed
-    b, s = q.shape[:2]
-    ms = timer(lambda: flash_attention_cuda(q, k, v))
-    plain_ms = timer(lambda: _blocked_causal_attention(q, k, v, s, s))
-    qs = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * grp, s, hd).contiguous()
-    ks = k.permute(0, 2, 1, 3).repeat_interleave(grp, dim=1).contiguous()
-    vs = v.permute(0, 2, 1, 3).repeat_interleave(grp, dim=1).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = timer(lambda: sdpa(qs, ks, vs, is_causal=True))
-    pairs = s * (s + 1) // 2                   # causal (query, key) pairs
-    bnd, by = bound_ms(nbytes(q, k, v) + nbytes(q),
-                       4 * b * kvh * grp * pairs * hd)
-    records["flash_attention"] = dict(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-        bound_by=by, library_ms=lib_ms,
-        timed=f"B={b} S={s} KV={kvh} G={grp} hd={hd} bf16, causal")
+            plain_t = timer(lambda: _blocked_causal_attention(q, k, v, s, s))
+            rec.update(ms=t["ms"], ms_min=t["ms_min"], plain_ms=plain_t["ms"],
+                       bound_ms=bnd, bound_by=by, library_ms=lib["ms"],
+                       library_ms_min=lib["ms_min"],
+                       timed=f"B={b} S={s} KV={kvh} G={grp} hd={hd} bf16, "
+                             "causal")
+        else:
+            rec[f"s{s}"] = dict(ms=t["ms"], ms_min=t["ms_min"], bound_ms=bnd,
+                                library_ms=lib["ms"],
+                                library_ms_min=lib["ms_min"])
+    records["flash_attention"] = dict(max_abs_err=worst, **rec)
     emit({"timing": "flash_attention", **records["flash_attention"]})
 
 
@@ -324,6 +403,25 @@ def check_quantize(torch, timer, records):
               "rows_n": list(flat.shape), "cases": cases, "tol": 0,
               "per_channel": [True, False], "bits": [8, 4],
               "dequantize_out": ["float32", "bfloat16"]})
+    # a bf16 leaf on quantize_stacked's int8-code branch: x - mu and the
+    # quotient rounded to bf16, at 8 and 5 bits and 3 bits on an odd width
+    for wname, bits in (("w_gate", 8), ("w_gate", 5), ("ragged", 3)):
+        cases = {}
+        shape = leaves[wname][:-1] + (leaves[wname][-1] - (bits == 3),)
+        leaf = (torch.randn(shape, generator=g, device="cuda")
+                * 0.05).to(torch.bfloat16)
+        p, n = shape[0], shape[-1]
+        flat = leaf.reshape(-1, n)
+        for per_channel in (True, False):
+            meta = stacked_grid(leaf, bits, per_channel)
+            s2 = meta["scale"].reshape(p, -1)
+            m2 = meta["mu"].reshape(p, -1)
+            held("quantize", qk.quantize_cuda(flat, s2, m2, bits, True),
+                 qk.quantize_plain(flat, s2, m2, bits, True), leaf=wname,
+                 dtype="bfloat16", per_channel=per_channel, bits=bits)
+        emit({"check": "quantize_kernels", "leaf": wname, "dtype": "bfloat16",
+              "in_x_dtype": True, "rows_n": list(flat.shape), "bits": bits,
+              "per_channel": [True, False], "cases": cases, "tol": 0})
     # timing: the w_gate leaf, per channel, as the launcher quantizes it
     leaf = torch.randn(leaves["w_gate"], generator=g, device="cuda") * 0.05
     x = leaf.reshape(-1, ff)
@@ -346,15 +444,15 @@ def check_quantize(torch, timer, records):
                        nbytes(codes, s8, m8) + 2 * codes.numel(),
                        "bf16 out")}
     for name, (fn, plain, cast, moved, out) in timed.items():
-        ms, plain_ms = timer(fn), timer(plain)
+        t, plain_t = timer(fn), timer(plain)
         b, by = bound_ms(moved, 2 * x.numel(), F32_OPS_PER_S)
         records[name] = dict(
-            max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=b,
-            bound_by=by, library_ms=None,
+            max_abs_err=worst[name], ms=t["ms"], ms_min=t["ms_min"],
+            plain_ms=plain_t["ms"], bound_ms=b, bound_by=by, library_ms=None,
             timed=f"w_gate leaf ({x.shape[0]}, {ff}) f32, per-column "
                   f"({L}, {ff}) metadata, {out}")
-        emit({"timing": name, **records[name], "bytes": moved,
-              "same_bytes_cast_ms": timer(cast) if cast else None})
+        emit({"timing": name, **records[name], "bytes": moved, "kernel": t,
+              "same_bytes_cast_ms": timer(cast)["ms"] if cast else None})
 
 
 # ---------------------------------------------------------------------------
@@ -637,6 +735,9 @@ SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
            "dequantize": ("src/repro_torch/csrc/quantize.cu",
                           "src/repro/kernels/quantize.py:101")}
 
+# kernels whose design changed after their first port, and in which PR
+REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13"}
+
 # the kernels each path's run must launch
 EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                              "flash_attention"),
@@ -645,6 +746,50 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                           "decode_attention", "flash_attention"),
             "launch_q4": ("quantize_pack4", "qmatmul4", "dequantize",
                           "decode_attention", "flash_attention")}
+
+
+# the kernels' instantiations that ptxas reports entry by entry
+REDESIGNED_ENTRIES = {"flash_attention": "flash_attn_tc_kernel",
+                      "qmatmul": "qmm4_skinny"}
+
+
+def ptxas_entries(out_dir, wanted):
+    """Registers, static shared memory and spill bytes of each kernel
+    entry whose mangled name holds ``wanted[source]``, from the build's
+    ``-Xptxas -v`` logs (dynamic shared memory is not in them)."""
+    found = []
+    for source, key in wanted.items():
+        log = (out_dir / f"{source}.log").read_text()
+        for part in log.split("Compiling entry function '")[1:]:
+            entry = part.split("'", 1)[0]
+            if key not in entry:
+                continue
+            num = {k: re.search(pat, part) for k, pat in (
+                ("registers", r"Used (\d+) registers"),
+                ("static_smem_bytes", r"(\d+) bytes smem"),
+                ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                ("spill_load_bytes", r"(\d+) bytes spill loads"))}
+            found.append({"source": source, "entry": entry,
+                          **{k: int(m.group(1)) if m else 0
+                             for k, m in num.items()}})
+    return found
+
+
+def hmma_count(lib, key):
+    """HMMA instructions in the SASS of ``lib``'s functions whose name
+    holds ``key``, by the toolkit's cuobjdump (None where it is absent)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    count, inside = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = line.split("Function :", 1)[1].strip()
+        elif inside and key in inside and "HMMA" in line:
+            count[inside] = count.get(inside, 0) + 1
+    return count
 
 
 def main() -> int:
@@ -680,15 +825,35 @@ def main() -> int:
                                              log)]
         emit({"ptxas": name, "instantiations": len(regs),
               "max_registers": max(regs), "spill_store_bytes": sum(spills)})
+    redesigned = ptxas_entries(out_dir, REDESIGNED_ENTRIES)
+    for e in redesigned:
+        emit({"ptxas_entry": e})
+    if any(e["spill_store_bytes"] or e["spill_load_bytes"]
+           for e in redesigned):
+        raise AssertionError("a redesigned kernel spills registers")
+    emit({"sass_hmma": hmma_count(out_dir / "libflash_attention.so",
+                                  "flash_attn_tc_kernel")})
+    tc_smem = build.launcher("flash_attention", "flash_attention_tc_smem", "i")
+    sk_smem = build.launcher("qmatmul", "qmatmul4_skinny_smem", "ii")
+    emit({"dynamic_smem_bytes": {
+        **{f"flash_attn_tc_kernel hd={hd}": tc_smem(hd) for hd in (64, 128)},
+        **{f"qmm4_skinny M={m} K={k}": sk_smem(m, k)
+           for m in (2, 4) for k in (576, 1024, 1536)}}})
 
     calib_batch, seq = 64, 128
     timer = Timer(torch)
     records = {}
+    t_checks = time.perf_counter()
+    one = torch.zeros(1, device="cuda")
+    emit({"timer_floor": {"what": "fill_ of one float", **timer(
+        lambda: one.fill_(1.0))}})
     check_qmatmul(torch, timer, records)
     check_decode_attention(torch, timer, records)
     check_flash_attention(torch, timer, records, calib_batch, seq)
     check_quantize(torch, timer, records)
     del timer
+    emit({"kernel_checks_s": time.perf_counter() - t_checks})
+    t_paths = time.perf_counter()
 
     cfg, params, backend, loop_launches, dep, prompt = request_loop(
         torch, ops, calib_batch, seq)
@@ -702,6 +867,7 @@ def main() -> int:
                for k in names if runs[run][k] == 0]
     launches = {k: sum(r[k] for r in runs.values()) for k in ops.KERNELS}
     missing += [k for k, n in launches.items() if n == 0]
+    emit({"paths_s": time.perf_counter() - t_paths})
     emit({"launches_by_run": runs, "launches": launches})
     if missing:
         raise AssertionError(f"kernels never launched: {missing}")
@@ -711,13 +877,14 @@ def main() -> int:
     for name in ops.KERNELS:
         rec = records[name]
         source, replaces = SOURCES[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                        "plain_ms": rec["plain_ms"],
-                        "bound_ms": rec["bound_ms"],
-                        "bound_by": rec["bound_by"],
-                        "library_ms": rec["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+               "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+               "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+        if name in REDESIGNED:
+            row["redesigned"] = REDESIGNED[name]
+        kernels.append(row)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -120,10 +120,11 @@ def quantize_stacked(leaf, bits: int = 8, per_channel: bool = True):
     (P * rows, N), goes through ONE quantize-and-pack-int4 or quantize
     launch with (P, N) / (P, 1) metadata, whatever its shape.
 
-    The reference's int8-code branch computes in the leaf's dtype with the
-    un-cast grid, which an f32 kernel does not reproduce for a bfloat16
-    leaf: non-f32 leaves on that branch raise ``NotImplementedError``
-    (every caller of the reference quantizes f32 params)."""
+    The reference's int8-code branch computes ``(leaf - mu) / scale`` in
+    the leaf's dtype with the un-cast grid, so there a bfloat16 leaf has
+    the difference and the quotient rounded to bfloat16 (the f32 metadata
+    holds the grid's bfloat16 values exactly); the packed branch, as the
+    reference's, computes in f32."""
     meta = stacked_grid(leaf, bits, per_channel)
     p, n = leaf.shape[0], leaf.shape[-1]
     flat = leaf.reshape(-1, n)
@@ -132,12 +133,7 @@ def quantize_stacked(leaf, bits: int = 8, per_channel: bool = True):
         packed = ops.quantize_pack4(flat, s2, m2)
         return {"codes_packed": packed.reshape(leaf.shape[:-1] + (n // 2,)),
                 **meta}
-    if leaf.dtype != torch.float32:
-        raise NotImplementedError(
-            f"quantize_stacked: a {leaf.dtype} leaf at {bits} bits (int8 "
-            "codes) quantizes in the leaf's dtype in the reference; only "
-            "float32 leaves are ported (ROADMAP Queue 3)")
-    codes = ops.quantize_tensor(flat, s2, m2, bits)
+    codes = ops.quantize_tensor(flat, s2, m2, bits, in_x_dtype=True)
     return {"codes": codes.reshape(leaf.shape), **meta}
 
 

@@ -6,27 +6,52 @@
 // Computes out (M, N) = x (M, K) @ (codes (K, N) * scale + mu): codes are
 // uint8, or two 4-bit codes per byte (low nibble = even column); scale/mu
 // are f32, per tensor (one value) or per output column (N values, in
-// unpacked column space). Dequantization and accumulation run in f32 and
-// the result is cast to the output dtype once, as on the TPU.
+// unpacked column space). Dequantization (__fmul_rn then __fadd_rn, no FMA
+// contraction, as the plain version's two ops) and accumulation run in
+// f32 and the result is cast to the output dtype once, as on the TPU.
 //
 // What bounds it on an H100: at decode (M = batch, 1..4 rows) the product
 // is a matrix-vector one, bounded by the weight bytes (K*N for int8,
-// K*N/2 for int4) over 3.35 TB/s; at prefill (M = B*S rows) by its
-// 2*M*K*N operations.
+// K*N/2 for int4) over 3.35 TB/s -- well under a microsecond on
+// smollm-135m's projections, so in practice by the latency of the loads
+// and of the launch; at prefill (M = B*S rows) by its 2*M*K*N operations.
 //
-// What the design does about it: the codes are the only weight bytes read
-// from device memory -- each CTA dequantizes its 32 x 64 code tile into
-// shared memory as f32, so the full-precision weight never exists in
-// device memory -- and every thread accumulates an RM x 4 register tile
-// with FMAs. BM = 16 rows at decode sizes (M <= 16), 64 above. Ragged
-// M/N/K edges are masked on load and store, so no shape has to be a tile
-// multiple (d_model 576, H_pad*hd 1024, d_ff 1536). This first version
-// runs on the CUDA cores and leaves decode far from its byte bound: at
-// M <= 16 only ceil(N/64) CTAs exist (9..24 of 132 SMs on smollm-135m).
-// Split-K over more CTAs, and wgmma for prefill, are the later fixes.
+// Two designs:
+//
+// Packed int4 at M <= 16 -- the skinny split-K path. A thread-block
+// cluster of up to 16 CTAs (8 above M = 4) shares one 128-column N tile
+// and one pair of x rows; each CTA takes a K slice of at least 72 rows. A
+// thread loads codes as 16-byte vectors (32 nibbles along N; the 4 lanes
+// of a quad read one 64-byte row segment, the 8 quads of a warp 8 rows),
+// eight vectors in flight before x is staged in shared memory, and
+// dequantizes them in registers against its 32 columns' scale/mu, also in
+// registers. Partials are reduced in a fixed order with no float atomics,
+// so every call gives the same bits: the 8 row lanes of a column by
+// halving shuffle exchanges (each step keeps half the values, 56 shuffles
+// a lane instead of 192), the 4 warps through shared memory, and the
+// cluster's CTAs by storing each CTA's sums into the leader CTA's shared
+// memory (cluster.map_shared_rank) ahead of one cluster barrier, after
+// which the leader adds them in rank order. One launch covers the whole
+// product: at M = 2 a (576, 1536) weight runs as 96 CTAs where the tiled
+// kernel below ran 24, each walking 72 K rows instead of 576.
+//
+// Everything else -- uint8 codes at any M, packed codes at M > 16 -- the
+// tiled kernel: each CTA dequantizes its 32 x 64 code tile once into
+// shared memory as f32 (the full-precision weight never exists in device
+// memory) and every thread accumulates an RM x 4 register tile with FMAs,
+// BM = 16 rows at M <= 16 and 64 above. Ragged M/N/K edges are masked on
+// load and store in both designs, so no shape has to be a tile multiple
+// (d_model 576, H_pad*hd 1024, d_ff 1536). The tiled kernel runs on the
+// CUDA cores and at decode only ceil(N/64) CTAs exist; routing int8
+// through the skinny path, and wgmma for prefill, are the later fixes.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// Tiled: uint8 codes at any M, packed codes at M > 16
 
 constexpr int kBN = 64;
 constexpr int kBK = 32;
@@ -110,6 +135,293 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Packed int4, M <= 16: split K over a thread-block cluster
+
+namespace cg = cooperative_groups;
+
+constexpr int kSkTN = 128;                      // output columns per CTA
+constexpr int kSkVecs = kSkTN / 32;             // 16-byte vectors per row
+constexpr int kSkWarps = 4;
+constexpr int kSkThreads = 32 * kSkWarps;
+constexpr int kSkRows = kSkThreads / kSkVecs;   // K rows per load step
+constexpr int kSkUnroll = 8;                    // vectors in flight
+constexpr int kSkMT = 2;                        // x rows per CTA
+constexpr int kSkPortableSplit = 8;             // portable cluster size
+constexpr int kSkMaxSplit = 16;                 // the H100's largest
+constexpr int kSkMinRows = 72;                  // K rows per CTA, at least
+
+// x rows m0, m0 + 1 over the CTA's K slice as (x[m0][k], x[m0 + 1][k]),
+// two K rows a thread in flight before either is stored
+template <typename TX>
+__device__ __forceinline__ void stage_x_pairs(const TX* __restrict__ x,
+                                              float2* xs, int M, int K,
+                                              int m0, int k0, int k_len) {
+  for (int i0 = threadIdx.x; i0 < k_len; i0 += 2 * kSkThreads) {
+    float2 v[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = i0 + u * kSkThreads;
+      const size_t at = static_cast<size_t>(m0) * K + k0 + i;
+      v[u] = make_float2(0.f, 0.f);
+      if (i < k_len)
+        v[u] = make_float2(repro::to_f32(x[at]),
+                           m0 + 1 < M ? repro::to_f32(x[at + K]) : 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (i0 + u * kSkThreads < k_len) xs[i0 + u * kSkThreads] = v[u];
+  }
+}
+
+// the cluster barrier in two halves, so that the start-up arrive
+// overlaps the loads
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// kSkUnroll code vectors of rows kk, kk + kSkRows, ... of the K slice
+// (zeros past k_len); without VEC, byte by byte up to column N
+template <bool VEC>
+__device__ __forceinline__ void load_code_batch(uint4 (&vec)[kSkUnroll],
+                                                const uint8_t* base, int kk,
+                                                int k_len, size_t row_bytes,
+                                                int c0, int N) {
+#pragma unroll
+  for (int u = 0; u < kSkUnroll; ++u) {
+    const int row = kk + u * kSkRows;
+    vec[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (row >= k_len) continue;
+    const uint8_t* p = base + static_cast<size_t>(row) * row_bytes;
+    if (VEC) {
+      vec[u] = __ldg(reinterpret_cast<const uint4*>(p));
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 16; ++j)  // N is even: a byte is whole or out
+        if (c0 + 2 * j < N)
+          w[j / 4] |= static_cast<uint32_t>(__ldg(p + j)) << (8 * (j % 4));
+      vec[u] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+template <typename TX, typename TO, bool PER_COL, bool VEC>
+__global__ void __launch_bounds__(kSkThreads)
+    qmm4_skinny(const TX* __restrict__ x, const uint8_t* __restrict__ codes,
+                const float* __restrict__ scale, const float* __restrict__ mu,
+                TO* __restrict__ out, int M, int K, int N, int k_slice) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int split = static_cast<int>(cluster.num_blocks());
+  cluster_arrive_relaxed();  // matched by cluster_wait() before the push
+  extern __shared__ __align__(16) float sk_smem[];
+  float* gather = sk_smem;  // the leader's (split, kSkMT, kSkTN)
+  float* wpart = gather + split * kSkMT * kSkTN;  // (warps, MT, TN)
+  float2* xs = reinterpret_cast<float2*>(wpart + kSkWarps * kSkMT * kSkTN);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nv = lane % kSkVecs;              // which vector of the row
+  const int kr = warp * (32 / kSkVecs) + lane / kSkVecs;  // 0 .. kSkRows-1
+  const int n0 = blockIdx.y * kSkTN;
+  const int m0 = blockIdx.z * kSkMT;
+  const int k0 = rank * k_slice;
+  const int k_len = max(0, min(k_slice, K - k0));
+  const int c0 = n0 + nv * 32;               // the thread's first column
+  const bool live = c0 < N;
+  const size_t row_bytes = static_cast<size_t>(N) / 2;
+
+  // every global load -- the first batch of code vectors, scale/mu, x --
+  // is issued before any of them is waited for: one memory latency
+  const uint8_t* base = codes + static_cast<size_t>(k0) * row_bytes + c0 / 2;
+  uint4 vec[kSkUnroll];
+  if (live) load_code_batch<VEC>(vec, base, kr, k_len, row_bytes, c0, N);
+  float s_reg[PER_COL ? 32 : 1], z_reg[PER_COL ? 32 : 1];
+  if (PER_COL) {
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const bool ok = c0 + c < N;
+      s_reg[c] = ok ? scale[c0 + c] : 0.f;
+      z_reg[c] = ok ? mu[c0 + c] : 0.f;
+    }
+  } else {
+    s_reg[0] = scale[0];
+    z_reg[0] = mu[0];
+  }
+  stage_x_pairs(x, xs, M, K, m0, k0, k_len);
+  float acc0[32], acc1[32];
+#pragma unroll
+  for (int c = 0; c < 32; ++c) acc0[c] = acc1[c] = 0.f;
+  __syncthreads();
+
+  constexpr int kStep = kSkUnroll * kSkRows;
+  for (int kk = kr; live && kk < k_len; kk += kStep) {
+#pragma unroll
+    for (int u = 0; u < kSkUnroll; ++u) {
+      const int row = kk + u * kSkRows;
+      if (row >= k_len) break;
+      const float2 xv = xs[row];
+      const uint32_t words[4] = {vec[u].x, vec[u].y, vec[u].z, vec[u].w};
+#pragma unroll
+      for (int wi = 0; wi < 4; ++wi) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = wi * 8 + j;
+          // nibble -> float exactly: 2^23 + code, minus 2^23
+          const float code = __fsub_rn(
+              __uint_as_float(0x4B000000u | ((words[wi] >> (4 * j)) & 0xFu)),
+              8388608.f);
+          const float w = __fadd_rn(__fmul_rn(code, s_reg[PER_COL ? c : 0]),
+                                    z_reg[PER_COL ? c : 0]);
+          acc0[c] = fmaf(xv.x, w, acc0[c]);
+          acc1[c] = fmaf(xv.y, w, acc1[c]);
+        }
+      }
+    }
+    if (kk + kStep < k_len)
+      load_code_batch<VEC>(vec, base, kk + kStep, k_len, row_bytes, c0, N);
+  }
+
+  // The 8 row lanes that share a vector's columns (lane bits 4, 3, 2) are
+  // reduced by halving exchanges: each keeps half of its values and adds
+  // its partner's copy of that half, so a lane ends with 8 of the 64 sums
+  // -- row (lane bit 4), columns 16 (bit 3) + 8 (bit 2) + 0..7.
+  float h[32], q[16], r[8];
+  {
+    const bool hi = lane & 16;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      h[i] = (hi ? acc1[i] : acc0[i]) +
+             __shfl_xor_sync(0xffffffffu, hi ? acc0[i] : acc1[i], 16);
+  }
+  {
+    const bool hi = lane & 8;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      q[i] = (hi ? h[i + 16] : h[i]) +
+             __shfl_xor_sync(0xffffffffu, hi ? h[i] : h[i + 16], 8);
+  }
+  {
+    const bool hi = lane & 4;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      r[i] = (hi ? q[i + 8] : q[i]) +
+             __shfl_xor_sync(0xffffffffu, hi ? q[i] : q[i + 8], 4);
+  }
+  {
+    const int row = (lane >> 4) & 1;
+    const int col = nv * 32 + ((lane >> 3) & 1) * 16 + ((lane >> 2) & 1) * 8;
+    float4* dst = reinterpret_cast<float4*>(
+        wpart + (warp * kSkMT + row) * kSkTN + col);
+    dst[0] = make_float4(r[0], r[1], r[2], r[3]);
+    dst[1] = make_float4(r[4], r[5], r[6], r[7]);
+  }
+  __syncthreads();
+
+  // the CTA's partial goes to the cluster's leader (rank 0), whose shared
+  // memory holds one slot per rank; once every rank has stored, the
+  // leader sums the slots in rank order
+  cluster_wait();  // the start-up arrive: every CTA of the cluster runs
+  float* lead = cluster.map_shared_rank(gather, 0);
+  for (int i = tid; i < kSkMT * kSkTN; i += kSkThreads) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSkWarps; ++w) sum += wpart[w * kSkMT * kSkTN + i];
+    lead[rank * kSkMT * kSkTN + i] = sum;
+  }
+  cluster.sync();
+  if (rank != 0) return;
+  for (int i = tid; i < kSkMT * kSkTN; i += kSkThreads) {
+    const int m = i / kSkTN, t = i % kSkTN;
+    const int gm = m0 + m, gn = n0 + t;
+    if (gm >= M || gn >= N) continue;
+    float v[kSkMaxSplit];  // all slots in flight, then added in order
+#pragma unroll
+    for (int j = 0; j < kSkMaxSplit; ++j)
+      v[j] = j < split ? gather[j * kSkMT * kSkTN + i] : 0.f;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSkMaxSplit; ++j)
+      if (j < split) sum += v[j];
+    out[static_cast<size_t>(gm) * N + gn] = repro::from_f32<TO>(sum);
+  }
+}
+
+// K slices (the cluster's CTAs), rows per slice and dynamic shared memory
+// of one skinny launch
+struct SkinnyPlan {
+  int split, k_slice;
+  size_t smem;
+};
+
+SkinnyPlan skinny_plan(int M, int K) {
+  // up to 16 K slices at M <= 4 (above, the m-groups add CTAs anyway)
+  const int max_split = M <= 4 ? kSkMaxSplit : kSkPortableSplit;
+  SkinnyPlan p;
+  p.split = max(1, min(max_split, (K + kSkMinRows - 1) / kSkMinRows));
+  p.k_slice = (K + p.split - 1) / p.split;
+  p.smem = sizeof(float) * kSkMT * kSkTN * (p.split + kSkWarps) +
+           sizeof(float2) * static_cast<size_t>(p.k_slice);
+  return p;
+}
+
+template <typename TX, typename TO, bool PER_COL, bool VEC>
+cudaError_t launch_skinny_as(const TX* x, const uint8_t* codes,
+                             const float* scale, const float* mu, TO* out,
+                             int M, int K, int N, cudaStream_t stream) {
+  const SkinnyPlan plan = skinny_plan(M, K);
+  const int split = plan.split, k_slice = plan.k_slice;
+  const size_t smem = plan.smem;
+  auto kernel = qmm4_skinny<TX, TO, PER_COL, VEC>;
+  cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err == cudaSuccess && split > kSkPortableSplit)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (N + kSkTN - 1) / kSkTN,
+                     (M + kSkMT - 1) / kSkMT);
+  cfg.blockDim = dim3(kSkThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, codes, scale, mu, out, M, K, N,
+                           k_slice);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TO>
+cudaError_t launch_skinny(const TX* x, const uint8_t* codes,
+                          const float* scale, const float* mu, TO* out,
+                          int M, int K, int N, int per_col,
+                          cudaStream_t stream) {
+  const bool vec = (N % 32 == 0) &&
+                   (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
+  if (per_col)
+    return vec ? launch_skinny_as<TX, TO, true, true>(x, codes, scale, mu,
+                                                      out, M, K, N, stream)
+               : launch_skinny_as<TX, TO, true, false>(x, codes, scale, mu,
+                                                       out, M, K, N, stream);
+  return vec ? launch_skinny_as<TX, TO, false, true>(x, codes, scale, mu, out,
+                                                     M, K, N, stream)
+             : launch_skinny_as<TX, TO, false, false>(x, codes, scale, mu,
+                                                      out, M, K, N, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Dispatch
+
 template <typename TX, typename TO, bool PACKED>
 cudaError_t launch(const void* x, const void* codes, const void* scale,
                    const void* mu, void* out, int M, int K, int N,
@@ -120,6 +432,9 @@ cudaError_t launch(const void* x, const void* codes, const void* scale,
   const auto* mp = static_cast<const float*>(mu);
   auto* op = static_cast<TO*>(out);
   const int gn = (N + kBN - 1) / kBN;
+  if (PACKED && M <= 16)
+    return launch_skinny<TX, TO>(xp, cp, sp, mp, op, M, K, N, per_col,
+                                 stream);
   if (M <= 16) {
     qmm_kernel<TX, TO, 1, PACKED><<<dim3(gn, (M + 15) / 16), kThreads, 0,
                                     stream>>>(xp, cp, sp, mp, op, M, K, N,
@@ -169,4 +484,11 @@ extern "C" int qmatmul_launch(const void* x, const void* codes,
     return launch_packing<__nv_bfloat16, __nv_bfloat16>(
         packed, x, codes, scale, mu, out, M, K, N, per_col, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory, in bytes, of a packed (int4) launch at M <= 16
+// that runs the skinny kernel; -1 where the tiled kernel runs instead.
+extern "C" int qmatmul4_skinny_smem(int M, int K) {
+  if (M < 1 || M > 16 || K < 1) return -1;
+  return static_cast<int>(skinny_plan(M, K).smem);
 }

@@ -17,7 +17,12 @@
 // division are IEEE (__fsub_rn, __fdiv_rn -- never a reciprocal multiply,
 // and the build has no --use_fast_math), rounding is rintf (half to even,
 // as torch.round / jnp.round), and dequantize rounds twice (__fmul_rn then
-// __fadd_rn, no FMA contraction), as two torch ops do.
+// __fadd_rn, no FMA contraction), as two torch ops do. With x_round a
+// bfloat16 x has x - mu and the quotient each rounded to bfloat16
+// (__float2bfloat16_rn after the f32 op): the reference's int8-code branch
+// of quantize_stacked computes a leaf in its own dtype, and an f32 op
+// rounded once to bfloat16 is the correctly rounded bfloat16 op (24 >=
+// 2 * 8 + 2 bits, so the double rounding is innocuous).
 //
 // What bounds it on an H100: these are streaming passes of 1-2 flops per
 // element, bounded by the bytes over 3.35 TB/s (a full-width smollm-135m
@@ -73,9 +78,18 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p,
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <bool XROUND>
 __device__ __forceinline__ unsigned quantize_one(float x, float s, float z,
                                                  float levels) {
-  const float q = rintf(__fdiv_rn(__fsub_rn(x, z), s));
+  float d = __fsub_rn(x, z);
+  if (XROUND) d = round_bf16(d);
+  float q = __fdiv_rn(d, s);
+  if (XROUND) q = round_bf16(q);
+  q = rintf(q);
   return static_cast<unsigned>(fminf(fmaxf(q, 0.f), levels));
 }
 
@@ -87,7 +101,7 @@ __device__ __forceinline__ size_t meta_offset(int r, int rows_per_group,
   return per_col ? g * n + c0 : g;
 }
 
-template <typename TX, bool PACK, bool VEC>
+template <typename TX, bool PACK, bool VEC, bool XROUND>
 __global__ void __launch_bounds__(kTx* kTy)
     quantize_kernel(const TX* __restrict__ x, const float* __restrict__ scale,
                     const float* __restrict__ mu, uint8_t* __restrict__ out,
@@ -113,7 +127,8 @@ __global__ void __launch_bounds__(kTx* kTy)
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       const int jm = per_col ? j : 0;
-      q[j] = j < width ? quantize_one(v[j], scale[m + jm], mu[m + jm], levels)
+      q[j] = j < width ? quantize_one<XROUND>(v[j], scale[m + jm],
+                                              mu[m + jm], levels)
                        : 0u;
     }
     if (PACK) {
@@ -192,7 +207,7 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <typename TX, bool PACK>
+template <typename TX, bool PACK, bool XROUND>
 cudaError_t launch_quantize(const void* x, const float* scale,
                             const float* mu, uint8_t* out, int rows, int n,
                             int rows_per_group, int per_col, float levels,
@@ -200,10 +215,10 @@ cudaError_t launch_quantize(const void* x, const float* scale,
   const auto* xp = static_cast<const TX*>(x);
   const dim3 grid = grid_for(rows, n), block(kTx, kTy);
   if (n % kVec == 0 && aligned16(x) && aligned16(out)) {
-    quantize_kernel<TX, PACK, true><<<grid, block, 0, stream>>>(
+    quantize_kernel<TX, PACK, true, XROUND><<<grid, block, 0, stream>>>(
         xp, scale, mu, out, rows, n, rows_per_group, per_col, levels);
   } else {
-    quantize_kernel<TX, PACK, false><<<grid, block, 0, stream>>>(
+    quantize_kernel<TX, PACK, false, XROUND><<<grid, block, 0, stream>>>(
         xp, scale, mu, out, rows, n, rows_per_group, per_col, levels);
   }
   return cudaGetLastError();
@@ -215,12 +230,12 @@ cudaError_t launch_quantize_packing(int pack4, const void* x,
                                     uint8_t* out, int rows, int n,
                                     int rows_per_group, int per_col,
                                     float levels, cudaStream_t stream) {
-  return pack4 ? launch_quantize<TX, true>(x, scale, mu, out, rows, n,
-                                           rows_per_group, per_col, levels,
-                                           stream)
-               : launch_quantize<TX, false>(x, scale, mu, out, rows, n,
-                                            rows_per_group, per_col, levels,
-                                            stream);
+  return pack4 ? launch_quantize<TX, true, false>(x, scale, mu, out, rows, n,
+                                                  rows_per_group, per_col,
+                                                  levels, stream)
+               : launch_quantize<TX, false, false>(x, scale, mu, out, rows,
+                                                   n, rows_per_group,
+                                                   per_col, levels, stream);
 }
 
 template <typename TO>
@@ -245,14 +260,16 @@ cudaError_t launch_dequantize(const uint8_t* codes, const float* scale,
 // x (rows, n) float32/bfloat16; scale/mu float32 (groups, n) when per_col,
 // else (groups, 1), groups dividing rows; out (rows, n) uint8 codes in
 // [0, levels], or (rows, n / 2) packed nibbles when pack4 (n even, levels
-// 15). Returns the launch's cudaError_t.
+// 15). x_round (bfloat16 x, unpacked codes only) rounds x - mu and the
+// quotient to bfloat16. Returns the launch's cudaError_t.
 extern "C" int quantize_launch(const void* x, const void* scale,
                                const void* mu, void* out, int rows, int n,
                                int groups, int per_col, int levels,
-                               int x_dtype, int pack4, void* stream) {
+                               int x_dtype, int pack4, int x_round,
+                               void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || n <= 0 || groups <= 0 || rows % groups != 0 ||
-      (pack4 && n % 2 != 0))
+      (pack4 && n % 2 != 0) || (x_round && (pack4 || x_dtype != repro::kBF16)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* sp = static_cast<const float*>(scale);
   const auto* mp = static_cast<const float*>(mu);
@@ -262,6 +279,9 @@ extern "C" int quantize_launch(const void* x, const void* scale,
   if (x_dtype == repro::kF32)
     return launch_quantize_packing<float>(pack4, x, sp, mp, op, rows, n, rpg,
                                           per_col, lv, s);
+  if (x_dtype == repro::kBF16 && x_round)
+    return launch_quantize<__nv_bfloat16, false, true>(x, sp, mp, op, rows, n,
+                                                       rpg, per_col, lv, s);
   if (x_dtype == repro::kBF16)
     return launch_quantize_packing<__nv_bfloat16>(pack4, x, sp, mp, op, rows,
                                                   n, rpg, per_col, lv, s);

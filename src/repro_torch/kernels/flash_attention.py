@@ -4,7 +4,9 @@
 
 CUDA tensors only; the plain version is
 ``models.attention._blocked_causal_attention`` and
-``kernels.ops.flash_attention`` picks by device.
+``kernels.ops.flash_attention`` picks by device. The kernel routes by
+dtype: bfloat16 runs on the tensor cores (mma.sync), float32 on the CUDA
+cores; both are launched here, neither falls back to the other.
 ``flash_attention_cuda.launches`` counts launches.
 """
 from __future__ import annotations
@@ -37,9 +39,10 @@ def flash_attention_cuda(q, k, v):
         raise ValueError(f"flash attention: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}")
     for t in (q, k, v):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("flash attention: q/k/v must be contiguous on "
-                             "one device")
+        if t.device != q.device or not t.is_contiguous() or \
+                t.data_ptr() % 16:
+            raise ValueError("flash attention: q/k/v must be contiguous, "
+                             "16-byte aligned and on one device")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

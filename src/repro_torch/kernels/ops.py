@@ -132,15 +132,17 @@ def _quant_meta(a, scale, mu):
     return s.expand(shape).contiguous(), m.expand(shape).contiguous()
 
 
-def quantize_tensor(x, scale, mu, bits: int = 8):
+def quantize_tensor(x, scale, mu, bits: int = 8, in_x_dtype: bool = False):
     """x (R, N) float -> uint8 codes clip(round((x - mu) / scale), 0,
-    2^bits - 1), bits <= 8; metadata as :func:`_quant_meta` takes it."""
+    2^bits - 1), bits <= 8; metadata as :func:`_quant_meta` takes it.
+    ``in_x_dtype`` rounds ``x - mu`` and the quotient to ``x``'s dtype
+    (``ref.quantize_ref``)."""
     scale, mu = _quant_meta(x, scale, mu)
     if not 1 <= bits <= 8:
         raise ValueError(f"quantize_tensor: bits must be in 1..8, got {bits}")
     if _plain(x):
-        return qk.quantize_plain(x, scale, mu, bits)
-    return qk.quantize_cuda(x.contiguous(), scale, mu, bits)
+        return qk.quantize_plain(x, scale, mu, bits, in_x_dtype)
+    return qk.quantize_cuda(x.contiguous(), scale, mu, bits, in_x_dtype)
 
 
 def dequantize_tensor(codes, scale, mu, out_dtype=torch.bfloat16):

@@ -52,7 +52,7 @@ def _groups(a, scale, mu) -> tuple[int, int]:
     return g, int(w == n and n > 1)
 
 
-def _quantize(x, scale, mu, levels: int, pack4: bool):
+def _quantize(x, scale, mu, levels: int, pack4: bool, in_x_dtype=False):
     _check(x, _X_DTYPES, "x")
     r, n = x.shape
     if pack4 and n % 2:
@@ -63,23 +63,27 @@ def _quantize(x, scale, mu, levels: int, pack4: bool):
                       device=x.device)
     if out.numel() == 0:
         return out
-    fn = build.launcher("quantize", "quantize_launch", "ppppiiiiiiip")
+    fn = build.launcher("quantize", "quantize_launch", "ppppiiiiiiiip")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), scale.data_ptr(), mu.data_ptr(),
                 out.data_ptr(), r, n, g, per_col, levels,
                 build.DTYPE_CODES[x.dtype], int(pack4),
+                int(in_x_dtype and x.dtype == torch.bfloat16),
                 build.stream_handle(x))
     build.check(rc, "quantize_pack4" if pack4 else "quantize")
     (quantize_pack4_cuda if pack4 else quantize_cuda).launches += 1
     return out
 
 
-def quantize_cuda(x, scale, mu, bits: int = 8):
+def quantize_cuda(x, scale, mu, bits: int = 8, in_x_dtype: bool = False):
     """x (R, N) f32/bf16 -> uint8 codes clip(round((x - mu) / scale), 0,
-    2^bits - 1), 1 <= bits <= 8."""
+    2^bits - 1), 1 <= bits <= 8. With ``in_x_dtype`` a bf16 ``x`` has
+    ``x - mu`` and the quotient rounded to bf16, as
+    ``ref.quantize_ref``."""
     if not 1 <= bits <= 8:
         raise ValueError(f"quantize: bits must be in 1..8, got {bits}")
-    return _quantize(x, scale, mu, (1 << bits) - 1, pack4=False)
+    return _quantize(x, scale, mu, (1 << bits) - 1, pack4=False,
+                     in_x_dtype=in_x_dtype)
 
 
 def quantize_pack4_cuda(x, scale, mu):
@@ -126,8 +130,8 @@ def _grouped(fn, a, scale, mu, *args):
     return out.reshape(r, -1)
 
 
-def quantize_plain(x, scale, mu, bits: int = 8):
-    return _grouped(ref.quantize_ref, x, scale, mu, bits)
+def quantize_plain(x, scale, mu, bits: int = 8, in_x_dtype: bool = False):
+    return _grouped(ref.quantize_ref, x, scale, mu, bits, in_x_dtype)
 
 
 def quantize_pack4_plain(x, scale, mu):

@@ -8,10 +8,18 @@ import torch
 NEG_INF = -1e30
 
 
-def quantize_ref(x, scale, mu, bits: int):
-    """Asymmetric uniform quantization to uint8 codes (bits <= 8)."""
+def quantize_ref(x, scale, mu, bits: int, in_x_dtype: bool = False):
+    """Asymmetric uniform quantization to uint8 codes (bits <= 8). The
+    difference and the quotient are f32; with ``in_x_dtype`` each is
+    rounded to ``x``'s dtype instead, as the reference's int8-code branch
+    of ``quantize_stacked`` computes a leaf in its own dtype (``scale``
+    and ``mu`` then hold values of that dtype)."""
     levels = (1 << bits) - 1
-    codes = torch.clamp(torch.round((x.float() - mu) / scale), 0, levels)
+    if in_x_dtype:
+        q = (x - mu.to(x.dtype)) / scale.to(x.dtype)
+    else:
+        q = (x.float() - mu) / scale
+    codes = torch.clamp(torch.round(q), 0, levels)
     return codes.to(torch.uint8 if bits <= 8 else torch.int32)
 
 

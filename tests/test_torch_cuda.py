@@ -2,7 +2,11 @@
 shapes the smoke run does not reach: ragged M/N/K, float32 activations,
 head dim 128, odd sequence lengths, a ring of one slot; for the quantize
 kernels ragged rows and columns, a single row, N = 2 packed, grouped
-(G, N) metadata and every bit width, bit for bit.
+(G, N) metadata and every bit width, bit for bit. The tensor-core route
+of flash attention (bf16) runs over ragged S, both head dims and three
+GQA groupings; the skinny split-K route of qmatmul4 (M <= 16) over
+ragged K and N, with M = 17 crossing into the tiled route; both give the
+same bits on every call.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
@@ -79,6 +83,78 @@ def test_flash_attention_edges(gen, dtype, s, hd):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert _err(flash_attention_cuda(q, k, v),
                 _blocked_causal_attention(q, k, v, s, s)) <= tol
+
+
+@pytest.mark.parametrize("kvh,grp", [(1, 1), (4, 4), (2, 8)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 100, 128, 200])
+def test_flash_attention_bf16_tensor_cores(gen, s, hd, kvh, grp):
+    """The mma.sync route: within 2e-2 of the plain version (bf16 outputs,
+    bf16 probabilities in both), and bitwise the same on a second call."""
+    q = torch.randn(2, s, kvh, grp, hd, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k = torch.randn(2, s, kvh, hd, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    v = torch.randn(2, s, kvh, hd, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    got = flash_attention_cuda(q, k, v)
+    assert _err(got, _blocked_causal_attention(q, k, v, s, s)) <= 2e-2
+    assert torch.equal(got, flash_attention_cuda(q, k, v))
+
+
+def _int4_weight(gen, k, n, per_col):
+    """A (K, N) weight quantized on a per-tensor or per-column 4-bit grid:
+    packed codes and (1, 1) / (1, N) scale and mu."""
+    w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+    dims = (0,) if per_col else (0, 1)
+    mu = torch.amin(w, dim=dims, keepdim=True).reshape(1, -1)
+    scale = ((torch.amax(w, dim=dims, keepdim=True).reshape(1, -1) - mu)
+             / 15).clamp(min=1e-12)
+    codes = torch.clamp(torch.round((w - mu) / scale), 0, 15).to(torch.uint8)
+    return ref.pack_int4_ref(codes), scale.contiguous(), mu.contiguous()
+
+
+@pytest.mark.parametrize("per_col", [False, True])
+@pytest.mark.parametrize("n", [2, 130, 256, 1536])
+@pytest.mark.parametrize("k", [7, 33, 576, 1536])
+@pytest.mark.parametrize("m", [1, 2, 4, 16, 17])
+def test_qmatmul4_skinny(gen, m, k, n, per_col):
+    """M <= 16 runs the split-K cluster route, M = 17 the tiled one: f32
+    out within 1e-3 and bf16 out within one bf16 step of the largest
+    output, one launch per call, and bitwise the same on a second call."""
+    packed, scale, mu = _int4_weight(gen, k, n, per_col)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = qmatmul4_cuda.launches
+        got = qmatmul4_cuda(x, packed, scale, mu, out_dtype)
+        assert qmatmul4_cuda.launches == before + 1
+        want = ref.qmatmul4_ref(x, packed, scale, mu, out_dtype)
+        tol = 1e-3 if out_dtype == torch.float32 else \
+            2 ** -7 * want.float().abs().max().item()
+        assert _err(got, want) <= tol
+        assert torch.equal(got, qmatmul4_cuda(x, packed, scale, mu,
+                                              out_dtype))
+
+
+@pytest.mark.parametrize("bits,n", [(8, 768), (5, 768), (3, 33)])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_bf16_leaf_quantizes_as_the_cpu(gen, bits, n, per_channel):
+    """A bf16 leaf on quantize_stacked's int8-code branch: the kernel
+    rounds x - mu and the quotient to bf16, equal to its plain version
+    and to the CPU's build byte for byte."""
+    from repro_torch.core.quantizer import quantize_stacked
+    leaf = (torch.randn(4, 256, n, generator=gen, device="cuda")
+            * 0.05).to(torch.bfloat16)
+    got = quantize_stacked(leaf, bits, per_channel=per_channel)
+    want = quantize_stacked(leaf.cpu(), bits, per_channel=per_channel)
+    assert set(got) == set(want) and "codes" in got
+    for key in want:
+        assert torch.equal(got[key].cpu(), want[key]), key
+    flat = leaf.reshape(-1, n)
+    s2 = got["scale"].reshape(4, -1)
+    m2 = got["mu"].reshape(4, -1)
+    assert torch.equal(qk.quantize_cuda(flat, s2, m2, bits, in_x_dtype=True),
+                       qk.quantize_plain(flat, s2, m2, bits, in_x_dtype=True))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):

@@ -186,11 +186,28 @@ class TestQuantizeStacked:
                 jq.quantize_stacked(x, 4, per_channel=per_channel,
                                     use_pallas=False))
 
-    @pytest.mark.parametrize("bits", [5, 8])
-    def test_non_f32_leaf_on_the_int8_branch_raises(self, bits):
-        with pytest.raises(NotImplementedError, match="float32"):
-            tq.quantize_stacked(torch.zeros(2, 8, 16, dtype=torch.bfloat16),
-                                bits)
+    @pytest.mark.parametrize("per_channel", [True, False],
+                             ids=["channel", "tensor"])
+    @pytest.mark.parametrize("bits,shape", [(8, (4, 256, 96)),
+                                            (5, (4, 256, 96)),
+                                            (3, (3, 64, 33))],
+                             ids=["8bit", "5bit", "3bit-odd-width"])
+    def test_bf16_leaf_on_the_int8_branch_equals_reference(
+            self, bits, shape, per_channel):
+        """The reference computes ``(leaf - mu) / scale`` in the leaf's
+        dtype there: bf16 differences and quotients give other codes than
+        f32 ones, and the port's codes are the reference's byte for
+        byte."""
+        x = jnp.asarray(_x(shape, 8) * 0.05).astype(jnp.bfloat16)
+        got = tq.quantize_stacked(to_torch(x), bits, per_channel=per_channel)
+        want = jq.quantize_stacked(x, bits, per_channel=per_channel,
+                                   use_pallas=False)
+        _assert_struct_equal(got, want)
+        assert "codes" in got
+        f32 = tq.quantize_stacked(to_torch(x).float(), bits,
+                                  per_channel=per_channel)
+        if bits == 8:       # the bf16 rounding matters at 8 bits
+            assert not torch.equal(f32["codes"], got["codes"])
 
 
 @pytest.mark.parametrize("tp_pad", [1, 16], ids=["smollm-8m", "tp_pad16"])
