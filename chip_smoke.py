@@ -2,6 +2,7 @@
 """Drive the PyTorch/H100 port of QPART (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py          # from the repository root, one GPU
+    python3 chip_smoke.py --profile-launcher [--src OTHER/src]
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -10,15 +11,19 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc``;
 3. hold each kernel against its plain PyTorch version on the card at
    the main path's shapes (qmatmul/qmatmul4 at M = 2, 4 and 128 on every
-   projection, flash attention at the calibration shape and S = 100 in
-   bf16 and once in f32, quantize on a bf16 leaf as well), with a second
-   call bitwise equal to the first, and time kernel, plain version, the
-   closest single PyTorch library call (a yardstick only — the port
-   never calls it) and the card's lower bound for the same work. The
-   Timer queues every rep behind a device sleep and reports the median
-   and minimum of the event pairs, so a time is the card's and not the
-   wrapper's host time; the build's ptxas report of the redesigned
-   kernels (registers, spills) and their SASS's HMMA count print first;
+   projection, decode attention on the request loop's and the
+   launcher's rings and a 2048-slot one, flash attention at the
+   calibration shape and S = 100 in bf16 and once in f32, quantize on a
+   bf16 leaf as well), with a second call bitwise equal to the first,
+   and time kernel, plain version, the closest single PyTorch library
+   call (a yardstick only — the port never calls it) and the card's
+   lower bound for the same work. The Timer queues every rep behind a
+   device sleep and reports the median and minimum of the event pairs,
+   so a time is the card's and not the wrapper's host time, and the
+   median over its floor (an empty launch); the build's ptxas report of
+   the redesigned kernels (registers, spills, a spill fails the run),
+   their dynamic shared memory and the flash kernel's SASS HMMA count
+   print first;
 4. the request loop on smollm-135m at its registered shape (30 layers,
    d_model 576, 9/3 heads padded to 4 x 4 by tp_pad=16, d_ff 1536, vocab
    49152, bf16) with seeded random weights: register -> calibrate ->
@@ -33,7 +38,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    after a quantized run its served weights are dequantized through
    ``ops.dequantize_tensor`` (|w - deq| <= scale / 2) and the tree is
    compared byte for byte with the one the plain versions build on the
-   CPU.
+   CPU; then a profile of the launcher's decode step at --quant 8 and 0.
+
+``--profile-launcher`` runs only that profile, and ``--src`` imports the
+port from another tree, so that an earlier commit unpacked by ``git
+archive`` can be profiled in the same call as this one.
 
 After the last phase every kernel must have launched in the runs of the
 paths that use it. The line before the last is the ``kernels`` JSON
@@ -41,6 +50,7 @@ record; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import shutil
@@ -81,12 +91,15 @@ class Timer:
     queued all of them, so an event pair holds the call's device time and
     not the wrapper's host time. The result carries the host's enqueue
     time and the sleep's device time beside the times; the sleep is
-    doubled and the measurement repeated while the host fell behind."""
+    doubled and the measurement repeated while the host fell behind.
+    Once ``floor_ms`` is set (the median of an empty launch), every result
+    also carries ``ms_over_floor``, the median minus that floor."""
 
     SLEEP_CYCLES_PER_MS = 2_000_000    # ~the H100's 1.98 GHz boost clock
 
     def __init__(self, torch):
         self.torch = torch
+        self.floor_ms = None
         self.flush = torch.zeros(32 << 20, dtype=torch.float32,
                                  device="cuda")
         self.flush.amax()           # load the reduction kernel once
@@ -124,9 +137,12 @@ class Timer:
                 break
             sleep_ms *= 2
         times = [s.elapsed_time(e) for s, e in ev]
-        return {"ms": statistics.median(times), "ms_min": min(times),
-                "reps": reps, "enqueue_ms": enqueue_ms,
-                "sleep_ms": slept_ms, "queued_ahead": enqueue_ms < slept_ms}
+        out = {"ms": statistics.median(times), "ms_min": min(times),
+               "reps": reps, "enqueue_ms": enqueue_ms,
+               "sleep_ms": slept_ms, "queued_ahead": enqueue_ms < slept_ms}
+        if self.floor_ms is not None:
+            out["ms_over_floor"] = out["ms"] - self.floor_ms
+        return out
 
 
 def nbytes(*tensors) -> int:
@@ -151,13 +167,12 @@ def quantized_weight(torch, g, k, n, levels, per_col):
 
 
 def check_qmatmul(torch, timer, records):
-    """qmatmul (int8) and qmatmul4 (packed; the skinny split-K route at M
-    <= 16, the tiled one above) at every projection shape of a
+    """qmatmul (int8) and qmatmul4 (packed; both on the skinny split-K
+    route at M <= 16, the tiled one above) at every projection shape of a
     smollm-135m block, per tensor and per column, at decode M = 2 (the
     request loop) and 4 (the launcher) and prefill M = 128, each call
-    repeated for bitwise equality; timed on the MLP up-projection at M = 2
-    (and M = 4 for qmatmul4) beside ``matmul`` on the dequantized bf16
-    weight."""
+    repeated for bitwise equality; both timed on the MLP up-projection at
+    M = 2 and M = 4 beside ``matmul`` on the dequantized bf16 weight."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -207,7 +222,7 @@ def check_qmatmul(torch, timer, records):
         if packed:
             codes = ref.pack_int4_ref(codes)
         rec = {}
-        for m in ((2, 4) if packed else (2,)):
+        for m in (2, 4):
             x = torch.randn(m, k, generator=g, device="cuda").to(
                 torch.bfloat16)
             t = timer(lambda: fn(x, codes, scale, mu, torch.bfloat16))
@@ -218,71 +233,103 @@ def check_qmatmul(torch, timer, records):
                 plain_t = timer(lambda: plain(x, codes, scale, mu,
                                               torch.bfloat16))
                 rec.update(max_abs_err=worst[name], ms=t["ms"],
-                           ms_min=t["ms_min"], plain_ms=plain_t["ms"],
-                           bound_ms=b, bound_by=by, library_ms=lib["ms"],
+                           ms_min=t["ms_min"],
+                           ms_over_floor=t["ms_over_floor"],
+                           plain_ms=plain_t["ms"], bound_ms=b, bound_by=by,
+                           library_ms=lib["ms"],
                            library_ms_min=lib["ms_min"],
                            timed=f"x (2, {k}) bf16 @ codes ({k}, {n}), "
                                  "per-tensor, bf16 out")
             else:
                 rec[f"m{m}"] = dict(ms=t["ms"], ms_min=t["ms_min"],
+                                    ms_over_floor=t["ms_over_floor"],
                                     bound_ms=b, library_ms=lib["ms"],
                                     library_ms_min=lib["ms_min"])
             emit({"timing": name, "m": m, "kernel": t, "library": lib,
-                  "bound_ms": b})
+                  "bound_ms": b, "ms_over_floor": t["ms_over_floor"]})
         records[name] = rec
         emit({"timing": name, **records[name]})
 
 
 def check_decode_attention(torch, timer, records):
     """Bf16 and float8 caches, partially filled and wrapped rings, at the
-    decode shapes of smollm-135m (B = 2, KVp = Gp = 4, hd = 64, ring of
-    256 slots); timed on the float8 device cache at the last step of a
-    32-token generation after a 64-token prompt."""
+    decode shapes of smollm-135m: the request loop's (B = 2, KVp = Gp = 4,
+    hd = 64, ring of 256 slots) and the launcher's (B = 4, bf16 ring of
+    96), and a 2048-slot ring that runs 16 CTAs per head; every call
+    repeated for bitwise equality. Timed on the request loop's float8
+    device cache at the last step of a 32-token generation after a
+    64-token prompt, and on the launcher's bf16 cache at its last step,
+    each beside SDPA with K/V repeated per head."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.models.common import to_storage
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    b, kvp, gp, hd, buf = 2, 4, 4, 64, 256
-    q = torch.randn(b, kvp, gp, hd, generator=g, device="cuda").to(
-        torch.bfloat16)
-    kv = torch.randn(2, b, buf, kvp, hd, generator=g, device="cuda")
+    kvp, gp, hd = 4, 4, 64
     tol = 2e-2      # bf16 probabilities/values in the plain version
     worst = 0.0
-    for dt in (torch.bfloat16, torch.float8_e4m3fn):
-        ck, cv = to_storage(kv[0], dt), to_storage(kv[1], dt)
-        for pos in (5, 95, buf - 1, buf + 40, 5 * buf + 3):
-            got = decode_attention_cuda(q, ck, cv, pos)
-            want = ref.decode_attention_ref(q, ck, cv, pos)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            emit({"check": "decode_attention", "cache": str(dt), "pos": pos,
-                  "buf": buf, "max_abs_err": err, "tol": tol})
-            if not err <= tol:
-                raise AssertionError(f"decode attention {dt} pos={pos}: "
-                                     f"max |err| {err} > {tol}")
-            worst = max(worst, err)
-    pos = 64 + 31
-    ck, cv = (to_storage(kv[0], torch.float8_e4m3fn),
-              to_storage(kv[1], torch.float8_e4m3fn))
-    n_valid = pos + 1
-    t = timer(lambda: decode_attention_cuda(q, ck, cv, pos))
-    plain_t = timer(lambda: ref.decode_attention_ref(q, ck, cv, pos))
-    qs = q.reshape(b, kvp * gp, 1, hd)
-    ks = ck[:, :n_valid].to(torch.bfloat16).permute(0, 2, 1, 3)
-    vs = cv[:, :n_valid].to(torch.bfloat16).permute(0, 2, 1, 3)
-    ks = ks.repeat_interleave(gp, dim=1).contiguous()
-    vs = vs.repeat_interleave(gp, dim=1).contiguous()
+    cases = (  # (B, ring slots, cache dtypes, positions)
+        (2, 256, (torch.bfloat16, torch.float8_e4m3fn),
+         (5, 95, 255, 256 + 40, 5 * 256 + 3)),
+        (4, 96, (torch.bfloat16,), (0, 63, 94, 95, 96 + 30)),
+        (2, 2048, (torch.bfloat16, torch.float8_e4m3fn),
+         (31, 1000, 2047, 3 * 2048 + 7)))
+    timed = {}
+    for b, buf, dtypes, positions in cases:
+        q = torch.randn(b, kvp, gp, hd, generator=g, device="cuda").to(
+            torch.bfloat16)
+        kv = torch.randn(2, b, buf, kvp, hd, generator=g, device="cuda")
+        for dt in dtypes:
+            ck, cv = to_storage(kv[0], dt), to_storage(kv[1], dt)
+            timed[(b, buf, dt)] = (q, ck, cv)
+            for pos in positions:
+                got = decode_attention_cuda(q, ck, cv, pos)
+                again = decode_attention_cuda(q, ck, cv, pos)
+                want = ref.decode_attention_ref(q, ck, cv, pos)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                same = bool(torch.equal(got, again))
+                emit({"check": "decode_attention", "b": b, "cache": str(dt),
+                      "pos": pos, "buf": buf, "max_abs_err": err, "tol": tol,
+                      "repeat_bitwise": same})
+                if not (err <= tol and same):
+                    raise AssertionError(
+                        f"decode attention b={b} {dt} buf={buf} pos={pos}: "
+                        f"max |err| {err} > {tol} or a second call differs "
+                        f"({same})")
+                worst = max(worst, err)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = timer(lambda: sdpa(qs, ks, vs))
-    live = 2 * b * n_valid * kvp * hd * ck.element_size()
-    bnd, by = bound_ms(nbytes(q) * 2 + live, 4 * b * kvp * gp * n_valid * hd)
-    emit({"timing": "decode_attention", "kernel": t, "library": lib})
-    records["decode_attention"] = dict(
-        max_abs_err=worst, ms=t["ms"], ms_min=t["ms_min"],
-        plain_ms=plain_t["ms"], bound_ms=bnd, bound_by=by,
-        library_ms=lib["ms"], library_ms_min=lib["ms_min"],
-        timed=f"B={b} KVp={kvp} Gp={gp} hd={hd}, float8 ring of {buf}, "
-              f"pos {pos} ({n_valid} live slots)")
+    rec = {}
+    for b, buf, dt, pos, key in (
+            (2, 256, torch.float8_e4m3fn, 64 + 31, None),   # request loop
+            (4, 96, torch.bfloat16, 64 + 30, "b4_bf16")):   # launcher
+        q, ck, cv = timed[(b, buf, dt)]
+        n_valid = pos + 1
+        t = timer(lambda: decode_attention_cuda(q, ck, cv, pos))
+        qs = q.reshape(b, kvp * gp, 1, hd)
+        ks = ck[:, :n_valid].to(torch.bfloat16).permute(0, 2, 1, 3)
+        vs = cv[:, :n_valid].to(torch.bfloat16).permute(0, 2, 1, 3)
+        ks = ks.repeat_interleave(gp, dim=1).contiguous()
+        vs = vs.repeat_interleave(gp, dim=1).contiguous()
+        lib = timer(lambda: sdpa(qs, ks, vs))
+        live = 2 * b * n_valid * kvp * hd * ck.element_size()
+        bnd, by = bound_ms(nbytes(q) * 2 + live,
+                           4 * b * kvp * gp * n_valid * hd)
+        what = (f"B={b} KVp={kvp} Gp={gp} hd={hd}, {str(dt)[6:]} ring of "
+                f"{buf}, pos {pos} ({n_valid} live slots)")
+        emit({"timing": "decode_attention", "timed": what, "kernel": t,
+              "library": lib, "bound_ms": bnd,
+              "ms_over_floor": t["ms_over_floor"]})
+        row = dict(ms=t["ms"], ms_min=t["ms_min"],
+                   ms_over_floor=t["ms_over_floor"], bound_ms=bnd,
+                   library_ms=lib["ms"], library_ms_min=lib["ms_min"],
+                   timed=what)
+        if key is None:
+            plain_t = timer(lambda: ref.decode_attention_ref(q, ck, cv, pos))
+            rec.update(max_abs_err=worst, plain_ms=plain_t["ms"],
+                       bound_by=by, **row)
+        else:
+            rec[key] = row
+    records["decode_attention"] = rec
     emit({"timing": "decode_attention", **records["decode_attention"]})
 
 
@@ -330,17 +377,20 @@ def check_flash_attention(torch, timer, records, calib_batch, seq):
         bnd, by = bound_ms(nbytes(q, k, v) + nbytes(q),
                            4 * b * kvh * grp * pairs * hd)
         emit({"timing": "flash_attention", "b": b, "s": s, "kernel": t,
-              "library": lib, "bound_ms": bnd})
+              "library": lib, "bound_ms": bnd,
+              "ms_over_floor": t["ms_over_floor"]})
         if (b, s) == (calib_batch, seq):
             plain_t = timer(lambda: _blocked_causal_attention(q, k, v, s, s))
-            rec.update(ms=t["ms"], ms_min=t["ms_min"], plain_ms=plain_t["ms"],
-                       bound_ms=bnd, bound_by=by, library_ms=lib["ms"],
-                       library_ms_min=lib["ms_min"],
+            rec.update(ms=t["ms"], ms_min=t["ms_min"],
+                       ms_over_floor=t["ms_over_floor"],
+                       plain_ms=plain_t["ms"], bound_ms=bnd, bound_by=by,
+                       library_ms=lib["ms"], library_ms_min=lib["ms_min"],
                        timed=f"B={b} S={s} KV={kvh} G={grp} hd={hd} bf16, "
                              "causal")
         else:
-            rec[f"s{s}"] = dict(ms=t["ms"], ms_min=t["ms_min"], bound_ms=bnd,
-                                library_ms=lib["ms"],
+            rec[f"s{s}"] = dict(ms=t["ms"], ms_min=t["ms_min"],
+                                ms_over_floor=t["ms_over_floor"],
+                                bound_ms=bnd, library_ms=lib["ms"],
                                 library_ms_min=lib["ms_min"])
     records["flash_attention"] = dict(max_abs_err=worst, **rec)
     emit({"timing": "flash_attention", **records["flash_attention"]})
@@ -448,7 +498,8 @@ def check_quantize(torch, timer, records):
         b, by = bound_ms(moved, 2 * x.numel(), F32_OPS_PER_S)
         records[name] = dict(
             max_abs_err=worst[name], ms=t["ms"], ms_min=t["ms_min"],
-            plain_ms=plain_t["ms"], bound_ms=b, bound_by=by, library_ms=None,
+            ms_over_floor=t["ms_over_floor"], plain_ms=plain_t["ms"],
+            bound_ms=b, bound_by=by, library_ms=None,
             timed=f"w_gate leaf ({x.shape[0]}, {ff}) f32, per-column "
                   f"({L}, {ff}) metadata, {out}")
         emit({"timing": name, **records[name], "bytes": moved, "kernel": t,
@@ -572,20 +623,18 @@ def request_loop(torch, ops, calib_batch: int, seq: int):
     return cfg, params, backend, launches, dep, prompt
 
 
-def profile_decode(torch, dep, prompt, steps: int = 4):
+def profile_steps(torch, step, steps: int) -> dict:
     """Where a decode step's wall time goes: ``torch.profiler`` over
-    ``steps`` steps of the served deployment's stream — device busy time
-    (the sum of kernel/memcpy durations on the card), the idle share of
-    the wall time, launches per step and the costliest kernels."""
+    ``steps`` calls of ``step`` — device busy time (the sum of kernel and
+    memcpy durations on the card), the idle share of the wall time, device
+    events per step and the costliest device consumers."""
     from torch.profiler import ProfilerActivity, profile
-    sess = dep.decode_session()
-    tok = sess.step(sess.prefill(prompt))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            tok = sess.step(tok)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events()
@@ -595,13 +644,61 @@ def profile_decode(torch, dep, prompt, steps: int = 4):
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    emit({"decode_step_profile": {
-        "p": dep.plan.p, "steps": steps, "wall_ms_per_step":
-        wall_us / steps / 1e3, "device_busy_ms_per_step":
-        busy_us / steps / 1e3, "idle_share": 1 - busy_us / wall_us
-        if dev else None, "device_events_per_step": len(dev) / steps,
-        "top_device_ms_per_step": {k[:60]: v / steps / 1e3
-                                   for k, v in top}}})
+    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+            "device_busy_ms_per_step": busy_us / steps / 1e3,
+            "idle_share": 1 - busy_us / wall_us if dev else None,
+            "device_events_per_step": len(dev) / steps,
+            "top_device_ms_per_step": {k[:60]: v / steps / 1e3
+                                       for k, v in top}}
+
+
+def profile_decode(torch, dep, prompt, steps: int = 4):
+    """``profile_steps`` over ``steps`` decode steps of the served
+    deployment's stream, after its prefill and one step."""
+    sess = dep.decode_session()
+    tok = [sess.step(sess.prefill(prompt))]
+
+    def step():
+        tok[0] = sess.step(tok[0])
+
+    emit({"decode_step_profile": {"p": dep.plan.p,
+                                  **profile_steps(torch, step, steps)}})
+
+
+def profile_launch(torch, quant: int, batch: int = 4, prompt_len: int = 64,
+                   gen: int = 32, steps: int = 8):
+    """``profile_steps`` over ``steps`` decode steps of the serving
+    launcher — ``launch.steps``' serve step and the greedy token, as
+    ``launch.serve.generate`` runs them — on full-width smollm-135m at
+    ``--quant quant`` (weights quantized as ``launch.serve.run`` does),
+    batch 4, after a 64-token prompt and one step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.quantizer import quantize_params_for_serving
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    cfg = get_config("smollm-135m")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    params = T.init_params(cfg, g, device="cuda")
+    if quant:
+        params = quantize_params_for_serving(params, quant)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=g, device="cuda", dtype=torch.int32)
+    logits, caches = make_prefill_step(cfg, prompt_len + gen)(
+        params, {"tokens": prompt})
+    serve_step = make_serve_step(cfg)
+    state = {"tok": torch.argmax(logits[:, -1:], -1).to(torch.int32),
+             "caches": caches, "pos": prompt_len}
+
+    def step():
+        logits, state["caches"] = serve_step(params, state["tok"],
+                                             state["caches"], state["pos"])
+        state["tok"] = torch.argmax(logits[:, 0:1], -1).to(torch.int32)
+        state["pos"] += 1
+
+    step()
+    emit({"launch_decode_profile": {"arch": cfg.name, "quant": quant,
+                                    "batch": batch,
+                                    **profile_steps(torch, step, steps)}})
 
 
 def reference_check(torch, cfg, params, backend):
@@ -736,7 +833,8 @@ SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
                           "src/repro/kernels/quantize.py:101")}
 
 # kernels whose design changed after their first port, and in which PR
-REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13"}
+REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13",
+              "qmatmul": "PR 14", "decode_attention": "PR 14"}
 
 # the kernels each path's run must launch
 EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
@@ -748,9 +846,11 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                           "decode_attention", "flash_attention")}
 
 
-# the kernels' instantiations that ptxas reports entry by entry
+# the kernels' instantiations that ptxas reports entry by entry, by
+# source (qmm_skinny: the int8 and the int4 instantiations)
 REDESIGNED_ENTRIES = {"flash_attention": "flash_attn_tc_kernel",
-                      "qmatmul": "qmm4_skinny"}
+                      "qmatmul": "qmm_skinny",
+                      "decode_attention": "decode_split_kernel"}
 
 
 def ptxas_entries(out_dir, wanted):
@@ -792,22 +892,39 @@ def hmma_count(lib, key):
     return count
 
 
-def main() -> int:
-    if not (ROOT / "src" / "repro_torch").is_dir():
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile-launcher", action="store_true",
+                    help="only build the kernels and profile the serving "
+                         "launcher's decode step at --quant 8 and 0")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the tree whose repro_torch to import (with "
+                         "--profile-launcher: an earlier commit's src/, "
+                         "unpacked by git archive)")
+    args = ap.parse_args(argv)
+    if not (args.src / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
-              "(src/repro_torch not found)", file=sys.stderr)
+              f"({args.src / 'repro_torch'} not found)", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device: the port's smoke run needs one GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    if args.profile_launcher:
+        from repro_torch.kernels import build
+        print(smi, flush=True)
+        emit({"profiled_tree": str(args.src.resolve()),
+              "build_dir": str(build.build_all())})
+        for quant in (8, 0):
+            profile_launch(torch, quant)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for float32 matmuls and convolutions (plain versions "
@@ -834,19 +951,31 @@ def main() -> int:
     emit({"sass_hmma": hmma_count(out_dir / "libflash_attention.so",
                                   "flash_attn_tc_kernel")})
     tc_smem = build.launcher("flash_attention", "flash_attention_tc_smem", "i")
-    sk_smem = build.launcher("qmatmul", "qmatmul4_skinny_smem", "ii")
+    sk_smem = build.launcher("qmatmul", "qmatmul_skinny_smem", "ii")
+    da_smem = build.launcher("decode_attention", "decode_attention_smem",
+                             "iiii")
+    da_split = build.launcher("decode_attention", "decode_attention_split",
+                              "i")
     emit({"dynamic_smem_bytes": {
         **{f"flash_attn_tc_kernel hd={hd}": tc_smem(hd) for hd in (64, 128)},
-        **{f"qmm4_skinny M={m} K={k}": sk_smem(m, k)
-           for m in (2, 4) for k in (576, 1024, 1536)}}})
+        **{f"qmm_skinny M={m} K={k}": sk_smem(m, k)
+           for m in (2, 4) for k in (576, 1024, 1536)},
+        **{f"decode_split_kernel n_valid={n} Gp=4 hd=64 {dt}":
+           da_smem(n, 4, 64, build.DTYPE_CODES[d])
+           for n in (95, 96, 2048)
+           for dt, d in (("bf16", torch.bfloat16),
+                         ("f8e4m3", torch.float8_e4m3fn))}}})
+    emit({"decode_attention_ctas_per_head": {
+        f"n_valid={n}": da_split(n) for n in (1, 32, 33, 95, 96, 2048)}})
 
     calib_batch, seq = 64, 128
     timer = Timer(torch)
     records = {}
     t_checks = time.perf_counter()
     one = torch.zeros(1, device="cuda")
-    emit({"timer_floor": {"what": "fill_ of one float", **timer(
-        lambda: one.fill_(1.0))}})
+    floor = timer(lambda: one.fill_(1.0))
+    timer.floor_ms = floor["ms"]
+    emit({"timer_floor": {"what": "fill_ of one float", **floor}})
     check_qmatmul(torch, timer, records)
     check_decode_attention(torch, timer, records)
     check_flash_attention(torch, timer, records, calib_batch, seq)
@@ -862,6 +991,8 @@ def main() -> int:
     del params, backend, dep
     runs = {"request_loop": loop_launches,
             **launch_serve(torch, ops)}
+    for quant in (8, 0):
+        profile_launch(torch, quant)
 
     missing = [f"{k} in {run}" for run, names in EXPECTED.items()
                for k in names if runs[run][k] == 0]

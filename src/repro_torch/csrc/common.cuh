@@ -1,7 +1,8 @@
 // Shared helpers for the port's CUDA kernels: element conversions for the
 // storage dtypes the Python wrappers pass (dtype codes in
 // repro_torch/kernels/build.py: 0 = float32, 1 = bfloat16,
-// 2 = float8_e4m3fn) and the dynamic shared-memory opt-in.
+// 2 = float8_e4m3fn), the dynamic shared-memory opt-in, 16-byte
+// cp.async, base-2 exponentials and the split cluster barrier.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +39,45 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x by the MUFU unit (denormal results flush to 0: p < 2^-126 adds
+// nothing to a sum that holds a 1)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the cluster barrier in two halves, so that the start-up arrive
+// overlaps the loads
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 }  // namespace repro

@@ -2,7 +2,9 @@
 ``csrc/decode_attention.cu``, the port of
 ``repro/kernels/decode_attention.py``.
 
-CUDA tensors only; the plain version is
+The kernel splits the live ring slots over a thread-block cluster per
+(batch row, kv head) and combines the partial softmax results in one
+launch. CUDA tensors only; the plain version is
 ``kernels.ref.decode_attention_ref`` and ``kernels.ops.decode_attention``
 picks by device. ``decode_attention_cuda.launches`` counts launches.
 """
@@ -37,6 +39,13 @@ def decode_attention_cuda(q, ck, cv, pos: int):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("decode attention: q/ck/cv must be contiguous "
                              "on one device")
+    if not 1 <= gp <= 16 or hd % 32 or not 32 <= hd <= 256:
+        raise ValueError(f"decode attention: the kernel takes Gp <= 16 and "
+                         f"hd a multiple of 32 up to 256, got Gp {gp}, hd "
+                         f"{hd}")
+    if ck.data_ptr() % 16 or cv.data_ptr() % 16:
+        raise ValueError("decode attention: the cache must be 16-byte "
+                         "aligned (16-byte row loads)")
     pos = int(pos)
     if pos < 0:
         raise ValueError(f"decode attention: pos {pos} < 0")

@@ -1,8 +1,8 @@
 """Dequantize-fused matmul kernels (W8A16 / W4A16) — wrappers of
-``csrc/qmatmul.cu``, the port of ``repro/kernels/qmatmul.py``. Packed
-int4 codes at M <= 16 run the split-K cluster kernel, everything else
-the tiled one; both are one launch per call and give the same bits on
-every call.
+``csrc/qmatmul.cu``, the port of ``repro/kernels/qmatmul.py``. At M <=
+16 both code widths run the split-K cluster kernel, above it the tiled
+one; both are one launch per call and give the same bits on every
+call.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape
 and contiguity, allocate the output, launch on PyTorch's current stream

@@ -4,14 +4,18 @@ head dim 128, odd sequence lengths, a ring of one slot; for the quantize
 kernels ragged rows and columns, a single row, N = 2 packed, grouped
 (G, N) metadata and every bit width, bit for bit. The tensor-core route
 of flash attention (bf16) runs over ragged S, both head dims and three
-GQA groupings; the skinny split-K route of qmatmul4 (M <= 16) over
-ragged K and N, with M = 17 crossing into the tiled route; both give the
-same bits on every call.
+GQA groupings; the skinny split-K route of qmatmul and qmatmul4 (M <=
+16) over ragged K and N and unaligned codes, with M = 17 crossing into
+the tiled route; decode attention's cluster split over every change of
+its CTA count up to a 4096-slot ring, wrapped and not. Each gives the
+same bits on every call, in one launch.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import functools
+
 import pytest
 import torch
 
@@ -102,16 +106,37 @@ def test_flash_attention_bf16_tensor_cores(gen, s, hd, kvh, grp):
     assert torch.equal(got, flash_attention_cuda(q, k, v))
 
 
-def _int4_weight(gen, k, n, per_col):
-    """A (K, N) weight quantized on a per-tensor or per-column 4-bit grid:
-    packed codes and (1, 1) / (1, N) scale and mu."""
+def _quant_weight(gen, k, n, per_col, levels):
+    """A (K, N) weight quantized on a per-tensor or per-column grid of
+    ``levels`` steps: uint8 codes and (1, 1) / (1, N) scale and mu."""
     w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
     dims = (0,) if per_col else (0, 1)
     mu = torch.amin(w, dim=dims, keepdim=True).reshape(1, -1)
     scale = ((torch.amax(w, dim=dims, keepdim=True).reshape(1, -1) - mu)
-             / 15).clamp(min=1e-12)
-    codes = torch.clamp(torch.round((w - mu) / scale), 0, 15).to(torch.uint8)
-    return ref.pack_int4_ref(codes), scale.contiguous(), mu.contiguous()
+             / levels).clamp(min=1e-12)
+    codes = torch.clamp(torch.round((w - mu) / scale), 0,
+                        levels).to(torch.uint8)
+    return codes, scale.contiguous(), mu.contiguous()
+
+
+def _int4_weight(gen, k, n, per_col):
+    codes, scale, mu = _quant_weight(gen, k, n, per_col, 15)
+    return ref.pack_int4_ref(codes), scale, mu
+
+
+def _held_skinny(fn, plain, x, codes, scale, mu):
+    """f32 out within 1e-3 and bf16 out within one bf16 step of the
+    largest output, one launch per call, bitwise the same on a second
+    call."""
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = fn.launches
+        got = fn(x, codes, scale, mu, out_dtype)
+        assert fn.launches == before + 1
+        want = plain(x, codes, scale, mu, out_dtype)
+        tol = 1e-3 if out_dtype == torch.float32 else \
+            2 ** -7 * want.float().abs().max().item()
+        assert _err(got, want) <= tol
+        assert torch.equal(got, fn(x, codes, scale, mu, out_dtype))
 
 
 @pytest.mark.parametrize("per_col", [False, True])
@@ -124,16 +149,82 @@ def test_qmatmul4_skinny(gen, m, k, n, per_col):
     output, one launch per call, and bitwise the same on a second call."""
     packed, scale, mu = _int4_weight(gen, k, n, per_col)
     x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-    for out_dtype in (torch.float32, torch.bfloat16):
-        before = qmatmul4_cuda.launches
-        got = qmatmul4_cuda(x, packed, scale, mu, out_dtype)
-        assert qmatmul4_cuda.launches == before + 1
-        want = ref.qmatmul4_ref(x, packed, scale, mu, out_dtype)
-        tol = 1e-3 if out_dtype == torch.float32 else \
-            2 ** -7 * want.float().abs().max().item()
-        assert _err(got, want) <= tol
-        assert torch.equal(got, qmatmul4_cuda(x, packed, scale, mu,
-                                              out_dtype))
+    _held_skinny(qmatmul4_cuda, ref.qmatmul4_ref, x, packed, scale, mu)
+
+
+@pytest.mark.parametrize("per_col", [False, True])
+@pytest.mark.parametrize("n", [2, 130, 256, 576, 1536])
+@pytest.mark.parametrize("k", [7, 33, 576, 1536])
+@pytest.mark.parametrize("m", [1, 2, 4, 16, 17])
+def test_qmatmul_skinny(gen, m, k, n, per_col):
+    """int8 codes: M <= 16 runs the split-K cluster route (16 codes a
+    16-byte vector; N = 2 and 130 load byte by byte, N = 576 ends in a
+    ragged tile), M = 17 the tiled one; held as ``test_qmatmul4_skinny``."""
+    codes, scale, mu = _quant_weight(gen, k, n, per_col, 255)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    _held_skinny(qmatmul_cuda, ref.qmatmul_ref, x, codes, scale, mu)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("per_col", [False, True])
+@pytest.mark.parametrize("m,k,n", [(1, 33, 256), (4, 576, 1536),
+                                   (16, 1536, 576)])
+def test_qmatmul_skinny_unaligned_codes(gen, packed, per_col, m, k, n):
+    """Codes one byte past a 16-byte boundary (an N whose rows are whole
+    vectors) take the byte-by-byte load of the same kernel."""
+    codes, scale, mu = _quant_weight(gen, k, n, per_col, 15 if packed else
+                                     255)
+    if packed:
+        codes = ref.pack_int4_ref(codes)
+    store = torch.empty(codes.numel() + 1, dtype=torch.uint8, device="cuda")
+    shifted = store[1:].view(codes.shape)
+    shifted.copy_(codes)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 1
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    fn, plain = ((qmatmul4_cuda, ref.qmatmul4_ref) if packed else
+                 (qmatmul_cuda, ref.qmatmul_ref))
+    _held_skinny(fn, plain, x, shifted, scale, mu)
+
+
+@functools.cache
+def _split_boundaries(max_slots=4096):
+    """Live-slot counts on both sides of every change of the kernel's CTA
+    count per head, and 1, 31, 96 and ``max_slots``."""
+    from repro_torch.kernels import build
+    ctas = build.launcher("decode_attention", "decode_attention_split", "i")
+    counts = [ctas(n) for n in range(1, max_slots + 1)]
+    edges = {n for n in range(2, max_slots + 1)
+             if counts[n - 1] != counts[n - 2]}
+    return sorted(edges | {n - 1 for n in edges} | {1, 31, 96, max_slots})
+
+
+@pytest.mark.parametrize("b,kvp,gp", [(b, kvp, gp) for b in (1, 2, 4)
+                                      for kvp in (1, 4) for gp in (3, 4)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16,
+                                   torch.float8_e4m3fn])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_split(gen, dtype, cache, hd, b, kvp, gp):
+    """The cluster split over the live slots at every change of its CTA
+    count up to a 4096-slot ring: on an unwrapped 4096-slot ring (n live
+    slots at pos n - 1) and on a wrapped ring of n slots, within the
+    tolerances of ``test_decode_attention_edges``, one launch per call and
+    bitwise the same on a second call."""
+    ring = 4096
+    q = torch.randn(b, kvp, gp, hd, generator=gen, device="cuda").to(dtype)
+    ck = torch.randn(b, ring, kvp, hd, generator=gen, device="cuda").to(cache)
+    cv = torch.randn(b, ring, kvp, hd, generator=gen, device="cuda").to(cache)
+    tol = 1e-4 if (dtype, cache) == (torch.float32, torch.float32) else 2e-2
+    for n in _split_boundaries(ring):
+        wrapped = (ck[:, :n].contiguous(), cv[:, :n].contiguous(), 3 * n + 2)
+        for k_, v_, pos in ((ck, cv, n - 1), wrapped):
+            before = decode_attention_cuda.launches
+            got = decode_attention_cuda(q, k_, v_, pos)
+            assert decode_attention_cuda.launches == before + 1
+            err = _err(got, ref.decode_attention_ref(q, k_, v_, pos))
+            assert err <= tol, (n, pos, k_.shape[1], err)
+            assert torch.equal(got, decode_attention_cuda(q, k_, v_, pos)), \
+                (n, pos)
 
 
 @pytest.mark.parametrize("bits,n", [(8, 768), (5, 768), (3, 33)])
@@ -169,6 +260,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         flash_attention_cuda(torch.zeros(1, 4, 1, 1, 32, device="cuda"),
                              torch.zeros(1, 4, 1, 32, device="cuda"),
                              torch.zeros(1, 4, 1, 32, device="cuda"))
+
+
+def test_decode_attention_rejects_what_the_kernel_does_not_take(gen):
+    cache = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="Gp"):          # Gp > 16
+        decode_attention_cuda(torch.zeros(1, 1, 17, 64, device="cuda"),
+                              cache, cache, 3)
+    odd = torch.zeros(1, 8, 1, 48, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="hd"):          # hd % 32 != 0
+        decode_attention_cuda(torch.zeros(1, 1, 4, 48, device="cuda"),
+                              odd, odd, 3)
+    store = torch.zeros(8 * 64 + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = store[1:].view(1, 8, 1, 64)                # 2 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        decode_attention_cuda(torch.zeros(1, 1, 4, 64, device="cuda"),
+                              shifted, shifted, 3)
 
 
 def _grid(gen, x, groups, per_col, levels):
