@@ -10,8 +10,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    versions; TF32 is switched off for the plain versions' matmuls;
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc``;
 3. hold each kernel against its plain PyTorch version on the card at
-   the main path's shapes (qmatmul/qmatmul4 at M = 2, 4 and 128 on every
-   projection, decode attention on the request loop's and the
+   the main path's shapes (qmatmul/qmatmul4 at M = 2, 4, 32, 128 and 256
+   on every projection, decode attention on the request loop's and the
    launcher's rings and a 2048-slot one, flash attention at the
    calibration shape and S = 100 in bf16 and once in f32, quantize on a
    bf16 leaf as well), with a second call bitwise equal to the first,
@@ -31,7 +31,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    kernel's launch counter zeroed before and read after; a profile of
    the served stream's decode steps follows, and a small input is then
    checked against the plain versions on the CPU;
-5. the serving launcher (``repro_torch.launch.serve``) on the same
+5. the classifier loop: ``examples/quickstart.py`` on the card — the
+   paper's MNIST MLP at full width trained by plain autograd, calibrate
+   -> build_store -> serve (1% budget) -> execute, its degradation held
+   to the quickstart's bound, the three baselines at the served cut, and
+   a CIFAR CNN forward against the CPU (plain PyTorch: no kernel);
+6. the decode session's features on the request loop's model at a fixed
+   8-bit plan at p = L/2: plain, chunked prefill, speculative decode
+   (2 and 4 drafts) and paged KV, speculative tokens bitwise plain,
+   ``to_dense`` bitwise the dense ring, chunked prefill within tolerance
+   of the monolithic one, counters zeroed before each run;
+7. the serving launcher (``repro_torch.launch.serve``) on the same
    full-width model, batch 4, 64-token prompts, 32 new tokens, once each
    at --quant 0, 8 and 4, counters zeroed before each run: quantize
    seconds, prefill seconds, decode tokens/s and launches per kernel;
@@ -51,6 +61,7 @@ record; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import shutil
@@ -170,9 +181,11 @@ def check_qmatmul(torch, timer, records):
     """qmatmul (int8) and qmatmul4 (packed; both on the skinny split-K
     route at M <= 16, the tiled one above) at every projection shape of a
     smollm-135m block, per tensor and per column, at decode M = 2 (the
-    request loop) and 4 (the launcher) and prefill M = 128, each call
-    repeated for bitwise equality; both timed on the MLP up-projection at
-    M = 2 and M = 4 beside ``matmul`` on the dequantized bf16 weight."""
+    request loop) and 4 (the launcher), chunked prefill M = 32 (batch 2 x
+    16-token chunks) and prefill M = 128 and 256 (the launcher's batch 4 x
+    64), each call repeated for bitwise equality; both timed on the MLP
+    up-projection at M = 2, 4, 32 and 256 beside ``matmul`` on the
+    dequantized bf16 weight."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -190,7 +203,7 @@ def check_qmatmul(torch, timer, records):
                                                        per_col)
                 if packed:
                     codes = ref.pack_int4_ref(codes)
-                for m in (2, 4, 128):
+                for m in (2, 4, 32, 128, 256):
                     x = torch.randn(m, k, generator=g, device="cuda").to(
                         torch.bfloat16)
                     for out_dtype, tol_of in (
@@ -222,7 +235,7 @@ def check_qmatmul(torch, timer, records):
         if packed:
             codes = ref.pack_int4_ref(codes)
         rec = {}
-        for m in (2, 4):
+        for m in (2, 4, 32, 256):
             x = torch.randn(m, k, generator=g, device="cuda").to(
                 torch.bfloat16)
             t = timer(lambda: fn(x, codes, scale, mu, torch.bfloat16))
@@ -727,7 +740,288 @@ def reference_check(torch, cfg, params, backend):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the serving launcher
+# Phase 5: the classifier request loop (the quickstart on the card)
+
+def classifier_loop(torch, ops, budget: float = 0.01):
+    """``examples/quickstart.py`` on the card: the paper's MNIST MLP at
+    full width (784-512-256-128-64-32-10, f32) trained on the seeded
+    synthetic surrogate (400 SGD steps at lr 0.1, batch 128, plain
+    autograd), then register -> calibrate -> build_store -> serve a
+    segment-cached request at a 1% budget -> execute on 2048 test images,
+    the three baselines at the served cut, and one CIFAR CNN forward
+    against the CPU. The path is plain PyTorch (matmul, conv2d, max-pool),
+    as the reference's is plain XLA: no kernel launches, and the counters
+    zeroed before it say so after it."""
+    from repro_torch.configs.classifier import CIFAR_CNN, MNIST_MLP
+    from repro_torch.core.cost_model import (Channel, DeviceProfile,
+                                             ObjectiveWeights, ServerProfile)
+    from repro_torch.data.pipeline import (minibatches, synthetic_images,
+                                           synthetic_mnist)
+    from repro_torch.models.classifier import (classifier_forward,
+                                               init_classifier)
+    from repro_torch.serving import baselines
+    from repro_torch.serving.backends import ClassifierBackend
+    from repro_torch.serving.qpart_server import QPARTServer
+    from repro_torch.serving.simulator import InferenceRequest
+
+    torch.cuda.synchronize()
+    for f in ops.KERNELS.values():
+        f.launches = 0
+    secs = {}
+    t0 = time.perf_counter()
+    x_tr, y_tr, x_te, y_te = synthetic_mnist(n_train=8192, n_test=4096)
+    params = init_classifier(MNIST_MLP, torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    leaves = [t.requires_grad_() for lp in params for t in lp.values()]
+    batches = minibatches(x_tr, y_tr, 128, device="cuda")
+    for _ in range(400):
+        bx, by = next(batches)
+        lg = classifier_forward(params, MNIST_MLP, bx)
+        loss = -torch.mean(torch.log_softmax(lg, -1)[
+            torch.arange(len(by), device="cuda"), by.long()])
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for t, g in zip(leaves, grads):
+                t -= 0.1 * g
+    params = [{k: v.detach() for k, v in lp.items()} for lp in params]
+    test_x, test_y = x_te[:2048], y_te[:2048]
+    with torch.no_grad():
+        acc = float((classifier_forward(params, MNIST_MLP, torch.from_numpy(
+            test_x).cuda()).argmax(-1).cpu().numpy() == test_y).mean())
+    torch.cuda.synchronize()
+    secs["train"] = time.perf_counter() - t0
+
+    backend = ClassifierBackend(MNIST_MLP, params)
+    srv = QPARTServer()
+    srv.register("mnist", backend, x_te[2048:3072], y_te[2048:3072])
+    dev, ch, w = DeviceProfile(), Channel(capacity_bps=2e6), ObjectiveWeights()
+    req = InferenceRequest("mnist", accuracy_budget=budget, device=dev,
+                           channel=ch, weights=w, segment_cached=True)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        srv.calibrate("mnist")
+        torch.cuda.synchronize()
+        secs["calibrate"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv.build_store("mnist", dev, ch, w)
+        secs["build_store"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dep = srv.serve(req)
+        secs["serve"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = dep.execute(test_x, test_y)
+        secs["execute"] = time.perf_counter() - t0
+        p = dep.plan.p
+        m = srv.models["mnist"]
+        emit({"classifier_loop": {
+            "model": MNIST_MLP.name,
+            "widths": [MNIST_MLP.layers[0].in_dim]
+            + [s.out_dim for s in MNIST_MLP.layers],
+            "test_accuracy": acc, "base_accuracy_calib": m.base_accuracy,
+            "delta_table": m.delta_table, "accuracy_budget": budget,
+            "p": p, "bits_w": [int(b) for b in dep.extra["bits_w"]],
+            "bits_x": float(dep.extra["bits_x"]),
+            "payload_bits": dep.payload_bits,
+            "accuracy": res.accuracy,
+            "accuracy_degradation": res.accuracy_degradation,
+            "objective": dep.objective, "phase_s": secs,
+            "measured": res.extra["measured"]}})
+        if not res.accuracy_degradation <= 2 * budget + 0.02:
+            raise AssertionError(
+                f"classifier degradation {res.accuracy_degradation} > "
+                f"2 x {budget} + 0.02 at p = {p}")
+        base = m.base_accuracy
+        server = ServerProfile()
+        cx, cy = x_te[2048:3072], y_te[2048:3072]
+        out = {"qpart": (dep.payload_bits, dep.objective, res.accuracy)}
+        r = baselines.no_opt_offload(backend, p, dev, server, ch, w, test_x,
+                                     test_y, base)
+        out["no_opt"] = (r.payload_bits, r.objective, r.accuracy)
+        p_ae = max(p, 1)        # the autoencoder needs a device segment
+        r = baselines.AutoencoderBaseline().offload(
+            backend, p_ae, cx, dev, server, ch, w, test_x, test_y, base)
+        out[f"autoencoder_p{p_ae}"] = (r.payload_bits, r.objective,
+                                       r.accuracy)
+        prune = baselines.PruningBaseline().calibrated(backend, p, cx, cy,
+                                                       budget, base)
+        r = prune.offload(backend, p, dev, server, ch, w, test_x, test_y,
+                          base)
+        out[f"pruning_retain{prune.retain}"] = (r.payload_bits, r.objective,
+                                                r.accuracy)
+        emit({"classifier_baselines": {
+            "p": p, **{k: dict(payload_bits=v[0], objective=v[1],
+                               accuracy=v[2]) for k, v in out.items()}}})
+
+        cnn = init_classifier(CIFAR_CNN, torch.Generator(
+            device="cuda").manual_seed(SEED + 5), device="cuda")
+        x = torch.from_numpy(synthetic_images(CIFAR_CNN.input_shape,
+                                              n_train=8, n_test=256)[2])
+        got = classifier_forward(cnn, CIFAR_CNN, x.cuda()).cpu()
+        want = classifier_forward([{k: v.cpu() for k, v in lp.items()}
+                                   for lp in cnn], CIFAR_CNN, x)
+        err = (got - want).abs().max().item()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        emit({"cifar_cnn_forward": {"batch": int(x.shape[0]),
+                                    "max_abs_err": err, "tol": tol,
+                                    "finite": bool(torch.isfinite(got).all()),
+                                    "logits_max": want.abs().max().item()}})
+        if not (err <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"CIFAR CNN on the card vs the CPU: max "
+                                 f"|err| {err} > {tol}")
+    torch.cuda.synchronize()
+    return {k: f.launches for k, f in ops.KERNELS.items()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the decode session's features on smollm-135m
+
+@contextlib.contextmanager
+def recording(obj, name, out: list):
+    """Append every result of ``obj.name(...)`` to ``out`` while inside."""
+    fn = getattr(obj, name)
+
+    def rec(*a, **k):
+        r = fn(*a, **k)
+        out.append(r)
+        return r
+
+    setattr(obj, name, rec)
+    try:
+        yield out
+    finally:
+        delattr(obj, name)
+
+
+def as_bits(torch, t):
+    """``t`` viewed as the integer dtype of its width (float8 included),
+    so that ``torch.equal`` compares bit patterns."""
+    return t.view({1: torch.uint8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()])
+
+
+def decode_features(torch, ops, backend, prompt, gen: int = 32,
+                    chunk: int = 16, page: int = 16):
+    """Chunked prefill, speculative decode and paged KV on the fixed
+    8-bit plan at p = L/2 (int8 wire structs, float8 device cache), batch
+    2, the request loop's 64-token prompt, ``gen`` new tokens: one session
+    each plain, chunked, drafting 2 and 4, and paged + chunked + drafting
+    2, counters zeroed before each. Speculative tokens must equal plain
+    ones bit for bit (the paged run's: the chunked run's); the paged
+    cache's ``to_dense`` must equal the dense ring bit for bit; the
+    chunked prefill's first-token logits and caches must lie within
+    tolerance of the monolithic prefill's (logits and the server's bf16
+    caches 5e-2 of the largest value, the float8 device caches two e4m3
+    steps of their top binade: the qmatmul and attention shapes change
+    with the chunk, so the sums round differently)."""
+    from repro_torch.core.solver import PartitionPlan
+    from repro_torch.serving.decode import DecodeSession
+    from repro_torch.serving.decode.cache import segment_cache_bytes
+    cfg = backend.cfg
+    L = cfg.num_layers
+    p = L // 2
+    plan = PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
+                         objective=0.0, psi_total=0.0, payload_bits=0.0,
+                         breakdown={})
+    seg = backend.split(plan)
+    max_len = backend.decode_max_len
+    knobs = {"decode_plain": {},
+             f"decode_chunk{chunk}": dict(prefill_chunk_tokens=chunk),
+             "decode_draft2": dict(draft_tokens=2),
+             "decode_draft4": dict(draft_tokens=4),
+             "decode_paged": dict(paged=True, page_tokens=page,
+                                  prefill_chunk_tokens=chunk,
+                                  draft_tokens=2)}
+    runs, outs, sessions = {}, {}, {}
+    for name, kw in knobs.items():
+        sess = DecodeSession(backend, plan, max_len=max_len, segment=seg,
+                             **kw)
+        torch.cuda.synchronize()
+        for f in ops.KERNELS.values():
+            f.launches = 0
+        out = sess.generate(prompt, gen)
+        torch.cuda.synchronize()
+        runs[name] = {k: f.launches for k, f in ops.KERNELS.items()}
+        outs[name], sessions[name] = out, sess
+        dense_bytes = segment_cache_bytes(cfg, sess.dev_caches, 0, p)
+        emit({"decode_feature": {
+            "run": name, "p": p, "bits": 8, "batch": int(prompt.shape[0]),
+            "prompt": int(prompt.shape[1]), "new_tokens": out.new_tokens,
+            "ttft_s": out.ttft_s, "tokens_per_s": out.tokens_per_s,
+            "t_device_s": out.t_device_s, "t_server_s": out.t_server_s,
+            "rounds": out.rounds, "draft_tokens": out.draft_tokens,
+            "accept_rate": out.accept_rate,
+            "prefill_chunks": out.prefill_chunks,
+            "held_pages": sess.paged_kv.held_pages if sess.paged_kv else None,
+            "device_cache_bytes": out.device_cache_bytes,
+            "dense_reservation_bytes": dense_bytes,
+            "device_cache_dtype": out.device_cache_dtype,
+            "launches": runs[name]}})
+    plain = outs["decode_plain"].tokens
+    chunked = outs[f"decode_chunk{chunk}"].tokens
+    for name in ("decode_draft2", "decode_draft4"):
+        if not np.array_equal(outs[name].tokens, plain):
+            raise AssertionError(f"{name}: speculative tokens differ from "
+                                 "plain greedy")
+    if not np.array_equal(outs["decode_paged"].tokens, chunked):
+        raise AssertionError("paged + chunked + draft 2: tokens differ from "
+                             "the chunked plain session's")
+    sess = sessions["decode_paged"]
+    rebuilt = sess.paged_kv.to_dense(sess.dev_caches)
+    paged_same = all(torch.equal(as_bits(torch, a[k]), as_bits(torch, b[k]))
+                     for a, b in zip(rebuilt, sess.dev_caches) for k in a)
+    zero = sess.paged_kv.to_dense([{k: torch.zeros_like(v)
+                                    for k, v in c.items()}
+                                   for c in sess.dev_caches])
+    owned_same = all(
+        torch.equal(as_bits(torch, zero[pos][k][per]),
+                    as_bits(torch, sess.dev_caches[pos][k][per]))
+        for pos, per in sess.paged_kv.attn_layers.values() for k in "kv")
+    # chunked against monolithic prefill: first-token logits and caches
+    cmp = {}
+    for name, kw in (("mono", {}), ("chunked",
+                                    dict(prefill_chunk_tokens=chunk))):
+        s = DecodeSession(backend, plan, max_len=max_len, segment=seg, **kw)
+        with recording(backend, "hidden_logits", []) as seen:
+            s.prefill(prompt)
+        cmp[name] = (seen[-1].float(), s)
+    (lm, sm), (lc, sc) = cmp["mono"], cmp["chunked"]
+    diffs = {"logits": ((lc - lm).abs().max().item(),
+                        5e-2 * lm.abs().max().item())}
+    for side, a, b in (("device", sm.dev_caches, sc.dev_caches),
+                       ("server", sm.srv_caches, sc.srv_caches)):
+        worst = None                        # (err, tol) of the worst ratio
+        for layer in (range(0, p) if side == "device" else range(p, L)):
+            per, pos = divmod(layer, len(a))
+            for k in "kv":
+                x, y = a[pos][k][per].float(), b[pos][k][per].float()
+                top = max(x.abs().max().item(), 1e-30)
+                tol = 2.0 ** (np.floor(np.log2(top)) - 2) \
+                    if side == "device" else 5e-2 * top
+                err = (x - y).abs().max().item()
+                if worst is None or err / tol > worst[0] / worst[1]:
+                    worst = (err, tol)
+        diffs[f"{side}_caches"] = worst
+    same_tokens = int((chunked == plain).sum())
+    emit({"decode_feature_checks": {
+        "speculative_bitwise_plain": True,
+        "paged_tokens_bitwise_chunked": True,
+        "paged_to_dense_bitwise": paged_same,
+        "paged_owned_slices_bitwise": owned_same,
+        "chunked_vs_monolithic": {k: {"max_abs_err": v[0], "tol": v[1]}
+                                  for k, v in diffs.items()},
+        "chunked_tokens_equal_plain": same_tokens,
+        "tokens": int(plain.size)}})
+    if not (paged_same and owned_same):
+        raise AssertionError("paged to_dense differs from the dense ring")
+    bad = [k for k, (err, tol) in diffs.items() if not err <= tol]
+    if bad:
+        raise AssertionError(f"chunked prefill vs monolithic out of "
+                             f"tolerance: {bad} {diffs}")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the serving launcher
 
 def launch_serve(torch, ops, batch: int = 4, prompt_len: int = 64,
                  gen: int = 32):
@@ -836,9 +1130,13 @@ SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
 REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13",
               "qmatmul": "PR 14", "decode_attention": "PR 14"}
 
-# the kernels each path's run must launch
+# the kernels each path's run must launch (the classifier loop is plain
+# PyTorch, as the reference's is plain XLA: it must launch none)
 EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                              "flash_attention"),
+            **{run: ("qmatmul", "decode_attention") for run in (
+                "decode_plain", "decode_chunk16", "decode_draft2",
+                "decode_draft4", "decode_paged")},
             "launch_q0": ("decode_attention", "flash_attention"),
             "launch_q8": ("quantize", "qmatmul", "dequantize",
                           "decode_attention", "flash_attention"),
@@ -988,9 +1286,18 @@ def main(argv=None) -> int:
         torch, ops, calib_batch, seq)
     profile_decode(torch, dep, prompt)
     reference_check(torch, cfg, params, backend)
+    t0 = time.perf_counter()
+    cls_launches = classifier_loop(torch, ops)
+    emit({"classifier_loop_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    feature_runs = decode_features(torch, ops, backend, prompt)
+    emit({"decode_features_s": time.perf_counter() - t0})
     del params, backend, dep
-    runs = {"request_loop": loop_launches,
+    runs = {"request_loop": loop_launches, **feature_runs,
             **launch_serve(torch, ops)}
+    if any(cls_launches.values()):
+        raise AssertionError(f"the classifier loop launched kernels: "
+                             f"{cls_launches}")
     for quant in (8, 0):
         profile_launch(torch, quant)
 

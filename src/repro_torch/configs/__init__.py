@@ -3,3 +3,4 @@ from repro_torch.configs.base import (  # noqa: F401
     ModelConfig, MoEConfig, SSMConfig, for_shape, get_config, list_configs,
     register,
 )
+from repro_torch.configs.classifier import CIFAR_CNN, MNIST_MLP  # noqa: F401

@@ -41,6 +41,13 @@ def split_blocks(layer_params: List, plan: PartitionPlan,
     return DeviceSegment(dev_params, bits_int, bits_x, wire + wire_x)
 
 
+def split_classifier(params: List[dict], plan: PartitionPlan,
+                     layer_specs) -> tuple[DeviceSegment, List[dict]]:
+    """Split + quantize a classifier at plan.p. Returns (device, server)."""
+    seg = split_blocks(params, plan, layer_specs)
+    return seg, list(params[plan.p:])
+
+
 def segment_memory_bytes(seg: DeviceSegment) -> float:
     """Device memory footprint of the quantized segment (packed codes)."""
     total = 0.0

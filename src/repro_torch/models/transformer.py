@@ -358,6 +358,29 @@ def segment_decode_step(params, cfg: ModelConfig, x, caches, pos: int,
     return x, caches
 
 
+def segment_verify(params, cfg: ModelConfig, xs, caches, pos0: int,
+                   start: int, stop: int):
+    """Speculative-decode verification: run the ``s`` hidden rows ``xs``
+    (B, S, D) — the cut-point activations of a drafted token batch at
+    positions ``pos0 .. pos0 + s - 1`` — through blocks ``[start, stop)``
+    and unembed EVERY row. Returns ``(logits (B, S, V), caches)``.
+
+    The rows run one at a time through the EXACT ``segment_decode_step``
+    + unembed of a plain decode step, so each row's logits are bitwise
+    those of a plain step. A single multi-row forward would not be: its
+    projections would run the quantized matmul at M = B * S (another
+    kernel route above M = 16, another reduction order) and its
+    attention another kernel. No cache rollback is needed on rejection:
+    a stale slot past the acceptance point is rewritten before any later
+    query reads it (slot == position)."""
+    rows = []
+    for j in range(xs.shape[1]):
+        x, caches = segment_decode_step(params, cfg, xs[:, j:j + 1], caches,
+                                        pos0 + j, start, stop)
+        rows.append(_unembed(params, cfg, x)[:, -1, :])
+    return torch.stack(rows, dim=1), caches
+
+
 # ---------------------------------------------------------------------------
 # Whole model (the serving launcher's entry points)
 

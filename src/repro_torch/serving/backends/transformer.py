@@ -61,6 +61,10 @@ class TransformerBackend(ModelBackend):
 
     @property
     def device(self) -> torch.device:
+        """The parameters' device (the CPU for a pricing-only backend
+        with ``params=None``)."""
+        if self.params is None:
+            return torch.device("cpu")
         return self.params["embed"].device
 
     def layer_specs(self, batch: int = 1,
@@ -116,8 +120,23 @@ class TransformerBackend(ModelBackend):
         return T.segment_decode_step(self._p(params), self.cfg, x, caches,
                                      pos, start, stop)
 
+    def prefill_segment(self, h, cache0, start, stop, params=None):
+        """Blocks ``[start, stop)`` over a whole prompt, filling the
+        ring caches ``cache0`` (the prefill of configs whose ring wraps:
+        sliding windows)."""
+        return T.segment_prefill(self._p(params), self.cfg, h, cache0,
+                                 start, stop)
+
     def extend_segment(self, h, caches, pos0, start, stop, params=None):
         return T.segment_extend(self._p(params), self.cfg, h, caches, pos0,
+                                start, stop)
+
+    def verify_segment(self, h, caches, pos0, start, stop, params=None):
+        """Speculative verify: the ``s`` drafted rows of ``h`` through
+        blocks ``[start, stop)`` + per-row unembed -> ``(logits (B, S,
+        V), caches)``, bitwise ``s`` sequential ``decode_segment`` +
+        ``hidden_logits`` calls."""
+        return T.segment_verify(self._p(params), self.cfg, h, caches, pos0,
                                 start, stop)
 
     def hidden_logits(self, h, params=None):

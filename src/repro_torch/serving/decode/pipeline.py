@@ -11,15 +11,19 @@ ships ONE token's quantized hidden state, advances the server cache and
 samples greedily. ``p == 0`` runs entirely server-side; ``p == L`` still
 unembeds server-side.
 
+Serving-shape knobs, all off by default: ``prefill_chunk_tokens`` admits
+the prompt in chunks through the cache-mediated extend path,
+``draft_tokens`` turns decode rounds speculative (the quantized device
+segment drafts, the server verifies every draft in one round trip —
+bitwise plain greedy), ``paged`` tracks the device KV page by page.
+Sliding-window configs prefill through ``prefill_segment`` (their ring
+wraps) and take neither chunking nor speculation.
+
 On a CUDA backend the device segment runs from quantized wire structs
 through the qmatmul/qmatmul4 kernels by default (``qkernels``), and
 every decode step's attention through the decode-attention kernel.
 Stage boundaries are fenced with ``torch.cuda.synchronize`` so the
 wall-clock stage seconds measure finished work.
-
-Chunked prefill (``prefill_chunk_tokens``), speculative decode
-(``draft_tokens``), paged KV (``paged``) and sliding-window configs are
-not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -30,11 +34,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ATTN
 from repro_torch.core.quantizer import dequantize, quantize
 from repro_torch.models import transformer as T
 from repro_torch.serving.backends.base import to_device
-from repro_torch.serving.decode.cache import (kv_cache_dtype,
-                                              segment_cache_bytes)
+from repro_torch.serving.decode.cache import (DEFAULT_PAGE_TOKENS,
+                                              KVPagePool, PagedKVCache,
+                                              kv_cache_dtype,
+                                              segment_cache_bytes,
+                                              segment_nonattn_cache_bytes,
+                                              segment_page_pool)
 from repro_torch.serving.errors import ServingError
 
 
@@ -48,9 +57,14 @@ def _fence(t):
 @dataclasses.dataclass
 class GenerationResult:
     """One streamed generation. ``tokens`` (B, new_tokens) greedy ids;
-    stage seconds are wall-clock, aggregated over the whole stream. The
-    prefill round emits token 0, each decode round one more token, so
-    ``per_token_s`` has ``new_tokens - 1`` entries."""
+    stage seconds are wall-clock, aggregated over the whole stream.
+
+    Generation advances in server ROUNDS — the prefill round emits token
+    0, then each decode round one token (plain greedy) or 1..k+1 tokens
+    (a speculative round). ``per_token_s`` has ``new_tokens - 1`` entries
+    regardless: a round that emitted ``m`` tokens contributes ``m`` equal
+    entries of ``round_seconds / m``. ``rounds`` counts decode rounds
+    (the prefill is not one)."""
     tokens: np.ndarray
     ttft_s: float                 # prefill → first token
     t_device_s: float             # device-segment seconds (incl. prefill)
@@ -61,6 +75,10 @@ class GenerationResult:
     server_cache_bytes: int       # resident [p, L) cache footprint
     device_cache_dtype: str
     rounds: int = 0               # decode rounds after the prefill
+    draft_tokens: int = 0         # configured draft length k (0 = off)
+    drafts_proposed: int = 0
+    drafts_accepted: int = 0
+    prefill_chunks: int = 1       # 1 = monolithic prefill
 
     @property
     def new_tokens(self) -> int:
@@ -72,6 +90,14 @@ class GenerationResult:
         return self.new_tokens / self.t_total_s if self.t_total_s > 0 \
             else 0.0
 
+    @property
+    def accept_rate(self) -> Optional[float]:
+        """Measured draft acceptance (accepted / proposed); None when no
+        drafts were proposed."""
+        if self.drafts_proposed <= 0:
+            return None
+        return self.drafts_accepted / self.drafts_proposed
+
 
 class DecodeSession:
     """One partitioned prefill→decode stream for a deployed plan.
@@ -81,26 +107,20 @@ class DecodeSession:
     token ids (B, S), greedy text decode only. ``qkernels`` (default: on
     when the backend lives on CUDA) runs the device segment from wire
     structs (``qstacked_for``) instead of dense fake-quantized weights
-    (``stacked_for``)."""
+    (``stacked_for``). ``page_pool`` shares one ``KVPagePool`` between
+    paged sessions (default: a pool of this stream's worst case)."""
 
     def __init__(self, backend, plan, *, max_len: int,
                  segment=None, qkernels: Optional[bool] = None,
                  paged: bool = False,
+                 page_tokens: int = DEFAULT_PAGE_TOKENS,
+                 page_pool: Optional[KVPagePool] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  draft_tokens: int = 0):
         if not getattr(backend, "supports_decode", False):
             raise ServingError(
                 f"{type(backend).__name__} has no autoregressive decode "
                 "path — decode sessions need a transformer backend")
-        if paged or prefill_chunk_tokens is not None or draft_tokens:
-            raise NotImplementedError(
-                "paged KV, chunked prefill and speculative decode are not "
-                "ported to repro_torch yet (ROADMAP Queue 1)")
-        if backend.cfg.sliding_window is not None:
-            raise NotImplementedError(
-                "decode sessions on sliding-window configs (ring "
-                "wraparound during prefill) are not ported to repro_torch "
-                "yet (ROADMAP Queue 1)")
         self.backend = backend
         self.plan = plan
         self.max_len = int(max_len)
@@ -126,10 +146,55 @@ class DecodeSession:
             self.dev_dtype = self.model_dtype
         self.dev_caches = None
         self.srv_caches = None
+        # block-granular device-KV accounting: the segment functions keep
+        # their dense cache operands; the paged structure tracks the
+        # page-granular resident footprint, bit for bit the dense ring
+        self.paged = bool(paged) and self.p > 0
+        self.page_tokens = int(page_tokens)
+        self.page_pool = page_pool
+        self.paged_kv: Optional[PagedKVCache] = None
+        self.draft_tokens = int(draft_tokens)
+        if self.draft_tokens < 0:
+            raise ServingError("draft_tokens must be >= 0")
+        plen = T.period_len(cfg)
+        # full-context attention stacks prefill through the cache-
+        # mediated extend path (the monolithic prefill is the one-chunk
+        # admission), so the prefill attention reads K/V through the
+        # narrowed cache dtype every later decode step reads
+        self._cache_extendable = (
+            cfg.sliding_window is None
+            and all(cfg.block_kind(i) == ATTN for i in range(plen)))
+        self.prefill_chunk_tokens: Optional[int] = None
+        if prefill_chunk_tokens is not None or self.draft_tokens:
+            if any(cfg.block_kind(i) != ATTN for i in range(plen)):
+                raise ServingError(
+                    "chunked prefill / speculative decode need an "
+                    "attention-only stack: SSM state is a running "
+                    "reduction, not position-addressable")
+            if cfg.sliding_window is not None:
+                raise ServingError(
+                    "chunked prefill / speculative decode need the full-"
+                    "context ring (slot == position); sliding-window "
+                    "wraparound would overwrite live context")
+        if prefill_chunk_tokens is not None:
+            c = int(prefill_chunk_tokens) or 2 * self.page_tokens
+            if c < 2:
+                raise ServingError(
+                    "prefill_chunk_tokens must be >= 2 (a 1-row chunk's "
+                    "matvec lowering breaks the bitwise prefill lock) or "
+                    "0 for the default of 2 * page_tokens")
+            if self.paged and c % self.page_tokens:
+                raise ServingError(
+                    f"prefill_chunk_tokens={c} must be page-aligned "
+                    f"(kv page = {self.page_tokens} tokens)")
+            self.prefill_chunk_tokens = c
         self.pos = 0
         self.t_device_s = 0.0
         self.t_server_s = 0.0
         self.rounds = 0
+        self.drafts_proposed = 0
+        self.drafts_accepted = 0
+        self.prefill_chunks = 1
 
     # -- pricing views ---------------------------------------------------
     def wire_bits_per_token(self, batch: int) -> float:
@@ -139,11 +204,24 @@ class DecodeSession:
             return 0.0
         return float(self.bits_x * self.cfg.d_model * batch + 32 * batch)
 
+    def wire_bits_per_round(self, batch: int,
+                            k: Optional[int] = None) -> float:
+        """Wire bits for ONE speculative round: k drafted ids (32-bit) +
+        k+1 quantized cut hiddens uplink, up to k+1 verified ids
+        downlink."""
+        if self.p == 0:
+            return 0.0
+        k = self.draft_tokens if k is None else int(k)
+        hidden = self.bits_x * self.cfg.d_model * batch
+        return float((k + 1) * hidden + 32 * k * batch
+                     + 32 * (k + 1) * batch)
+
     def _quant_hop(self, h):
         """Quantize the cut hidden ``h`` (B, S, D) for the channel hop
         with one grid PER TOKEN POSITION (min/max over that position's
-        (B, 1, D) slab); a (B, 1, D) decode slab reduces to the plain
-        per-tensor ``fake_quant``."""
+        (B, 1, D) slab): a chunk's rows quantize as the monolithic
+        prefill's same rows, and a (B, 1, D) decode slab reduces to the
+        plain per-tensor ``fake_quant``."""
         mu = torch.amin(h, dim=(0, 2), keepdim=True)
         phi = torch.amax(h, dim=(0, 2), keepdim=True)
         codes, scale, mu = quantize(h, self.bits_x, mu=mu, phi=phi)
@@ -152,6 +230,11 @@ class DecodeSession:
     def device_cache_bytes(self) -> int:
         if self.dev_caches is None or self.p == 0:
             return 0
+        if self.paged_kv is not None:
+            # pages actually held + the dense non-attention remainder
+            return self.paged_kv.resident_bytes + \
+                segment_nonattn_cache_bytes(self.cfg, self.dev_caches, 0,
+                                            self.p)
         return segment_cache_bytes(self.cfg, self.dev_caches, 0, self.p)
 
     def server_cache_bytes(self) -> int:
@@ -160,43 +243,116 @@ class DecodeSession:
         return segment_cache_bytes(self.cfg, self.srv_caches, self.p,
                                    self.L)
 
+    def sever(self) -> int:
+        """End the stream: return every held KV page to the pool (no-op
+        for dense sessions). Returns the page count released."""
+        if self.paged_kv is None:
+            return 0
+        return self.paged_kv.free_all()
+
     # -- pipeline stages -------------------------------------------------
+    @staticmethod
+    def chunk_bounds(s: int, c: int) -> List[tuple]:
+        """Chunk boundaries [(lo, hi), ...] covering ``[0, s)`` in
+        ``c``-token chunks, folding a remainder of 1 into the final
+        chunk (no 1-row chunk)."""
+        bounds, lo = [], 0
+        while lo < s:
+            hi = min(lo + c, s)
+            if s - hi == 1:
+                hi = s
+            bounds.append((lo, hi))
+            lo = hi
+        return bounds
+
+    def _open_paged(self, b: int) -> None:
+        if self.page_pool is None:
+            self.page_pool = segment_page_pool(
+                self.cfg, 0, self.p, b, self.max_len, self.dev_dtype,
+                page_tokens=self.page_tokens, device=self.device)
+        self.paged_kv = PagedKVCache(self.page_pool, self.cfg, 0, self.p,
+                                     b, self.max_len)
+
     def prefill(self, prompt):
         """Run the partitioned prefill; returns the first greedy token
         (B,) and records stage seconds (TTFT = their sum)."""
         prompt = to_device(prompt, self.device, torch.int32)
-        s = prompt.shape[1]
+        b, s = prompt.shape
         if s + 1 > self.max_len:
             raise ServingError(
                 f"prompt ({s}) leaves no room in max_len={self.max_len}")
-        return self._prefill_chunked(prompt)
-
-    def _prefill_chunked(self, prompt):
-        """Monolithic prefill as ONE cache-mediated extend chunk: device
-        extend → quantized hop → server extend, so the prefill attention
-        reads K/V through the same narrowed cache dtype every later
-        decode step reads. (Multi-chunk admission is a later slice.)"""
-        b, s = prompt.shape
+        if self.prefill_chunk_tokens is not None:
+            return self._prefill_chunked(prompt, self.prefill_chunk_tokens)
+        if self._cache_extendable:
+            return self._prefill_chunked(prompt, None)
+        # a wrapping (sliding-window) ring: the whole prompt at once
         t0 = time.perf_counter()
         if self.p > 0:
-            self.dev_caches = T.init_cache(self.cfg, b, self.max_len,
-                                           self.dev_dtype, self.device)
             h0 = self.backend.embed(prompt, params=self.dev_params)
-            h_dev, self.dev_caches = self.backend.extend_segment(
-                h0, self.dev_caches, 0, 0, self.p, params=self.dev_params)
+            cache0 = T.init_cache(self.cfg, b, self.max_len, self.dev_dtype,
+                                  self.device)
+            h_dev, self.dev_caches = self.backend.prefill_segment(
+                h0, cache0, 0, self.p, params=self.dev_params)
             h_in = _fence(self._quant_hop(h_dev))
+            if self.paged:
+                self._open_paged(b)
+                self.paged_kv.ingest_prefill(self.dev_caches, s)
         t1 = time.perf_counter()
-        self.srv_caches = T.init_cache(self.cfg, b, self.max_len,
-                                       self.model_dtype, self.device)
         if self.p == 0:
             h_in = self.backend.embed(prompt)
-        h_srv, self.srv_caches = self.backend.extend_segment(
-            h_in, self.srv_caches, 0, self.p, self.L)
+        cache0 = T.init_cache(self.cfg, b, self.max_len, self.model_dtype,
+                              self.device)
+        h_srv, self.srv_caches = self.backend.prefill_segment(
+            h_in, cache0, self.p, self.L)
         logits = self.backend.hidden_logits(h_srv[:, -1:, :])
         token = _fence(torch.argmax(logits, -1).to(torch.int32))
         t2 = time.perf_counter()
         self.t_device_s += t1 - t0
         self.t_server_s += t2 - t1
+        self.pos = s
+        return token
+
+    def _prefill_chunked(self, prompt, chunk_tokens: Optional[int]):
+        """Chunk-granular prefill (``chunk_tokens=None``: one chunk, the
+        monolithic case): each chunk runs device extend → quantized hop
+        → server extend, and (when paged) its pages are ingested as it
+        lands."""
+        b, s = prompt.shape
+        bounds = [(0, s)] if chunk_tokens is None \
+            else self.chunk_bounds(s, chunk_tokens)
+        self.prefill_chunks = len(bounds)
+        if self.p > 0:
+            self.dev_caches = T.init_cache(self.cfg, b, self.max_len,
+                                           self.dev_dtype, self.device)
+            if self.paged:
+                self._open_paged(b)
+        self.srv_caches = T.init_cache(self.cfg, b, self.max_len,
+                                       self.model_dtype, self.device)
+        h_srv = None
+        for lo, hi in bounds:
+            chunk = prompt[:, lo:hi]
+            t0 = time.perf_counter()
+            if self.p > 0:
+                h0 = self.backend.embed(chunk, params=self.dev_params)
+                h_dev, self.dev_caches = self.backend.extend_segment(
+                    h0, self.dev_caches, lo, 0, self.p,
+                    params=self.dev_params)
+                h_in = _fence(self._quant_hop(h_dev))
+                if self.paged_kv is not None:
+                    self.paged_kv.ingest_range(self.dev_caches, lo, hi)
+            t1 = time.perf_counter()
+            if self.p == 0:
+                h_in = self.backend.embed(chunk)
+            h_srv, self.srv_caches = self.backend.extend_segment(
+                h_in, self.srv_caches, lo, self.p, self.L)
+            _fence(h_srv)
+            t2 = time.perf_counter()
+            self.t_device_s += t1 - t0
+            self.t_server_s += t2 - t1
+        t1 = time.perf_counter()
+        logits = self.backend.hidden_logits(h_srv[:, -1:, :])
+        token = _fence(torch.argmax(logits, -1).to(torch.int32))
+        self.t_server_s += time.perf_counter() - t1
         self.pos = s
         return token
 
@@ -213,6 +369,8 @@ class DecodeSession:
                 x, self.dev_caches, self.pos, 0, self.p,
                 params=self.dev_params)
             x_in = _fence(self._quant_hop(x_dev))
+            if self.paged_kv is not None:
+                self.paged_kv.append_step(self.dev_caches, self.pos)
         t1 = time.perf_counter()
         if self.p == 0:
             x_in = self.backend.embed(tok)
@@ -226,16 +384,97 @@ class DecodeSession:
         self.pos += 1
         return nxt
 
+    def _spec_round(self, token, k: int) -> List[np.ndarray]:
+        """One speculative round: draft ``k`` tokens through the device
+        segment + draft head, verify all of them in ONE server call, emit
+        the longest matching greedy prefix + the server's next token
+        (1..k+1 tokens) — bitwise plain greedy decode.
+
+        Draft head: argmax over ``hidden_logits`` of the QUANTIZED cut
+        hidden under the device weights — the deployed segment at its
+        planned bit-widths is the draft model (at p == L the full model,
+        so acceptance is exactly 1). No cache rollback on rejection: every
+        slot past the acceptance point is rewritten by a later round
+        before any query attends it (slot == position)."""
+        P = self.pos
+        t0 = time.perf_counter()
+        cur = to_device(token, self.device, torch.int32).reshape(-1, 1)
+        qs, drafts = [], []
+        for j in range(k + 1):
+            if self.p > 0:
+                x = self.backend.embed(cur, params=self.dev_params)
+                x_dev, self.dev_caches = self.backend.decode_segment(
+                    x, self.dev_caches, P + j, 0, self.p,
+                    params=self.dev_params)
+                q = self._quant_hop(x_dev)
+            else:
+                q = self.backend.embed(cur)
+            qs.append(q)
+            if j < k:
+                d = torch.argmax(
+                    self.backend.hidden_logits(q, params=self.dev_params),
+                    -1).to(torch.int32)
+                drafts.append(d)
+                cur = d.reshape(-1, 1)
+        hh = _fence(torch.cat(qs, dim=1))           # (B, k+1, D)
+        if self.paged_kv is not None:
+            self.paged_kv.ingest_range(self.dev_caches, P, P + k + 1)
+        t1 = time.perf_counter()
+        logits, self.srv_caches = self.backend.verify_segment(
+            hh, self.srv_caches, P, self.p, self.L)
+        g = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+        t2 = time.perf_counter()
+        # acceptance = longest prefix where every batch row's draft
+        # matches the verified greedy token (min over rows keeps all rows
+        # on their true greedy trajectory)
+        d_np = torch.stack(drafts, dim=1).cpu().numpy()     # (B, k)
+        a = k
+        for i in range(k):
+            if not np.array_equal(d_np[:, i], g[:, i]):
+                a = i
+                break
+        if self.p > 0:
+            self.t_device_s += t1 - t0
+        else:
+            self.t_server_s += t1 - t0
+        self.t_server_s += t2 - t1
+        self.drafts_proposed += k
+        self.drafts_accepted += a
+        self.pos = P + a + 1
+        return [g[:, i] for i in range(a + 1)]
+
     # -- drivers ----------------------------------------------------------
+    def round_stream(self, prompt, max_new_tokens: int):
+        """Generator of per-round token lists: the first yield is the
+        prefill's ``[token0]``; each later yield is one decode round's
+        emissions — ``[token]`` for plain greedy, 1..k+1 tokens for a
+        speculative round. ``self.rounds`` counts the decode rounds."""
+        token = self.prefill(prompt)
+        yield [token.cpu().numpy()]
+        emitted = 1
+        while emitted < max_new_tokens:
+            remaining = max_new_tokens - emitted
+            k = min(self.draft_tokens, remaining - 1,
+                    self.max_len - 1 - self.pos)
+            if k >= 1:
+                out = self._spec_round(token, k)
+                token = out[-1]
+            else:
+                token = self.step(token)
+                out = [token.cpu().numpy()]
+            self.rounds += 1
+            emitted += len(out)
+            yield out
+
     def stream(self, prompt, max_new_tokens: int):
         """Generator of (step_index, token (B,) np.ndarray) — token 0 is
-        the prefill's (TTFT)."""
-        token = self.prefill(prompt)
-        yield 0, token.cpu().numpy()
-        for i in range(1, max_new_tokens):
-            token = self.step(token)
-            self.rounds += 1
-            yield i, token.cpu().numpy()
+        the prefill's (TTFT). A speculative round's tokens are yielded
+        one by one (they become available together)."""
+        i = 0
+        for out in self.round_stream(prompt, max_new_tokens):
+            for tok in out:
+                yield i, tok
+                i += 1
 
     def generate(self, prompt, max_new_tokens: int,
                  stream_cb=None) -> GenerationResult:
@@ -246,16 +485,20 @@ class DecodeSession:
         t_start = time.perf_counter()
         ttft = None
         last = t_start
-        for i, tok in self.stream(prompt, max_new_tokens):
+        i = 0
+        for out in self.round_stream(prompt, max_new_tokens):
             now = time.perf_counter()
             if ttft is None:
                 ttft = now - t_start
             else:
-                per_token.append(now - last)
+                # spread the round's wall seconds over its emissions
+                per_token.extend([(now - last) / len(out)] * len(out))
             last = now
-            toks.append(tok)
-            if stream_cb is not None:
-                stream_cb(i, tok)
+            for tok in out:
+                toks.append(tok)
+                if stream_cb is not None:
+                    stream_cb(i, tok)
+                i += 1
         total = time.perf_counter() - t_start
         return GenerationResult(
             tokens=np.stack(toks, axis=1),
@@ -267,4 +510,8 @@ class DecodeSession:
             device_cache_bytes=self.device_cache_bytes(),
             server_cache_bytes=self.server_cache_bytes(),
             device_cache_dtype=str(self.dev_dtype).removeprefix("torch."),
-            rounds=self.rounds)
+            rounds=self.rounds,
+            draft_tokens=self.draft_tokens,
+            drafts_proposed=self.drafts_proposed,
+            drafts_accepted=self.drafts_accepted,
+            prefill_chunks=self.prefill_chunks)

@@ -120,26 +120,37 @@ class Deployment:
         return self.result
 
     # -- generate (autoregressive decode) -------------------------------
-    def decode_session(self, max_len: Optional[int] = None):
+    def decode_session(self, max_len: Optional[int] = None,
+                       prefill_chunk_tokens: Optional[int] = None,
+                       draft_tokens: int = 0):
         """A fresh ``DecodeSession`` on this deployment's plan, reusing
-        the lazily-materialized quantized device segment."""
+        the lazily-materialized quantized device segment. The serving-
+        shape knobs pass through: ``prefill_chunk_tokens`` admits the
+        prompt in chunks, ``draft_tokens`` turns decode rounds
+        speculative."""
         from repro_torch.serving.decode import DecodeSession
         seg = self.device_segment().segment if self.plan.p else None
         if max_len is None:
             max_len = getattr(self.backend, "decode_max_len", None) \
                 or 2 * getattr(self.backend, "seq_len", 1)
         return DecodeSession(self.backend, self.plan, max_len=max_len,
-                             segment=seg)
+                             segment=seg,
+                             prefill_chunk_tokens=prefill_chunk_tokens,
+                             draft_tokens=draft_tokens)
 
     def generate(self, prompt, max_new_tokens: int, *,
-                 max_len: Optional[int] = None, stream_cb=None):
+                 max_len: Optional[int] = None, stream_cb=None,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 draft_tokens: int = 0):
         """Stream ``max_new_tokens`` greedy tokens through the
         partitioned prefill→decode pipeline. Wall-clock stage seconds
         land in ``result.extra['measured_decode']`` (what
         ``QPARTServer.record_decode`` regresses). Returns a
         ``decode.GenerationResult``."""
-        out = self.decode_session(max_len=max_len).generate(
-            prompt, max_new_tokens, stream_cb=stream_cb)
+        sess = self.decode_session(max_len=max_len,
+                                   prefill_chunk_tokens=prefill_chunk_tokens,
+                                   draft_tokens=draft_tokens)
+        out = sess.generate(prompt, max_new_tokens, stream_cb=stream_cb)
         self.result.extra["measured_decode"] = {
             "batch": int(out.tokens.shape[0]),
             "new_tokens": out.new_tokens,
@@ -151,5 +162,10 @@ class Deployment:
             "device_cache_bytes": out.device_cache_bytes,
             "device_cache_dtype": out.device_cache_dtype,
             "rounds": out.rounds,
+            "draft_tokens": out.draft_tokens,
+            "drafts_proposed": out.drafts_proposed,
+            "drafts_accepted": out.drafts_accepted,
+            "accept_rate": out.accept_rate,
+            "prefill_chunks": out.prefill_chunks,
         }
         return out

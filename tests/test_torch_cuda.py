@@ -8,7 +8,9 @@ GQA groupings; the skinny split-K route of qmatmul and qmatmul4 (M <=
 16) over ragged K and N and unaligned codes, with M = 17 crossing into
 the tiled route; decode attention's cluster split over every change of
 its CTA count up to a 4096-slot ring, wrapped and not. Each gives the
-same bits on every call, in one launch.
+same bits on every call, in one launch. Beside the kernels: the decode
+session's page pool on the card (bf16 and float8 pages, the CPU's bits)
+and speculative decode through the kernels, bitwise plain greedy.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
@@ -392,3 +394,98 @@ def test_quantize_wrappers_reject_what_the_kernels_do_not_take(gen):
                          torch.zeros(3, 1, device="cuda"))
     with pytest.raises(ValueError):
         qk.dequantize_cuda(x, one, zero)                      # not uint8
+
+
+def _small_lm(seed=0):
+    """A 4-layer bf16 smollm-135m cut to d_model 256 on the card."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import TransformerBackend
+    cfg = dataclasses.replace(get_config("smollm-135m"), name="smollm-8m",
+                              num_layers=4, d_model=256, num_heads=4,
+                              num_kv_heads=2, head_dim=64, d_ff=768,
+                              vocab_size=256, tp_pad=1)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    return TransformerBackend(cfg, params, seq_len=32, decode_max_len=96)
+
+
+def _bits(t):
+    return t.view({1: torch.uint8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn],
+                         ids=["bf16", "f8"])
+def test_page_pool_on_card_bitwise(gen, dtype):
+    """The device-resident page pool: chunk ingests, decode-step appends
+    and ring wraparound (a window of 20 over 8-slot pages, the last one
+    partial) copy the dense ring's bits into pages on the card, equal to
+    the same copies on the CPU; ``to_dense`` rebuilds the ring bit for
+    bit."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import to_storage
+    from repro_torch.serving.decode.cache import (PagedKVCache,
+                                                  segment_page_pool)
+    cfg = dataclasses.replace(_small_lm().cfg, sliding_window=20)
+    caches = T.init_cache(cfg, 2, 96, dtype, "cuda")
+    for c in caches:
+        for k in c:
+            c[k].copy_(to_storage(torch.randn(c[k].shape, generator=gen,
+                                              device="cuda") * 4, dtype))
+    twins = []
+    for dev, tree in (("cuda", caches),
+                      ("cpu", [{k: v.cpu() for k, v in c.items()}
+                               for c in caches])):
+        pool = segment_page_pool(cfg, 0, 3, 2, 96, dtype, page_tokens=8,
+                                 device=dev)
+        paged = PagedKVCache(pool, cfg, 0, 3, 2, 96)
+        paged.ingest_range(tree, 0, 6)
+        paged.ingest_range(tree, 6, 13)
+        for pos in range(13, 31):               # wraps the 20-slot ring
+            paged.append_step(tree, pos)
+        twins.append((pool, paged, tree))
+    (pool, paged, tree), (cpu_pool, cpu_paged, _) = twins
+    assert paged.held_pages == cpu_paged.held_pages == 3 * 2 * 3
+    assert torch.equal(_bits(pool.data).cpu(), _bits(cpu_pool.data))
+    rebuilt = paged.to_dense(tree)
+    assert all(torch.equal(_bits(a[k]), _bits(b[k]))
+               for a, b in zip(rebuilt, tree) for k in a)
+
+
+def test_speculative_equals_plain_on_card():
+    """On the card (int8 wire structs through qmatmul, float8 device
+    cache through decode attention): speculative tokens are plain greedy
+    bit for bit at 2 and 3 drafts, paged KV included, and ``to_dense``
+    equals the dense ring bit for bit."""
+    import numpy as np
+    from repro_torch.core.solver import PartitionPlan
+    from repro_torch.kernels import ops
+    from repro_torch.serving.decode import DecodeSession
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    backend = _small_lm()
+    prompt = np.random.default_rng(0).integers(0, 256, (2, 24)).astype(
+        np.int32)
+    for p in (2, 4):
+        plan = PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
+                             objective=0.0, psi_total=0.0, payload_bits=0.0,
+                             breakdown={})
+        before = ops.KERNELS["qmatmul"].launches
+        plain = DecodeSession(backend, plan, max_len=96).generate(prompt, 12)
+        assert ops.KERNELS["qmatmul"].launches > before
+        for k in (2, 3):
+            out = DecodeSession(backend, plan, max_len=96,
+                                draft_tokens=k).generate(prompt, 12)
+            assert np.array_equal(out.tokens, plain.tokens)
+        sess = DecodeSession(backend, plan, max_len=96, paged=True,
+                             page_tokens=8, draft_tokens=2)
+        out = sess.generate(prompt, 12)
+        assert np.array_equal(out.tokens, plain.tokens)
+        rebuilt = sess.paged_kv.to_dense(sess.dev_caches)
+        assert all(torch.equal(_bits(a[k]), _bits(b[k]))
+                   for a, b in zip(rebuilt, sess.dev_caches) for k in a)
+        if p == 4:
+            assert out.accept_rate == 1.0
