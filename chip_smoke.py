@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one GPU
     python3 chip_smoke.py --profile-launcher [--src OTHER/src]
+    python3 chip_smoke.py --profile-tiled [--src OTHER/src]
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -20,10 +21,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    lower bound for the same work. The Timer queues every rep behind a
    device sleep and reports the median and minimum of the event pairs,
    so a time is the card's and not the wrapper's host time, and the
-   median over its floor (an empty launch); the build's ptxas report of
-   the redesigned kernels (registers, spills, a spill fails the run),
-   their dynamic shared memory and the flash kernel's SASS HMMA count
-   print first;
+   median over its floor (an empty launch); the tiled qmatmul route is
+   timed on the MLP up- and down-projections at M = 32, 128 and 256. The
+   build's ptxas report of the redesigned kernels (registers, spills, a
+   spill fails the run), their dynamic shared memory and the SASS HMMA
+   counts of the flash and the tiled qmatmul kernels (a tiled
+   instantiation without HMMA fails the run) print first;
 4. the request loop on smollm-135m at its registered shape (30 layers,
    d_model 576, 9/3 heads padded to 4 x 4 by tp_pad=16, d_ff 1536, vocab
    49152, bf16) with seeded random weights: register -> calibrate ->
@@ -50,12 +53,16 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    compared byte for byte with the one the plain versions build on the
    CPU; then a profile of the launcher's decode step at --quant 8 and 0.
 
-``--profile-launcher`` runs only that profile, and ``--src`` imports the
-port from another tree, so that an earlier commit unpacked by ``git
-archive`` can be profiled in the same call as this one.
+``--profile-launcher`` runs only that profile; ``--profile-tiled`` only
+times the tiled qmatmul route over a sweep of shapes and profiles the
+prefills that run it. ``--src`` imports the port from another tree, so
+that an earlier commit unpacked by ``git archive`` can be profiled in
+the same call as this one.
 
 After the last phase every kernel must have launched in the runs of the
-paths that use it. The line before the last is the ``kernels`` JSON
+paths that use it, and the tiled qmatmul route (counted by wrapping the
+wrappers, ``TiledRoute``) in every prefill of the decode features and
+the quantized launcher. The line before the last is the ``kernels`` JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -179,13 +186,14 @@ def quantized_weight(torch, g, k, n, levels, per_col):
 
 def check_qmatmul(torch, timer, records):
     """qmatmul (int8) and qmatmul4 (packed; both on the skinny split-K
-    route at M <= 16, the tiled one above) at every projection shape of a
-    smollm-135m block, per tensor and per column, at decode M = 2 (the
-    request loop) and 4 (the launcher), chunked prefill M = 32 (batch 2 x
-    16-token chunks) and prefill M = 128 and 256 (the launcher's batch 4 x
-    64), each call repeated for bitwise equality; both timed on the MLP
-    up-projection at M = 2, 4, 32 and 256 beside ``matmul`` on the
-    dequantized bf16 weight."""
+    route at M <= 16, the tiled tensor-core route above) at every
+    projection shape of a smollm-135m block, per tensor and per column, at
+    decode M = 2 (the request loop) and 4 (the launcher), chunked prefill
+    M = 32 (batch 2 x 16-token chunks) and prefill M = 128 (the plain
+    session's batch 2 x 64) and 256 (the launcher's batch 4 x 64), each
+    call repeated for bitwise equality; both timed beside ``matmul`` on
+    the dequantized bf16 weight, on the MLP up-projection at M = 2 and 4
+    and on the up- and down-projections at M = 32, 128 and 256."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -227,41 +235,133 @@ def check_qmatmul(torch, timer, records):
                                 f"a second call differs ({same})")
                         if out_dtype == torch.bfloat16 and not per_col:
                             worst[name] = max(worst.get(name, 0.0), err)
-        # timing: decode M on the MLP up-projection, per-tensor metadata
-        # (the serving path's per-period-per-tensor structs), bf16 out
-        k, n = shapes["w_up"]
-        codes, scale, mu, w_deq = quantized_weight(torch, g, k, n, levels,
-                                                   False)
-        if packed:
-            codes = ref.pack_int4_ref(codes)
-        rec = {}
-        for m in (2, 4, 32, 256):
+        # timing, per-tensor metadata (the serving path's per-period-per-
+        # tensor structs), bf16 out: decode M on the MLP up-projection,
+        # the tiled route on the up- and down-projections
+        rec = {"tiled": {}}
+        for wname, ms in (("w_up", (2, 4, 32, 128, 256)),
+                          ("w_down", (32, 128, 256))):
+            k, n = shapes[wname]
+            codes, scale, mu, w_deq = quantized_weight(torch, g, k, n, levels,
+                                                       False)
+            if packed:
+                codes = ref.pack_int4_ref(codes)
+            for m in ms:
+                x = torch.randn(m, k, generator=g, device="cuda").to(
+                    torch.bfloat16)
+                t = timer(lambda: fn(x, codes, scale, mu, torch.bfloat16))
+                lib = timer(lambda: torch.matmul(x, w_deq))
+                b, by = bound_ms(nbytes(x, codes, scale, mu) + 2 * m * n,
+                                 2 * m * k * n)
+                row = dict(ms=t["ms"], ms_min=t["ms_min"],
+                           ms_over_floor=t["ms_over_floor"], bound_ms=b,
+                           bound_by=by, library_ms=lib["ms"],
+                           library_ms_min=lib["ms_min"])
+                if m == 2:
+                    plain_t = timer(lambda: plain(x, codes, scale, mu,
+                                                  torch.bfloat16))
+                    rec.update(max_abs_err=worst[name], **row,
+                               plain_ms=plain_t["ms"],
+                               timed=f"x (2, {k}) bf16 @ codes ({k}, {n}), "
+                                     "per-tensor, bf16 out")
+                elif m <= 16:
+                    rec[f"m{m}"] = row
+                else:
+                    rec["tiled"][f"{wname} m{m}"] = {
+                        **row, "over_library": t["ms"] / lib["ms"]}
+                emit({"timing": name, "weight": wname, "m": m,
+                      "route": "skinny" if m <= 16 else "tiled",
+                      "kernel": t, "library": lib, "bound_ms": b,
+                      "ms_over_floor": t["ms_over_floor"]})
+        records[name] = rec
+        emit({"timing": name, **records[name]})
+
+
+def profile_tiled(torch, timer):
+    """The tiled route (M > 16) of qmatmul / qmatmul4 over a sweep of
+    shapes (bf16 x, per-tensor metadata, bf16 out) beside ``matmul`` on
+    the dequantized bf16 weight: K at N = 1536 and N at K = 576, both at
+    M = 32, then M on the up- and down-projections. How the time scales
+    with K, N and M says what bounds the route: a serial walk over K, too
+    few CTAs for the card, or the work itself."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cases = ([(32, k, 1536) for k in (64, 192, 576, 1536)]
+             + [(32, 576, n) for n in (64, 256, 576, 4096)]
+             + [(32, 1536, 576)]
+             + [(m, k, n) for m in (64, 128, 256)
+                for k, n in ((576, 1536), (1536, 576))])
+    for packed in (False, True):
+        name = "qmatmul4" if packed else "qmatmul"
+        fn = qmatmul4_cuda if packed else qmatmul_cuda
+        for m, k, n in cases:
+            codes, scale, mu, w_deq = quantized_weight(
+                torch, g, k, n, 15 if packed else 255, False)
+            if packed:
+                codes = ref.pack_int4_ref(codes)
             x = torch.randn(m, k, generator=g, device="cuda").to(
                 torch.bfloat16)
             t = timer(lambda: fn(x, codes, scale, mu, torch.bfloat16))
             lib = timer(lambda: torch.matmul(x, w_deq))
-            b, by = bound_ms(nbytes(x, codes, scale, mu) + 2 * m * n,
-                             2 * m * k * n)
-            if m == 2:
-                plain_t = timer(lambda: plain(x, codes, scale, mu,
-                                              torch.bfloat16))
-                rec.update(max_abs_err=worst[name], ms=t["ms"],
-                           ms_min=t["ms_min"],
-                           ms_over_floor=t["ms_over_floor"],
-                           plain_ms=plain_t["ms"], bound_ms=b, bound_by=by,
-                           library_ms=lib["ms"],
-                           library_ms_min=lib["ms_min"],
-                           timed=f"x (2, {k}) bf16 @ codes ({k}, {n}), "
-                                 "per-tensor, bf16 out")
-            else:
-                rec[f"m{m}"] = dict(ms=t["ms"], ms_min=t["ms_min"],
-                                    ms_over_floor=t["ms_over_floor"],
-                                    bound_ms=b, library_ms=lib["ms"],
-                                    library_ms_min=lib["ms_min"])
-            emit({"timing": name, "m": m, "kernel": t, "library": lib,
-                  "bound_ms": b, "ms_over_floor": t["ms_over_floor"]})
-        records[name] = rec
-        emit({"timing": name, **records[name]})
+            emit({"tiled_profile": name, "m": m, "k": k, "n": n,
+                  "ms": t["ms"], "ms_min": t["ms_min"],
+                  "ms_over_floor": t["ms_over_floor"],
+                  "library_ms": lib["ms"], "over_library": t["ms"] / lib["ms"],
+                  "host_ms_per_call": host_ms(
+                      torch, lambda: fn(x, codes, scale, mu, torch.bfloat16)),
+                  "library_host_ms_per_call": host_ms(
+                      torch, lambda: torch.matmul(x, w_deq))})
+
+
+def host_ms(torch, fn, calls: int = 200) -> float:
+    """Host milliseconds per call of ``fn`` over ``calls`` calls in a row,
+    queued behind a device sleep so that the host never waits for the
+    card: the wrapper's and the launch's own cost."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(50 * Timer.SLEEP_CYCLES_PER_MS))
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return dt
+
+
+class TiledRoute:
+    """A stand-in for one of ``ops``' qmatmul wrappers: it passes every
+    call through and counts, in ``launches``, the launches whose x has
+    more than 16 rows (the tiled route)."""
+
+    def __init__(self, fn):
+        self.fn, self.launches = fn, 0
+
+    def __call__(self, x, *args, **kwargs):
+        before = self.fn.launches
+        out = self.fn(x, *args, **kwargs)
+        if x.shape[0] > 16:
+            self.launches += self.fn.launches - before
+        return out
+
+
+# launches of qmatmul / qmatmul4 that took the tiled route, per run
+TILED = {}
+
+
+def count_tiled_route(ops) -> None:
+    """Put a ``TiledRoute`` in place of ``ops``' qmatmul / qmatmul4
+    wrappers, through which every path reaches the kernels; its counter
+    is zeroed and read with the kernels' own (``counters``)."""
+    for attr, name in (("qmatmul_cuda", "qmatmul"),
+                       ("qmatmul4_cuda", "qmatmul4")):
+        TILED[f"{name}_tiled"] = TiledRoute(getattr(ops, attr))
+        setattr(ops, attr, TILED[f"{name}_tiled"])
+
+
+def counters(ops) -> dict:
+    """Every launch counter: the kernels' wrappers and the tiled route's."""
+    return {**ops.KERNELS, **TILED}
 
 
 def check_decode_attention(torch, timer, records):
@@ -559,18 +659,18 @@ def request_loop(torch, ops, calib_batch: int, seq: int):
 
     def run(name, fn):
         torch.cuda.synchronize()
-        before = {k: f.launches for k, f in ops.KERNELS.items()}
+        before = {k: f.launches for k, f in counters(ops).items()}
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         phases[name] = {
             "s": time.perf_counter() - t0,
             "launches": {k: f.launches - before[k]
-                         for k, f in ops.KERNELS.items()}}
+                         for k, f in counters(ops).items()}}
         emit({"phase": name, **phases[name]})
         return out
 
-    for f in ops.KERNELS.values():
+    for f in counters(ops).values():
         f.launches = 0
     run("calibrate", lambda: srv.calibrate("smollm"))
     m = srv.models["smollm"]
@@ -631,7 +731,7 @@ def request_loop(torch, ops, calib_batch: int, seq: int):
                                      "device_cache_dtype":
                                          extra.device_cache_dtype}})
     torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in ops.KERNELS.items()}
+    launches = {k: f.launches for k, f in counters(ops).items()}
     emit({"request_loop_launches": launches})
     return cfg, params, backend, launches, dep, prompt
 
@@ -714,6 +814,73 @@ def profile_launch(torch, quant: int, batch: int = 4, prompt_len: int = 64,
                                     **profile_steps(torch, step, steps)}})
 
 
+def wall_ms(torch, fn, reps: int) -> dict:
+    """Median and minimum wall milliseconds of ``fn`` ended by a device
+    synchronisation, over ``reps`` calls, with no profiler attached."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"unprofiled_wall_ms": statistics.median(times),
+            "unprofiled_wall_ms_min": min(times)}
+
+
+def profile_prefill(torch, reps: int = 5):
+    """``profile_steps`` over the prefills that run the tiled qmatmul
+    route, on full-width smollm-135m with seeded weights: the decode
+    session's at a fixed 8-bit plan at p = L/2, batch 2, a 64-token prompt
+    monolithic (M = 128) and in 16-token chunks (M = 32), as
+    ``decode_features`` runs them, and the serving launcher's prefill step
+    at --quant 8 and 4, batch 4 x 64 (M = 256). Wall time, device-busy
+    time and the idle share say whether a kernel's time reaches the
+    prefill's wall time or the host's launches hide it; the same prefills
+    timed first with no profiler attached give the wall time without the
+    profiler's own cost."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.quantizer import quantize_params_for_serving
+    from repro_torch.core.solver import PartitionPlan
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import TransformerBackend
+    from repro_torch.serving.decode import DecodeSession
+    cfg = get_config("smollm-135m")
+    L = cfg.num_layers
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    backend = TransformerBackend(cfg, params, seq_len=128, decode_max_len=256)
+    rng = np.random.default_rng(SEED)
+    prompt, _ = cycle_batch(rng, cfg.vocab_size, 2, 64)
+    plan = PartitionPlan(p=L // 2, bits_w=np.full(L // 2, 8.0), bits_x=8.0,
+                         objective=0.0, psi_total=0.0, payload_bits=0.0,
+                         breakdown={})
+    seg = backend.split(plan)
+    for name, kw in (("decode_plain", {}),
+                     ("decode_chunk16", dict(prefill_chunk_tokens=16))):
+        sessions = [DecodeSession(backend, plan, max_len=256, segment=seg,
+                                  **kw) for _ in range(2 * reps + 1)]
+        sessions.pop().prefill(prompt)          # warm-up
+        wall = wall_ms(torch, lambda: sessions.pop().prefill(prompt), reps)
+        emit({"prefill_profile": name, "m": 32 if kw else 128, **wall,
+              **profile_steps(torch, lambda: sessions.pop().prefill(prompt),
+                              reps)})
+    del backend, sessions
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
+                           device="cuda", dtype=torch.int32)
+    step = make_prefill_step(cfg, 96)
+    for quant in (8, 4):
+        served = quantize_params_for_serving(params, quant)
+        step(served, {"tokens": tokens})        # warm-up
+        wall = wall_ms(torch, lambda: step(served, {"tokens": tokens}), reps)
+        emit({"prefill_profile": f"launch_q{quant}", "m": 256, **wall,
+              **profile_steps(torch, lambda: step(served, {"tokens": tokens}),
+                              reps)})
+        del served
+
+
 def reference_check(torch, cfg, params, backend):
     """The kernels' forward against the plain versions on the CPU, on a
     small input at full width and depth: logits agree to bf16 accuracy
@@ -765,7 +932,7 @@ def classifier_loop(torch, ops, budget: float = 0.01):
     from repro_torch.serving.simulator import InferenceRequest
 
     torch.cuda.synchronize()
-    for f in ops.KERNELS.values():
+    for f in counters(ops).values():
         f.launches = 0
     secs = {}
     t0 = time.perf_counter()
@@ -869,7 +1036,7 @@ def classifier_loop(torch, ops, budget: float = 0.01):
             raise AssertionError(f"CIFAR CNN on the card vs the CPU: max "
                                  f"|err| {err} > {tol}")
     torch.cuda.synchronize()
-    return {k: f.launches for k, f in ops.KERNELS.items()}
+    return {k: f.launches for k, f in counters(ops).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -936,11 +1103,11 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
         sess = DecodeSession(backend, plan, max_len=max_len, segment=seg,
                              **kw)
         torch.cuda.synchronize()
-        for f in ops.KERNELS.values():
+        for f in counters(ops).values():
             f.launches = 0
         out = sess.generate(prompt, gen)
         torch.cuda.synchronize()
-        runs[name] = {k: f.launches for k, f in ops.KERNELS.items()}
+        runs[name] = {k: f.launches for k, f in counters(ops).items()}
         outs[name], sessions[name] = out, sess
         dense_bytes = segment_cache_bytes(cfg, sess.dev_caches, 0, p)
         emit({"decode_feature": {
@@ -1035,7 +1202,7 @@ def launch_serve(torch, ops, batch: int = 4, prompt_len: int = 64,
     runs = {}
     for quant in (0, 8, 4):
         torch.cuda.synchronize()
-        for f in ops.KERNELS.values():
+        for f in counters(ops).values():
             f.launches = 0
         out = serve.run(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
                         quant=quant, device="cuda", seed=SEED)
@@ -1049,7 +1216,7 @@ def launch_serve(torch, ops, batch: int = 4, prompt_len: int = 64,
         if quant:
             check = served_weights_check(torch, ops, out, quant)
         torch.cuda.synchronize()
-        launches = {k: f.launches for k, f in ops.KERNELS.items()}
+        launches = {k: f.launches for k, f in counters(ops).items()}
         runs[f"launch_q{quant}"] = launches
         emit({"launch_serve": {
             "arch": cfg.name, "layers": cfg.num_layers, "quant": quant,
@@ -1130,37 +1297,42 @@ SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
 REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13",
               "qmatmul": "PR 14", "decode_attention": "PR 14"}
 
-# the kernels each path's run must launch (the classifier loop is plain
-# PyTorch, as the reference's is plain XLA: it must launch none)
+# the kernels each path's run must launch, the tiled qmatmul route (M >
+# 16) included: every prefill of the decode features and of the
+# quantized launcher takes it (the classifier loop is plain PyTorch, as
+# the reference's is plain XLA: it must launch none)
 EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                              "flash_attention"),
-            **{run: ("qmatmul", "decode_attention") for run in (
-                "decode_plain", "decode_chunk16", "decode_draft2",
-                "decode_draft4", "decode_paged")},
+            **{run: ("qmatmul", "qmatmul_tiled", "decode_attention")
+               for run in ("decode_plain", "decode_chunk16",
+                           "decode_draft2", "decode_draft4",
+                           "decode_paged")},
             "launch_q0": ("decode_attention", "flash_attention"),
-            "launch_q8": ("quantize", "qmatmul", "dequantize",
-                          "decode_attention", "flash_attention"),
-            "launch_q4": ("quantize_pack4", "qmatmul4", "dequantize",
-                          "decode_attention", "flash_attention")}
+            "launch_q8": ("quantize", "qmatmul", "qmatmul_tiled",
+                          "dequantize", "decode_attention",
+                          "flash_attention"),
+            "launch_q4": ("quantize_pack4", "qmatmul4", "qmatmul4_tiled",
+                          "dequantize", "decode_attention",
+                          "flash_attention")}
 
 
 # the kernels' instantiations that ptxas reports entry by entry, by
-# source (qmm_skinny: the int8 and the int4 instantiations)
-REDESIGNED_ENTRIES = {"flash_attention": "flash_attn_tc_kernel",
-                      "qmatmul": "qmm_skinny",
-                      "decode_attention": "decode_split_kernel"}
+# source (qmm_skinny and qmm_tc: the int8 and the int4 instantiations)
+REDESIGNED_ENTRIES = {"flash_attention": ("flash_attn_tc_kernel",),
+                      "qmatmul": ("qmm_skinny", "qmm_tc"),
+                      "decode_attention": ("decode_split_kernel",)}
 
 
 def ptxas_entries(out_dir, wanted):
     """Registers, static shared memory and spill bytes of each kernel
-    entry whose mangled name holds ``wanted[source]``, from the build's
-    ``-Xptxas -v`` logs (dynamic shared memory is not in them)."""
+    entry whose mangled name holds one of ``wanted[source]``, from the
+    build's ``-Xptxas -v`` logs (dynamic shared memory is not in them)."""
     found = []
-    for source, key in wanted.items():
+    for source, keys in wanted.items():
         log = (out_dir / f"{source}.log").read_text()
         for part in log.split("Compiling entry function '")[1:]:
             entry = part.split("'", 1)[0]
-            if key not in entry:
+            if not any(key in entry for key in keys):
                 continue
             num = {k: re.search(pat, part) for k, pat in (
                 ("registers", r"Used (\d+) registers"),
@@ -1174,8 +1346,9 @@ def ptxas_entries(out_dir, wanted):
 
 
 def hmma_count(lib, key):
-    """HMMA instructions in the SASS of ``lib``'s functions whose name
-    holds ``key``, by the toolkit's cuobjdump (None where it is absent)."""
+    """HMMA instructions in the SASS of each of ``lib``'s functions whose
+    name holds ``key``, by the toolkit's cuobjdump (None where it is
+    absent)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
@@ -1185,6 +1358,8 @@ def hmma_count(lib, key):
     for line in sass.splitlines():
         if "Function :" in line:
             inside = line.split("Function :", 1)[1].strip()
+            if key in inside:
+                count[inside] = 0
         elif inside and key in inside and "HMMA" in line:
             count[inside] = count.get(inside, 0) + 1
     return count
@@ -1195,10 +1370,14 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-launcher", action="store_true",
                     help="only build the kernels and profile the serving "
                          "launcher's decode step at --quant 8 and 0")
+    ap.add_argument("--profile-tiled", action="store_true",
+                    help="only build the kernels, time the tiled qmatmul "
+                         "route over a sweep of M, K and N and profile "
+                         "the prefills that run it")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree whose repro_torch to import (with "
-                         "--profile-launcher: an earlier commit's src/, "
-                         "unpacked by git archive)")
+                         "--profile-launcher or --profile-tiled: an "
+                         "earlier commit's src/, unpacked by git archive)")
     args = ap.parse_args(argv)
     if not (args.src / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1224,11 +1403,25 @@ def main(argv=None) -> int:
             profile_launch(torch, quant)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.profile_tiled:
+        from repro_torch.kernels import build
+        print(smi, flush=True)
+        emit({"profiled_tree": str(args.src.resolve()),
+              "build_dir": str(build.build_all())})
+        timer = Timer(torch)
+        one = torch.zeros(1, device="cuda")
+        timer.floor_ms = timer(lambda: one.fill_(1.0))["ms"]
+        emit({"timer_floor_ms": timer.floor_ms})
+        profile_tiled(torch, timer)
+        del timer
+        profile_prefill(torch)
+        return 0
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for float32 matmuls and convolutions (plain versions "
           "compute in full f32)", flush=True)
 
     from repro_torch.kernels import build, ops
+    count_tiled_route(ops)
     t0 = time.perf_counter()
     out_dir = build.build_all()
     emit({"build": {"s": time.perf_counter() - t0,
@@ -1248,8 +1441,15 @@ def main(argv=None) -> int:
         raise AssertionError("a redesigned kernel spills registers")
     emit({"sass_hmma": hmma_count(out_dir / "libflash_attention.so",
                                   "flash_attn_tc_kernel")})
+    qmm_hmma = hmma_count(out_dir / "libqmatmul.so", "qmm_tc")
+    emit({"sass_hmma": qmm_hmma})
+    if qmm_hmma is not None and not (qmm_hmma
+                                     and all(qmm_hmma.values())):
+        raise AssertionError(f"qmm_tc: HMMA missing from its SASS {qmm_hmma}")
     tc_smem = build.launcher("flash_attention", "flash_attention_tc_smem", "i")
     sk_smem = build.launcher("qmatmul", "qmatmul_skinny_smem", "ii")
+    qtc_smem = build.launcher("qmatmul", "qmatmul_tc_smem", "ii")
+    qtc_split = build.launcher("qmatmul", "qmatmul_tc_split", "ii")
     da_smem = build.launcher("decode_attention", "decode_attention_smem",
                              "iiii")
     da_split = build.launcher("decode_attention", "decode_attention_split",
@@ -1258,11 +1458,17 @@ def main(argv=None) -> int:
         **{f"flash_attn_tc_kernel hd={hd}": tc_smem(hd) for hd in (64, 128)},
         **{f"qmm_skinny M={m} K={k}": sk_smem(m, k)
            for m in (2, 4) for k in (576, 1024, 1536)},
+        **{f"qmm_tc int{bits} M={m}": qtc_smem(bits, m)
+           for bits in (8, 4) for m in (32, 128)},
         **{f"decode_split_kernel n_valid={n} Gp=4 hd=64 {dt}":
            da_smem(n, 4, 64, build.DTYPE_CODES[d])
            for n in (95, 96, 2048)
            for dt, d in (("bf16", torch.bfloat16),
                          ("f8e4m3", torch.float8_e4m3fn))}}})
+    emit({"qmm_tc_k_slices": {
+        f"{w} K={k} N={n}": qtc_split(k, n) for w, (k, n) in (
+            ("wq", (576, 1024)), ("wk", (576, 256)), ("wo", (1024, 576)),
+            ("w_up", (576, 1536)), ("w_down", (1536, 576)))}})
     emit({"decode_attention_ctas_per_head": {
         f"n_valid={n}": da_split(n) for n in (1, 32, 33, 95, 96, 2048)}})
 
@@ -1303,7 +1509,8 @@ def main(argv=None) -> int:
 
     missing = [f"{k} in {run}" for run, names in EXPECTED.items()
                for k in names if runs[run][k] == 0]
-    launches = {k: sum(r[k] for r in runs.values()) for k in ops.KERNELS}
+    launches = {k: sum(r[k] for r in runs.values())
+                for k in counters(ops)}
     missing += [k for k, n in launches.items() if n == 0]
     emit({"paths_s": time.perf_counter() - t_paths})
     emit({"launches_by_run": runs, "launches": launches})
@@ -1322,6 +1529,9 @@ def main(argv=None) -> int:
                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
         if name in REDESIGNED:
             row["redesigned"] = REDESIGNED[name]
+        if rec.get("tiled"):
+            row["tiled_route"] = {"launches": launches[f"{name}_tiled"],
+                                  **rec["tiled"]}
         kernels.append(row)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -52,7 +52,6 @@ constexpr int kTile = 32;            // slots a tile, one a lane
 constexpr int kMinWarps = 4;
 constexpr int kMaxWarps = 16;        // one query row a warp: Gp <= 16
 constexpr int kMaxDimsPerLane = 8;   // head dims a lane: hd <= 256
-constexpr int kPortableSplit = 8;    // portable cluster size
 constexpr int kMaxSplit = 16;        // the H100's largest
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -291,7 +290,7 @@ struct Plan {
 };
 
 Plan plan_for(int n_valid, int gp, int hd, int esize) {
-  const int max_split = n_valid > 512 ? kMaxSplit : kPortableSplit;
+  const int max_split = n_valid > 512 ? kMaxSplit : repro::kPortableCluster;
   Plan p;
   p.chunk = (n_valid + max_split - 1) / max_split;
   p.chunk = max(16, (p.chunk + 15) / 16 * 16);
@@ -315,31 +314,12 @@ cudaError_t launch(const void* q, const void* ck, const void* cv, void* out,
                    float scale, cudaStream_t stream) {
   if (!takes(gp, hd, n_valid, buf)) return cudaErrorInvalidValue;
   const Plan p = plan_for(n_valid, gp, hd, sizeof(TC));
-  auto kernel = decode_split_kernel<TQ, TC>;
-  cudaError_t err = repro::allow_smem(kernel, p.smem);
-  if (err == cudaSuccess && p.split > kPortableSplit)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.split, batch * kvp);
-  cfg.blockDim = dim3(32 * max(kMinWarps, gp));  // a warp per query row
-  cfg.dynamicSmemBytes = p.smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TQ*>(q),
-                           static_cast<const TC*>(ck),
-                           static_cast<const TC*>(cv), static_cast<TQ*>(out),
-                           buf, kvp, gp, hd, n_valid, p.chunk, p.nbufs,
-                           scale * kLog2e);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return repro::launch_cluster(
+      decode_split_kernel<TQ, TC>, dim3(p.split, batch * kvp),
+      dim3(32 * max(kMinWarps, gp)),  // a warp per query row
+      p.smem, stream, static_cast<const TQ*>(q), static_cast<const TC*>(ck),
+      static_cast<const TC*>(cv), static_cast<TQ*>(out), buf, kvp, gp, hd,
+      n_valid, p.chunk, p.nbufs, scale * kLog2e);
 }
 
 template <typename TQ>

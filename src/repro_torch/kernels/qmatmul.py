@@ -1,8 +1,10 @@
 """Dequantize-fused matmul kernels (W8A16 / W4A16) — wrappers of
 ``csrc/qmatmul.cu``, the port of ``repro/kernels/qmatmul.py``. At M <=
-16 both code widths run the split-K cluster kernel, above it the tiled
-one; both are one launch per call and give the same bits on every
-call.
+16 both code widths run the split-K cluster kernel; above it bf16
+activations run the tensor-core kernel (K split over a cluster, chosen
+from K and N alone, so that a row's bits do not depend on M) and f32
+ones the CUDA-core tiled kernel. Each is one launch per call and gives
+the same bits on every call.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape
 and contiguity, allocate the output, launch on PyTorch's current stream

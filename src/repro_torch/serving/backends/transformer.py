@@ -33,6 +33,7 @@ from repro_torch.serving.backends.base import ModelBackend, to_device
 from repro_torch.serving.decode.cache import paged_kv_ctx
 from repro_torch.tree import tree_map
 
+PROBE_CHUNK = 4      # the reference's layers per probe step (see below)
 _STACKED_CACHE_SLOTS = 4     # stacked quantized trees kept per backend
 
 
@@ -173,14 +174,22 @@ class TransformerBackend(ModelBackend):
         blocks[pos] = tree_map(quantize_slice, blocks[pos])
         return {**self.params, "blocks": blocks}
 
-    def calibrate_probes(self, x, probe_bits: int = noise_lib.PROBE_BITS):
+    def calibrate_probes(self, x, probe_bits: int = noise_lib.PROBE_BITS,
+                         chunk: int = PROBE_CHUNK):
         """All L per-layer noise energies from one clean pass plus suffix
         passes. The weight probe of layer l resumes from the clean
         activation entering l with only block l fake-quantized (per
         period slice, as ``with_layer_quantized``) — the same function
         as a full forward of the perturbed model, whose layers below l
         are untouched. The clean suffix from that activation is the clean
-        logits themselves."""
+        logits themselves.
+
+        ``chunk`` is the reference's layers per ``lax.map`` step, a
+        memory/parallelism knob that does not change the result. Here it
+        is accepted and changes nothing: the probes run one layer at a
+        time, each bit for bit the port's scalar loop of perturbed
+        forwards (``noise.backend_layer_energies``), which batching probes
+        of different layers into one forward would not keep."""
         cfg, L = self.cfg, self.num_layers
         acts, logits = self.layer_activations(x)
         b, s = acts[0].shape[:2]

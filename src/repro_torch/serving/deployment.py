@@ -71,6 +71,12 @@ class Deployment:
         return self.result.extra
 
     @property
+    def queue_delay(self) -> float:
+        """Server queue delay priced into this deployment's objective —
+        0.0 on the queue-less paths (``serve``/``serve_batch``)."""
+        return self.result.extra.get("queue_delay", 0.0)
+
+    @property
     def accuracy(self):
         return self.result.accuracy
 

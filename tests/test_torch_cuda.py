@@ -6,7 +6,10 @@ kernels ragged rows and columns, a single row, N = 2 packed, grouped
 of flash attention (bf16) runs over ragged S, both head dims and three
 GQA groupings; the skinny split-K route of qmatmul and qmatmul4 (M <=
 16) over ragged K and N and unaligned codes, with M = 17 crossing into
-the tiled route; decode attention's cluster split over every change of
+the tiled route; the tiled tensor-core route (M > 16, bf16 x) at every
+projection shape of smollm-135m and ragged ones, unaligned codes and x,
+and each output row the same bits at every M; decode attention's cluster
+split over every change of
 its CTA count up to a 4096-slot ring, wrapped and not. Each gives the
 same bits on every call, in one launch. Beside the kernels: the decode
 session's page pool on the card (bf16 and float8 pages, the CPU's bits)
@@ -186,6 +189,78 @@ def test_qmatmul_skinny_unaligned_codes(gen, packed, per_col, m, k, n):
     fn, plain = ((qmatmul4_cuda, ref.qmatmul4_ref) if packed else
                  (qmatmul_cuda, ref.qmatmul_ref))
     _held_skinny(fn, plain, x, shifted, scale, mu)
+
+
+# every projection shape of smollm-135m (wq, wk = wv, wo, w_up = w_gate,
+# w_down) and the ragged K / N of the tests above
+TILED_SHAPES = [(576, 1024), (576, 256), (1024, 576), (576, 1536),
+                (1536, 576), (7, 2), (33, 130), (100, 66)]
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("per_col", [False, True])
+@pytest.mark.parametrize("k,n", TILED_SHAPES)
+@pytest.mark.parametrize("m", [17, 31, 32, 64, 128, 256, 257])
+def test_qmatmul_tiled(gen, m, k, n, per_col, packed):
+    """M > 16 with bf16 x runs the tensor-core route (hi/lo bf16 halves of
+    each dequantized weight, K split over a cluster): held as the skinny
+    route, f32 out within 1e-3 and bf16 out within one bf16 step of the
+    largest output, one launch per call, bitwise the same on a second
+    call."""
+    codes, scale, mu = _quant_weight(gen, k, n, per_col, 15 if packed else
+                                     255)
+    if packed:
+        codes = ref.pack_int4_ref(codes)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    fn, plain = ((qmatmul4_cuda, ref.qmatmul4_ref) if packed else
+                 (qmatmul_cuda, ref.qmatmul_ref))
+    _held_skinny(fn, plain, x, codes, scale, mu)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("per_col", [False, True])
+@pytest.mark.parametrize("k,n", [(576, 1536), (1536, 576)])
+@pytest.mark.parametrize("m", [32, 128])
+@pytest.mark.parametrize("shifted", ["codes", "x"])
+def test_qmatmul_tiled_unaligned(gen, shifted, m, k, n, per_col, packed):
+    """Codes one byte, or x one element, past a 16-byte boundary take the
+    element-by-element loads of the tiled route's same kernel."""
+    codes, scale, mu = _quant_weight(gen, k, n, per_col, 15 if packed else
+                                     255)
+    if packed:
+        codes = ref.pack_int4_ref(codes)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    moved = codes if shifted == "codes" else x
+    store = torch.empty(moved.numel() + 1, dtype=moved.dtype, device="cuda")
+    off = store[1:].view(moved.shape)
+    off.copy_(moved)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    if shifted == "codes":
+        codes = off
+    else:
+        x = off
+    fn, plain = ((qmatmul4_cuda, ref.qmatmul4_ref) if packed else
+                 (qmatmul_cuda, ref.qmatmul_ref))
+    _held_skinny(fn, plain, x, codes, scale, mu)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("k,n", TILED_SHAPES)
+def test_qmatmul_tiled_rows_independent_of_m(gen, k, n, packed):
+    """The tiled route's K split and summation order depend on (K, N)
+    alone, so the rows of an M = 32 call are bitwise those rows of an
+    M = 128 call (chunked prefill then equals the monolithic one)."""
+    codes, scale, mu = _quant_weight(gen, k, n, True, 15 if packed else 255)
+    if packed:
+        codes = ref.pack_int4_ref(codes)
+    fn = qmatmul4_cuda if packed else qmatmul_cuda
+    x = torch.randn(128, k, generator=gen, device="cuda").to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        whole = fn(x, codes, scale, mu, out_dtype)
+        for r0 in (0, 32, 96):
+            part = fn(x[r0:r0 + 32].contiguous(), codes, scale, mu,
+                      out_dtype)
+            assert torch.equal(part, whole[r0:r0 + 32])
 
 
 @functools.cache

@@ -82,3 +82,24 @@ def test_device_tensors_never_take_the_plain_version(name, monkeypatch):
     with pytest.raises((RuntimeError, ValueError)):
         _meta_calls()[name]()
     assert ops.KERNELS[name].launches == before
+
+
+def _reexported(init: Path):
+    """The names a package ``__init__`` imports from its submodules."""
+    return {alias.asname or alias.name
+            for node in ast.parse(init.read_text()).body
+            if isinstance(node, ast.ImportFrom) for alias in node.names}
+
+
+def test_core_reexports_the_reference_api():
+    """``repro_torch.core`` exposes every name ``repro.core`` does, each
+    from the port's own ``core`` modules."""
+    import repro_torch.core as core
+    names = _reexported(ROOT / "src" / "repro" / "core" / "__init__.py")
+    assert len(names) == 36
+    missing = sorted(n for n in names if not hasattr(core, n))
+    assert not missing, f"repro_torch.core lacks {missing}"
+    foreign = sorted(n for n in names
+                     if not getattr(core, n).__module__.startswith(
+                         "repro_torch.core."))
+    assert not foreign, f"not from the port's core modules: {foreign}"

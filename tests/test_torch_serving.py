@@ -79,6 +79,22 @@ def test_calibration_energies(pair):
     assert np.array_equal(te_w, se_w) and np.array_equal(te_x, se_x)
 
 
+def test_calibration_probe_chunk(pair):
+    """``chunk`` (the reference's layers per probe step) is accepted and
+    does not change the energies: chunk=1 and chunk=3 give the same bits,
+    both within the reference's 5e-3 (its own test holds its two chunk
+    sizes to 1e-5 of each other)."""
+    jb, tb, x, _ = pair
+    je_w, je_x, _ = jb.calibrate_probes(jnp.asarray(x))
+    e1_w, e1_x, l1 = tb.calibrate_probes(x, chunk=1)
+    e3_w, e3_x, l3 = tb.calibrate_probes(x, chunk=3)
+    assert np.array_equal(e1_w, e3_w) and np.array_equal(e1_x, e3_x)
+    assert torch.equal(l1, l3)
+    for e_w, e_x in ((e1_w, e1_x), (e3_w, e3_x)):
+        np.testing.assert_allclose(e_w, je_w, rtol=5e-3)
+        np.testing.assert_allclose(e_x, je_x, rtol=5e-3)
+
+
 @pytest.fixture(scope="module")
 def servers(pair):
     """Both servers registered and calibrated; the port's ModelState gets
@@ -208,6 +224,21 @@ def test_deployment_execute_and_generate(servers, pair, monkeypatch):
     tsrv.record_execution(td)
     tsrv.record_decode(td)
     assert len(tsrv.ledger.samples) == 2
+
+
+def test_deployment_queue_delay(servers):
+    """``Deployment.queue_delay`` is 0.0 on the queue-less ``serve`` path,
+    as the reference's, and reads ``extra["queue_delay"]`` once the
+    fleet engine sets it."""
+    jsrv, tsrv = servers
+    c = CONTEXTS[1]
+    jsrv.build_store("lm", *_context(jcm, c))
+    tsrv.build_store("lm", *_context(tcm, c))
+    jd = jsrv.serve(JRequest("lm", 0.01, *_context(jcm, c)))
+    td = tsrv.serve(TRequest("lm", 0.01, *_context(tcm, c)))
+    assert td.queue_delay == jd.queue_delay == 0.0
+    td.result.extra["queue_delay"] = 0.25
+    assert td.queue_delay == 0.25
 
 
 def test_unported_paths_raise(pair):
