@@ -34,17 +34,29 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    kernel's launch counter zeroed before and read after; a profile of
    the served stream's decode steps follows, and a small input is then
    checked against the plain versions on the CPU;
-5. the classifier loop: ``examples/quickstart.py`` on the card — the
+5. the fleet engine (the paper's dynamic workload balancing) over the
+   request loop's calibrated server: a seeded 200-stream Poisson trace
+   (50 requests/s, 32 new tokens, budgets 0.001 / 0.01 / 0.02, deadlines
+   0.5 / 1 / 2 s) on two default server profiles under EDF, priced
+   analytically under SLO degrade and observe; up to four admitted
+   deployments with distinct plans execute and generate on the card
+   (counters zeroed before, read after), their stage times are fed to
+   the calibration ledger, the fitted rates print, and the same trace is
+   priced again from them; each run's summary, the cut points chosen
+   and the engine's host wall time print. Then the fleet benchmark's two
+   recipes on the host (1,200 requests, three servers, the four policies;
+   the chaos run with faults and retries, its journal replayed);
+6. the classifier loop: ``examples/quickstart.py`` on the card — the
    paper's MNIST MLP at full width trained by plain autograd, calibrate
    -> build_store -> serve (1% budget) -> execute, its degradation held
    to the quickstart's bound, the three baselines at the served cut, and
    a CIFAR CNN forward against the CPU (plain PyTorch: no kernel);
-6. the decode session's features on the request loop's model at a fixed
+7. the decode session's features on the request loop's model at a fixed
    8-bit plan at p = L/2: plain, chunked prefill, speculative decode
    (2 and 4 drafts) and paged KV, speculative tokens bitwise plain,
    ``to_dense`` bitwise the dense ring, chunked prefill within tolerance
    of the monolithic one, counters zeroed before each run;
-7. the serving launcher (``repro_torch.launch.serve``) on the same
+8. the serving launcher (``repro_torch.launch.serve``) on the same
    full-width model, batch 4, 64-token prompts, 32 new tokens, once each
    at --quant 0, 8 and 4, counters zeroed before each run: quantize
    seconds, prefill seconds, decode tokens/s and launches per kernel;
@@ -68,7 +80,9 @@ record; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import dataclasses
 import json
 import re
 import shutil
@@ -733,7 +747,7 @@ def request_loop(torch, ops, calib_batch: int, seq: int):
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters(ops).items()}
     emit({"request_loop_launches": launches})
-    return cfg, params, backend, launches, dep, prompt
+    return cfg, params, backend, launches, dep, prompt, srv, (x_te, y_te)
 
 
 def profile_steps(torch, step, steps: int) -> dict:
@@ -907,7 +921,195 @@ def reference_check(torch, cfg, params, backend):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the classifier request loop (the quickstart on the card)
+# Phase 5: the fleet engine (the paper's dynamic workload balancing)
+
+FLEET_POLICIES = ("fcfs", "balanced", "edf", "least_loaded")
+
+
+def fleet_summary(metrics, wall_s: float) -> dict:
+    """A run's ``summary()``, the unrounded mean stage seconds, how often
+    each cut point p was admitted, and the engine's host wall time."""
+    cuts = collections.Counter(r.deployment.plan.p
+                               for r in metrics.completed())
+    return {"summary": metrics.summary(),
+            "mean_stage_seconds": metrics.mean_stage_seconds(),
+            "p_chosen": {str(p): n for p, n in sorted(cuts.items())},
+            "engine_wall_s": wall_s,
+            "planned_rps_wall": len(metrics.records) / wall_s}
+
+
+def lm_fleet(torch, ops, srv, batch, prompt) -> dict:
+    """The request loop's calibrated server as a fleet of two default
+    ``ServerProfile``s under EDF with a 10 ms epoch: a seeded Poisson
+    trace of 200 streams (50 requests/s, 32 new tokens each, 20
+    requesters) on the request loop's device and its 2 and 200 Mbit/s
+    channels, the requesters alternating between its two weightings.
+    Priced analytically, under ``slo="degrade"`` and ``"observe"``; then
+    up to four admitted deployments with distinct plans (from the
+    ``observe`` run: the default server profile prices a 128-token
+    prefill at seconds, past every deadline) execute and generate on the
+    card, their fenced stage times go into the calibration ledger, and
+    the same trace is priced again from the fitted rates. Returns the
+    kernel launches of those executions."""
+    from repro_torch.core.cost_model import (Channel, DeviceProfile,
+                                             ObjectiveWeights, ServerProfile)
+    from repro_torch.serving.testing import poisson_trace
+    dev = DeviceProfile()
+    near, far = ObjectiveWeights(), ObjectiveWeights(eta=1e7)
+    trace = poisson_trace("smollm", 200, 50.0, [dev],
+                          [Channel(capacity_bps=2e6),
+                           Channel(capacity_bps=2e8)], near,
+                          budgets=(0.001, 0.01, 0.02),
+                          deadlines=(0.5, 1.0, 2.0), device_pool=20,
+                          seed=SEED)
+    trace = [dataclasses.replace(
+        r, max_new_tokens=32,
+        weights=far if int(r.device_id.split("-")[1]) % 2 else near)
+        for r in trace]
+    servers = [ServerProfile()] * 2
+
+    def run(pricing, provider, slo):
+        t0 = time.perf_counter()
+        metrics = srv.fleet(servers=servers, policy="edf", slo=slo,
+                            epoch_interval=0.01, provider=provider).run(trace)
+        wall = time.perf_counter() - t0
+        metrics.assert_terminal()
+        emit({"lm_fleet": {"pricing": pricing, "slo": slo,
+                           **fleet_summary(metrics, wall)}})
+        return metrics
+
+    run("analytic", None, "degrade")
+    picked = {}
+    for r in run("analytic", None, "observe").completed():
+        dep = r.deployment
+        key = (dep.plan.p, tuple(np.asarray(dep.plan.bits_w).tolist()))
+        if key not in picked and len(picked) < 4:
+            picked[key] = dep
+    x_te, y_te = batch
+    torch.cuda.synchronize()
+    for f in counters(ops).values():
+        f.launches = 0
+    for dep in picked.values():
+        res = dep.execute(x_te, y_te)
+        out = dep.generate(prompt, 32)
+        srv.record_execution(dep)
+        srv.record_decode(dep)
+        emit({"fleet_execute": {
+            "p": dep.plan.p,
+            "bits_w": [int(b) for b in np.ceil(dep.plan.bits_w)],
+            "bits_x": float(dep.plan.bits_x),
+            "accuracy": res.accuracy, **res.extra["measured"],
+            "ttft_s": out.ttft_s, "tokens_per_s": out.tokens_per_s}})
+        vocab = dep.backend.cfg.vocab_size
+        if out.tokens.shape != (prompt.shape[0], 32) or not (
+                (out.tokens >= 0) & (out.tokens < vocab)).all() \
+                or not np.isfinite(res.accuracy):
+            raise AssertionError(f"fleet deployment p={dep.plan.p} gave "
+                                 f"{out.tokens!r}, accuracy {res.accuracy}")
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters(ops).items()}
+    emit({"fleet_execute_launches": {"deployments": len(picked),
+                                     **launches}})
+    cal = srv.calibrated_provider()           # raises on an empty ledger
+    emit({"fitted_rates": {
+        "ledger_samples": len(srv.ledger),
+        "default_device": dataclasses.asdict(cal.default_device),
+        "default_server": dataclasses.asdict(cal.default_server),
+        "device": [dataclasses.asdict(r) for r in cal.device_rates.values()],
+        "server": [dataclasses.asdict(r)
+                   for r in cal.server_rates.values()]}})
+    for slo in ("degrade", "observe"):
+        run("calibrated", cal, slo)
+    return launches
+
+
+def fleet_recipes() -> None:
+    """``benchmarks/fleet_bench.py``'s two recipes with the port's
+    classes, on the host: 1,200 requests over three slow servers under
+    each policy, SLO degrade, 5 ms epochs, on a stub-calibrated MNIST MLP
+    (``fleet``: Poisson arrivals; ``fleet_chaos``: MMPP arrivals, device
+    churn, channel drift, permanent losses, cuts aimed at the policy's
+    own baseline and retries with degraded budgets). Every chaos journal
+    is replayed; a divergence raises."""
+    from repro_torch.configs.classifier import MNIST_MLP
+    from repro_torch.core.cost_model import (Channel, DeviceProfile,
+                                             ObjectiveWeights, ServerProfile)
+    from repro_torch.serving.engine import (DISCONNECT, RECONNECT,
+                                            FaultEvent, FaultInjector,
+                                            FleetEngine, RetryPolicy,
+                                            churn_trace, degrade_trace,
+                                            materialize, mmpp_arrivals)
+    from repro_torch.serving.testing import (poisson_trace,
+                                             stub_classifier_server)
+    devices = [DeviceProfile(f_clock=f) for f in (4e8, 1e9, 2e9)]
+    channels = [Channel(capacity_bps=c) for c in (2e6, 1e7, 2e8)]
+    weights = ObjectiveWeights()
+    fleet = [ServerProfile(f_clock=3e8)] * 3
+    srv = stub_classifier_server([("mnist", MNIST_MLP)], server=fleet[0],
+                                 device=devices[0], channel=channels[1],
+                                 weights=weights)
+    mix = dict(budgets=(0.004, 0.01, 0.02), deadlines=(0.020, 0.035, 0.060),
+               batches=(1, 1, 4), device_pool=200, seed=SEED)
+    poisson = poisson_trace("mnist", 1200, 700.0, devices, channels,
+                            weights, **mix)
+    chaos = materialize("mnist", mmpp_arrivals(
+        1200, rates=(200.0, 1400.0), mean_dwell=(0.5, 0.1), seed=SEED),
+        devices, channels, weights, **mix)
+    horizon = chaos[-1].arrival_time + 0.5
+    rng = np.random.default_rng(SEED + 2)
+    ambient = (churn_trace([f"dev-{i}" for i in range(0, 200, 4)], horizon,
+                           mean_uptime=0.35, mean_downtime=0.12, seed=SEED)
+               + degrade_trace([f"dev-{i}" for i in range(1, 200, 4)],
+                               horizon, mean_interval=1.0,
+                               mean_duration=0.15, seed=SEED + 1)
+               + FaultInjector([FaultEvent(
+                   float(rng.uniform(0.3 * horizon, 0.9 * horizon)),
+                   DISCONNECT, f"dev-{i}") for i in range(2, 200, 16)]))
+    retry = RetryPolicy(max_attempts=3, base_backoff_s=0.01,
+                        max_backoff_s=0.1, degrade_on_retry=True)
+
+    def targeted_cuts(baseline, n_cuts=150, downtime=0.03):
+        done = sorted((r for r in baseline.completed()
+                       if r.request.device_id is not None
+                       and r.timeline.transfer_done > r.timeline.admit),
+                      key=lambda r: r.timeline.transfer_done
+                      - r.timeline.admit, reverse=True)
+        cut_rng = np.random.default_rng(SEED)
+        events = []
+        for r in done[:n_cuts]:
+            t0, t1 = r.timeline.admit, r.timeline.transfer_done
+            cut = float(t0 + cut_rng.uniform(0.25, 0.75) * (t1 - t0))
+            events += [FaultEvent(cut, DISCONNECT, r.request.device_id),
+                       FaultEvent(cut + downtime, RECONNECT,
+                                  r.request.device_id)]
+        return FaultInjector(events)
+
+    for policy in FLEET_POLICIES:
+        kw = dict(servers=fleet, policy=policy, slo="degrade",
+                  epoch_interval=0.005)
+        t0 = time.perf_counter()
+        metrics = FleetEngine(srv, **kw).run(poisson)
+        wall = time.perf_counter() - t0
+        metrics.assert_terminal()
+        emit({"fleet_recipe": "fleet", "policy": policy,
+              **fleet_summary(metrics, wall)})
+        faults = ambient + targeted_cuts(FleetEngine(srv, **kw).run(chaos))
+        t0 = time.perf_counter()
+        metrics = FleetEngine(srv, retry=retry, faults=faults,
+                              **kw).run(chaos)
+        wall = time.perf_counter() - t0
+        metrics.assert_terminal()
+        t0 = time.perf_counter()
+        metrics.journal.verify_replay(srv, chaos, servers=fleet)
+        emit({"fleet_recipe": "fleet_chaos", "policy": policy,
+              "fault_events": len(faults), "retry_rate": metrics.retry_rate(),
+              "journal_entries": len(metrics.journal),
+              "replay_s": time.perf_counter() - t0, "replayed": True,
+              **fleet_summary(metrics, wall)})
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the classifier request loop (the quickstart on the card)
 
 def classifier_loop(torch, ops, budget: float = 0.01):
     """``examples/quickstart.py`` on the card: the paper's MNIST MLP at
@@ -1040,7 +1242,7 @@ def classifier_loop(torch, ops, budget: float = 0.01):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the decode session's features on smollm-135m
+# Phase 7: the decode session's features on smollm-135m
 
 @contextlib.contextmanager
 def recording(obj, name, out: list):
@@ -1188,7 +1390,7 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the serving launcher
+# Phase 8: the serving launcher
 
 def launch_serve(torch, ops, batch: int = 4, prompt_len: int = 64,
                  gen: int = 32):
@@ -1303,6 +1505,7 @@ REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13",
 # the reference's is plain XLA: it must launch none)
 EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                              "flash_attention"),
+            "fleet": ("decode_attention", "flash_attention"),
             **{run: ("qmatmul", "qmatmul_tiled", "decode_attention")
                for run in ("decode_plain", "decode_chunk16",
                            "decode_draft2", "decode_draft4",
@@ -1488,10 +1691,15 @@ def main(argv=None) -> int:
     emit({"kernel_checks_s": time.perf_counter() - t_checks})
     t_paths = time.perf_counter()
 
-    cfg, params, backend, loop_launches, dep, prompt = request_loop(
-        torch, ops, calib_batch, seq)
+    cfg, params, backend, loop_launches, dep, prompt, srv, batch = \
+        request_loop(torch, ops, calib_batch, seq)
     profile_decode(torch, dep, prompt)
     reference_check(torch, cfg, params, backend)
+    t0 = time.perf_counter()
+    fleet_launches = lm_fleet(torch, ops, srv, batch, prompt)
+    fleet_recipes()
+    emit({"fleet_s": time.perf_counter() - t0})
+    del srv
     t0 = time.perf_counter()
     cls_launches = classifier_loop(torch, ops)
     emit({"classifier_loop_s": time.perf_counter() - t0})
@@ -1499,7 +1707,8 @@ def main(argv=None) -> int:
     feature_runs = decode_features(torch, ops, backend, prompt)
     emit({"decode_features_s": time.perf_counter() - t0})
     del params, backend, dep
-    runs = {"request_loop": loop_launches, **feature_runs,
+    runs = {"request_loop": loop_launches, "fleet": fleet_launches,
+            **feature_runs,
             **launch_serve(torch, ops)}
     if any(cls_launches.values()):
         raise AssertionError(f"the classifier loop launched kernels: "

@@ -8,8 +8,7 @@ Lifecycle (paper Fig. 1–2), model-agnostic via ``ModelBackend``:
      levels x all partition points, per ``ReferenceContext``.
   4. ``serve``       — Alg. 2: plan → deploy (a ``Deployment``) →
      execute (``Deployment.execute`` / ``generate``).
-
-The event-driven fleet engine (``fleet``) is not ported yet.
+  5. ``fleet``       — event-driven fleet serving (``serving.engine``).
 """
 from __future__ import annotations
 
@@ -246,11 +245,23 @@ class QPARTServer:
         return out
 
     # ------------------------------------------------------------------
-    def fleet(self, *args, **kwargs):
-        """Event-driven fleet serving — not ported yet."""
-        raise NotImplementedError(
-            "the fleet engine is not ported to repro_torch yet "
-            "(ROADMAP Queue 1)")
+    def fleet(self, servers=None, policy="fcfs", slo: str = "observe",
+              epoch_interval: float = 0.0,
+              provider: Optional[CostProvider] = None, **engine_kwargs):
+        """Event-driven fleet serving over this server's registered
+        models (serving.engine): ``srv.fleet(servers=[...],
+        policy="edf").run(requests)`` — continuous-time arrivals,
+        multi-server queues, engine-managed device segment caches,
+        deadline-aware admission. With the defaults (one server, plain
+        requests) it degenerates to the one-shot ``serve_batch``/
+        ``WorkloadBalancer`` behavior. Extra kwargs (``retry``,
+        ``faults``, and the scale knobs ``journal``/``records``/
+        ``admission``/``reprice_cache``) pass through to
+        ``FleetEngine``."""
+        from repro_torch.serving.engine import FleetEngine
+        return FleetEngine(self, servers=servers, policy=policy, slo=slo,
+                           epoch_interval=epoch_interval, provider=provider,
+                           **engine_kwargs)
 
     # ------------------------------------------------------------------
     # measurement loop

@@ -564,3 +564,52 @@ def test_speculative_equals_plain_on_card():
                    for a, b in zip(rebuilt, sess.dev_caches) for k in a)
         if p == 4:
             assert out.accept_rate == 1.0
+
+
+def test_fleet_executes_admitted_deployment_on_card():
+    """A 20-stream LM fleet over a server calibrated on the card: every
+    request terminal, an admitted deployment executes (flash attention)
+    and generates (decode attention) through the kernels, its fenced
+    stage times fit the calibrated provider, and the fleet prices the
+    same trace again from the fitted rates."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.cost_model import (Channel, DeviceProfile,
+                                             ObjectiveWeights, ServerProfile)
+    from repro_torch.kernels import ops
+    from repro_torch.serving.qpart_server import QPARTServer
+    from repro_torch.serving.testing import poisson_trace
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    backend = _small_lm()
+    start = np.random.default_rng(0).integers(0, 256, (8, 1))
+    seq = (start + np.arange(33)[None]) % 256
+    x, y = seq[:, :32].astype(np.int32), seq[:, 32].astype(np.int32)
+    srv = QPARTServer()
+    srv.register("lm", backend, x, y)
+    srv.calibrate("lm")
+    dev, w = DeviceProfile(), ObjectiveWeights()
+    srv.build_store("lm", dev, Channel(capacity_bps=2e6), w)
+    trace = [dataclasses.replace(r, max_new_tokens=8) for r in poisson_trace(
+        "lm", 20, 50.0, [dev], [Channel(capacity_bps=2e6),
+                                Channel(capacity_bps=2e8)], w,
+        budgets=(0.01, 0.02), deadlines=(0.5, 2.0), device_pool=5, seed=0)]
+    kw = dict(servers=[ServerProfile()] * 2, policy="edf", slo="observe",
+              epoch_interval=0.01)
+    metrics = srv.fleet(**kw).run(trace)
+    metrics.assert_terminal()
+    dep = metrics.completed()[0].deployment
+    names = ("flash_attention", "decode_attention")
+    before = {k: ops.KERNELS[k].launches for k in names}
+    res = dep.execute(x, y)
+    out = dep.generate(x[:2, :16], 8)
+    for k in names:
+        assert ops.KERNELS[k].launches > before[k], k
+    assert out.tokens.shape == (2, 8) and np.isfinite(res.accuracy)
+    assert ((out.tokens >= 0) & (out.tokens < 256)).all()
+    srv.record_execution(dep)
+    srv.record_decode(dep)
+    cal = srv.calibrated_provider()
+    again = srv.fleet(provider=cal, **kw).run(trace)
+    again.assert_terminal()
+    assert again.summary()["completed"] == len(trace)

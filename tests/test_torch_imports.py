@@ -103,3 +103,27 @@ def test_core_reexports_the_reference_api():
                      if not getattr(core, n).__module__.startswith(
                          "repro_torch.core."))
     assert not foreign, f"not from the port's core modules: {foreign}"
+
+
+def test_engine_reexports_the_reference_api():
+    """``repro_torch.serving.engine`` exposes every name
+    ``repro.serving.engine`` does: each class and function from the
+    port's own engine modules, each constant equal to the reference's
+    (the policy table by its names)."""
+    import repro.serving.engine as reference
+    import repro_torch.serving.engine as engine
+    names = _reexported(ROOT / "src" / "repro" / "serving" / "engine"
+                        / "__init__.py")
+    assert len(names) == 38
+    missing = sorted(n for n in names if not hasattr(engine, n))
+    assert not missing, f"repro_torch.serving.engine lacks {missing}"
+    code = {n for n in names if callable(getattr(engine, n))}
+    foreign = sorted(n for n in code
+                     if not getattr(engine, n).__module__.startswith(
+                         "repro_torch.serving.engine."))
+    assert not foreign, f"not from the port's engine modules: {foreign}"
+    for n in sorted(names - code):
+        ours, theirs = getattr(engine, n), getattr(reference, n)
+        if isinstance(theirs, dict):
+            ours, theirs = list(ours), list(theirs)
+        assert ours == theirs, n

@@ -27,6 +27,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving.backends import TransformerBackend as TBackend
 from repro_torch.serving.decode import DecodeSession as TSession
 from repro_torch.serving.decode import tree_cache_bytes
+from repro_torch.serving.engine import FleetEngine as TFleetEngine
 from repro_torch.serving.errors import ServingError
 from repro_torch.serving.pricing import price_window as t_price_window
 from repro_torch.serving.qpart_server import QPARTServer as TServer
@@ -242,10 +243,11 @@ def test_deployment_queue_delay(servers):
 
 
 def test_unported_paths_raise(pair):
-    """What still raises: the fleet engine (not ported), and chunked or
-    speculative decode on a sliding-window config (the reference's
-    ``ServingError``: the ring wraps). Plain windowed decode, chunked
-    prefill and speculative decode run (``test_torch_decode_features``)."""
+    """What still raises: chunked or speculative decode on a
+    sliding-window config (the reference's ``ServingError``: the ring
+    wraps). Plain windowed decode, chunked prefill and speculative
+    decode run (``test_torch_decode_features``), and ``fleet()`` hands
+    back the port's ``FleetEngine`` (``test_torch_fleet``)."""
     _, tb, _, _ = pair
     _, tplan = _plans(1, [8])
     windowed = dataclasses.replace(tb, cfg=dataclasses.replace(
@@ -255,6 +257,7 @@ def test_unported_paths_raise(pair):
     with pytest.raises(ServingError, match="sliding-window"):
         TSession(windowed, tplan, max_len=MAX_LEN, prefill_chunk_tokens=4)
     assert TSession(windowed, tplan, max_len=MAX_LEN).p == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TServer().fleet()
+    engine = TServer().fleet(policy="edf", slo="degrade")
+    assert isinstance(engine, TFleetEngine)
+    assert engine.policy.name == "edf" and engine.slo == "degrade"
     assert torch.is_tensor(tb.params["embed"])
