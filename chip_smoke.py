@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one GPU
     python3 chip_smoke.py --profile-launcher [--src OTHER/src]
     python3 chip_smoke.py --profile-tiled [--src OTHER/src]
+    python3 chip_smoke.py --profile-flash [--src OTHER/src]
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -14,8 +15,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    the main path's shapes (qmatmul/qmatmul4 at M = 2, 4, 32, 128 and 256
    on every projection, decode attention on the request loop's and the
    launcher's rings and a 2048-slot one, flash attention at the
-   calibration shape and S = 100 in bf16 and once in f32, quantize on a
-   bf16 leaf as well), with a second call bitwise equal to the first,
+   calibration shape and S = 100 in bf16 and once in f32, its row
+   log-sum-exp and the backward kernel at the training shape (B 8, S
+   256) and S = 100 in bf16 and f32, quantize on a bf16 leaf as well),
+   with a second call bitwise equal to the first,
    and time kernel, plain version, the closest single PyTorch library
    call (a yardstick only — the port never calls it) and the card's
    lower bound for the same work. The Timer queues every rep behind a
@@ -63,16 +66,28 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    after a quantized run its served weights are dequantized through
    ``ops.dequantize_tensor`` (|w - deq| <= scale / 2) and the tree is
    compared byte for byte with the one the plain versions build on the
-   CPU; then a profile of the launcher's decode step at --quant 8 and 0.
+   CPU; then a profile of the launcher's decode step at --quant 8 and 0;
+9. training (``repro_torch.launch.train``) on the same full-width model
+   (bf16 activations, f32 masters), counters zeroed before each run: one
+   loss backward of a 2-layer f32 copy on the card against the CPU's
+   plain versions, leaf by leaf; one step at B 8 x S 256 with remat off
+   and on (the same bits; the flash forward launched again under
+   remat); ``launch.train.main`` for TRAIN_STEPS steps (exit 0: the loss
+   improved) and its checkpoint restored bit for bit; a profile of the
+   step (wall, device-busy, idle share, peak memory, the token stream's
+   own time apart); and the request loop on the trained weights (the
+   Delta table, the plans' cut points and bits, which matmul kernels
+   the served plans launched).
 
 ``--profile-launcher`` runs only that profile; ``--profile-tiled`` only
 times the tiled qmatmul route over a sweep of shapes and profiles the
-prefills that run it. ``--src`` imports the port from another tree, so
+prefills that run it; ``--profile-flash`` only times the flash
+forward's serving launch. ``--src`` imports the port from another tree, so
 that an earlier commit unpacked by ``git archive`` can be profiled in
 the same call as this one.
 
 After the last phase every kernel must have launched in the runs of the
-paths that use it, and the tiled qmatmul route (counted by wrapping the
+paths that use it (the backward kernel in every training run), and the tiled qmatmul route (counted by wrapping the
 wrappers, ``TiledRoute``) in every prefill of the decode features and
 the quantized launcher. The line before the last is the ``kernels`` JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -328,6 +343,29 @@ def profile_tiled(torch, timer):
                       torch, lambda: torch.matmul(x, w_deq))})
 
 
+def profile_flash(torch, timer):
+    """The serving launch of the flash forward (no log-sum-exp) at the
+    calibration shape (B 64, S 128) and the training shape (B 8, S 256),
+    KV = G = 4, hd 64, bf16, on seeded inputs, with the ptxas report of
+    the tree's flash forward entries: run once per tree, in turns, it
+    says whether the training slice's LSE output moved the serving
+    kernel."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    for e in ptxas_entries(build.build_all(), {"flash_attention":
+                                               ("flash_attn",)}):
+        emit({"ptxas_entry": e})
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for b, s in ((64, 128), (8, 256)):
+        q = torch.randn(b, s, 4, 4, 64, generator=g, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn(b, s, 4, 64, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        emit({"flash_profile": {"b": b, "s": s,
+                                **timer(lambda: flash_attention_cuda(
+                                    q, k, v), reps=50)}})
+
+
 def host_ms(torch, fn, calls: int = 200) -> float:
     """Host milliseconds per call of ``fn`` over ``calls`` calls in a row,
     queued behind a device sleep so that the host never waits for the
@@ -506,6 +544,12 @@ def check_flash_attention(torch, timer, records, calib_batch, seq):
         emit({"timing": "flash_attention", "b": b, "s": s, "kernel": t,
               "library": lib, "bound_ms": bnd,
               "ms_over_floor": t["ms_over_floor"]})
+        with_lse = timer(lambda: flash_attention_cuda(q, k, v, with_lse=True))
+        again = timer(lambda: flash_attention_cuda(q, k, v))
+        emit({"timing": "flash_attention_lse", "b": b, "s": s,
+              "ms_no_lse": [t["ms"], again["ms"]], "ms_lse": with_lse["ms"],
+              "ms_min_no_lse": [t["ms_min"], again["ms_min"]],
+              "ms_min_lse": with_lse["ms_min"]})
         if (b, s) == (calib_batch, seq):
             plain_t = timer(lambda: _blocked_causal_attention(q, k, v, s, s))
             rec.update(ms=t["ms"], ms_min=t["ms_min"],
@@ -521,6 +565,87 @@ def check_flash_attention(torch, timer, records, calib_batch, seq):
                                 library_ms_min=lib["ms_min"])
     records["flash_attention"] = dict(max_abs_err=worst, **rec)
     emit({"timing": "flash_attention", **records["flash_attention"]})
+
+
+def check_flash_attention_bwd(torch, timer, records):
+    """The backward kernel against its plain version (the gradient written
+    out from the row log-sum-exp) at smollm-135m's training shape (B 8,
+    S 256, KV 4, G 4 after tp_pad, hd 64, bf16) and at a ragged S = 100
+    in bf16 and f32, with the forward's lse held against its plain
+    version and every call repeated for bitwise equality. Timed at the
+    training shape beside the plain version and SDPA's backward alone
+    (``torch.autograd.grad`` on a retained graph, K/V repeated per
+    head: a yardstick only, the port never calls it)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    kvh, grp, hd = 4, 4, 64
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst, rec = 0.0, {}
+    for b, s, dt in ((8, 256, torch.bfloat16), (2, 100, torch.bfloat16),
+                     (2, 100, torch.float32)):
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                       for shape in ((b, s, kvh, grp, hd), (b, s, kvh, hd),
+                                     (b, s, kvh, hd), (b, s, kvh, grp, hd)))
+        out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+        lse_again = flash_attention_cuda(q, k, v, with_lse=True)[1]
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do)
+        lse_want = ref.flash_attention_lse_ref(q, k)
+        torch.cuda.synchronize()
+        # f32: sums in another order; bf16: one bf16 step of the largest
+        # gradient (P rounded to bf16 in both, outputs rounded to bf16)
+        tol = 1e-4 if dt == torch.float32 else 2 ** -7
+        errs = {n: (a.float() - w.float()).abs().max().item()
+                / max(1.0, w.float().abs().max().item())
+                for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        lse_err = (lse - lse_want).abs().max().item() / max(
+            1.0, lse_want.abs().max().item())
+        same = all(torch.equal(a, c) for a, c in zip(got, again)) and \
+            torch.equal(lse, lse_again)
+        emit({"check": "flash_attention_bwd", "b": b, "s": s,
+              "dtype": str(dt), "rel_err": errs, "tol": tol,
+              "lse_rel_err": lse_err, "lse_tol": 1e-4,
+              "repeat_bitwise": same})
+        if not (max(errs.values()) <= tol and lse_err <= 1e-4 and same):
+            raise AssertionError(
+                f"flash attention backward b={b} s={s} {dt}: {errs} > "
+                f"{tol}, lse {lse_err} > 1e-4, or a second call differs "
+                f"({same})")
+        worst = max(worst, max((a.float() - w.float()).abs().max().item()
+                               for a, w in zip(got, want)))
+        if (b, s) != (8, 256):
+            continue
+        t = timer(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do))
+        plain_t = timer(lambda: ref.flash_attention_bwd_ref(q, k, v, out,
+                                                            lse, do))
+        leaves = [t_.contiguous().requires_grad_(True) for t_ in (
+            q.permute(0, 2, 3, 1, 4).reshape(b, kvh * grp, s, hd),
+            k.permute(0, 2, 1, 3).repeat_interleave(grp, dim=1),
+            v.permute(0, 2, 1, 3).repeat_interleave(grp, dim=1))]
+        o = sdpa(*leaves, is_causal=True)
+        dos = do.permute(0, 2, 3, 1, 4).reshape(b, kvh * grp, s,
+                                                hd).contiguous()
+        lib = timer(lambda: torch.autograd.grad(o, leaves, dos,
+                                                retain_graph=True))
+        del o, leaves
+        pairs = s * (s + 1) // 2
+        bnd, by = bound_ms(nbytes(q, k, v, out, lse, do) + nbytes(*got),
+                           10 * b * kvh * grp * pairs * hd)
+        emit({"timing": "flash_attention_bwd", "b": b, "s": s, "kernel": t,
+              "plain": plain_t, "library": lib, "bound_ms": bnd,
+              "ms_over_floor": t["ms_over_floor"]})
+        rec.update(ms=t["ms"], ms_min=t["ms_min"],
+                   ms_over_floor=t["ms_over_floor"], plain_ms=plain_t["ms"],
+                   bound_ms=bnd, bound_by=by, library_ms=lib["ms"],
+                   library_ms_min=lib["ms_min"],
+                   timed=f"B={b} S={s} KV={kvh} G={grp} hd={hd} bf16, "
+                         "causal: dq, dk, dv")
+    records["flash_attention_bwd"] = dict(max_abs_err=worst, **rec)
+    emit({"timing": "flash_attention_bwd",
+          **records["flash_attention_bwd"]})
 
 
 def check_quantize(torch, timer, records):
@@ -1480,6 +1605,286 @@ def served_weights_check(torch, ops, out, quant):
             "tree_equals_cpu_plain": same, "cpu_plain_quantize_s": plain_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: training on the card
+
+TRAIN_STEPS = 40
+TRAIN_GRAD_TOL = 1e-3   # f32 on both sides; sums in another order
+
+
+def counted(torch, ops, fn):
+    """``fn()`` with every launch counter zeroed just before it -> (its
+    result, each counter read just after)."""
+    torch.cuda.synchronize()
+    for f in counters(ops).values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in counters(ops).items()}
+
+
+def stream_batch(torch, vocab: int, batch: int, seq: int, seed: int):
+    """One batch of the training launcher's token stream, on the card."""
+    from repro_torch.data.pipeline import TokenStream, TokenStreamConfig
+    stream = TokenStream(TokenStreamConfig(vocab_size=vocab, seq_len=seq + 1,
+                                           batch_size=batch, seed=seed),
+                         device="cuda")
+    return next(stream.batches())
+
+
+def train_grads_check(torch, ops, cfg):
+    """(i) One ``lm_loss`` backward on a 2-layer f32 copy of the model at
+    full width, on the card (flash attention forward and backward
+    kernels) against the same step on the CPU (the plain versions): every
+    leaf's gradient present, finite, nonzero where the CPU's is, and
+    within TRAIN_GRAD_TOL of the CPU's largest magnitude."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.tree import tree_map
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    params = T.init_params(cfg2, torch.Generator(device="cuda").manual_seed(
+        SEED + 5), device="cuda")
+    batch = stream_batch(torch, cfg.vocab_size, 2, 256, SEED + 5)
+    ((loss, _), grads), launches = counted(
+        torch, ops, lambda: value_and_grad(params, cfg2, batch, False))
+    t0 = time.perf_counter()
+    (loss_c, _), grads_c = value_and_grad(
+        tree_map(lambda t: t.cpu(), params), cfg2,
+        {k: t.cpu() for k, t in batch.items()}, False)
+    cpu_s = time.perf_counter() - t0
+    got, want = _flatten(grads), _flatten(grads_c)
+    errs, bad = {}, []
+    for key, w in want.items():
+        g = got.get(key)
+        scale = float(np.abs(w).max())
+        if g is None or g.shape != w.shape or not np.isfinite(g).all() or \
+                (scale > 0 and not np.abs(g).max() > 0):
+            bad.append(key)
+            continue
+        errs[key] = float(np.abs(g - w).max()) / max(scale, 1e-30)
+    worst = max(errs.values())
+    emit({"train_check": "grads_vs_cpu_plain", "layers": 2,
+          "dtype": "float32", "batch": 2, "seq": 256,
+          "loss": loss.item(), "loss_cpu": loss_c.item(),
+          "leaves": len(want), "missing_or_zero": bad,
+          "worst_rel_err": worst, "tol": TRAIN_GRAD_TOL,
+          "attn_rel_err": {k: v for k, v in errs.items() if "attn" in k},
+          "cpu_s": cpu_s, "launches": launches})
+    if bad or worst > TRAIN_GRAD_TOL or sorted(got) != sorted(want):
+        raise AssertionError(f"gradients on the card vs the CPU: missing or "
+                             f"zero {bad}, worst {worst} > {TRAIN_GRAD_TOL}")
+    return launches
+
+
+def train_remat_check(torch, ops, cfg):
+    """(ii) One ``lm_loss`` backward at full width and the launcher's
+    shape (B 8, S 256), remat off and on: the same loss and gradient
+    bits, with remat the flash forward launched again in the backward
+    (2 L forward, L backward launches against L and L)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.tree import tree_leaves
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 6), device="cuda")
+    batch = stream_batch(torch, cfg.vocab_size, 8, 256, SEED + 6)
+    outs, runs = {}, {}
+    for remat in (False, True):
+        outs[remat], runs[f"train_remat{int(remat)}"] = counted(
+            torch, ops, lambda: value_and_grad(params, cfg, batch, remat))
+    (l0, _), g0 = outs[False]
+    (l1, _), g1 = outs[True]
+    diff = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(tree_leaves(g0), tree_leaves(g1)))
+    same = torch.equal(l0, l1) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(g0), tree_leaves(g1)))
+    L = cfg.num_layers
+    counts = {r: (n["flash_attention"], n["flash_attention_bwd"])
+              for r, n in runs.items()}
+    emit({"train_check": "remat", "loss": [l0.item(), l1.item()],
+          "grads_max_abs_diff": diff, "bitwise": same,
+          "flash_launches_fwd_bwd": counts})
+    if not same or counts != {"train_remat0": (L, L),
+                              "train_remat1": (2 * L, L)}:
+        raise AssertionError(f"remat: bitwise {same} (max diff {diff}), "
+                             f"flash launches {counts}")
+    return runs
+
+
+def train_step_profile(torch, cfg, params, opt_state, steps: int = 3):
+    """Where a train step's time goes, the token stream apart: one batch
+    drawn from the stream (wall ms), then ``steps`` train steps on a
+    fixed batch, remat off and on — unprofiled wall ms, then
+    ``profile_steps``' wall, device-busy and idle share — and the peak
+    device memory of the profiled steps."""
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import make_train_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = stream_batch(torch, cfg.vocab_size, 8, 256, SEED + 11)
+    torch.cuda.synchronize()
+    data_ms = (time.perf_counter() - t0) * 1e3
+    for remat in (False, True):
+        step_fn = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS),
+                                  remat=remat)
+        state = [params, opt_state]
+
+        def step():
+            state[0], state[1], _ = step_fn(state[0], state[1], batch)
+
+        step()
+        wall = wall_ms(torch, step, steps)
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_steps(torch, step, steps)
+        emit({"train_step_profile": {
+            "arch": cfg.name, "batch": 8, "seq": 256, "remat": remat,
+            "token_stream_ms_per_batch": data_ms, **wall, **prof,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}})
+
+
+def trained_request_loop(torch, ops, cfg, params, seq: int = 128):
+    """(v) The request loop on the trained weights: register -> calibrate
+    (64 x ``seq`` tokens of the training stream, the next token the
+    label) -> build_store (the random-weight loop's three contexts) ->
+    serve (three budgets each) -> execute -> generate, counters zeroed
+    before and read after. Prints the Delta table and its spread, each
+    plan's cut point and bits, and which matmul kernels the served plans
+    launched."""
+    from repro_torch.core.cost_model import (Channel, DeviceProfile,
+                                             ObjectiveWeights)
+    from repro_torch.serving.backends import TransformerBackend
+    from repro_torch.serving.qpart_server import QPARTServer
+    from repro_torch.serving.simulator import InferenceRequest
+
+    def data(n, s, seed):
+        b = stream_batch(torch, cfg.vocab_size, n, s, seed)
+        return (b["tokens"].cpu().numpy(),
+                b["labels"][:, -1].cpu().numpy().astype(np.int32))
+
+    x_cal, y_cal = data(64, seq, SEED + 8)
+    x_te, y_te = data(16, seq, SEED + 9)
+    prompt, _ = data(2, seq // 2, SEED + 10)
+    backend = TransformerBackend(cfg, params, seq_len=seq,
+                                 decode_max_len=2 * seq)
+    dev = DeviceProfile()
+    contexts = [(Channel(capacity_bps=2e6), ObjectiveWeights(eta=1e7)),
+                (Channel(capacity_bps=2e6), ObjectiveWeights()),
+                (Channel(capacity_bps=2e8), ObjectiveWeights(eta=1e7))]
+
+    def loop():
+        srv = QPARTServer()
+        srv.register("smollm_trained", backend, x_cal, y_cal)
+        t0 = time.perf_counter()
+        srv.calibrate("smollm_trained")
+        cal_s = time.perf_counter() - t0
+        m = srv.models["smollm_trained"]
+        plans = []
+        for ch, w in contexts:
+            ctx = srv.build_store("smollm_trained", dev, ch, w)
+            for a in (0.001, 0.01, 0.02):
+                dep = srv.serve(InferenceRequest("smollm_trained", a, dev, ch,
+                                                 w, segment_cached=True), ctx)
+                plans.append((a, w.eta, ch.capacity_bps, dep))
+        dep = max([p[3] for p in plans[:3]], key=lambda d: d.plan.p)
+        before = {k: ops.KERNELS[k].launches for k in ("qmatmul", "qmatmul4")}
+        res = dep.execute(x_te, y_te)
+        out = dep.generate(prompt, 32)
+        served = {k: ops.KERNELS[k].launches - before[k] for k in before}
+        return m, cal_s, plans, dep, res, out, served
+
+    (m, cal_s, plans, dep, res, out, served), launches = counted(torch, ops,
+                                                                 loop)
+    psi = np.array(list(m.delta_table.values()), np.float64)
+    keys = sorted({(int(d.plan.p), tuple(int(b) for b in d.extra["bits_w"]),
+                    float(d.extra["bits_x"])) for *_, d in plans})
+    emit({"trained_request_loop": {
+        "base_accuracy": m.base_accuracy, "calibrate_s": cal_s,
+        "delta_table": {str(k): float(v) for k, v in m.delta_table.items()},
+        "delta_spread": float(psi.max() / psi.min()) if psi.min() > 0
+        else None,
+        "plans": [{"accuracy_budget": a, "eta": eta, "capacity_bps": c,
+                   "p": int(d.plan.p),
+                   "bits_w": [int(b) for b in d.extra["bits_w"]],
+                   "bits_x": float(d.extra["bits_x"])}
+                  for a, eta, c, d in plans],
+        "distinct_plans": len(keys),
+        "executed": {"p": int(dep.plan.p), "accuracy": res.accuracy,
+                     "accuracy_degradation": res.accuracy_degradation},
+        "generate": {"tokens_per_s": out.tokens_per_s, "ttft_s": out.ttft_s},
+        "served_matmul_launches": served, "launches": launches}})
+    if out.tokens.shape != (2, 32) or not (
+            (out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"generate on trained weights gave "
+                             f"{out.tokens!r}")
+    return launches
+
+
+def train_phase(torch, ops) -> dict:
+    """Training smollm-135m at full width on the card: (i) gradients vs the
+    plain versions, (ii) remat, (iii) ``launch.train.main`` for
+    TRAIN_STEPS steps at B 8 x S 256 (exit 0: the loss improved), (iv)
+    its checkpoint restored bitwise, a profile of its step, and (v) the
+    request loop on the trained weights. Returns each run's launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import init_opt_state
+    cfg = get_config("smollm-135m")
+    print(f"training: {cfg.name} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} vocab={cfg.vocab_size}, {cfg.dtype} "
+          "activations, float32 masters", flush=True)
+    runs = {"train_grads": train_grads_check(torch, ops, cfg),
+            **train_remat_check(torch, ops, cfg)}
+    ck = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--steps", str(TRAIN_STEPS), "--batch", "8", "--seq", "256",
+            "--checkpoint", str(ck)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc, runs["train"] = counted(torch, ops, lambda: train_launch.main(argv))
+    wall = time.perf_counter() - t0
+    emit({"train_launch": {"argv": argv, "rc": rc, "wall_s": wall,
+                           "wall_s_per_step": wall / TRAIN_STEPS,
+                           "peak_memory_bytes":
+                               torch.cuda.max_memory_allocated(),
+                           "launches": runs["train"]}})
+    L = cfg.num_layers
+    if rc != 0:
+        raise AssertionError("launch.train: the loss did not improve")
+    if (runs["train"]["flash_attention"], runs["train"][
+            "flash_attention_bwd"]) != (L * TRAIN_STEPS, L * TRAIN_STEPS):
+        raise AssertionError(f"launch.train: flash launches {runs['train']}")
+    # (iv) the checkpoint restored into fresh templates, bit for bit
+    template = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 7), device="cuda")
+    params, opt_state, meta = ckpt.load_checkpoint(str(ck), template,
+                                                   init_opt_state(template))
+    restored = {"params.npz": ckpt._flatten(params),
+                "opt_state.npz": ckpt._flatten(opt_state)}
+    same, n_bytes = True, 0
+    for name, flat in restored.items():
+        saved = np.load(ck / name)
+        same &= sorted(saved.files) == sorted(flat)
+        for key in saved.files:
+            a = saved[key]
+            n_bytes += a.nbytes
+            same &= a.dtype == flat[key].dtype and \
+                a.tobytes() == flat[key].tobytes()
+    emit({"train_checkpoint": {"meta": meta, "bitwise": bool(same),
+                               "bytes": n_bytes,
+                               "step": int(opt_state["step"])}})
+    if not same or meta["step"] != TRAIN_STEPS or \
+            int(opt_state["step"]) != TRAIN_STEPS:
+        raise AssertionError(f"checkpoint restore: bitwise {same}, meta "
+                             f"{meta}, step {int(opt_state['step'])}")
+    shutil.rmtree(ck)
+    train_step_profile(torch, cfg, params, opt_state)
+    runs["trained_request_loop"] = trained_request_loop(torch, ops, cfg,
+                                                        params)
+    return runs
+
+
 SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
                        "src/repro/kernels/qmatmul.py:68"),
            "qmatmul4": ("src/repro_torch/csrc/qmatmul.cu",
@@ -1488,12 +1893,21 @@ SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
                                 "src/repro/kernels/decode_attention.py:127"),
            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:98"),
+           "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                   "src/repro/models/attention.py:120"),
            "quantize": ("src/repro_torch/csrc/quantize.cu",
                         "src/repro/kernels/quantize.py:80"),
            "quantize_pack4": ("src/repro_torch/csrc/quantize.cu",
                               "src/repro/kernels/quantize.py:127"),
            "dequantize": ("src/repro_torch/csrc/quantize.cu",
                           "src/repro/kernels/quantize.py:101")}
+
+# kernels with no TPU kernel of their own: what the reference computes in
+# their place
+PORT_ONLY = {"flash_attention_bwd": (
+    "port-only: the gradient of flash_attention, which the reference "
+    "leaves to XLA's autodiff of _blocked_causal_attention (it has no "
+    "backward kernel)")}
 
 # kernels whose design changed after their first port, and in which PR
 REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13",
@@ -1502,7 +1916,8 @@ REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13",
 # the kernels each path's run must launch, the tiled qmatmul route (M >
 # 16) included: every prefill of the decode features and of the
 # quantized launcher takes it (the classifier loop is plain PyTorch, as
-# the reference's is plain XLA: it must launch none)
+# the reference's is plain XLA: it must launch none); every training run
+# launches the flash forward and backward kernels
 EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                              "flash_attention"),
             "fleet": ("decode_attention", "flash_attention"),
@@ -1516,7 +1931,11 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                           "flash_attention"),
             "launch_q4": ("quantize_pack4", "qmatmul4", "qmatmul4_tiled",
                           "dequantize", "decode_attention",
-                          "flash_attention")}
+                          "flash_attention"),
+            **{run: ("flash_attention", "flash_attention_bwd")
+               for run in ("train_grads", "train_remat0", "train_remat1",
+                           "train")},
+            "trained_request_loop": ("decode_attention", "flash_attention")}
 
 
 # the kernels' instantiations that ptxas reports entry by entry, by
@@ -1577,10 +1996,14 @@ def main(argv=None) -> int:
                     help="only build the kernels, time the tiled qmatmul "
                          "route over a sweep of M, K and N and profile "
                          "the prefills that run it")
+    ap.add_argument("--profile-flash", action="store_true",
+                    help="only build the kernels and time the flash "
+                         "forward's serving launch (no log-sum-exp)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree whose repro_torch to import (with "
-                         "--profile-launcher or --profile-tiled: an "
-                         "earlier commit's src/, unpacked by git archive)")
+                         "--profile-launcher, --profile-tiled or "
+                         "--profile-flash: an earlier commit's src/, "
+                         "unpacked by git archive)")
     args = ap.parse_args(argv)
     if not (args.src / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1606,7 +2029,7 @@ def main(argv=None) -> int:
             profile_launch(torch, quant)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.profile_tiled:
+    if args.profile_tiled or args.profile_flash:
         from repro_torch.kernels import build
         print(smi, flush=True)
         emit({"profiled_tree": str(args.src.resolve()),
@@ -1615,6 +2038,9 @@ def main(argv=None) -> int:
         one = torch.zeros(1, device="cuda")
         timer.floor_ms = timer(lambda: one.fill_(1.0))["ms"]
         emit({"timer_floor_ms": timer.floor_ms})
+        if args.profile_flash:
+            profile_flash(torch, timer)
+            return 0
         profile_tiled(torch, timer)
         del timer
         profile_prefill(torch)
@@ -1686,6 +2112,7 @@ def main(argv=None) -> int:
     check_qmatmul(torch, timer, records)
     check_decode_attention(torch, timer, records)
     check_flash_attention(torch, timer, records, calib_batch, seq)
+    check_flash_attention_bwd(torch, timer, records)
     check_quantize(torch, timer, records)
     del timer
     emit({"kernel_checks_s": time.perf_counter() - t_checks})
@@ -1710,6 +2137,9 @@ def main(argv=None) -> int:
     runs = {"request_loop": loop_launches, "fleet": fleet_launches,
             **feature_runs,
             **launch_serve(torch, ops)}
+    t0 = time.perf_counter()
+    runs.update(train_phase(torch, ops))
+    emit({"train_phase_s": time.perf_counter() - t0})
     if any(cls_launches.values()):
         raise AssertionError(f"the classifier loop launched kernels: "
                              f"{cls_launches}")
@@ -1738,6 +2168,8 @@ def main(argv=None) -> int:
                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
         if name in REDESIGNED:
             row["redesigned"] = REDESIGNED[name]
+        if name in PORT_ONLY:
+            row["port_only"] = PORT_ONLY[name]
         if rec.get("tiled"):
             row["tiled_route"] = {"launches": launches[f"{name}_tiled"],
                                   **rec["tiled"]}

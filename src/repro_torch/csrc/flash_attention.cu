@@ -9,7 +9,12 @@
 // kv, and K/V are never repeated per query head. Scores, the online-softmax
 // statistics and the output accumulator are f32; probabilities are
 // rounded to the value dtype before the PV product, as the plain version
-// (models/attention.py _blocked_causal_attention) does.
+// (models/attention.py _blocked_causal_attention) does. For training the
+// launch may also write each row's log-sum-exp (natural log, float32,
+// (B, S, KV, G)), from which csrc/flash_attention_bwd.cu recomputes the
+// probabilities; the serving path passes a null pointer and runs an
+// instantiation without that store (kLse false: the kernel it ran
+// before).
 //
 // What bounds it on an H100: at the calibration shape (B 64, S 128, KV 4,
 // G 4, hd 64, bf16) the causal work is 2.1 GFLOP against 42 MB of
@@ -69,12 +74,13 @@ constexpr int kBK = 64;
 constexpr int kThreads = 256;  // 4 threads per query row
 constexpr float kNegInf = -1e30f;
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_attn_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
-                          float* __restrict__ out, int S, int KV, int G,
+                          float* __restrict__ out,
+                          float* __restrict__ lse, int S, int KV, int G,
                           float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                      // (kBQ, HD + 1)
@@ -174,22 +180,26 @@ __global__ void __launch_bounds__(kThreads)
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < ND; ++i) ob[qpos * q_row + sub + 4 * i] = acc[i] * inv;
+    // m is the row's largest scaled score: lse = m + ln(l)
+    if (kLse && sub == 0)
+      lse[(static_cast<size_t>(b) * S + qpos) * KV * G + h * G + g] =
+          m + logf(l);
   }
 }
 
-template <int HD>
+template <int HD, bool kLse>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, int B, int S, int KV, int G, float scale,
-                       cudaStream_t stream) {
+                       void* out, float* lse, int B, int S, int KV, int G,
+                       float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kBQ * (HD + 1) + kBK * (HD + 1) +
                                        kBK * HD + kBQ * (kBK + 1));
-  auto kernel = flash_attn_f32_kernel<HD>;
+  auto kernel = flash_attn_f32_kernel<HD, kLse>;
   cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, G, B * KV);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, KV, G,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, KV, G,
       scale);
   return cudaGetLastError();
 }
@@ -223,12 +233,13 @@ using repro::mma_bf16;
 using repro::pack_bf16;
 using repro::fast_exp2;
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kTcThreads)
     flash_attn_tc_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ out,
-                         int S, int KV, int G, float scale_log2) {
+                         float* __restrict__ lse, int S, int KV, int G,
+                         float scale_log2) {
   using T = TcTile<HD>;
   constexpr int kChunks = HD / 8;  // 16-byte chunks per row
   constexpr int kNT = kTcBN / 8;   // score n-tiles per warp
@@ -410,6 +421,18 @@ __global__ void __launch_bounds__(kTcThreads)
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+  if (kLse && lane % 4 == 0) {
+    // the row sums are base 2 of raw scores: ln-sum-exp of the scaled
+    // scores is (m scale log2(e) + log2(l)) ln(2)
+    const size_t lse_b = static_cast<size_t>(b) * S * KV * G + h * G;
+    const int R_lo = row0 + r_lo, R_hi = R_lo + 8;
+    if (R_lo < rows)
+      lse[lse_b + static_cast<size_t>(R_lo / G) * KV * G + R_lo % G] =
+          (m_lo * scale_log2 + log2f(l_lo)) * 0.6931471805599453f;
+    if (R_hi < rows)
+      lse[lse_b + static_cast<size_t>(R_hi / G) * KV * G + R_hi % G] =
+          (m_hi * scale_log2 + log2f(l_hi)) * 0.6931471805599453f;
+  }
   // stage the warp's 16 output rows in its own Q rows (read only by it)
 #pragma unroll
   for (int t = 0; t < kDT; ++t) {
@@ -430,18 +453,18 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
-template <int HD>
+template <int HD, bool kLse>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      int B, int S, int KV, int G, float scale,
+                      float* lse, int B, int S, int KV, int G, float scale,
                       cudaStream_t stream) {
-  auto kernel = flash_attn_tc_kernel<HD>;
+  auto kernel = flash_attn_tc_kernel<HD, kLse>;
   cudaError_t err = repro::allow_smem(kernel, TcTile<HD>::kBytes);
   if (err != cudaSuccess) return err;
   const long long rows = static_cast<long long>(S) * G;
   const dim3 grid(static_cast<unsigned>((rows + kTcBM - 1) / kTcBM), B * KV);
   kernel<<<grid, kTcThreads, TcTile<HD>::kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, KV, G,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, KV, G,
       scale * 1.4426950408889634f);  // log2(e): softmax by exp2
   return cudaGetLastError();
 }
@@ -449,21 +472,30 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q/out (B, S, KV, G, hd), k/v (B, S, KV, hd), all float32 or all
-// bfloat16 (dtype), hd 64 or 128, 16-byte aligned. Returns the launch's
+// bfloat16 (dtype), hd 64 or 128, 16-byte aligned. lse, when not null,
+// receives each row's natural-log sum of exp(scale q.k) over its causal
+// keys, float32 (B, S, KV, G) -- what the backward recomputes P from;
+// the serving path passes null and writes nothing. Returns the launch's
 // cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int KV, int G, int hd, float scale,
-                                      int dtype, void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      int B, int S, int KV, int G, int hd,
+                                      float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  auto l = static_cast<float*>(lse);
+  // the serving launch (no lse) runs an instantiation without the store
   if (dtype == repro::kF32 && hd == 64)
-    return launch_f32<64>(q, k, v, out, B, S, KV, G, scale, s);
+    return l ? launch_f32<64, true>(q, k, v, out, l, B, S, KV, G, scale, s)
+             : launch_f32<64, false>(q, k, v, out, l, B, S, KV, G, scale, s);
   if (dtype == repro::kF32 && hd == 128)
-    return launch_f32<128>(q, k, v, out, B, S, KV, G, scale, s);
+    return l ? launch_f32<128, true>(q, k, v, out, l, B, S, KV, G, scale, s)
+             : launch_f32<128, false>(q, k, v, out, l, B, S, KV, G, scale, s);
   if (dtype == repro::kBF16 && hd == 64)
-    return launch_tc<64>(q, k, v, out, B, S, KV, G, scale, s);
+    return l ? launch_tc<64, true>(q, k, v, out, l, B, S, KV, G, scale, s)
+             : launch_tc<64, false>(q, k, v, out, l, B, S, KV, G, scale, s);
   if (dtype == repro::kBF16 && hd == 128)
-    return launch_tc<128>(q, k, v, out, B, S, KV, G, scale, s);
+    return l ? launch_tc<128, true>(q, k, v, out, l, B, S, KV, G, scale, s)
+             : launch_tc<128, false>(q, k, v, out, l, B, S, KV, G, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -14,13 +14,14 @@ import torch
 from repro_torch.kernels import quantize as qk
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
 
 # every kernel wrapper of the package, for launch accounting
 KERNELS = {"qmatmul": qmatmul_cuda, "qmatmul4": qmatmul4_cuda,
            "decode_attention": decode_attention_cuda,
-           "flash_attention": flash_attention_cuda,
+           "flash_attention": fa.flash_attention_cuda,
+           "flash_attention_bwd": fa.flash_attention_bwd_cuda,
            "quantize": qk.quantize_cuda,
            "quantize_pack4": qk.quantize_pack4_cuda,
            "dequantize": qk.dequantize_cuda}
@@ -41,12 +42,19 @@ def decode_attention(q, ck, cv, pos):
 
 def flash_attention(q, k, v, block_q: int, block_k: int):
     """Causal attention, q (B, S, KV, G, hd), k/v (B, S, KV, hd). The
-    blocks shape the plain version's loop only; the kernel tiles itself."""
+    blocks shape the plain version's loop only; the kernel tiles itself.
+    On the CPU autograd differentiates the plain version; on the card,
+    when a gradient is wanted, ``flash_attention.FlashAttention`` runs
+    the forward kernel with the row log-sum-exp and the backward kernel,
+    else the forward kernel alone (the serving launch)."""
     if _plain(q):
         from repro_torch.models.attention import _blocked_causal_attention
         return _blocked_causal_attention(q, k, v, block_q, block_k)
-    return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                v.contiguous())
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return fa.FlashAttention.apply(q, k, v)
+    return fa.flash_attention_cuda(q, k, v)
 
 
 def is_wire_struct(w) -> bool:

@@ -1,6 +1,8 @@
 """Plain PyTorch versions of every kernel (the allclose targets, and the
 CPU lane of ``kernels.ops``). The causal flash-attention kernel's plain
-version is ``models.attention._blocked_causal_attention``."""
+version is ``models.attention._blocked_causal_attention``; its row
+log-sum-exp and its backward kernel are held to
+:func:`flash_attention_lse_ref` and :func:`flash_attention_bwd_ref`."""
 from __future__ import annotations
 
 import torch
@@ -79,3 +81,51 @@ def decode_attention_ref(q, ck, cv, pos):
     out = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype).float(),
                        cv.to(q.dtype).float())
     return out.to(q.dtype)
+
+
+def _compute_dtype(dtype):
+    """float32 for the storage dtypes, float64 kept (the f64 gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _causal_scores(q, k):
+    """Scaled scores (B, KV, G, Sq, Sk) of q (B, S, KV, G, hd) against k
+    (B, S, KV, hd) in the compute dtype, and the causal mask (Sq, Sk)."""
+    ct = _compute_dtype(q.dtype)
+    s = q.shape[1]
+    sc = torch.einsum("bqkgd,bskd->bkgqs", q.to(ct), k.to(ct)) \
+        * q.shape[-1] ** -0.5
+    pos = torch.arange(s, device=q.device)
+    return sc, pos[:, None] >= pos[None, :]
+
+
+def flash_attention_lse_ref(q, k):
+    """Row log-sum-exp of causal attention: for each query row, the
+    natural log of sum_j exp(hd^-0.5 q.k_j) over keys j <= its position
+    -> (B, S, KV, G), float32 (float64 for float64 inputs)."""
+    sc, mask = _causal_scores(q, k)
+    sc = torch.where(mask, sc, torch.full_like(sc, -torch.inf))
+    return torch.logsumexp(sc, dim=-1).permute(0, 3, 1, 2)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, d_out):
+    """The gradient of causal attention, written out: P = exp(scale q.k -
+    lse) on the causal keys, dV = P^T dO with P rounded to the value
+    dtype first (as the forward rounds it before PV), dP = dO V^T, D =
+    rowsum(dO * O), dS = P (dP - D), dQ = scale dS K, dK = scale dS^T Q.
+    Layouts as the forward's (q, out, d_out (B, S, KV, G, hd); k, v (B,
+    S, KV, hd); lse (B, S, KV, G)); products in float32 (float64 for
+    float64 inputs) -> (dq, dk, dv) in the input dtypes."""
+    ct = _compute_dtype(q.dtype)
+    scale = q.shape[-1] ** -0.5
+    sc, mask = _causal_scores(q, k)
+    lse_r = lse.to(ct).permute(0, 2, 3, 1)[..., None]       # (B,KV,G,S,1)
+    p = torch.where(mask, torch.exp(sc - lse_r), torch.zeros_like(sc))
+    do, o = d_out.to(ct), out.to(ct)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p.to(v.dtype).to(ct), do)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.to(ct))
+    delta = (do * o).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(ct)) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, q.to(ct)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

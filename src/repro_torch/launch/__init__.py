@@ -1,2 +1,2 @@
-"""Launchers: the serving launcher (``serve``) and the step functions it
-drives (``steps``)."""
+"""Launchers: the training launcher (``train``), the serving launcher
+(``serve``) and the step functions they drive (``steps``)."""

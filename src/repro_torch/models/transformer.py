@@ -28,6 +28,7 @@ import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.kernels import ops
@@ -397,11 +398,32 @@ def _zero_aux(device) -> dict:
             for k in ("lb_loss", "z_loss", "dropped_frac")}
 
 
-def forward(params, cfg: ModelConfig, tokens, *, positions=None):
-    """tokens (B, S) -> (logits (B, S, V), aux)."""
+def forward(params, cfg: ModelConfig, tokens, *, positions=None,
+            remat: bool = False):
+    """tokens (B, S) -> (logits (B, S, V), aux). ``remat`` checkpoints
+    each period, as the reference's ``jax.checkpoint`` over its scan
+    body: the backward pass runs the period's forward again (its flash
+    attention kernel included) instead of keeping its activations."""
     _check_text(cfg)
-    h = segment_forward(params, cfg, _embed(params, cfg, tokens), 0,
-                        cfg.num_layers, positions=positions)
+    h = _embed(params, cfg, tokens)
+    if not remat:
+        h = segment_forward(params, cfg, h, 0, cfg.num_layers,
+                            positions=positions)
+        return _unembed(params, cfg, h), _zero_aux(h.device)
+    if positions is None:
+        positions = rope_lib.text_positions(h.shape[0], h.shape[1],
+                                            device=h.device)
+    plen = period_len(cfg)
+
+    def period_fn(h, per):
+        for pos in range(plen):
+            bp = tree_map(lambda t: t[per], params["blocks"][pos])
+            h, _ = _block_apply(bp, cfg, pos, h, positions)
+        return h
+
+    for per in range(num_periods(cfg)):
+        h = torch.utils.checkpoint.checkpoint(period_fn, h, per,
+                                              use_reentrant=False)
     return _unembed(params, cfg, h), _zero_aux(h.device)
 
 

@@ -1,0 +1,121 @@
+"""Training step: LM cross-entropy with the z-loss, remat-able, with
+gradient accumulation over microbatches — the reference's
+``train/train_loop.py`` on the port's parameter trees.
+
+Gradients come from ``torch.autograd.grad`` over the tree's leaves; on
+the card every full-sequence attention runs the flash kernel forward
+and its hand-written backward kernel (``kernels.flash_attention``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import transformer as T
+from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                         init_opt_state)
+from repro_torch.tree import tree_leaves, tree_map
+
+METRICS = ("xent", "zloss", "dropped_frac")
+
+
+def _unflatten(template, leaves):
+    """The leaves of ``tree_leaves(template)`` back in its nesting."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+def lm_loss(params, cfg, batch, remat: bool = True):
+    """batch: {tokens (B, S), labels (B, S)[, positions]} -> (total,
+    metrics). Logits in f32; mean logsumexp cross-entropy plus a 1e-4
+    z-loss on the log-partition. Dense blocks add no router loss."""
+    if batch.get("embeds") is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: embeds= (frontend archs) are not ported to "
+            "repro_torch yet (ROADMAP Queue 1, model zoo)")
+    logits, aux = T.forward(params, cfg, batch["tokens"],
+                            positions=batch.get("positions"), remat=remat)
+    logits = logits.float()
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    xent = torch.mean(logz - gold)
+    zloss = 1e-4 * torch.mean(torch.square(logz))
+    total = xent + zloss
+    metrics = {"xent": xent, "zloss": zloss,
+               "dropped_frac": aux["dropped_frac"]}
+    return total, metrics
+
+
+def value_and_grad(params, cfg, batch, remat: bool = True):
+    """((loss, metrics), grads) of :func:`lm_loss` with respect to every
+    leaf of ``params``; the grads are a tree of the same nesting."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, metrics = lm_loss(live, cfg, batch, remat)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), \
+        _unflatten(params, grads)
+
+
+def make_train_step(cfg, opt_cfg: AdamWConfig, remat: bool = True,
+                    accum_steps: int = 1):
+    """accum_steps > 1 runs the microbatches in turn (the global batch
+    must divide), accumulating the gradients in f32 and dividing by
+    ``accum_steps``. The batch is split as the reference splits it:
+    (B/A, A) with A moved to the front, so microbatch ``a`` holds rows
+    ``a, a + A, a + 2A, ...``."""
+    def train_step(params, opt_state, batch):
+        if accum_steps == 1:
+            (loss, metrics), grads = value_and_grad(params, cfg, batch,
+                                                    remat)
+        else:
+            a = accum_steps
+
+            def split(t):
+                t = t.reshape((t.shape[0] // a, a) + tuple(t.shape[1:]))
+                return t.transpose(0, 1)
+
+            micro = {k: split(v) for k, v in batch.items()
+                     if k != "positions"}
+            # positions (3, B, S) carry the batch on axis 1
+            if "positions" in batch:
+                pos = batch["positions"]
+                pos = pos.reshape(3, pos.shape[1] // a, a, pos.shape[-1])
+                micro["positions"] = pos.permute(2, 0, 1, 3)
+            grads = tree_map(lambda p: torch.zeros(p.shape,
+                                                   dtype=torch.float32,
+                                                   device=p.device), params)
+            device = tree_leaves(params)[0].device
+            loss = torch.zeros((), dtype=torch.float32, device=device)
+            metrics = {k: torch.zeros((), dtype=torch.float32,
+                                      device=device) for k in METRICS}
+            for i in range(a):
+                mb = {k: v[i] for k, v in micro.items()}
+                (l_i, m_i), g_i = value_and_grad(params, cfg, mb, remat)
+                grads = tree_map(lambda acc, g: acc + g.float(), grads, g_i)
+                loss = loss + l_i
+                metrics = {k: metrics[k] + m_i[k] for k in METRICS}
+            grads = tree_map(lambda g: g / a, grads)
+            loss = loss / a
+            metrics = {k: v / a for k, v in metrics.items()}
+        params, opt_state, opt_metrics = adamw_update(
+            opt_cfg, params, grads, opt_state)
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg):
+    def eval_step(params, batch):
+        with torch.no_grad():
+            _, metrics = lm_loss(params, cfg, batch, remat=False)
+        return metrics
+
+    return eval_step
+
+
+def init_train_state(cfg, generator: torch.Generator, device="cuda"):
+    """Seeded f32 master weights on ``device`` (``generator`` lives there)
+    and a fresh optimizer state."""
+    params = T.init_params(cfg, generator, device=device)
+    return params, init_opt_state(params)

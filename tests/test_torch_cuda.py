@@ -10,10 +10,15 @@ the tiled route; the tiled tensor-core route (M > 16, bf16 x) at every
 projection shape of smollm-135m and ragged ones, unaligned codes and x,
 and each output row the same bits at every M; decode attention's cluster
 split over every change of
-its CTA count up to a 4096-slot ring, wrapped and not. Each gives the
-same bits on every call, in one launch. Beside the kernels: the decode
-session's page pool on the card (bf16 and float8 pages, the CPU's bits)
-and speculative decode through the kernels, bitwise plain greedy.
+its CTA count up to a 4096-slot ring, wrapped and not; the flash
+backward kernel (with the forward's row log-sum-exp) over ragged S,
+both head dims, both dtypes and three GQA groupings, zero gradients on
+masked keys and zeroed heads, and autograd through the kernel pair.
+Each gives the same bits on every call, in one launch. Beside the
+kernels: the decode session's page pool on the card (bf16 and float8
+pages, the CPU's bits), speculative decode through the kernels, bitwise
+plain greedy, and ``lm_loss``'s gradients on the card against the CPU's
+plain versions, remat included.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
@@ -613,3 +618,154 @@ def test_fleet_executes_admitted_deployment_on_card():
     again = srv.fleet(provider=cal, **kw).run(trace)
     again.assert_terminal()
     assert again.summary()["completed"] == len(trace)
+
+
+def _attn_grad_inputs(gen, s, kvh, grp, hd, dtype, b=2):
+    q = torch.randn(b, s, kvh, grp, hd, generator=gen, device="cuda")
+    k = torch.randn(b, s, kvh, hd, generator=gen, device="cuda")
+    v = torch.randn(b, s, kvh, hd, generator=gen, device="cuda")
+    do = torch.randn(b, s, kvh, grp, hd, generator=gen, device="cuda")
+    return tuple(t.to(dtype) for t in (q, k, v, do))
+
+
+def _rel_err(got, want):
+    """max |got - want| over the larger of 1 and max |want| (a gradient
+    that cancels to ~0, as dk at S = 1, is held absolutely)."""
+    return _err(got, want) / max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s", [1, 31, 65, 100, 200])
+@pytest.mark.parametrize("kvh,grp", [(1, 1), (2, 3), (4, 4)])
+def test_flash_attention_bwd(gen, dtype, hd, s, kvh, grp):
+    """The forward's row log-sum-exp within 1e-4 of the plain one; the
+    backward kernel within 1e-4 (f32) or one bf16 step, 2^-7 (bf16), of
+    the plain backward on the same out and lse, one launch per call, and
+    bitwise the same on a second call."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v, do = _attn_grad_inputs(gen, s, kvh, grp, hd, dtype)
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+    assert torch.equal(out, flash_attention_cuda(q, k, v))
+    assert _rel_err(lse, ref.flash_attention_lse_ref(q, k)) <= 1e-4
+    before = flash_attention_bwd_cuda.launches
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    assert flash_attention_bwd_cuda.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel_err(g, w) <= tol
+    again = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_masked_and_padded_heads(gen, dtype):
+    """A head whose output gradient is zero (a padded head, zeroed after
+    attention by the model's mask) gets exactly zero dq; the last key,
+    which only the last position's rows see, exactly zero dk and dv once
+    those rows' gradient is zero."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v, do = _attn_grad_inputs(gen, 70, 2, 4, 64, dtype)
+    do[:, :, :, 3] = 0
+    do[:, -1] = 0
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+    dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert (dq[:, :, :, 3] == 0).all()
+    assert (dk[:, -1] == 0).all() and (dv[:, -1] == 0).all()
+    assert dq.abs().amax() > 0 and dk.abs().amax() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_on_card(gen, dtype):
+    """``ops.flash_attention`` on leaves that want a gradient: the forward
+    kernel (with its lse) and then the backward kernel, once each, and
+    the gradients those of torch autograd through the plain version on
+    the card."""
+    from repro_torch.kernels import ops
+    q, k, v, do = _attn_grad_inputs(gen, 96, 2, 2, 64, dtype)
+    fwd, bwd = ops.KERNELS["flash_attention"], ops.KERNELS[
+        "flash_attention_bwd"]
+    before = (fwd.launches, bwd.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*leaves, 96, 96), leaves,
+                              do)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(_blocked_causal_attention(*plain, 96, 96),
+                               plain, do)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= tol
+
+
+def test_flash_attention_bwd_rejects_what_the_kernel_does_not_take(gen):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v, do = _attn_grad_inputs(gen, 8, 1, 2, 64, torch.float32)
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="lse"):             # lse dtype
+        flash_attention_bwd_cuda(q, k, v, out, lse.bfloat16(), do)
+    with pytest.raises(ValueError, match="lse"):             # lse shape
+        flash_attention_bwd_cuda(q, k, v, out, lse[:, :4], do)
+    with pytest.raises(ValueError):                          # d_out dtype
+        flash_attention_bwd_cuda(q, k, v, out, lse, do.bfloat16())
+    with pytest.raises(ValueError):                          # not contiguous
+        flash_attention_bwd_cuda(q, k, v, out, lse,
+                                 torch.cat([do, do], dim=-1)[..., :64])
+    with pytest.raises(ValueError):                          # head dim 32
+        flash_attention_bwd_cuda(q[..., :32].contiguous(),
+                                 k[..., :32].contiguous(),
+                                 v[..., :32].contiguous(),
+                                 out[..., :32].contiguous(), lse,
+                                 do[..., :32].contiguous())
+    with pytest.raises(ValueError):                          # on the CPU
+        flash_attention_bwd_cuda(q.cpu(), k.cpu(), v.cpu(), out.cpu(),
+                                 lse.cpu(), do.cpu())
+
+
+def test_lm_gradients_on_card_match_cpu():
+    """The 4-layer f32 smollm-8m with padded heads (tp_pad=16): every
+    leaf's gradient of ``lm_loss`` through the kernels on the card within
+    1e-3 of its largest magnitude of the plain versions' on the CPU;
+    with remat, the forward kernel launches twice per layer and the
+    gradients are the same bits as without."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cfg = dataclasses.replace(
+        get_config("smollm-135m"), name="smollm-8m", num_layers=4,
+        d_model=256, num_heads=4, num_kv_heads=2, head_dim=64, d_ff=768,
+        vocab_size=250, tp_pad=16, dtype="float32")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=g,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    (l_cpu, _), g_cpu = value_and_grad(params, cfg, batch, False)
+    on_card = tree_map(lambda t: t.cuda(), params)
+    card_batch = {k: t.cuda() for k, t in batch.items()}
+    fwd, bwd = ops.KERNELS["flash_attention"], ops.KERNELS[
+        "flash_attention_bwd"]
+    counts = []
+    grads = []
+    for remat in (False, True):
+        before = (fwd.launches, bwd.launches)
+        (loss, _), gr = value_and_grad(on_card, cfg, card_batch, remat)
+        torch.cuda.synchronize()
+        counts.append((fwd.launches - before[0], bwd.launches - before[1]))
+        grads.append(gr)
+        assert abs(loss.item() - l_cpu.item()) <= 1e-4 * abs(l_cpu.item())
+    L = cfg.num_layers
+    assert counts == [(L, L), (2 * L, L)]
+    for a, b, c in zip(tree_leaves(grads[0]), tree_leaves(grads[1]),
+                       tree_leaves(g_cpu)):
+        assert torch.equal(a, b)
+        assert _err(a.cpu(), c) <= 1e-3 * max(c.abs().max().item(), 1e-12)

@@ -8,9 +8,11 @@ of the row sum, so f32 outputs agree to 1e-4 (the reference's own
 kernel tests use 2e-6 against a same-order oracle); bf16 and float8
 caches round probabilities and values to bf16, so 2e-2 as in
 tests/test_decode_kernels.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -175,6 +177,111 @@ class TestFlashAttention:
         v = to_torch(rng.standard_normal((1, 16, 1, 64)).astype(np.float32))
         assert (ops.flash_attention(q, k, v, 8, 8)
                 == _blocked_causal_attention(q, k, v, 8, 8)).all()
+
+
+class TestFlashAttentionBackward:
+    """The plain versions the backward kernel and the forward's row
+    log-sum-exp are held to on the card: against ``jax.vjp`` of the
+    reference's ``_blocked_causal_attention`` (the function XLA
+    differentiates for the reference's training), against torch
+    autograd of the port's, and against finite differences in float64.
+    f32 gradients agree to 1e-4 of their largest magnitude (sums in
+    another order); bf16 ones to one bf16 step of it (2^-7: autograd
+    of the plain version also rounds dP and the gradients to bf16)."""
+
+    @staticmethod
+    def _case(dtype=np.float32, s=24, kv=2, g=3, hd=64, seed=8):
+        rng = _rng(seed)
+        q = rng.standard_normal((2, s, kv, g, hd)).astype(dtype)
+        k = rng.standard_normal((2, s, kv, hd)).astype(dtype)
+        v = rng.standard_normal((2, s, kv, hd)).astype(dtype)
+        do = rng.standard_normal((2, s, kv, g, hd)).astype(dtype)
+        return q, k, v, do
+
+    @staticmethod
+    def _plain_bwd(q, k, v, do):
+        tq, tk, tv, tdo = (to_torch(a) for a in (q, k, v, do))
+        out = _blocked_causal_attention(tq, tk, tv, 8, 8)
+        lse = ref.flash_attention_lse_ref(tq, tk)
+        return lse, ref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo)
+
+    @staticmethod
+    def _close(got, want, tol):
+        got, want = to_numpy(got), np.asarray(want, np.float32)
+        assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+    def test_lse_matches_float64(self):
+        q, k, _, _ = self._case()
+        lse, _ = self._plain_bwd(*self._case())
+        sc = np.einsum("bqkgd,bskd->bkgqs", q.astype(np.float64),
+                       k.astype(np.float64)) * q.shape[-1] ** -0.5
+        s = q.shape[1]
+        sc = np.where(np.tril(np.ones((s, s), bool)), sc, -np.inf)
+        m = sc.max(-1, keepdims=True)
+        want = (m + np.log(np.exp(sc - m).sum(-1, keepdims=True)))[..., 0]
+        np.testing.assert_allclose(to_numpy(lse), want.transpose(0, 3, 1, 2),
+                                   atol=1e-5, rtol=1e-6)
+
+    def test_bwd_matches_reference_vjp(self):
+        q, k, v, do = self._case()
+        _, grads = self._plain_bwd(q, k, v, do)
+        _, vjp = jax.vjp(lambda a, b, c: jax_blocked_attention(a, b, c, 8, 8),
+                         q, k, v)
+        for got, want in zip(grads, vjp(jnp.asarray(do))):
+            self._close(got, want, TOL_F32)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_bwd_matches_port_autograd(self, dtype):
+        tdt = getattr(torch, dtype)
+        q, k, v, do = (to_torch(a).to(tdt) for a in self._case(s=40))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = _blocked_causal_attention(*leaves, 8, 8)
+        want = torch.autograd.grad(out, leaves, do)
+        got = ref.flash_attention_bwd_ref(
+            q, k, v, out.detach(), ref.flash_attention_lse_ref(q, k), do)
+        tol = TOL_F32 if dtype == "float32" else 2 ** -7
+        for g, w in zip(got, want):
+            assert g.dtype == tdt
+            self._close(g, to_numpy(w), tol)
+
+    def test_bwd_gradcheck_float64(self):
+        """Causal attention written out in float64, its backward the plain
+        one: torch.autograd.gradcheck against finite differences."""
+        class Attn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v):
+                lse = ref.flash_attention_lse_ref(q, k)
+                sc = torch.einsum("bqkgd,bskd->bkgqs", q, k) * \
+                    q.shape[-1] ** -0.5
+                s = q.shape[1]
+                mask = torch.tril(torch.ones(s, s, dtype=torch.bool))
+                p = torch.where(mask, torch.exp(
+                    sc - lse.permute(0, 2, 3, 1)[..., None]), 0.0)
+                out = torch.einsum("bkgqs,bskd->bqkgd", p, v)
+                ctx.save_for_backward(q, k, v, out, lse)
+                return out
+
+            @staticmethod
+            def backward(ctx, d_out):
+                return ref.flash_attention_bwd_ref(*ctx.saved_tensors, d_out)
+
+        rng = _rng(9)
+        args = [torch.from_numpy(rng.standard_normal(shape)).requires_grad_()
+                for shape in ((1, 5, 2, 2, 4), (1, 5, 2, 4), (1, 5, 2, 4))]
+        assert torch.autograd.gradcheck(Attn.apply, args, eps=1e-6,
+                                        atol=1e-7, rtol=1e-5)
+
+    def test_padded_head_and_future_rows_get_no_gradient(self):
+        """A head whose output gradient is zero (a padded head after the
+        model's mask) gets exactly zero dq, and the last key, seen only by
+        the last row, exactly zero dk/dv once that row's gradient is 0."""
+        q, k, v, do = self._case()
+        do[:, :, :, 2] = 0.0
+        do[:, -1] = 0.0
+        _, (dq, dk, dv) = self._plain_bwd(q, k, v, do)
+        assert (dq[:, :, :, 2] == 0).all()
+        assert (dk[:, -1] == 0).all() and (dv[:, -1] == 0).all()
+        assert dq.abs().amax() > 0 and dk.abs().amax() > 0
 
 
 class TestPackingOracles:
