@@ -16,8 +16,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    on every projection, decode attention on the request loop's and the
    launcher's rings and a 2048-slot one, flash attention at the
    calibration shape and S = 100 in bf16 and once in f32, its row
-   log-sum-exp and the backward kernel at the training shape (B 8, S
-   256) and S = 100 in bf16 and f32, quantize on a bf16 leaf as well),
+   log-sum-exp and the backward kernels at the training shape (B 8, S
+   256, hd 64 and 128, bf16) and S = 100 in bf16 and f32, quantize on a
+   bf16 leaf as well),
    with a second call bitwise equal to the first,
    and time kernel, plain version, the closest single PyTorch library
    call (a yardstick only — the port never calls it) and the card's
@@ -28,8 +29,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    timed on the MLP up- and down-projections at M = 32, 128 and 256. The
    build's ptxas report of the redesigned kernels (registers, spills, a
    spill fails the run), their dynamic shared memory and the SASS HMMA
-   counts of the flash and the tiled qmatmul kernels (a tiled
-   instantiation without HMMA fails the run) print first;
+   counts of the tensor-core kernels (flash forward and backward, tiled
+   qmatmul; one without HMMA fails the run) print first;
 4. the request loop on smollm-135m at its registered shape (30 layers,
    d_model 576, 9/3 heads padded to 4 x 4 by tp_pad=16, d_ff 1536, vocab
    49152, bf16) with seeded random weights: register -> calibrate ->
@@ -82,7 +83,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 ``--profile-launcher`` runs only that profile; ``--profile-tiled`` only
 times the tiled qmatmul route over a sweep of shapes and profiles the
 prefills that run it; ``--profile-flash`` only times the flash
-forward's serving launch. ``--src`` imports the port from another tree, so
+forward's serving launch and the backward kernels at the training
+shape (with SDPA's backward beside them and a digest of the float32
+route's output bits) and profiles smollm-135m's train step and
+``launch.train``. ``--src`` imports the port from another tree, so
 that an earlier commit unpacked by ``git archive`` can be profiled in
 the same call as this one.
 
@@ -98,6 +102,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
 import re
 import shutil
@@ -346,14 +351,17 @@ def profile_tiled(torch, timer):
 def profile_flash(torch, timer):
     """The serving launch of the flash forward (no log-sum-exp) at the
     calibration shape (B 64, S 128) and the training shape (B 8, S 256),
-    KV = G = 4, hd 64, bf16, on seeded inputs, with the ptxas report of
-    the tree's flash forward entries: run once per tree, in turns, it
-    says whether the training slice's LSE output moved the serving
-    kernel."""
+    KV = G = 4, hd 64, bf16, and the backward kernels at the training
+    shape (hd 64 and 128, bf16; device ms and the wrapper's host ms a
+    call) beside SDPA's backward, on seeded inputs, with the ptxas report
+    of the tree's flash entries, the digest of the float32 backward's
+    output bits (``f32_bwd_digest``) and ``profile_train``: run once per
+    tree, in turns, it compares parent and change on one card."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    for e in ptxas_entries(build.build_all(), {"flash_attention":
-                                               ("flash_attn",)}):
+    for e in ptxas_entries(build.build_all(), {
+            "flash_attention": ("flash_attn",),
+            "flash_attention_bwd": ("dq_", "dkv_")}):
         emit({"ptxas_entry": e})
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     for b, s in ((64, 128), (8, 256)):
@@ -364,6 +372,84 @@ def profile_flash(torch, timer):
         emit({"flash_profile": {"b": b, "s": s,
                                 **timer(lambda: flash_attention_cuda(
                                     q, k, v), reps=50)}})
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    for hd in (64, 128):
+        q, k, v, do = attn_grad_inputs(torch, g, 8, 256, hd, torch.bfloat16)
+        out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+        emit({"flash_bwd_profile": {
+            "b": 8, "s": 256, "hd": hd,
+            "kernel": timer(lambda: flash_attention_bwd_cuda(
+                q, k, v, out, lse, do), reps=50),
+            "host_ms_per_call": host_ms(
+                torch, lambda: flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                        do)),
+            "library": timer(sdpa_backward(torch, q, k, v, do), reps=50)}})
+    emit({"flash_bwd_f32_sha256": f32_bwd_digest(torch)})
+    profile_train(torch)
+
+
+def f32_bwd_digest(torch) -> str:
+    """sha256 of the float32 backward's dq, dk and dv bytes on a fixed
+    case (B 2, S 100, KV 4, G 4, hd 64; q, k, v, d_out from NumPy's
+    generator seeded 19, in that order; out and lse from the f32
+    forward): equal between trees, the route's bits are unchanged.
+    ``tests/test_torch_cuda.py`` holds the same case to a digest."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    rng = np.random.default_rng(19)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).cuda() for shape in (
+            (2, 100, 4, 4, 64), (2, 100, 4, 64), (2, 100, 4, 64),
+            (2, 100, 4, 4, 64)))
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+    grads = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                   for t in grads)).hexdigest()
+
+
+def profile_train(torch):
+    """smollm-135m's train step at B 8 x S 256 on seeded weights:
+    ``train_step_profile`` over 20 steps, then ``launch.train.main`` for
+    TRAIN_STEPS steps (no checkpoint) and its wall seconds, the token
+    stream included."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import init_opt_state
+    cfg = get_config("smollm-135m")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 7), device="cuda")
+    train_step_profile(torch, cfg, params, init_opt_state(params), steps=20)
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = train_launch.main(["--steps", str(TRAIN_STEPS), "--batch", "8",
+                            "--seq", "256"])
+    torch.cuda.synchronize()
+    emit({"train_launch": {"rc": rc, "steps": TRAIN_STEPS,
+                           "wall_s": time.perf_counter() - t0}})
+
+
+def attn_grad_inputs(torch, g, b, s, hd, dt, kvh=4, grp=4):
+    """Seeded q, k, v and d_out (B, S, KV, G, hd / B, S, KV, hd) in ``dt``."""
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dt)
+                 for shape in ((b, s, kvh, grp, hd), (b, s, kvh, hd),
+                               (b, s, kvh, hd), (b, s, kvh, grp, hd)))
+
+
+def sdpa_backward(torch, q, k, v, do):
+    """SDPA's backward alone on the grouped inputs (``torch.autograd.grad``
+    on a retained graph, K/V repeated per head): a yardstick only, the
+    port never calls it."""
+    b, s, kvh, grp, hd = q.shape
+    leaves = [t_.contiguous().requires_grad_(True) for t_ in (
+        q.permute(0, 2, 3, 1, 4).reshape(b, kvh * grp, s, hd),
+        k.permute(0, 2, 1, 3).repeat_interleave(grp, dim=1),
+        v.permute(0, 2, 1, 3).repeat_interleave(grp, dim=1))]
+    o = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                         is_causal=True)
+    dos = do.permute(0, 2, 3, 1, 4).reshape(b, kvh * grp, s, hd).contiguous()
+    return lambda: torch.autograd.grad(o, leaves, dos, retain_graph=True)
 
 
 def host_ms(torch, fn, calls: int = 200) -> float:
@@ -568,26 +654,28 @@ def check_flash_attention(torch, timer, records, calib_batch, seq):
 
 
 def check_flash_attention_bwd(torch, timer, records):
-    """The backward kernel against its plain version (the gradient written
-    out from the row log-sum-exp) at smollm-135m's training shape (B 8,
-    S 256, KV 4, G 4 after tp_pad, hd 64, bf16) and at a ragged S = 100
-    in bf16 and f32, with the forward's lse held against its plain
-    version and every call repeated for bitwise equality. Timed at the
-    training shape beside the plain version and SDPA's backward alone
-    (``torch.autograd.grad`` on a retained graph, K/V repeated per
-    head: a yardstick only, the port never calls it)."""
+    """The backward kernels against their plain version (the gradient
+    written out from the row log-sum-exp) at smollm-135m's training shape
+    (B 8, S 256, KV 4, G 4 after tp_pad, hd 64, bf16), at hd 128 there,
+    and at a ragged S = 100 in bf16 and f32, with the forward's lse held
+    against its plain version and every call repeated for bitwise
+    equality. Each case is also held to torch autograd of the plain
+    forward (``_blocked_causal_attention``), which rounds nothing the
+    kernels round: within 1e-4 in f32, 2^-6 in bf16. Timed at the
+    training shape (hd 64 in the kernels record, hd 128 beside it) with
+    the plain version and SDPA's backward alone (``sdpa_backward``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
+    from repro_torch.models.attention import _blocked_causal_attention
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    kvh, grp, hd = 4, 4, 64
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kvh, grp = 4, 4
     worst, rec = 0.0, {}
-    for b, s, dt in ((8, 256, torch.bfloat16), (2, 100, torch.bfloat16),
-                     (2, 100, torch.float32)):
-        q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dt)
-                       for shape in ((b, s, kvh, grp, hd), (b, s, kvh, hd),
-                                     (b, s, kvh, hd), (b, s, kvh, grp, hd)))
+    for b, s, hd, dt in ((8, 256, 64, torch.bfloat16),
+                         (8, 256, 128, torch.bfloat16),
+                         (2, 100, 64, torch.bfloat16),
+                         (2, 100, 64, torch.float32)):
+        q, k, v, do = attn_grad_inputs(torch, g, b, s, hd, dt, kvh, grp)
         out, lse = flash_attention_cuda(q, k, v, with_lse=True)
         lse_again = flash_attention_cuda(q, k, v, with_lse=True)[1]
         got = flash_attention_bwd_cuda(q, k, v, out, lse, do)
@@ -596,7 +684,8 @@ def check_flash_attention_bwd(torch, timer, records):
         lse_want = ref.flash_attention_lse_ref(q, k)
         torch.cuda.synchronize()
         # f32: sums in another order; bf16: one bf16 step of the largest
-        # gradient (P rounded to bf16 in both, outputs rounded to bf16)
+        # gradient (P and dS rounded to bf16 in both, outputs rounded to
+        # bf16)
         tol = 1e-4 if dt == torch.float32 else 2 ** -7
         errs = {n: (a.float() - w.float()).abs().max().item()
                 / max(1.0, w.float().abs().max().item())
@@ -605,15 +694,25 @@ def check_flash_attention_bwd(torch, timer, records):
             1.0, lse_want.abs().max().item())
         same = all(torch.equal(a, c) for a, c in zip(got, again)) and \
             torch.equal(lse, lse_again)
-        emit({"check": "flash_attention_bwd", "b": b, "s": s,
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        auto = torch.autograd.grad(_blocked_causal_attention(*leaves, s, s),
+                                   leaves, do)
+        auto_tol = 1e-4 if dt == torch.float32 else 2 ** -6
+        auto_errs = {n: (a.float() - w.float()).abs().max().item()
+                     / max(1.0, w.float().abs().max().item())
+                     for n, a, w in zip(("dq", "dk", "dv"), got, auto)}
+        emit({"check": "flash_attention_bwd", "b": b, "s": s, "hd": hd,
               "dtype": str(dt), "rel_err": errs, "tol": tol,
+              "autograd_rel_err": auto_errs, "autograd_tol": auto_tol,
               "lse_rel_err": lse_err, "lse_tol": 1e-4,
               "repeat_bitwise": same})
-        if not (max(errs.values()) <= tol and lse_err <= 1e-4 and same):
+        if not (max(errs.values()) <= tol and lse_err <= 1e-4 and same
+                and max(auto_errs.values()) <= auto_tol):
             raise AssertionError(
-                f"flash attention backward b={b} s={s} {dt}: {errs} > "
-                f"{tol}, lse {lse_err} > 1e-4, or a second call differs "
-                f"({same})")
+                f"flash attention backward b={b} s={s} hd={hd} {dt}: "
+                f"{errs} > {tol}, autograd of the plain forward "
+                f"{auto_errs} > {auto_tol}, lse {lse_err} > 1e-4, or a "
+                f"second call differs ({same})")
         worst = max(worst, max((a.float() - w.float()).abs().max().item()
                                for a, w in zip(got, want)))
         if (b, s) != (8, 256):
@@ -621,28 +720,23 @@ def check_flash_attention_bwd(torch, timer, records):
         t = timer(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do))
         plain_t = timer(lambda: ref.flash_attention_bwd_ref(q, k, v, out,
                                                             lse, do))
-        leaves = [t_.contiguous().requires_grad_(True) for t_ in (
-            q.permute(0, 2, 3, 1, 4).reshape(b, kvh * grp, s, hd),
-            k.permute(0, 2, 1, 3).repeat_interleave(grp, dim=1),
-            v.permute(0, 2, 1, 3).repeat_interleave(grp, dim=1))]
-        o = sdpa(*leaves, is_causal=True)
-        dos = do.permute(0, 2, 3, 1, 4).reshape(b, kvh * grp, s,
-                                                hd).contiguous()
-        lib = timer(lambda: torch.autograd.grad(o, leaves, dos,
-                                                retain_graph=True))
-        del o, leaves
+        lib = timer(sdpa_backward(torch, q, k, v, do))
         pairs = s * (s + 1) // 2
         bnd, by = bound_ms(nbytes(q, k, v, out, lse, do) + nbytes(*got),
                            10 * b * kvh * grp * pairs * hd)
-        emit({"timing": "flash_attention_bwd", "b": b, "s": s, "kernel": t,
-              "plain": plain_t, "library": lib, "bound_ms": bnd,
-              "ms_over_floor": t["ms_over_floor"]})
-        rec.update(ms=t["ms"], ms_min=t["ms_min"],
-                   ms_over_floor=t["ms_over_floor"], plain_ms=plain_t["ms"],
-                   bound_ms=bnd, bound_by=by, library_ms=lib["ms"],
-                   library_ms_min=lib["ms_min"],
-                   timed=f"B={b} S={s} KV={kvh} G={grp} hd={hd} bf16, "
-                         "causal: dq, dk, dv")
+        emit({"timing": "flash_attention_bwd", "b": b, "s": s, "hd": hd,
+              "kernel": t, "plain": plain_t, "library": lib,
+              "bound_ms": bnd, "ms_over_floor": t["ms_over_floor"]})
+        timed = dict(ms=t["ms"], ms_min=t["ms_min"],
+                     ms_over_floor=t["ms_over_floor"],
+                     plain_ms=plain_t["ms"], bound_ms=bnd, bound_by=by,
+                     library_ms=lib["ms"], library_ms_min=lib["ms_min"],
+                     timed=f"B={b} S={s} KV={kvh} G={grp} hd={hd} bf16, "
+                           "causal: dq, dk, dv")
+        if hd == 64:
+            rec.update(timed)
+        else:
+            rec[f"hd{hd}"] = timed
     records["flash_attention_bwd"] = dict(max_abs_err=worst, **rec)
     emit({"timing": "flash_attention_bwd",
           **records["flash_attention_bwd"]})
@@ -875,11 +969,13 @@ def request_loop(torch, ops, calib_batch: int, seq: int):
     return cfg, params, backend, launches, dep, prompt, srv, (x_te, y_te)
 
 
-def profile_steps(torch, step, steps: int) -> dict:
+def profile_steps(torch, step, steps: int, watch=()) -> dict:
     """Where a decode step's wall time goes: ``torch.profiler`` over
     ``steps`` calls of ``step`` — device busy time (the sum of kernel and
     memcpy durations on the card), the idle share of the wall time, device
-    events per step and the costliest device consumers."""
+    events per step and the costliest device consumers; with ``watch``,
+    also the device ms per step of the events whose name holds each of
+    those strings."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -896,12 +992,17 @@ def profile_steps(torch, step, steps: int) -> dict:
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
-            "device_busy_ms_per_step": busy_us / steps / 1e3,
-            "idle_share": 1 - busy_us / wall_us if dev else None,
-            "device_events_per_step": len(dev) / steps,
-            "top_device_ms_per_step": {k[:60]: v / steps / 1e3
-                                       for k, v in top}}
+    out = {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+           "device_busy_ms_per_step": busy_us / steps / 1e3,
+           "idle_share": 1 - busy_us / wall_us if dev else None,
+           "device_events_per_step": len(dev) / steps,
+           "top_device_ms_per_step": {k[:60]: v / steps / 1e3
+                                      for k, v in top}}
+    if watch:
+        out["watched_device_ms_per_step"] = {
+            w: sum(us for n, us in by_name.items() if w in n) / steps / 1e3
+            for w in watch}
+    return out
 
 
 def profile_decode(torch, dep, prompt, steps: int = 4):
@@ -1711,11 +1812,19 @@ def train_remat_check(torch, ops, cfg):
     return runs
 
 
+# the flash backward's device kernels (bf16 route), as the profiler names
+# them
+# the backward's two kernels under either route's names (dq_kernel /
+# dq_tc_kernel, dkv_kernel / dkv_tc_kernel)
+FLASH_BWD_KERNELS = ("dq_", "dkv_")
+
+
 def train_step_profile(torch, cfg, params, opt_state, steps: int = 3):
     """Where a train step's time goes, the token stream apart: one batch
     drawn from the stream (wall ms), then ``steps`` train steps on a
     fixed batch, remat off and on — unprofiled wall ms, then
-    ``profile_steps``' wall, device-busy and idle share — and the peak
+    ``profile_steps``' wall, device-busy and idle share, the flash
+    backward kernels' ms and share of the busy time — and the peak
     device memory of the profiled steps."""
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_loop import make_train_step
@@ -1735,8 +1844,11 @@ def train_step_profile(torch, cfg, params, opt_state, steps: int = 3):
         step()
         wall = wall_ms(torch, step, steps)
         torch.cuda.reset_peak_memory_stats()
-        prof = profile_steps(torch, step, steps)
+        prof = profile_steps(torch, step, steps, watch=FLASH_BWD_KERNELS)
+        bwd_ms = sum(prof["watched_device_ms_per_step"].values())
         emit({"train_step_profile": {
+            "flash_bwd_share_of_busy": bwd_ms / prof[
+                "device_busy_ms_per_step"],
             "arch": cfg.name, "batch": 8, "seq": 256, "remat": remat,
             "token_stream_ms_per_batch": data_ms, **wall, **prof,
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}})
@@ -1911,7 +2023,8 @@ PORT_ONLY = {"flash_attention_bwd": (
 
 # kernels whose design changed after their first port, and in which PR
 REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13",
-              "qmatmul": "PR 14", "decode_attention": "PR 14"}
+              "qmatmul": "PR 14", "decode_attention": "PR 14",
+              "flash_attention_bwd": "PR 19"}
 
 # the kernels each path's run must launch, the tiled qmatmul route (M >
 # 16) included: every prefill of the decode features and of the
@@ -1942,7 +2055,15 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
 # source (qmm_skinny and qmm_tc: the int8 and the int4 instantiations)
 REDESIGNED_ENTRIES = {"flash_attention": ("flash_attn_tc_kernel",),
                       "qmatmul": ("qmm_skinny", "qmm_tc"),
-                      "decode_attention": ("decode_split_kernel",)}
+                      "decode_attention": ("decode_split_kernel",),
+                      "flash_attention_bwd": ("dq_tc_kernel",
+                                              "dkv_tc_kernel")}
+
+# the tensor-core kernels, by source: each must hold HMMA in its SASS
+TENSOR_CORE_ENTRIES = (("flash_attention", "flash_attn_tc_kernel"),
+                       ("qmatmul", "qmm_tc"),
+                       ("flash_attention_bwd", "dq_tc_kernel"),
+                       ("flash_attention_bwd", "dkv_tc_kernel"))
 
 
 def ptxas_entries(out_dir, wanted):
@@ -1997,8 +2118,9 @@ def main(argv=None) -> int:
                          "route over a sweep of M, K and N and profile "
                          "the prefills that run it")
     ap.add_argument("--profile-flash", action="store_true",
-                    help="only build the kernels and time the flash "
-                         "forward's serving launch (no log-sum-exp)")
+                    help="only build the kernels, time the flash "
+                         "forward's serving launch and the backward "
+                         "kernels and profile the train step")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree whose repro_torch to import (with "
                          "--profile-launcher, --profile-tiled or "
@@ -2068,14 +2190,14 @@ def main(argv=None) -> int:
     if any(e["spill_store_bytes"] or e["spill_load_bytes"]
            for e in redesigned):
         raise AssertionError("a redesigned kernel spills registers")
-    emit({"sass_hmma": hmma_count(out_dir / "libflash_attention.so",
-                                  "flash_attn_tc_kernel")})
-    qmm_hmma = hmma_count(out_dir / "libqmatmul.so", "qmm_tc")
-    emit({"sass_hmma": qmm_hmma})
-    if qmm_hmma is not None and not (qmm_hmma
-                                     and all(qmm_hmma.values())):
-        raise AssertionError(f"qmm_tc: HMMA missing from its SASS {qmm_hmma}")
+    for source, key in TENSOR_CORE_ENTRIES:
+        hmma = hmma_count(out_dir / f"lib{source}.so", key)
+        emit({"sass_hmma": hmma})
+        if hmma is not None and not (hmma and all(hmma.values())):
+            raise AssertionError(f"{key}: HMMA missing from its SASS {hmma}")
     tc_smem = build.launcher("flash_attention", "flash_attention_tc_smem", "i")
+    bwd_smem = build.launcher("flash_attention_bwd",
+                              "flash_attention_bwd_tc_smem", "ii")
     sk_smem = build.launcher("qmatmul", "qmatmul_skinny_smem", "ii")
     qtc_smem = build.launcher("qmatmul", "qmatmul_tc_smem", "ii")
     qtc_split = build.launcher("qmatmul", "qmatmul_tc_split", "ii")
@@ -2085,6 +2207,9 @@ def main(argv=None) -> int:
                               "i")
     emit({"dynamic_smem_bytes": {
         **{f"flash_attn_tc_kernel hd={hd}": tc_smem(hd) for hd in (64, 128)},
+        **{f"{name} hd={hd}": bwd_smem(hd, which)
+           for which, name in enumerate(("dq_tc_kernel", "dkv_tc_kernel"))
+           for hd in (64, 128)},
         **{f"qmm_skinny M={m} K={k}": sk_smem(m, k)
            for m in (2, 4) for k in (576, 1024, 1536)},
         **{f"qmm_tc int{bits} M={m}": qtc_smem(bits, m)

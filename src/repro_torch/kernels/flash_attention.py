@@ -7,10 +7,12 @@
 CUDA tensors only; the plain versions are
 ``models.attention._blocked_causal_attention`` (forward) and
 ``kernels.ref.flash_attention_lse_ref`` / ``flash_attention_bwd_ref``,
-and ``kernels.ops.flash_attention`` picks by device. The forward routes
-by dtype: bfloat16 runs on the tensor cores (mma.sync), float32 on the
-CUDA cores; both are launched here, neither falls back to the other.
-:class:`FlashAttention` is the autograd function of the pair: its
+and ``kernels.ops.flash_attention`` picks by device. Both kernels route
+by dtype: bfloat16 runs on the tensor cores (mma.sync; the backward's
+dK/dV kernel splits each key block's causal walk over a thread-block
+cluster), float32 on the CUDA cores; both are launched here, neither
+falls back to the other, and the backward is bitwise repeatable (no
+atomics). :class:`FlashAttention` is the autograd function of the pair: its
 forward launches the forward kernel with the row log-sum-exp, its
 backward the backward kernel. ``flash_attention_cuda.launches`` and
 ``flash_attention_bwd_cuda.launches`` count launches.

@@ -1,8 +1,10 @@
 """Plain PyTorch versions of every kernel (the allclose targets, and the
 CPU lane of ``kernels.ops``). The causal flash-attention kernel's plain
 version is ``models.attention._blocked_causal_attention``; its row
-log-sum-exp and its backward kernel are held to
-:func:`flash_attention_lse_ref` and :func:`flash_attention_bwd_ref`."""
+log-sum-exp and its backward kernels are held to
+:func:`flash_attention_lse_ref` and :func:`flash_attention_bwd_ref`,
+which rounds P and dS to the input dtype before the products that take
+them, as the bfloat16 (tensor-core) route does."""
 from __future__ import annotations
 
 import torch
@@ -112,10 +114,12 @@ def flash_attention_bwd_ref(q, k, v, out, lse, d_out):
     """The gradient of causal attention, written out: P = exp(scale q.k -
     lse) on the causal keys, dV = P^T dO with P rounded to the value
     dtype first (as the forward rounds it before PV), dP = dO V^T, D =
-    rowsum(dO * O), dS = P (dP - D), dQ = scale dS K, dK = scale dS^T Q.
-    Layouts as the forward's (q, out, d_out (B, S, KV, G, hd); k, v (B,
-    S, KV, hd); lse (B, S, KV, G)); products in float32 (float64 for
-    float64 inputs) -> (dq, dk, dv) in the input dtypes."""
+    rowsum(dO * O), dS = P (dP - D), dQ = scale dS K, dK = scale dS^T Q
+    with dS rounded to the input dtype first (as the bfloat16 kernels
+    round it into their tensor-core operands; a no-op for float32 and
+    float64). Layouts as the forward's (q, out, d_out (B, S, KV, G, hd);
+    k, v (B, S, KV, hd); lse (B, S, KV, G)); products in float32
+    (float64 for float64 inputs) -> (dq, dk, dv) in the input dtypes."""
     ct = _compute_dtype(q.dtype)
     scale = q.shape[-1] ** -0.5
     sc, mask = _causal_scores(q, k)
@@ -125,7 +129,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, d_out):
     dv = torch.einsum("bkgqs,bqkgd->bskd", p.to(v.dtype).to(ct), do)
     dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.to(ct))
     delta = (do * o).sum(-1).permute(0, 2, 3, 1)[..., None]
-    ds = p * (dp - delta)
+    ds = (p * (dp - delta)).to(q.dtype).to(ct)
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(ct)) * scale
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, q.to(ct)) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

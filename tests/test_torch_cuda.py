@@ -25,7 +25,9 @@ Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
 import functools
+import hashlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -636,15 +638,65 @@ def _rel_err(got, want):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("s", [1, 31, 65, 100, 200])
+@pytest.mark.parametrize("s", [1, 31, 64, 65, 100, 128, 200])
 @pytest.mark.parametrize("kvh,grp", [(1, 1), (2, 3), (4, 4)])
 def test_flash_attention_bwd(gen, dtype, hd, s, kvh, grp):
     """The forward's row log-sum-exp within 1e-4 of the plain one; the
     backward kernel within 1e-4 (f32) or one bf16 step, 2^-7 (bf16), of
-    the plain backward on the same out and lse, one launch per call, and
-    bitwise the same on a second call."""
+    the plain backward on the same out and lse, within 1e-4 (f32) or
+    2^-6 (bf16) of torch autograd of the plain forward, one launch per
+    call, and bitwise the same on a second call. S = 64 and 128 end the
+    64-row and 64-key tiles exactly; at S = 200, KV 4, G 4 the bf16 dK/dV
+    kernel splits each key block's walk over two cluster ranks."""
+    _held_bwd(gen, 2, s, kvh, grp, hd, dtype)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bwd_training_shape(gen, hd):
+    """As above at smollm-135m's training shape (B 8, S 256, KV 4, G 4
+    after tp_pad, bf16), where the dK/dV kernel splits each key block's
+    walk over a cluster of ranks and sums their partials."""
+    _held_bwd(gen, 8, 256, 4, 4, hd, torch.bfloat16)
+
+
+# sha256 of the float32 backward's dq, dk, dv bytes on the case below,
+# as the CUDA-core kernels gave them before the bfloat16 route moved to
+# the tensor cores (H100, CUDA 12.8); ``chip_smoke.py --profile-flash``
+# prints the same digest for any tree
+F32_BWD_SHA256 = (
+    "cf5fae4fb4627856a1d7d6670c3791b3d286871d638c37d1804009d1de2a7720")
+
+
+def test_flash_attention_bwd_f32_route_unchanged(gen):
+    """The float32 route (the CUDA-core kernels) on a fixed case from
+    NumPy's generator: its output bits are those it gave before the
+    bfloat16 route's redesign (a digest), within 1e-4 of the plain
+    backward, and the same on every call."""
+    import hashlib
+
+    import numpy as np
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
-    q, k, v, do = _attn_grad_inputs(gen, s, kvh, grp, hd, dtype)
+    rng = np.random.default_rng(19)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).cuda() for shape in (
+            (2, 100, 4, 4, 64), (2, 100, 4, 64), (2, 100, 4, 64),
+            (2, 100, 4, 4, 64)))
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    assert hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                   for t in got)).hexdigest() == \
+        F32_BWD_SHA256
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do)
+    for g_, w in zip(got, want):
+        assert _rel_err(g_, w) <= 1e-4
+    for _ in range(3):
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _held_bwd(gen, b, s, kvh, grp, hd, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v, do = _attn_grad_inputs(gen, s, kvh, grp, hd, dtype, b=b)
     out, lse = flash_attention_cuda(q, k, v, with_lse=True)
     assert torch.equal(out, flash_attention_cuda(q, k, v))
     assert _rel_err(lse, ref.flash_attention_lse_ref(q, k)) <= 1e-4
@@ -656,6 +708,13 @@ def test_flash_attention_bwd(gen, dtype, hd, s, kvh, grp):
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         assert _rel_err(g, w) <= tol
+    # autograd of the plain forward rounds nothing the kernels round
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(_blocked_causal_attention(*leaves, s, s),
+                               leaves, do)
+    auto_tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for g, w in zip(got, auto):
+        assert _rel_err(g, w) <= auto_tol
     again = flash_attention_bwd_cuda(q, k, v, out, lse, do)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 

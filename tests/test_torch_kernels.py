@@ -271,6 +271,57 @@ class TestFlashAttentionBackward:
         assert torch.autograd.gradcheck(Attn.apply, args, eps=1e-6,
                                         atol=1e-7, rtol=1e-5)
 
+    @staticmethod
+    def _written_out(q, k, v, out, lse, do, round_ds):
+        """The gradient in the compute dtype step by step, dS rounded to
+        the input dtype before dQ / dK only when ``round_ds``."""
+        ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+        s, hd = q.shape[1], q.shape[-1]
+        sc = torch.einsum("bqkgd,bskd->bkgqs", q.to(ct), k.to(ct)) \
+            * hd ** -0.5
+        mask = torch.tril(torch.ones(s, s, dtype=torch.bool))
+        p = torch.where(mask, torch.exp(
+            sc - lse.to(ct).permute(0, 2, 3, 1)[..., None]),
+            torch.zeros_like(sc))
+        dv = torch.einsum("bkgqs,bqkgd->bskd", p.to(v.dtype).to(ct),
+                          do.to(ct))
+        dp = torch.einsum("bqkgd,bskd->bkgqs", do.to(ct), v.to(ct))
+        delta = (do.to(ct) * out.to(ct)).sum(-1).permute(0, 2, 3, 1)
+        ds = p * (dp - delta[..., None])
+        if round_ds:
+            ds = ds.to(q.dtype).to(ct)
+        dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(ct)) * hd ** -0.5
+        dk = torch.einsum("bkgqs,bqkgd->bskd", ds, q.to(ct)) * hd ** -0.5
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+    def _plain_inputs(self, tdt):
+        q, k, v, do = (to_torch(a).to(tdt) for a in self._case(s=40))
+        out = _blocked_causal_attention(q, k, v, 8, 8)
+        return q, k, v, out, ref.flash_attention_lse_ref(q, k), do
+
+    def test_bwd_bf16_rounds_ds_before_dq_dk(self):
+        """For bf16 inputs the plain dq and dk are the products of dS
+        rounded to bf16 (as the tensor-core kernels take it), bit for bit,
+        and differ from those of the unrounded dS; dv does not take dS."""
+        args = self._plain_inputs(torch.bfloat16)
+        got = ref.flash_attention_bwd_ref(*args)
+        rounded = self._written_out(*args, round_ds=True)
+        unrounded = self._written_out(*args, round_ds=False)
+        assert all(torch.equal(g, w) for g, w in zip(got, rounded))
+        assert not torch.equal(got[0], unrounded[0])
+        assert not torch.equal(got[1], unrounded[1])
+        assert torch.equal(got[2], unrounded[2])
+
+    @pytest.mark.parametrize("dtype", ["float32", "float64"])
+    def test_bwd_wide_dtypes_keep_ds_unrounded(self, dtype):
+        """For float32 and float64 the plain backward is bit for bit the
+        gradient with dS unrounded: the bf16 rounding leaves them as they
+        were."""
+        args = self._plain_inputs(getattr(torch, dtype))
+        got = ref.flash_attention_bwd_ref(*args)
+        want = self._written_out(*args, round_ds=False)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
     def test_padded_head_and_future_rows_get_no_gradient(self):
         """A head whose output gradient is zero (a padded head after the
         model's mask) gets exactly zero dq, and the last key, seen only by
