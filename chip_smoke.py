@@ -18,7 +18,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    calibration shape and S = 100 in bf16 and once in f32, its row
    log-sum-exp and the backward kernels at the training shape (B 8, S
    256, hd 64 and 128, bf16) and S = 100 in bf16 and f32, quantize on a
-   bf16 leaf as well),
+   bf16 leaf as well; then at OLMoE-1B-7B's shapes: qmatmul / qmatmul4
+   at K = N = 2048 and M = 4 / 256, flash attention at KV 16, G 1, hd
+   128 (B 16 x S 128 and B 4 x S 64), decode attention there on a ring
+   of 96, quantize on one expert period),
    with a second call bitwise equal to the first,
    and time kernel, plain version, the closest single PyTorch library
    call (a yardstick only — the port never calls it) and the card's
@@ -78,9 +81,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    step (wall, device-busy, idle share, peak memory, the token stream's
    own time apart); and the request loop on the trained weights (the
    Delta table, the plans' cut points and bits, which matmul kernels
-   the served plans launched).
+   the served plans launched);
+10. the model zoo: every assigned arch at ``.reduced()`` in f32 on the
+   card against the CPU's plain path (forward with its router aux,
+   prefill, 4 decode steps; musicgen and qwen2-vl through ``embeds=``,
+   qwen2-vl with M-RoPE triples); OLMoE-1B-7B at its registered shape
+   (16 layers, d_model 2048, 16 heads of 128, 64 experts top-8, bf16
+   activations, 27.7 GB of f32 masters): the request loop (calibration
+   on 16 x 128 tokens), decode sessions at a fixed 8-bit plan at p = 8
+   with and without the quantized-kernel segment (bf16 tokens compared,
+   f32 tokens equal), then the launcher at --quant 0 and 8 (its
+   served-weight check on the first and last period); Mamba2-1.3B at
+   its registered shape (48 SSD layers, d_inner 4096): the launcher at
+   --quant 0, 8 and 4, the forward against the CPU, and a decode
+   session at a fixed 8-bit plan at p = 24 (only the quantize kernels
+   run on this attention-free family). Peak device memory per
+   sub-phase.
 
-``--profile-launcher`` runs only that profile; ``--profile-tiled`` only
+``--profile-launcher`` runs only that profile, and times the launcher's
+decode without a profiler (five runs per --quant); ``--profile-tiled`` only
 times the tiled qmatmul route over a sweep of shapes and profiles the
 prefills that run it; ``--profile-flash`` only times the flash
 forward's serving launch and the backward kernels at the training
@@ -91,9 +110,11 @@ that an earlier commit unpacked by ``git archive`` can be profiled in
 the same call as this one.
 
 After the last phase every kernel must have launched in the runs of the
-paths that use it (the backward kernel in every training run), and the tiled qmatmul route (counted by wrapping the
-wrappers, ``TiledRoute``) in every prefill of the decode features and
-the quantized launcher. The line before the last is the ``kernels`` JSON
+paths that use it (the backward kernel in every training run; the
+attention kernels, quantize and qmatmul in the OLMoE runs), and the
+tiled qmatmul route (counted by wrapping the wrappers, ``TiledRoute``)
+in every prefill of the decode features, the quantized launchers and
+the OLMoE session. The line before the last is the ``kernels`` JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -311,6 +332,209 @@ def check_qmatmul(torch, timer, records):
         emit({"timing": name, **records[name]})
 
 
+def check_zoo_kernels(torch, timer, records):
+    """The kernels at OLMoE-1B-7B's shapes, which smollm-135m's path
+    never gives them: qmatmul / qmatmul4 on the attention projections (K
+    = N = 2048) at decode M = 4 (skinny route) and prefill M = 256 (tiled
+    route), per tensor and per column, and with f32 x at M = 2, 4, 128
+    and 256 (2e-5 of the largest output, as the GPU tests hold f32); flash attention at KV = 16, G = 1,
+    hd = 128 at the calibration shape (B 16, S 128) and the launcher's
+    prefill (B 4, S 64); decode attention at B 4, KVp 16, Gp 1, hd 128 on
+    the launcher's bf16 ring of 96; quantize on one period of an expert
+    stack (64, 2048, 1024) f32. Each against its plain version with the
+    tolerances of the smollm checks, a second call bitwise the first,
+    timed beside the library call and the card's bound; the rows land
+    under ``olmoe`` in each kernel's record."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
+    from repro_torch.kernels.quantize import quantize_cuda, quantize_plain
+    from repro_torch.models.attention import _blocked_causal_attention
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    k = n = 2048
+    for packed in (False, True):
+        name = "qmatmul4" if packed else "qmatmul"
+        levels = 15 if packed else 255
+        fn = qmatmul4_cuda if packed else qmatmul_cuda
+        plain = ref.qmatmul4_ref if packed else ref.qmatmul_ref
+        rows = {}
+        for per_col in (False, True):
+            codes, scale, mu, w_deq = quantized_weight(torch, g, k, n, levels,
+                                                       per_col)
+            if packed:
+                codes = ref.pack_int4_ref(codes)
+            for m in (2, 4, 128, 256):
+                x32 = torch.randn(m, k, generator=g, device="cuda")
+                # f32 x (the f32 activations of the MoE session's twin):
+                # the same route split at M = 16, f32 sums in another order
+                got = fn(x32, codes, scale, mu, torch.float32)
+                want = plain(x32, codes, scale, mu, torch.float32)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                tol = 2e-5 * max(1.0, want.abs().max().item())
+                emit({"check": name, "shape": "olmoe wq", "m": m, "k": k,
+                      "n": n, "per_column": per_col, "x": "float32",
+                      "out": "torch.float32", "max_abs_err": err,
+                      "tol": tol})
+                if not err <= tol:
+                    raise AssertionError(f"{name} K=N=2048 m={m} f32 x: "
+                                         f"max |err| {err} > {tol}")
+                if m in (2, 128):
+                    continue
+                x = x32.to(torch.bfloat16)
+                for out_dtype, tol_of in (
+                        (torch.float32, lambda r: 1e-3),
+                        (torch.bfloat16, lambda r: 2 ** -7 * r)):
+                    got = fn(x, codes, scale, mu, out_dtype)
+                    again = fn(x, codes, scale, mu, out_dtype)
+                    want = plain(x, codes, scale, mu, out_dtype)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    tol = tol_of(want.float().abs().max().item())
+                    same = bool(torch.equal(got, again))
+                    emit({"check": name, "shape": "olmoe wq", "m": m, "k": k,
+                          "n": n, "per_column": per_col,
+                          "out": str(out_dtype), "max_abs_err": err,
+                          "tol": tol, "repeat_bitwise": same})
+                    if not (err <= tol and same):
+                        raise AssertionError(
+                            f"{name} K=N=2048 m={m} per_col={per_col} "
+                            f"{out_dtype}: max |err| {err} > {tol} or a "
+                            f"second call differs ({same})")
+                if per_col:
+                    continue
+                t = timer(lambda: fn(x, codes, scale, mu, torch.bfloat16))
+                lib = timer(lambda: torch.matmul(x, w_deq))
+                plain_t = timer(lambda: plain(x, codes, scale, mu,
+                                              torch.bfloat16))
+                b, by = bound_ms(nbytes(x, codes, scale, mu) + 2 * m * n,
+                                 2 * m * k * n)
+                rows[f"m{m}"] = dict(
+                    ms=t["ms"], ms_min=t["ms_min"],
+                    ms_over_floor=t["ms_over_floor"], plain_ms=plain_t["ms"],
+                    bound_ms=b, bound_by=by, library_ms=lib["ms"],
+                    library_ms_min=lib["ms_min"],
+                    over_library=t["ms"] / lib["ms"],
+                    route="skinny" if m <= 16 else "tiled",
+                    timed=f"x ({m}, {k}) bf16 @ codes ({k}, {n}), "
+                          "per-tensor, bf16 out")
+                emit({"timing": name, "shape": "olmoe wq", "m": m,
+                      "kernel": t, "library": lib, "plain": plain_t,
+                      "bound_ms": b})
+        records[name]["olmoe"] = rows
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kvh, grp, hd = 16, 1, 128
+    rows = {}
+    for b, s in ((16, 128), (4, 64)):
+        q = torch.randn(b, s, kvh, grp, hd, generator=g, device="cuda").to(
+            torch.bfloat16)
+        kk = torch.randn(b, s, kvh, hd, generator=g, device="cuda").to(
+            torch.bfloat16)
+        v = torch.randn(b, s, kvh, hd, generator=g, device="cuda").to(
+            torch.bfloat16)
+        got = flash_attention_cuda(q, kk, v)
+        again = flash_attention_cuda(q, kk, v)
+        want = _blocked_causal_attention(q, kk, v, s, s)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        same = bool(torch.equal(got, again))
+        emit({"check": "flash_attention", "shape": "olmoe", "b": b, "s": s,
+              "kv": kvh, "g": grp, "hd": hd, "max_abs_err": err,
+              "tol": 2e-2, "repeat_bitwise": same})
+        if not (err <= 2e-2 and same):
+            raise AssertionError(f"flash attention olmoe b={b} s={s}: max "
+                                 f"|err| {err} or a second call differs")
+        t = timer(lambda: flash_attention_cuda(q, kk, v))
+        plain_t = timer(lambda: _blocked_causal_attention(q, kk, v, s, s))
+        qs = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * grp, s, hd)
+        ks = kk.permute(0, 2, 1, 3).contiguous()
+        vs = v.permute(0, 2, 1, 3).contiguous()
+        qs = qs.contiguous()
+        lib = timer(lambda: sdpa(qs, ks, vs, is_causal=True))
+        pairs = s * (s + 1) // 2
+        bnd, by = bound_ms(nbytes(q, kk, v) + nbytes(q),
+                           4 * b * kvh * grp * pairs * hd)
+        rows[f"b{b}_s{s}"] = dict(
+            ms=t["ms"], ms_min=t["ms_min"], ms_over_floor=t["ms_over_floor"],
+            plain_ms=plain_t["ms"], bound_ms=bnd, bound_by=by,
+            library_ms=lib["ms"], library_ms_min=lib["ms_min"],
+            over_library=t["ms"] / lib["ms"], max_abs_err=err,
+            timed=f"B={b} S={s} KV={kvh} G={grp} hd={hd} bf16, causal")
+        emit({"timing": "flash_attention", "shape": "olmoe", **rows[
+            f"b{b}_s{s}"]})
+    records["flash_attention"]["olmoe"] = rows
+
+    b, buf = 4, 96
+    q = torch.randn(b, kvh, grp, hd, generator=g, device="cuda").to(
+        torch.bfloat16)
+    ck = torch.randn(b, buf, kvh, hd, generator=g, device="cuda").to(
+        torch.bfloat16)
+    cv = torch.randn(b, buf, kvh, hd, generator=g, device="cuda").to(
+        torch.bfloat16)
+    worst = 0.0
+    for pos in (0, 63, 94, 95, 96 + 30):
+        got = decode_attention_cuda(q, ck, cv, pos)
+        again = decode_attention_cuda(q, ck, cv, pos)
+        want = ref.decode_attention_ref(q, ck, cv, pos)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        same = bool(torch.equal(got, again))
+        emit({"check": "decode_attention", "shape": "olmoe", "b": b,
+              "kvp": kvh, "gp": grp, "hd": hd, "buf": buf, "pos": pos,
+              "max_abs_err": err, "tol": 2e-2, "repeat_bitwise": same})
+        if not (err <= 2e-2 and same):
+            raise AssertionError(f"decode attention olmoe pos={pos}: max "
+                                 f"|err| {err} or a second call differs")
+        worst = max(worst, err)
+    pos = 64 + 30
+    n_valid = pos + 1
+    t = timer(lambda: decode_attention_cuda(q, ck, cv, pos))
+    plain_t = timer(lambda: ref.decode_attention_ref(q, ck, cv, pos))
+    qs = q.reshape(b, kvh * grp, 1, hd)
+    ks = ck[:, :n_valid].permute(0, 2, 1, 3).contiguous()
+    vs = cv[:, :n_valid].permute(0, 2, 1, 3).contiguous()
+    lib = timer(lambda: sdpa(qs, ks, vs))
+    bnd, by = bound_ms(nbytes(q) * 2 + 2 * b * n_valid * kvh * hd * 2,
+                       4 * b * kvh * grp * n_valid * hd)
+    records["decode_attention"]["olmoe"] = dict(
+        ms=t["ms"], ms_min=t["ms_min"], ms_over_floor=t["ms_over_floor"],
+        plain_ms=plain_t["ms"], bound_ms=bnd, bound_by=by,
+        library_ms=lib["ms"], library_ms_min=lib["ms_min"],
+        over_library=t["ms"] / lib["ms"], max_abs_err=worst,
+        timed=f"B={b} KVp={kvh} Gp={grp} hd={hd}, bf16 ring of {buf}, pos "
+              f"{pos} ({n_valid} live slots)")
+    emit({"timing": "decode_attention", "shape": "olmoe",
+          **records["decode_attention"]["olmoe"]})
+
+    # one period of OLMoE's w_gate expert stack, per column as served
+    leaf = torch.randn(64 * 2048, 1024, generator=g, device="cuda") * 0.02
+    mu = torch.amin(leaf, dim=0, keepdim=True)
+    scale = ((torch.amax(leaf, dim=0, keepdim=True) - mu) / 255).clamp(
+        min=1e-12)
+    got = quantize_cuda(leaf, scale, mu, 8)
+    same = bool(torch.equal(got, quantize_cuda(leaf, scale, mu, 8)))
+    exact = bool(torch.equal(got, quantize_plain(leaf, scale, mu, 8)))
+    emit({"check": "quantize", "shape": "olmoe w_gate period (131072, "
+          "1024) f32", "bitwise_plain": exact, "repeat_bitwise": same})
+    if not (exact and same):
+        raise AssertionError("quantize on an OLMoE expert period differs "
+                             "from its plain version")
+    t = timer(lambda: quantize_cuda(leaf, scale, mu, 8))
+    plain_t = timer(lambda: quantize_plain(leaf, scale, mu, 8))
+    bnd, by = bound_ms(nbytes(leaf, scale, mu) + got.numel(),
+                       2 * leaf.numel(), F32_OPS_PER_S)
+    records["quantize"]["olmoe"] = dict(
+        ms=t["ms"], ms_min=t["ms_min"], ms_over_floor=t["ms_over_floor"],
+        plain_ms=plain_t["ms"], bound_ms=bnd, bound_by=by,
+        timed="one period of OLMoE's w_gate (64 x 2048, 1024) f32, per "
+              "column, 8 bits")
+    emit({"timing": "quantize", "shape": "olmoe",
+          **records["quantize"]["olmoe"]})
+    del leaf, got
+
+
 def profile_tiled(torch, timer):
     """The tiled route (M > 16) of qmatmul / qmatmul4 over a sweep of
     shapes (bf16 x, per-tensor metadata, bf16 out) beside ``matmul`` on
@@ -500,6 +724,17 @@ def count_tiled_route(ops) -> None:
 def counters(ops) -> dict:
     """Every launch counter: the kernels' wrappers and the tiled route's."""
     return {**ops.KERNELS, **TILED}
+
+
+def zero_counters(torch, ops) -> None:
+    torch.cuda.synchronize()
+    for f in counters(ops).values():
+        f.launches = 0
+
+
+def read_counters(torch, ops) -> dict:
+    torch.cuda.synchronize()
+    return {k: f.launches for k, f in counters(ops).items()}
 
 
 def check_decode_attention(torch, timer, records):
@@ -862,7 +1097,12 @@ def cycle_batch(rng, vocab: int, n: int, seq: int):
     return toks[:, :seq].astype(np.int32), toks[:, seq].astype(np.int32)
 
 
-def request_loop(torch, ops, calib_batch: int, seq: int):
+def request_loop(torch, ops, calib_batch: int, seq: int,
+                 arch: str = "smollm-135m", fixed_plans: bool = True):
+    """register -> calibrate -> build_store -> serve -> execute ->
+    generate on ``arch`` at its registered shape, with seeded weights on
+    the card. ``fixed_plans`` adds a session on a fixed 8- / 4-bit plan
+    for a matmul kernel no served plan ran."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.cost_model import (Channel, DeviceProfile,
                                              ObjectiveWeights)
@@ -873,10 +1113,10 @@ def request_loop(torch, ops, calib_batch: int, seq: int):
     from repro_torch.serving.qpart_server import QPARTServer
     from repro_torch.serving.simulator import InferenceRequest
 
-    cfg = get_config("smollm-135m")
-    print(f"main path: {cfg.name} layers={cfg.num_layers} "
+    cfg = get_config(arch)
+    print(f"request loop: {cfg.name} layers={cfg.num_layers} "
           f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
-          f"padded={cfg.padded_heads()} d_ff={cfg.d_ff} "
+          f"padded={cfg.padded_heads()} d_ff={cfg.d_ff} moe={cfg.moe} "
           f"vocab={cfg.vocab_size} dtype={cfg.dtype}", flush=True)
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED), device="cuda")
@@ -887,7 +1127,8 @@ def request_loop(torch, ops, calib_batch: int, seq: int):
     x_te, y_te = cycle_batch(rng, cfg.vocab_size, 16, seq)
     prompt, _ = cycle_batch(rng, cfg.vocab_size, 2, seq // 2)
     srv = QPARTServer()
-    srv.register("smollm", backend, x_cal, y_cal)
+    name = cfg.name.split("-")[0]
+    srv.register(name, backend, x_cal, y_cal)
     phases = {}
 
     def run(name, fn):
@@ -900,41 +1141,44 @@ def request_loop(torch, ops, calib_batch: int, seq: int):
             "s": time.perf_counter() - t0,
             "launches": {k: f.launches - before[k]
                          for k, f in counters(ops).items()}}
-        emit({"phase": name, **phases[name]})
+        emit({"phase": name, "arch": cfg.name, **phases[name]})
         return out
 
     for f in counters(ops).values():
         f.launches = 0
-    run("calibrate", lambda: srv.calibrate("smollm"))
-    m = srv.models["smollm"]
+    run("calibrate", lambda: srv.calibrate(name))
+    m = srv.models[name]
     print(f"  base accuracy {m.base_accuracy:.4f}, delta table "
           f"{m.delta_table}", flush=True)
     dev = DeviceProfile()
     contexts = [(Channel(capacity_bps=2e6), ObjectiveWeights(eta=1e7)),
                 (Channel(capacity_bps=2e6), ObjectiveWeights()),
                 (Channel(capacity_bps=2e8), ObjectiveWeights(eta=1e7))]
-    ctxs = run("build_store", lambda: [srv.build_store("smollm", dev, ch, w)
+    ctxs = run("build_store", lambda: [srv.build_store(name, dev, ch, w)
                                        for ch, w in contexts])
     deps = []
     for ctx, (ch, w) in zip(ctxs, contexts):
         for a in (0.001, 0.01, 0.02):
-            dep = srv.serve(InferenceRequest("smollm", a, dev, ch, w,
+            dep = srv.serve(InferenceRequest(name, a, dev, ch, w,
                                              segment_cached=True), ctx)
             deps.append(dep)
-            emit({"serve": {"accuracy_budget": a, "eta": w.eta,
+            emit({"serve": {"arch": cfg.name, "accuracy_budget": a,
+                            "eta": w.eta,
                             "capacity_bps": ch.capacity_bps,
                             "p": dep.plan.p,
                             "bits_w": [int(b) for b in dep.extra["bits_w"]],
                             "bits_x": float(dep.extra["bits_x"])}})
     dep = max(deps[:3], key=lambda d: d.plan.p)
     res = run("execute", lambda: dep.execute(x_te, y_te))
-    emit({"execute": {"p": dep.plan.p, "accuracy": res.accuracy,
+    emit({"execute": {"arch": cfg.name, "p": dep.plan.p,
+                      "accuracy": res.accuracy,
                       "accuracy_degradation": res.accuracy_degradation,
                       **res.extra["measured"]}})
     out = run("generate", lambda: dep.generate(prompt, 32))
     srv.record_execution(dep)
     srv.record_decode(dep)
-    emit({"generate": {"p": dep.plan.p, "batch": int(out.tokens.shape[0]),
+    emit({"generate": {"arch": cfg.name, "p": dep.plan.p,
+                       "batch": int(out.tokens.shape[0]),
                        "new_tokens": out.new_tokens, "ttft_s": out.ttft_s,
                        "tokens_per_s": out.tokens_per_s,
                        "t_device_s": out.t_device_s,
@@ -948,9 +1192,9 @@ def request_loop(torch, ops, calib_batch: int, seq: int):
     # a served plan that never quantizes to <= 4 (or to 5..8) bits leaves
     # one of the two matmul kernels unused: drive it with a fixed plan
     L = cfg.num_layers
-    for name, bits in (("qmatmul", 8.0), ("qmatmul4", 4.0)):
-        if ops.KERNELS[name].launches == 0:
-            print(f"  no served plan ran {name}: one extra session on a "
+    for kname, bits in (("qmatmul", 8.0), ("qmatmul4", 4.0)):
+        if fixed_plans and ops.KERNELS[kname].launches == 0:
+            print(f"  no served plan ran {kname}: one extra session on a "
                   f"fixed {int(bits)}-bit plan at p = {L // 2}", flush=True)
             plan = PartitionPlan(p=L // 2, bits_w=np.full(L // 2, bits),
                                  bits_x=bits, objective=0.0, psi_total=0.0,
@@ -965,7 +1209,7 @@ def request_loop(torch, ops, calib_batch: int, seq: int):
                                          extra.device_cache_dtype}})
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters(ops).items()}
-    emit({"request_loop_launches": launches})
+    emit({"request_loop_launches": launches, "arch": cfg.name})
     return cfg, params, backend, launches, dep, prompt, srv, (x_te, y_te)
 
 
@@ -1054,6 +1298,22 @@ def profile_launch(torch, quant: int, batch: int = 4, prompt_len: int = 64,
                                     **profile_steps(torch, step, steps)}})
 
 
+def launch_wall(torch, quant: int, reps: int = 5):
+    """The serving launcher's decode tokens/s without a profiler:
+    ``launch.serve.run`` on full-width smollm-135m at ``--quant quant``
+    (batch 4 x 64, 32 tokens), ``reps`` runs after a warm-up, each as
+    the smoke's ``launch_serve`` line reports it."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    cfg = get_config("smollm-135m")
+    serve.run(cfg, quant=quant, device="cuda", seed=SEED)
+    tps = [4 * 31 / serve.run(cfg, quant=quant, device="cuda",
+                              seed=SEED)["decode_s"] for _ in range(reps)]
+    emit({"launch_decode_wall": {"arch": cfg.name, "quant": quant,
+                                 "decode_tokens_per_s": tps,
+                                 "median": statistics.median(tps)}})
+
+
 def wall_ms(torch, fn, reps: int) -> dict:
     """Median and minimum wall milliseconds of ``fn`` ended by a device
     synchronisation, over ``reps`` calls, with no profiler attached."""
@@ -1121,10 +1381,10 @@ def profile_prefill(torch, reps: int = 5):
         del served
 
 
-def reference_check(torch, cfg, params, backend):
+def reference_check(torch, cfg, params, backend, rel: float = 5e-2):
     """The kernels' forward against the plain versions on the CPU, on a
-    small input at full width and depth: logits agree to bf16 accuracy
-    through 30 layers (5% of the largest logit)."""
+    small input at full width and depth: logits agree within ``rel`` of
+    the largest logit (5%: bf16 accuracy through smollm's 30 layers)."""
     from repro_torch.serving.backends import TransformerBackend
     from repro_torch.tree import tree_map
     cpu = TransformerBackend(cfg, tree_map(lambda t: t.cpu(), params),
@@ -1135,9 +1395,10 @@ def reference_check(torch, cfg, params, backend):
     want = cpu.forward(x).float()
     live = slice(0, cfg.vocab_size)
     err = (got[:, live] - want[:, live]).abs().max().item()
-    tol = 5e-2 * want[:, live].abs().max().item()
+    tol = rel * want[:, live].abs().max().item()
     same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    emit({"reference_check": {"max_abs_err": err, "tol": tol,
+    emit({"reference_check": {"arch": cfg.name, "dtype": cfg.dtype,
+                              "max_abs_err": err, "tol": tol,
                               "argmax_agreement": same,
                               "finite": bool(torch.isfinite(
                                   got[:, live]).all())}})
@@ -1619,33 +1880,38 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
 # Phase 8: the serving launcher
 
 def launch_serve(torch, ops, batch: int = 4, prompt_len: int = 64,
-                 gen: int = 32):
-    """``repro_torch.launch.serve.run`` on full-width smollm-135m at
-    --quant 0, 8 and 4, each run with the counters zeroed before and read
-    after (its served-weight check included). Returns the launches of
-    each run."""
+                 gen: int = 32, arch: str = "smollm-135m",
+                 quants=(0, 8, 4), tag: str = "launch",
+                 sample_periods=None):
+    """``repro_torch.launch.serve.run`` on full-width ``arch`` at each
+    --quant of ``quants``, each run with the counters zeroed before and
+    read after (its served-weight check included; ``sample_periods``
+    restricts that check to those periods of each stacked leaf), the
+    card's peak memory reset before and read after. Returns the launches
+    of each run, keyed ``{tag}_q{quant}``."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
-    cfg = get_config("smollm-135m")
+    cfg = get_config(arch)
     runs = {}
-    for quant in (0, 8, 4):
-        torch.cuda.synchronize()
-        for f in counters(ops).values():
-            f.launches = 0
+    for quant in quants:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(torch, ops)
         out = serve.run(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
                         quant=quant, device="cuda", seed=SEED)
         toks = out["tokens"]
         if toks.shape != (batch, gen) or not (
                 (toks >= 0) & (toks < cfg.vocab_size)).all():
-            raise AssertionError(f"launch --quant {quant} gave {toks!r}")
+            raise AssertionError(f"{arch} launch --quant {quant} gave "
+                                 f"{toks!r}")
         quantize_launches = (ops.KERNELS["quantize"].launches
                              + ops.KERNELS["quantize_pack4"].launches)
+        peak = torch.cuda.max_memory_allocated()
         check = {}
         if quant:
-            check = served_weights_check(torch, ops, out, quant)
-        torch.cuda.synchronize()
-        launches = {k: f.launches for k, f in counters(ops).items()}
-        runs[f"launch_q{quant}"] = launches
+            check = served_weights_check(torch, ops, out, quant,
+                                         sample_periods)
+        launches = read_counters(torch, ops)
+        runs[f"{tag}_q{quant}"] = launches
         emit({"launch_serve": {
             "arch": cfg.name, "layers": cfg.num_layers, "quant": quant,
             "batch": batch, "prompt_len": prompt_len, "gen": gen,
@@ -1655,55 +1921,75 @@ def launch_serve(torch, ops, batch: int = 4, prompt_len: int = 64,
             "decode_tokens_per_s": batch * (gen - 1) / out["decode_s"],
             "generate_s": out["generate_s"],
             "generate_tokens_per_s": batch * gen / out["generate_s"],
+            "peak_memory_gb": peak / 1e9,
             "first_row": toks[0, :8].tolist(), **check,
             "launches": launches}})
         del out
     return runs
 
 
-def served_weights_check(torch, ops, out, quant):
+def served_weights_check(torch, ops, out, quant, periods=None):
     """Every served leaf dequantized on the card through
     ``ops.dequantize_tensor`` (int4 unpacked by plain ops first) is
     within half a step of its weight; the card's quantized tree is byte
-    for byte the one the plain versions build on the CPU."""
-    from repro_torch.core.quantizer import quantize_params_for_serving
+    for byte the one the plain versions build on the CPU. ``periods``
+    (the expert stacks of a large model) restricts both to those periods
+    of each stacked leaf: the grid is per period, so a period quantized
+    alone gives the same bytes."""
+    from repro_torch.core.quantizer import (QUANTIZABLE,
+                                            quantize_params_for_serving)
     from repro_torch.kernels import ref
     from repro_torch.tree import tree_leaves, tree_map
     params, weights = out["params"], out["weights"]
-    worst, n = 0.0, 0
-    for part in ("attn", "mlp"):
-        for k, w in params["blocks"][0][part].items():
-            if not ops.is_wire_struct(w):
-                continue
-            leaf = weights["blocks"][0][part][k]
-            p, cols = leaf.shape[0], leaf.shape[-1]
-            codes = w["codes"] if "codes" in w else \
-                ref.unpack_int4_ref(w["codes_packed"]).to(torch.uint8)
-            s2, m2 = w["scale"].reshape(p, -1), w["mu"].reshape(p, -1)
-            deq = ops.dequantize_tensor(codes.reshape(-1, cols), s2, m2,
-                                        torch.float32)
-            rows = leaf.reshape(p, -1, cols)
-            err = ((rows - deq.reshape(rows.shape)).abs()
-                   / s2.reshape(p, 1, -1)).max().item()
-            worst, n = max(worst, err), n + 1
-    if n != 7 or not worst <= 0.5 + 1e-4:
-        raise AssertionError(f"--quant {quant}: {n} served leaves, max "
-                             f"|w - deq| / scale {worst} > 0.5 + 1e-4")
+
+    def pick(t):
+        return t if periods is None else t[list(periods)]
+
+    worst, n, want_n = 0.0, 0, 0
+    for bp, wp in zip(params["blocks"], weights["blocks"]):
+        for part, node in bp.items():
+            want_n += sum(k in QUANTIZABLE and v.dim() >= 3
+                          for k, v in wp[part].items())
+            for k, w in node.items():
+                if not ops.is_wire_struct(w):
+                    continue
+                leaf = pick(wp[part][k])
+                codes = pick(w["codes"]) if "codes" in w else \
+                    ref.unpack_int4_ref(pick(w["codes_packed"])).to(
+                        torch.uint8)
+                p, cols = leaf.shape[0], leaf.shape[-1]
+                s2 = pick(w["scale"]).reshape(p, -1)
+                m2 = pick(w["mu"]).reshape(p, -1)
+                deq = ops.dequantize_tensor(codes.reshape(-1, cols), s2, m2,
+                                            torch.float32)
+                rows = leaf.reshape(p, -1, cols)
+                err = ((rows - deq.reshape(rows.shape)).abs()
+                       / s2.reshape(p, 1, -1)).max().item()
+                worst, n = max(worst, err), n + 1
+                del deq, codes
+    if n != want_n or not worst <= 0.5 + 1e-4:
+        raise AssertionError(f"--quant {quant}: {n} of {want_n} served "
+                             f"leaves, max |w - deq| / scale {worst} > "
+                             "0.5 + 1e-4")
+    def on_cpu(tree):
+        return {k: tree_map(lambda t: (pick(t) if k == "blocks" else t).cpu(),
+                            v) for k, v in tree.items()}
+
     t0 = time.perf_counter()
-    plain = quantize_params_for_serving(tree_map(lambda t: t.cpu(), weights),
-                                        quant)
+    plain = quantize_params_for_serving(on_cpu(weights), quant)
     plain_s = time.perf_counter() - t0
-    got, want = tree_leaves(params), tree_leaves(plain)
+    got, want = tree_leaves(on_cpu(params)), tree_leaves(plain)
     differ = [i for i, (a, b) in enumerate(zip(got, want))
               if a.dtype != b.dtype or a.shape != b.shape
-              or not torch.equal(a.cpu(), b)]
+              or not torch.equal(a, b)]
     same = len(got) == len(want) and not differ
     if not same:
         raise AssertionError(f"--quant {quant}: the card's quantized tree "
                              f"differs from the CPU plain build at leaves "
                              f"{differ} of {len(want)}")
     return {"served_leaves": n, "max_err_over_scale": worst,
-            "tree_equals_cpu_plain": same, "cpu_plain_quantize_s": plain_s}
+            "tree_equals_cpu_plain": same, "cpu_plain_quantize_s": plain_s,
+            "checked_periods": "all" if periods is None else list(periods)}
 
 
 # ---------------------------------------------------------------------------
@@ -1997,6 +2283,266 @@ def train_phase(torch, ops) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the model zoo
+
+def zoo_reduced(torch, ops, b: int = 2, s: int = 16, steps: int = 4):
+    """Every assigned arch at ``.reduced()`` (2 layers) in f32 on the
+    card against the CPU's plain path on the same seeded weights:
+    ``forward`` (logits and router aux), ``prefill`` and ``steps``
+    ``decode_step``s from seeded random tokens (musicgen and qwen2-vl:
+    frontend embeddings through ``embeds=``, qwen2-vl with M-RoPE
+    position triples). Logits within 1e-3 of the largest, aux within
+    1e-4 relative (f32 on both sides, sums in another order). Returns
+    the run's launches."""
+    from repro_torch.configs.base import ASSIGNED_ARCHS, get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.frontend import mrope_positions, stub_embeddings
+    from repro_torch.tree import tree_map
+
+    def run(params, cfg, inp, step_inputs, device):
+        kw = {k: v.to(device) for k, v in inp.items()}
+        tokens = kw.pop("tokens", None)
+        logits, aux = T.forward(params, cfg, tokens, **kw)
+        pre, caches, _ = T.prefill(params, cfg, tokens, max_len=s + steps,
+                                   cache_dtype=torch.float32, **kw)
+        outs = [logits, pre]
+        for i, x in enumerate(step_inputs):
+            lg, caches = T.decode_step(params, cfg, x.to(device), caches,
+                                       s + i)
+            outs.append(lg)
+        return [o.float().cpu() for o in outs], \
+            {k: float(v) for k, v in aux.items()}
+
+    zero_counters(torch, ops)
+    t0 = time.perf_counter()
+    for arch in ASSIGNED_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+        cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        card = tree_map(lambda t: t.cuda(), cpu)
+        g = torch.Generator().manual_seed(SEED + 1)
+        if cfg.frontend != "none":
+            inp = {"embeds": stub_embeddings(g, cfg, b, s, torch.float32)}
+            step_inputs = [stub_embeddings(g, cfg, b, 1, torch.float32)
+                           for _ in range(steps)]
+        else:
+            inp = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                           generator=g, dtype=torch.int32)}
+            step_inputs = [torch.randint(0, cfg.vocab_size, (b, 1),
+                                         generator=g, dtype=torch.int32)
+                           for _ in range(steps)]
+        if cfg.rope == "mrope":
+            inp["positions"] = mrope_positions(b, s, (2, 2), device="cpu")
+        want, want_aux = run(cpu, cfg, inp, step_inputs, "cpu")
+        got, got_aux = run(card, cfg, inp, step_inputs, "cuda")
+        top = max(w.abs().max().item() for w in want)
+        err = max((a - w).abs().max().item() for a, w in zip(got, want))
+        aux_err = max(abs(got_aux[k] - want_aux[k])
+                      / max(abs(want_aux[k]), 1e-30) for k in want_aux)
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        emit({"zoo_reduced": {
+            "arch": cfg.name, "family": cfg.family,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "blocks": [("moe+" if cfg.uses_moe(i) else "")
+                       + cfg.block_kind(i)
+                       for i in range(T.period_len(cfg))],
+            "frontend": cfg.frontend, "rope": cfg.rope,
+            "max_abs_err": err, "tol": 1e-3 * top,
+            "aux_rel_err": aux_err, "aux": got_aux, "finite": finite}})
+        if not (finite and err <= 1e-3 * top and aux_err <= 1e-4):
+            raise AssertionError(f"{arch} reduced on the card vs the CPU: "
+                                 f"max |err| {err} (tol {1e-3 * top}), "
+                                 f"aux rel err {aux_err}")
+    launches = read_counters(torch, ops)
+    emit({"zoo_reduced_s": time.perf_counter() - t0,
+          "zoo_reduced_launches": launches})
+    return launches
+
+
+def peak_gb(torch) -> float:
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def moe_sessions(torch, ops, backend, prompt, gen: int = 32):
+    """The decode session on a MoE arch at a fixed 8-bit plan at p = L/2
+    with the quantized-kernel device segment (``qkernels=True``:
+    attention projections as int8 wire structs through qmatmul, the
+    expert stacks dense, as in the reference) and with the dense
+    fake-quantized one, in bf16 activations and, on the same weights and
+    segment, in f32. The reference's claim that the two give the same
+    tokens rests on its CPU run, where the kernel's plain version is the
+    dense matmul; on the card the two sum in other orders, and the
+    float8 device cache and the 8-bit hop turn last-bit differences into
+    whole rounding steps, so the streams drift apart after some tokens
+    (the CPU tests hold the tokens exactly). In bf16 the router's logits
+    are rounded to bf16, so a last-bit difference of its input moves a
+    token between its 8th and 9th expert often (the reduced model in
+    bf16 on the CPU: first-token logits 15% of the largest apart, 46 of 64
+    tokens equal); in f32 that needs a near-tie, but the float8 device
+    cache and the 8-bit hop still turn last-bit differences into whole
+    rounding steps (on an H100: f32 first-token logits 1.2% of the
+    largest apart). Held here: the segment's structure (attention
+    structs, dense expert stacks), finite logits, and in f32 the first
+    token's logits within 5e-2 of the largest (``reference_check``'s
+    criterion); the bf16 logits' difference and the tokens equal between
+    the two are reported. Returns the bf16 qkernels run's launches."""
+    from repro_torch.core.solver import PartitionPlan
+    from repro_torch.serving.backends import TransformerBackend
+    from repro_torch.serving.decode import DecodeSession
+    p = backend.cfg.num_layers // 2
+    plan = PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
+                         objective=0.0, psi_total=0.0, payload_bits=0.0,
+                         breakdown={})
+    seg = backend.split(plan)
+    f32 = TransformerBackend(dataclasses.replace(backend.cfg,
+                                                 dtype="float32"),
+                             backend.params, seq_len=backend.seq_len,
+                             decode_max_len=backend.decode_max_len)
+    toks, first, runs = {}, {}, {}
+    for be, dt in ((backend, "bf16"), (f32, "f32")):
+        for qk in (True, False):
+            n = gen if dt == "bf16" else 8
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters(torch, ops)
+            sess = DecodeSession(be, plan, max_len=be.decode_max_len,
+                                 segment=seg, qkernels=qk)
+            with recording(be, "hidden_logits", []) as seen:
+                out = sess.generate(prompt, n)
+            runs[(dt, qk)] = read_counters(torch, ops)
+            toks[(dt, qk)], first[(dt, qk)] = out.tokens, seen[0].float()
+            if qk:
+                layer = sess.dev_params["segment_blocks"][0]
+                if not (ops.is_wire_struct(layer["attn"]["wq"]) and not any(
+                        ops.is_wire_struct(v) for v in layer["moe"].values())):
+                    raise AssertionError("qkernels segment: attention must "
+                                         "be wire structs, experts dense")
+            emit({"moe_session": {
+                "arch": be.cfg.name, "activations": dt, "qkernels": qk,
+                "p": p, "bits": 8, "batch": int(prompt.shape[0]),
+                "new_tokens": out.new_tokens, "ttft_s": out.ttft_s,
+                "tokens_per_s": out.tokens_per_s,
+                "t_device_s": out.t_device_s, "t_server_s": out.t_server_s,
+                "device_cache_bytes": out.device_cache_bytes,
+                "device_cache_dtype": out.device_cache_dtype,
+                "peak_memory_gb": peak_gb(torch),
+                "launches": runs[(dt, qk)]}})
+            del sess
+        be.__dict__.pop("_qstacked_cache", None)
+    checks = {}
+    for dt in ("bf16", "f32"):
+        a, b = first[(dt, True)], first[(dt, False)]
+        live = slice(0, backend.cfg.vocab_size)
+        err = (a[:, live] - b[:, live]).abs().max().item()
+        top = b[:, live].abs().max().item()
+        checks[dt] = {"first_logits_max_abs_err": err, "max_abs": top,
+                      "tokens_equal": int((toks[(dt, True)]
+                                           == toks[(dt, False)]).sum()),
+                      "of": int(toks[(dt, True)].size)}
+        if not torch.isfinite(a[:, live]).all():
+            raise AssertionError(f"MoE session {dt}: non-finite logits")
+    checks["f32"]["tol"] = 5e-2 * checks["f32"]["max_abs"]
+    if not checks["f32"]["first_logits_max_abs_err"] <= checks["f32"]["tol"]:
+        raise AssertionError(f"MoE session f32: first-token logits qkernels "
+                             f"vs dense apart: {checks['f32']}")
+    emit({"moe_session_checks": checks})
+    if not all(((t >= 0) & (t < backend.cfg.vocab_size)).all()
+               for t in toks.values()):
+        raise AssertionError(f"MoE session gave {toks!r}")
+    return runs[("bf16", True)]
+
+
+def olmoe_phase(torch, ops) -> dict:
+    """OLMoE-1B-7B at its registered shape (16 layers, d_model 2048,
+    16/16 heads of 128, 64 experts top-8 of d_ff 1024, vocab 50304, bf16
+    activations, f32 masters of 27.7 GB): the request loop (calibration
+    on 16 x 128 cycle-task tokens), the fixed-plan MoE sessions at p = 8
+    (L/2),
+    then, with the backend freed, the launcher at --quant 0 and 8. Peak
+    memory per sub-phase. Returns the launches by run."""
+    runs = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, backend, launches, dep, prompt, srv, _ = request_loop(
+        torch, ops, 16, 128, arch="olmoe-1b-7b", fixed_plans=False)
+    runs["olmoe_request_loop"] = launches
+    emit({"olmoe_request_loop": {"s": time.perf_counter() - t0,
+                                 "peak_memory_gb": peak_gb(torch)}})
+    del dep, srv
+    backend.__dict__.pop("_qstacked_cache", None)
+    torch.cuda.empty_cache()
+    runs["olmoe_session"] = moe_sessions(torch, ops, backend, prompt)
+    del params, backend
+    torch.cuda.empty_cache()
+    runs.update(launch_serve(torch, ops, arch="olmoe-1b-7b", quants=(0, 8),
+                             tag="olmoe_launch",
+                             sample_periods=(0, cfg.num_layers - 1)))
+    torch.cuda.empty_cache()
+    return runs
+
+
+def mamba2_phase(torch, ops) -> dict:
+    """Mamba2-1.3B at its registered shape (48 SSD layers, d_model 2048,
+    d_inner 4096, 64 heads of 64, d_state 128, chunk 256, vocab 50280,
+    bf16 activations): the launcher at --quant 0, 8 and 4, the full-width
+    forward in f32 against the CPU's plain versions (1e-3 of the largest
+    logit), and a decode session at a
+    fixed 8-bit plan at p = 24 (segment prefill into split SSM caches,
+    then decode). The family is attention-free: only the quantize
+    kernels launch here. Returns the launches by run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.solver import PartitionPlan
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import TransformerBackend
+    from repro_torch.serving.decode import DecodeSession
+    arch = "mamba2-1.3b"
+    cfg = get_config(arch)
+    print("attention-free: no attention or qmatmul kernel runs on "
+          f"{cfg.name}, only the quantize kernels (--quant 8 / 4)",
+          flush=True)
+    runs = launch_serve(torch, ops, arch=arch, quants=(0, 8, 4),
+                        tag="mamba2_launch",
+                        sample_periods=(0, cfg.num_layers - 1))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    backend = TransformerBackend(cfg, params, seq_len=64, decode_max_len=96)
+    # in f32 on both sides (TF32 off): bf16 through 48 SSD layers drifts
+    # past reference_check's 5% (5.04% on an H100)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    reference_check(torch, f32, params,
+                    TransformerBackend(f32, params, seq_len=64), rel=1e-3)
+    p = cfg.num_layers // 2
+    plan = PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
+                         objective=0.0, psi_total=0.0, payload_bits=0.0,
+                         breakdown={})
+    prompt, _ = cycle_batch(np.random.default_rng(SEED), cfg.vocab_size, 2,
+                            64)
+    zero_counters(torch, ops)
+    sess = DecodeSession(backend, plan, max_len=96)
+    out = sess.generate(prompt, 32)
+    runs["mamba2_session"] = read_counters(torch, ops)
+    emit({"mamba2_session": {
+        "p": p, "bits": 8, "batch": 2, "prompt": 64,
+        "new_tokens": out.new_tokens, "ttft_s": out.ttft_s,
+        "tokens_per_s": out.tokens_per_s, "t_device_s": out.t_device_s,
+        "t_server_s": out.t_server_s,
+        "device_cache_bytes": out.device_cache_bytes,
+        "server_cache_bytes": out.server_cache_bytes,
+        "device_cache_dtype": out.device_cache_dtype,
+        "peak_memory_gb": peak_gb(torch),
+        "launches": runs["mamba2_session"]}})
+    if out.tokens.shape != (2, 32) or not (
+            (out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"mamba2 session gave {out.tokens!r}")
+    del params, backend, sess
+    torch.cuda.empty_cache()
+    return runs
+
+
 SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
                        "src/repro/kernels/qmatmul.py:68"),
            "qmatmul4": ("src/repro_torch/csrc/qmatmul.cu",
@@ -2048,7 +2594,20 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
             **{run: ("flash_attention", "flash_attention_bwd")
                for run in ("train_grads", "train_remat0", "train_remat1",
                            "train")},
-            "trained_request_loop": ("decode_attention", "flash_attention")}
+            "trained_request_loop": ("decode_attention", "flash_attention"),
+            # the zoo: the reduced archs in f32, OLMoE's request loop, its
+            # fixed-plan session (bf16, qkernels) and launcher; Mamba2 is
+            # attention-free, so only its quantized launches run kernels
+            "zoo_reduced": ("flash_attention", "decode_attention"),
+            "olmoe_request_loop": ("flash_attention", "decode_attention"),
+            "olmoe_session": ("qmatmul", "qmatmul_tiled",
+                              "decode_attention"),
+            "olmoe_launch_q0": ("decode_attention", "flash_attention"),
+            "olmoe_launch_q8": ("quantize", "qmatmul", "qmatmul_tiled",
+                                "dequantize", "decode_attention",
+                                "flash_attention"),
+            "mamba2_launch_q8": ("quantize", "dequantize"),
+            "mamba2_launch_q4": ("quantize_pack4", "dequantize")}
 
 
 # the kernels' instantiations that ptxas reports entry by entry, by
@@ -2111,8 +2670,9 @@ def hmma_count(lib, key):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-launcher", action="store_true",
-                    help="only build the kernels and profile the serving "
-                         "launcher's decode step at --quant 8 and 0")
+                    help="only build the kernels, profile the serving "
+                         "launcher's decode step at --quant 8 and 0 and "
+                         "time its decode without a profiler")
     ap.add_argument("--profile-tiled", action="store_true",
                     help="only build the kernels, time the tiled qmatmul "
                          "route over a sweep of M, K and N and profile "
@@ -2149,6 +2709,7 @@ def main(argv=None) -> int:
               "build_dir": str(build.build_all())})
         for quant in (8, 0):
             profile_launch(torch, quant)
+            launch_wall(torch, quant)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.profile_tiled or args.profile_flash:
@@ -2211,7 +2772,7 @@ def main(argv=None) -> int:
            for which, name in enumerate(("dq_tc_kernel", "dkv_tc_kernel"))
            for hd in (64, 128)},
         **{f"qmm_skinny M={m} K={k}": sk_smem(m, k)
-           for m in (2, 4) for k in (576, 1024, 1536)},
+           for m in (2, 4) for k in (576, 1024, 1536, 2048)},
         **{f"qmm_tc int{bits} M={m}": qtc_smem(bits, m)
            for bits in (8, 4) for m in (32, 128)},
         **{f"decode_split_kernel n_valid={n} Gp=4 hd=64 {dt}":
@@ -2222,7 +2783,8 @@ def main(argv=None) -> int:
     emit({"qmm_tc_k_slices": {
         f"{w} K={k} N={n}": qtc_split(k, n) for w, (k, n) in (
             ("wq", (576, 1024)), ("wk", (576, 256)), ("wo", (1024, 576)),
-            ("w_up", (576, 1536)), ("w_down", (1536, 576)))}})
+            ("w_up", (576, 1536)), ("w_down", (1536, 576)),
+            ("olmoe wq", (2048, 2048)))}})
     emit({"decode_attention_ctas_per_head": {
         f"n_valid={n}": da_split(n) for n in (1, 32, 33, 95, 96, 2048)}})
 
@@ -2239,6 +2801,7 @@ def main(argv=None) -> int:
     check_flash_attention(torch, timer, records, calib_batch, seq)
     check_flash_attention_bwd(torch, timer, records)
     check_quantize(torch, timer, records)
+    check_zoo_kernels(torch, timer, records)
     del timer
     emit({"kernel_checks_s": time.perf_counter() - t_checks})
     t_paths = time.perf_counter()
@@ -2265,6 +2828,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     runs.update(train_phase(torch, ops))
     emit({"train_phase_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    runs["zoo_reduced"] = zoo_reduced(torch, ops)
+    runs.update(olmoe_phase(torch, ops))
+    emit({"olmoe_phase_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    runs.update(mamba2_phase(torch, ops))
+    emit({"mamba2_phase_s": time.perf_counter() - t0})
     if any(cls_launches.values()):
         raise AssertionError(f"the classifier loop launched kernels: "
                              f"{cls_launches}")
@@ -2298,6 +2868,10 @@ def main(argv=None) -> int:
         if rec.get("tiled"):
             row["tiled_route"] = {"launches": launches[f"{name}_tiled"],
                                   **rec["tiled"]}
+        if rec.get("olmoe"):
+            row["olmoe"] = {"launches": sum(r[name] for run, r in runs.items()
+                                            if run.startswith("olmoe")),
+                            **rec["olmoe"]}
         kernels.append(row)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

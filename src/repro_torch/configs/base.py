@@ -250,8 +250,11 @@ def list_configs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-# the port carries only the configs its ported model paths run
-_ARCH_MODULES = ["smollm_135m"]
+_ARCH_MODULES = [
+    "smollm_135m", "olmoe_1b_7b", "qwen3_14b", "musicgen_medium",
+    "mamba2_1_3b", "qwen2_vl_72b", "dbrx_132b", "chatglm3_6b",
+    "qwen1_5_4b", "jamba_v0_1_52b", "mnist_mlp", "cifar_cnn",
+]
 
 ASSIGNED_ARCHS = [
     "smollm-135m", "olmoe-1b-7b", "qwen3-14b", "musicgen-medium",

@@ -20,13 +20,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
 
 def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
     def prefill_step(params, batch):
-        if batch.get("embeds") is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: embeds= (frontend archs) are not ported to "
-                "repro_torch yet (ROADMAP Queue 1, model zoo)")
-        logits, caches, _ = T.prefill(params, cfg, batch["tokens"],
-                                      positions=batch.get("positions"),
-                                      max_len=max_len)
+        logits, caches, _ = T.prefill(
+            params, cfg, batch.get("tokens"), embeds=batch.get("embeds"),
+            positions=batch.get("positions"), max_len=max_len)
         return logits, caches
 
     return prefill_step

@@ -1,0 +1,230 @@
+"""Mamba2 mixer with the SSD (state-space duality) chunked scan
+[arXiv:2405.21060].
+
+Sequence mode walks the chunks of length ``Q`` in order (the
+reference's ``lax.scan`` over chunks is a Python loop here): within a
+chunk the quadratic, attention-like form computes the intra-chunk
+contribution, and a (state -> state) recurrence carries the inter-chunk
+SSM state. Decode mode is the O(1) single-step recurrence over the
+carried state and the causal-conv ring of the last ``W - 1`` PRE-conv
+inputs.
+
+The input projection is split into separate matrices (z, x, B, C, dt),
+as in the reference. Plain PyTorch on both devices: the reference
+computes the mixer in plain ``jnp`` outside any Pallas kernel.
+
+``ssm_prefill`` and ``ssm_decode`` write the carried state and the conv
+ring into the ``cache`` they are given IN PLACE (the decoder stack
+passes a layer's slice of its stacked cache tree) and return it.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import dense_init, silu, to_storage
+
+
+def ssm_init(cfg, generator: torch.Generator, device="cuda", lead=()):
+    """``lead`` prepends stacking axes (the period axis) to every leaf."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    nh = s.num_heads(d)
+    n = s.d_state
+    k = len(lead)
+
+    def w(shape):
+        return dense_init(lead + shape, generator, k, device=device)
+
+    def const(t):
+        return t.to(device).expand(lead + t.shape).clone()
+
+    def zeros(m):
+        return torch.zeros(lead + (m,), device=device)
+
+    return {
+        "w_z": w((d, di)),
+        "w_x": w((d, di)),
+        "w_B": w((d, n)),
+        "w_C": w((d, n)),
+        "w_dt": w((d, nh)),
+        # depthwise causal conv over x, B, C (split per group: a depthwise
+        # conv factors exactly across channel groups)
+        "conv_wx": w((s.conv_width, di)) * 0.1,
+        "conv_bx": zeros(di),
+        "conv_wB": w((s.conv_width, n)) * 0.1,
+        "conv_bB": zeros(n),
+        "conv_wC": w((s.conv_width, n)) * 0.1,
+        "conv_bC": zeros(n),
+        "dt_bias": zeros(nh),
+        "A_log": const(torch.log(torch.linspace(1.0, 16.0, nh))),
+        "D": const(torch.ones(nh)),
+        "gate_norm": const(torch.ones(di)),
+        "w_out": w((di, d)),
+    }
+
+
+def _project_in(params, x):
+    """x (..., D) -> (z, xr, Br, Cr, dt_raw) pre-conv projections."""
+    dt = x.dtype
+    return tuple(x @ params[k].to(dt)
+                 for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+
+
+def _causal_conv(seq, w, b):
+    """seq (B, S, C), w (W, C): depthwise causal conv + silu."""
+    width, s = w.shape[0], seq.shape[1]
+    pad = F.pad(seq, (0, 0, width - 1, 0))
+    out = sum(pad[:, i:i + s, :] * w[i] for i in range(width))
+    return silu(out + b)
+
+
+def _gated_out(params, y, z, x_dtype):
+    dt = y.dtype
+    g = y * silu(z)
+    var = torch.mean(torch.square(g.float()), dim=-1, keepdim=True)
+    g = (g.float() * torch.rsqrt(var + 1e-6) * params["gate_norm"]).to(dt)
+    return (g @ params["w_out"].to(dt)).to(x_dtype)
+
+
+def _softplus(x):
+    """log(1 + e^x) as jax.nn.softplus computes it (no threshold)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def ssm_forward(params, cfg, x):
+    """x (B, S, D) -> (B, S, D). S is right-padded to the chunk multiple."""
+    out, _ = _ssm_forward_with_state(params, cfg, x)
+    return out
+
+
+def _ssm_forward_with_state(params, cfg, x):
+    """Chunked SSD scan -> (out (B, S, D), final carried state (B, H, N,
+    P) f32)."""
+    s_cfg = cfg.ssm
+    orig_len = x.shape[1]
+    q = min(s_cfg.chunk, orig_len)
+    if orig_len % q:                         # causal: right-pad then trim
+        x = F.pad(x, (0, 0, 0, q - orig_len % q))
+    b, slen, _ = x.shape
+    di = s_cfg.d_inner(cfg.d_model)
+    nh = s_cfg.num_heads(cfg.d_model)
+    n, p = s_cfg.d_state, s_cfg.head_dim
+    dev = x.device
+
+    z, xr, br, cr, dt_raw = _project_in(params, x)
+    xc = _causal_conv(xr, params["conv_wx"].to(x.dtype),
+                      params["conv_bx"].to(x.dtype))
+    bmat = _causal_conv(br, params["conv_wB"].to(x.dtype),
+                        params["conv_bB"].to(x.dtype))
+    cmat = _causal_conv(cr, params["conv_wC"].to(x.dtype),
+                        params["conv_bC"].to(x.dtype))
+    xs = xc.reshape(b, slen, nh, p)
+    dt = _softplus(dt_raw.float() + params["dt_bias"])          # (B,S,H)
+    a = -torch.exp(params["A_log"])                             # (H,)
+    la = dt * a                                 # per-step log decay (B,S,H)
+
+    iidx = torch.arange(q, device=dev)
+    causal = (iidx[:, None] >= iidx[None, :])[None, :, :, None]
+    h = torch.zeros((b, nh, n, p), dtype=torch.float32, device=dev)
+    ys = []
+    for c in range(slen // q):
+        rows = slice(c * q, (c + 1) * q)
+        xk = xs[:, rows].float()                                # (B,Q,H,P)
+        bk, ck = bmat[:, rows].float(), cmat[:, rows].float()   # (B,Q,N)
+        dtk = dt[:, rows]                                       # (B,Q,H)
+        cum = torch.cumsum(la[:, rows], dim=1)                  # (B,Q,H)
+        # intra-chunk (dual / quadratic) term
+        scores = torch.einsum("bin,bjn->bij", ck, bk)           # (B,Q,Q)
+        decay = cum[:, :, None, :] - cum[:, None, :, :]         # (B,Qi,Qj,H)
+        # mask BEFORE exp: non-causal entries have decay > 0, and
+        # where(c, exp(big), 0) leaks NaN through the gradient (inf * 0)
+        lmat = torch.exp(torch.where(causal, decay, -1e30))
+        dtx = dtk[..., None] * xk                               # (B,Q,H,P)
+        # the reference's einsum bij,bijh,bjhp->bihp as a weight
+        # (B,Q,Q,H) times a batched matmul: never a (B,Q,Q,H,P) product
+        y = torch.einsum("bijh,bjhp->bihp", scores[..., None] * lmat, dtx)
+        # inter-chunk contribution from the carried state
+        y = y + torch.einsum("bin,bhnp->bihp", ck, h) \
+            * torch.exp(cum)[..., None]
+        # new carried state
+        decay_to_end = torch.exp(cum[:, -1:, :] - cum)          # (B,Q,H)
+        state_upd = torch.einsum("bjn,bjhp->bhnp", bk,
+                                 (decay_to_end * dtk)[..., None] * xk)
+        h = torch.exp(cum[:, -1, :])[..., None, None] * h + state_upd
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    y = y + params["D"][None, None, :, None] * xs.float()
+    y = y.reshape(b, slen, di).to(x.dtype)
+    out = _gated_out(params, y, z, x.dtype)
+    return out[:, :orig_len], h
+
+
+def ssm_prefill(params, cfg, x, cache):
+    """Forward + populate the decode cache in place: the final state and
+    the conv ring's last ``W - 1`` PRE-conv channel values of [x, B, C].
+    Returns (out, cache)."""
+    out, state = _ssm_forward_with_state(params, cfg, x)
+    _, xr, br, cr, _ = _project_in(params, x)
+    ring = cache["conv"]
+    take = min(x.shape[1], ring.shape[1])
+    tail = torch.cat([xr, br, cr], dim=-1)[:, x.shape[1] - take:]
+    ring[:, ring.shape[1] - take:] = to_storage(tail, ring.dtype)
+    cache["state"].copy_(state)
+    return out, cache
+
+
+def init_ssm_cache(cfg, batch: int, dtype=torch.float32, device="cuda",
+                   lead=()):
+    """One layer's decode cache (``lead`` prepends stacking axes): the
+    carried state, f32 whatever ``dtype``, and the conv ring in
+    ``dtype``."""
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    nh = s.num_heads(cfg.d_model)
+    conv_ch = di + 2 * s.d_state
+    return {
+        "state": torch.zeros(lead + (batch, nh, s.d_state, s.head_dim),
+                             dtype=torch.float32, device=device),
+        "conv": torch.zeros(lead + (batch, s.conv_width - 1, conv_ch),
+                            dtype=dtype, device=device),
+    }
+
+
+def ssm_decode(params, cfg, x, cache):
+    """One-token recurrence. x (B, 1, D) -> (out (B, 1, D), cache), the
+    state and conv ring updated in place."""
+    s_cfg = cfg.ssm
+    b = x.shape[0]
+    di = s_cfg.d_inner(cfg.d_model)
+    nh = s_cfg.num_heads(cfg.d_model)
+    n, p = s_cfg.d_state, s_cfg.head_dim
+
+    z, xr, br, cr, dt_raw = _project_in(params, x[:, 0, :])
+    # causal conv over the ring of the last (W - 1) inputs + the current
+    ring = cache["conv"]
+    cur = to_storage(torch.cat([xr, br, cr], dim=-1)[:, None, :], ring.dtype)
+    hist = torch.cat([ring, cur], dim=1)
+
+    def conv1(seq, w, b_):
+        out = torch.einsum("bwc,wc->bc", seq.float(), w.float()) + b_
+        return silu(out)
+
+    xh = conv1(hist[..., :di], params["conv_wx"], params["conv_bx"])
+    bvec = conv1(hist[..., di:di + n], params["conv_wB"], params["conv_bB"])
+    cvec = conv1(hist[..., di + n:], params["conv_wC"], params["conv_bC"])
+    xh = xh.reshape(b, nh, p)
+    dt = _softplus(dt_raw.float() + params["dt_bias"])           # (B,H)
+    a = -torch.exp(params["A_log"])
+    decay = torch.exp(dt * a)                                    # (B,H)
+
+    upd = (dt[..., None] * xh)[:, :, None, :] * bvec[:, None, :, None]
+    state = decay[..., None, None] * cache["state"] + upd
+    y = torch.einsum("bn,bhnp->bhp", cvec, state)
+    y = y + params["D"][None, :, None] * xh
+    y = y.reshape(b, 1, di).to(x.dtype)
+    out = _gated_out(params, y, z[:, None, :], x.dtype)
+    ring.copy_(hist[:, 1:])
+    cache["state"].copy_(state)
+    return out, cache

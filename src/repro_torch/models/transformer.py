@@ -1,4 +1,6 @@
-"""Decoder-stack assembly (dense attention + MLP blocks).
+"""Decoder-stack assembly for every assigned architecture: attention
+or Mamba2 (SSM) mixers, each followed by a dense MLP, a mixture of
+experts or nothing (``ModelConfig.block_kind`` / ``uses_moe``).
 
 Parameters keep the reference's stacked layout: ``num_periods``
 repetitions of a ``period`` of blocks, each period position's leaves
@@ -15,12 +17,9 @@ IN PLACE: the segment functions write each layer's K/V into its slice of
 the stacked cache tree and return that same tree.
 
 The whole-model ``forward`` / ``prefill`` / ``decode_step`` (what the
-serving launcher calls) are the segment functions over ``[0, L)``
-between the embedding and the unembedding.
-
-MoE and SSM blocks are not ported yet (ROADMAP Queue 1, model zoo):
-every entry point raises ``NotImplementedError`` on such a config, and
-the whole-model entry points on a frontend (``embeds=``) config.
+serving launcher calls) run the same blocks over ``[0, L)`` between the
+embedding (token ids, or a frontend's precomputed ``embeds``) and the
+unembedding, and sum the MoE router losses over the blocks.
 """
 from __future__ import annotations
 
@@ -41,6 +40,9 @@ from repro_torch.models.attention import (NEG_INF, DEFAULT_BLOCK_K,
 from repro_torch.models.common import (embed_init, norm_apply, norm_init,
                                        to_storage)
 from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.ssm import (init_ssm_cache, ssm_decode, ssm_forward,
+                                    ssm_init, ssm_prefill)
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -60,52 +62,52 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for block kinds the port does not run yet."""
-    for pos in range(period_len(cfg)):
-        if cfg.block_kind(pos) != ATTN or cfg.uses_moe(pos):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE and SSM blocks are not ported to "
-                "repro_torch yet (ROADMAP Queue 1, model zoo)")
-
-
 # ---------------------------------------------------------------------------
 # Params
+
+def _block_init(cfg: ModelConfig, generator: torch.Generator, device,
+                pos: int):
+    """Period position ``pos``'s weights, stacked over the periods."""
+    lead = (num_periods(cfg),)
+
+    def stacked_norm():
+        return tree_map(lambda t: t.expand(lead + t.shape).clone(),
+                        norm_init(cfg.norm, cfg.d_model, device))
+
+    p = {"norm1": stacked_norm()}
+    if cfg.block_kind(pos) == ATTN:
+        p["attn"] = attn_init(cfg, generator, device, lead=lead)
+    else:
+        p["ssm"] = ssm_init(cfg, generator, device, lead=lead)
+    if cfg.uses_moe(pos):
+        p["norm2"] = stacked_norm()
+        p["moe"] = moe_init(cfg, generator, device, lead=lead)
+    elif cfg.d_ff:
+        p["norm2"] = stacked_norm()
+        p["mlp"] = mlp_init(cfg, generator, device, lead=lead)
+    return p
+
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda"):
     """Seeded random weights in the stacked layout (f32, as the
     reference keeps them; activations run in ``cfg.dtype``).
     ``generator`` must live on ``device``."""
-    check_supported(cfg)
-    plen, nper = period_len(cfg), num_periods(cfg)
     vp, d = cfg.padded_vocab(), cfg.d_model
     params = {"embed": embed_init((vp, d), generator, device=device),
               "final_norm": norm_init(cfg.norm, d, device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init((d, vp), generator, device=device)
-
-    def stacked_norm():
-        return tree_map(lambda t: t.expand((nper,) + t.shape).clone(),
-                        norm_init(cfg.norm, d, device))
-
-    blocks = []
-    for _ in range(plen):
-        bp = {"norm1": stacked_norm(),
-              "attn": attn_init(cfg, generator, device, lead=(nper,))}
-        if cfg.d_ff:
-            bp["norm2"] = stacked_norm()
-            bp["mlp"] = mlp_init(cfg, generator, device, lead=(nper,))
-        blocks.append(bp)
-    params["blocks"] = blocks
+    params["blocks"] = [_block_init(cfg, generator, device, pos)
+                        for pos in range(period_len(cfg))]
     return params
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """Carry a reference ``init_params`` tree across as tensors on
     ``device``: NumPy leaves, stacked periods, the reference layouts
-    (``wq (D, H_pad, hd)``, ``wo (H_pad, hd, D)``)."""
-    check_supported(cfg)
+    (``wq (D, H_pad, hd)``, ``wo (H_pad, hd, D)``, MoE expert stacks
+    ``(E, D, F)``, the SSM mixers' leaves)."""
     params = tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),
                       tree)
     nper = num_periods(cfg)
@@ -117,8 +119,14 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
 
 
 def block_at(params, cfg: ModelConfig, layer: int):
-    """(block param tree, period position) of global block ``layer``."""
+    """(block param tree, period position) of global block ``layer``:
+    the period slice of the stacked tree, or, for a layer below
+    ``len(params["segment_blocks"])``, that list's own tree (a
+    quantized device segment, ``TransformerBackend.stacked_for``)."""
     per, pos = divmod(layer, period_len(cfg))
+    seg = params.get("segment_blocks", ())
+    if layer < len(seg):
+        return seg[layer], pos
     return tree_map(lambda t: t[per], params["blocks"][pos]), pos
 
 
@@ -127,11 +135,14 @@ def block_at(params, cfg: ModelConfig, layer: int):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    """Per-period-position stacked ring caches (leading axis = periods)."""
-    check_supported(cfg)
-    return [init_kv_cache(cfg, batch, max_len, dtype, device,
-                          lead=(num_periods(cfg),))
-            for _ in range(period_len(cfg))]
+    """Per-period-position stacked caches (leading axis = periods): a KV
+    ring for an attention position, the carried state and conv ring for
+    an SSM one."""
+    lead = (num_periods(cfg),)
+    return [init_kv_cache(cfg, batch, max_len, dtype, device, lead=lead)
+            if cfg.block_kind(pos) == ATTN
+            else init_ssm_cache(cfg, batch, dtype, device, lead=lead)
+            for pos in range(period_len(cfg))]
 
 
 def _cache_at(caches, cfg: ModelConfig, layer: int):
@@ -146,7 +157,8 @@ def _cache_at(caches, cfg: ModelConfig, layer: int):
 
 # matmul-weight keys with a dequantize-fused kernel route: wire structs at
 # these positions pass through _dequant_block intact and execute via
-# ops.qdense (the qmatmul/qmatmul4 kernels) inside attention/mlp.
+# ops.qdense (the qmatmul/qmatmul4 kernels) inside attention/mlp. Every
+# other struct (MoE expert stacks, SSM mixers) dequantizes at block entry.
 KERNEL_ROUTED = {"attn": ("wq", "wk", "wv", "wo"),
                  "mlp": ("w_gate", "w_up", "w_down")}
 
@@ -178,24 +190,59 @@ def _dequant_block(bp, cfg):
     return walk(bp)
 
 
+def _feed_forward(bp, cfg, x):
+    """The block's second half on the residual ``x``: MoE, dense MLP or
+    nothing. Returns (x, router aux dict or None)."""
+    if "moe" in bp:
+        out, aux = moe_apply(bp["moe"], cfg,
+                             norm_apply(cfg.norm, bp["norm2"], x))
+        return x + out, aux
+    if "mlp" in bp:
+        return x + mlp_apply(bp["mlp"], cfg,
+                             norm_apply(cfg.norm, bp["norm2"], x)), None
+    return x, None
+
+
 def _block_apply(bp, cfg, pos, x, positions, *, cache=None,
                  decode_pos=None):
-    """One block. Returns (x, cache); ``cache`` is updated in place when
-    given (decode)."""
+    """One block. Returns (x, aux, cache): ``aux`` the router losses of
+    a MoE block (else None); ``cache``, when given (decode), updated in
+    place."""
     bp = _dequant_block(bp, cfg)
     h = norm_apply(cfg.norm, bp["norm1"], x)
-    if cache is not None:
-        mixed, cache = attention_decode(bp["attn"], cfg, h, cache, decode_pos)
+    if cfg.block_kind(pos) == ATTN:
+        if cache is not None:
+            mixed, cache = attention_decode(bp["attn"], cfg, h, cache,
+                                            decode_pos)
+        else:
+            mixed = attention_forward(bp["attn"], cfg, h, positions)
+    elif cache is not None:
+        mixed, cache = ssm_decode(bp["ssm"], cfg, h, cache)
     else:
-        mixed = attention_forward(bp["attn"], cfg, h, positions)
-    x = x + mixed
-    if "mlp" in bp:
-        x = x + mlp_apply(bp["mlp"], cfg,
-                          norm_apply(cfg.norm, bp["norm2"], x))
-    return x, cache
+        mixed = ssm_forward(bp["ssm"], cfg, h)
+    x, aux = _feed_forward(bp, cfg, x + mixed)
+    return x, aux, cache
 
 
-def _embed(params, cfg, tokens):
+def _zero_aux(device) -> dict:
+    """The router-loss dict of a stack without MoE blocks."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("lb_loss", "z_loss", "dropped_frac")}
+
+
+def _acc_aux(acc, aux):
+    """``acc + aux`` leaf by leaf; None (no MoE block yet) on either
+    side adds nothing, so a dense stack launches no additions."""
+    if aux is None:
+        return acc
+    if acc is None:
+        return aux
+    return {k: acc[k] + aux[k] for k in acc}
+
+
+def _embed(params, cfg, tokens=None, embeds=None):
+    if embeds is not None:
+        return embeds.to(model_dtype(cfg))
     return params["embed"][tokens.long()].to(model_dtype(cfg))
 
 
@@ -235,7 +282,7 @@ def segment_forward(params, cfg: ModelConfig, h, start: int, stop: int, *,
             acts.append(h)
         if start <= layer < stop:
             bp, pos = block_at(params, cfg, layer)
-            h, _ = _block_apply(bp, cfg, pos, h, positions)
+            h, _, _ = _block_apply(bp, cfg, pos, h, positions)
     if collect:
         return h, torch.stack(acts)
     return h
@@ -276,24 +323,38 @@ def _attn_prefill_with_cache(ap, cfg, h, positions, cache):
     return out, cache
 
 
+def _prefill_blocks(params, cfg: ModelConfig, h, caches, start: int,
+                    stop: int, positions):
+    """Blocks ``[start, stop)`` over the prompt ``h``, filling their
+    cache slices in place -> (h_out, caches, summed router aux or
+    None)."""
+    aux = None
+    for layer in range(start, stop):
+        bp, pos = block_at(params, cfg, layer)
+        bp = _dequant_block(bp, cfg)
+        hh = norm_apply(cfg.norm, bp["norm1"], h)
+        cache = _cache_at(caches, cfg, layer)
+        if cfg.block_kind(pos) == ATTN:
+            mixed, _ = _attn_prefill_with_cache(bp["attn"], cfg, hh,
+                                                positions, cache)
+        else:
+            mixed, _ = ssm_prefill(bp["ssm"], cfg, hh, cache)
+        h, a = _feed_forward(bp, cfg, h + mixed)
+        aux = _acc_aux(aux, a)
+    return h, caches, aux
+
+
 def segment_prefill(params, cfg: ModelConfig, h, caches, start: int,
                     stop: int, *, positions=None):
     """Blocks ``[start, stop)`` over the prompt ``h`` (B, S, D), filling
     their slices of the stacked ``caches`` (an ``init_cache`` tree) in
-    place. Returns ``(h_out, caches)``."""
+    place: K/V rings, SSM states and conv rings. Returns ``(h_out,
+    caches)``; router aux losses are dropped, as in the reference."""
     b, s, _ = h.shape
     if positions is None:
         positions = rope_lib.text_positions(b, s, device=h.device)
-    for layer in range(start, stop):
-        bp, _ = block_at(params, cfg, layer)
-        bp = _dequant_block(bp, cfg)
-        mixed, _ = _attn_prefill_with_cache(
-            bp["attn"], cfg, norm_apply(cfg.norm, bp["norm1"], h),
-            positions, _cache_at(caches, cfg, layer))
-        h = h + mixed
-        if "mlp" in bp:
-            h = h + mlp_apply(bp["mlp"], cfg,
-                              norm_apply(cfg.norm, bp["norm2"], h))
+    h, caches, _ = _prefill_blocks(params, cfg, h, caches, start, stop,
+                                   positions)
     return h, caches
 
 
@@ -325,12 +386,25 @@ def _attn_extend_with_cache(ap, cfg, h, positions, cache, pos0: int):
     return _out_proj(ap, cfg, out, h.dtype), cache
 
 
+def _attention_only(cfg: ModelConfig, what: str) -> None:
+    """The reference's refusal of a stack with non-attention blocks in
+    the paths that resume or roll back mid-stream: SSM state is a
+    running reduction, not position-addressable."""
+    for pos in range(period_len(cfg)):
+        if cfg.block_kind(pos) != ATTN:
+            raise NotImplementedError(
+                f"{what} supports attention blocks only: "
+                f"block kind at period position {pos} is not ATTN")
+
+
 def segment_extend(params, cfg: ModelConfig, h, caches, pos0: int,
                    start: int, stop: int):
     """Blocks ``[start, stop)`` over ``s`` NEW rows ``h`` (B, S, D)
     entering at absolute position ``pos0``, extending their ring caches
     in place (the monolithic prefill of a decode session is one such
-    extend from ``pos0 = 0``). Returns ``(h_out, caches)``."""
+    extend from ``pos0 = 0``). Attention blocks only. Returns ``(h_out,
+    caches)``."""
+    _attention_only(cfg, "segment_extend")
     b, s, _ = h.shape
     positions = rope_lib.text_positions(b, s, offset=pos0, device=h.device)
     for layer in range(start, stop):
@@ -339,10 +413,7 @@ def segment_extend(params, cfg: ModelConfig, h, caches, pos0: int,
         mixed, _ = _attn_extend_with_cache(
             bp["attn"], cfg, norm_apply(cfg.norm, bp["norm1"], h),
             positions, _cache_at(caches, cfg, layer), pos0)
-        h = h + mixed
-        if "mlp" in bp:
-            h = h + mlp_apply(bp["mlp"], cfg,
-                              norm_apply(cfg.norm, bp["norm2"], h))
+        h, _ = _feed_forward(bp, cfg, h + mixed)
     return h, caches
 
 
@@ -353,9 +424,9 @@ def segment_decode_step(params, cfg: ModelConfig, x, caches, pos: int,
     position. Updates the caches in place; returns ``(x_out, caches)``."""
     for layer in range(start, stop):
         bp, p = block_at(params, cfg, layer)
-        x, _ = _block_apply(bp, cfg, p, x, None,
-                            cache=_cache_at(caches, cfg, layer),
-                            decode_pos=pos)
+        x, _, _ = _block_apply(bp, cfg, p, x, None,
+                               cache=_cache_at(caches, cfg, layer),
+                               decode_pos=pos)
     return x, caches
 
 
@@ -373,7 +444,9 @@ def segment_verify(params, cfg: ModelConfig, xs, caches, pos0: int,
     kernel route above M = 16, another reduction order) and its
     attention another kernel. No cache rollback is needed on rejection:
     a stale slot past the acceptance point is rewritten before any later
-    query reads it (slot == position)."""
+    query reads it (slot == position). Attention blocks only: an SSM
+    state cannot be rolled back to the acceptance point."""
+    _attention_only(cfg, "segment_verify")
     rows = []
     for j in range(xs.shape[1]):
         x, caches = segment_decode_step(params, cfg, xs[:, j:j + 1], caches,
@@ -383,67 +456,62 @@ def segment_verify(params, cfg: ModelConfig, xs, caches, pos0: int,
 
 
 # ---------------------------------------------------------------------------
-# Whole model (the serving launcher's entry points)
+# Whole model (the serving launcher's and the trainer's entry points)
 
-def _check_text(cfg: ModelConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: frontend (embeds=) archs are not ported to "
-            "repro_torch yet (ROADMAP Queue 1, model zoo)")
-
-
-def _zero_aux(device) -> dict:
-    """The reference's router-loss dict; dense blocks add nothing to it."""
-    return {k: torch.zeros((), dtype=torch.float32, device=device)
-            for k in ("lb_loss", "z_loss", "dropped_frac")}
-
-
-def forward(params, cfg: ModelConfig, tokens, *, positions=None,
-            remat: bool = False):
-    """tokens (B, S) -> (logits (B, S, V), aux). ``remat`` checkpoints
-    each period, as the reference's ``jax.checkpoint`` over its scan
-    body: the backward pass runs the period's forward again (its flash
-    attention kernel included) instead of keeping its activations."""
-    _check_text(cfg)
-    h = _embed(params, cfg, tokens)
-    if not remat:
-        h = segment_forward(params, cfg, h, 0, cfg.num_layers,
-                            positions=positions)
-        return _unembed(params, cfg, h), _zero_aux(h.device)
+def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
+            positions=None, remat: bool = False):
+    """tokens (B, S), or a frontend's ``embeds`` (B, S, D) -> (logits
+    (B, S, V), aux: the router losses summed over the blocks).
+    ``remat`` checkpoints each period, as the reference's
+    ``jax.checkpoint`` over its scan body: the backward pass runs the
+    period's forward again (its flash attention kernel included)
+    instead of keeping its activations."""
+    h = _embed(params, cfg, tokens, embeds)
     if positions is None:
         positions = rope_lib.text_positions(h.shape[0], h.shape[1],
                                             device=h.device)
     plen = period_len(cfg)
 
     def period_fn(h, per):
+        acc = None
         for pos in range(plen):
-            bp = tree_map(lambda t: t[per], params["blocks"][pos])
-            h, _ = _block_apply(bp, cfg, pos, h, positions)
-        return h
+            bp, _ = block_at(params, cfg, per * plen + pos)
+            h, a, _ = _block_apply(bp, cfg, pos, h, positions)
+            acc = _acc_aux(acc, a)
+        return h, acc
 
+    aux = None
     for per in range(num_periods(cfg)):
-        h = torch.utils.checkpoint.checkpoint(period_fn, h, per,
-                                              use_reentrant=False)
-    return _unembed(params, cfg, h), _zero_aux(h.device)
+        if remat:
+            h, a = torch.utils.checkpoint.checkpoint(period_fn, h, per,
+                                                     use_reentrant=False)
+        else:
+            h, a = period_fn(h, per)
+        aux = _acc_aux(aux, a)
+    return _unembed(params, cfg, h), aux or _zero_aux(h.device)
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, positions=None,
-            max_len: int, cache_dtype=torch.bfloat16):
-    """Forward over the prompt ``tokens`` (B, S) that also builds fresh
-    ``max_len``-slot decode caches -> (logits (B, S, V), caches, aux)."""
-    _check_text(cfg)
-    h = _embed(params, cfg, tokens)
-    caches = init_cache(cfg, h.shape[0], max_len, cache_dtype,
-                        device=h.device)
-    h, caches = segment_prefill(params, cfg, h, caches, 0, cfg.num_layers,
-                                positions=positions)
-    return _unembed(params, cfg, h), caches, _zero_aux(h.device)
+def prefill(params, cfg: ModelConfig, tokens=None, *, embeds=None,
+            positions=None, max_len: int, cache_dtype=torch.bfloat16):
+    """Forward over the prompt (``tokens`` (B, S) or ``embeds`` (B, S,
+    D)) that also builds fresh ``max_len``-slot decode caches ->
+    (logits (B, S, V), caches, aux)."""
+    h = _embed(params, cfg, tokens, embeds)
+    b, s, _ = h.shape
+    if positions is None:
+        positions = rope_lib.text_positions(b, s, device=h.device)
+    caches = init_cache(cfg, b, max_len, cache_dtype, device=h.device)
+    h, caches, aux = _prefill_blocks(params, cfg, h, caches, 0,
+                                     cfg.num_layers, positions)
+    return _unembed(params, cfg, h), caches, aux or _zero_aux(h.device)
 
 
 def decode_step(params, cfg: ModelConfig, token, caches, pos):
-    """token (B, 1) at absolute position ``pos`` -> (logits (B, 1, V),
-    caches), the caches updated in place."""
-    _check_text(cfg)
-    x, caches = segment_decode_step(params, cfg, _embed(params, cfg, token),
-                                    caches, int(pos), 0, cfg.num_layers)
+    """token (B, 1) ids, or a frontend's embedding (B, 1, D), at
+    absolute position ``pos`` -> (logits (B, 1, V), caches), the caches
+    updated in place."""
+    x = _embed(params, cfg, token) if token.dim() == 2 \
+        else token.to(model_dtype(cfg))
+    x, caches = segment_decode_step(params, cfg, x, caches, int(pos), 0,
+                                    cfg.num_layers)
     return _unembed(params, cfg, x), caches

@@ -198,7 +198,7 @@ class TransformerBackend(ModelBackend):
         for l in range(L):
             bp, pos = T.block_at(self.params, cfg, l)
             qbp = tree_map(lambda t: fake_quant(t, probe_bits), bp)
-            h, _ = T.apply_block(qbp, cfg, pos, acts[l], positions)
+            h, _, _ = T.apply_block(qbp, cfg, pos, acts[l], positions)
             d_w = T.segment_logits(self.params, cfg, h, l + 1, L) - logits
             e_w[l] = float(torch.sum(torch.square(d_w.float())))
             d_x = T.segment_logits(self.params, cfg,
@@ -211,36 +211,18 @@ class TransformerBackend(ModelBackend):
     def _device_blocks(self, p: int):
         return [T.block_at(self.params, self.cfg, l)[0] for l in range(p)]
 
-    def _stack_segment(self, seg_params: list):
-        """Scatter the per-layer quantized trees back into the stacked
-        period representation (full precision beyond p)."""
-        plen = T.period_len(self.cfg)
-        blocks = [tree_map(torch.clone, bp) for bp in self.params["blocks"]]
-        for l, layer_tree in enumerate(seg_params):
-            per, pos = divmod(l, plen)
-
-            def put(full, q, per=per):
-                full[per] = q
-                return full
-
-            tree_map(put, blocks[pos], layer_tree)
-        return {**self.params, "blocks": blocks}
-
     def split(self, plan) -> DeviceSegment:
         return split_blocks(self._device_blocks(plan.p), plan,
                             self.layer_specs())
 
     def stacked_for(self, seg: DeviceSegment, plan) -> dict:
-        """The quantized segment scattered into a full stacked tree, built
-        on first execution and cached per DEPLOYED plan (bounded)."""
-        key = (plan.p, tuple(int(b) for b in np.asarray(seg.bits_w)),
-               int(seg.bits_x))
-        cache = self.__dict__.setdefault("_stacked_cache", {})
-        if key not in cache:
-            while len(cache) >= _STACKED_CACHE_SLOTS:
-                cache.pop(next(iter(cache)))
-            cache[key] = self._stack_segment(seg.params)
-        return cache[key]
+        """The parameter tree that runs the quantized segment: the full-
+        precision stack with the segment's fake-quantized layer trees in
+        front (``segment_blocks``, read by ``transformer.block_at``), so
+        no stacked leaf is copied — at OLMoE's width a copy of the expert
+        stacks would take 26 GB. ``plan`` is accepted for the
+        reference's signature."""
+        return {**self.params, "segment_blocks": list(seg.params)}
 
     def run_device_segment(self, seg: DeviceSegment, plan, x):
         params = self.stacked_for(seg, plan)
@@ -250,12 +232,15 @@ class TransformerBackend(ModelBackend):
 
     # -- quantized-kernel device segment ---------------------------------
     def qstacked_for(self, seg: DeviceSegment, plan) -> dict:
-        """``stacked_for``'s kernel twin: the routed projection/MLP
-        weights (``transformer.KERNEL_ROUTED``) are carried as per-period
-        quantized WIRE STRUCTS ({codes, scale, mu}) that the models run
-        through the dequantize-fused qmatmul/qmatmul4 kernels. Plans
-        deploying > 8 bits fall back to ``stacked_for`` (the uint8 wire
-        cannot carry them)."""
+        """``stacked_for``'s kernel twin: in each device layer the routed
+        projection/MLP weights (``transformer.KERNEL_ROUTED``) are
+        quantized WIRE STRUCTS ({codes, scale, mu}, per tensor, at the
+        layer's deployed bits) that the models run through the
+        dequantize-fused qmatmul/qmatmul4 kernels; every other leaf is
+        the segment's fake-quantized one. Plans deploying > 8 bits fall
+        back to ``stacked_for`` (the uint8 wire cannot carry them).
+        Built on first execution and cached per DEPLOYED plan
+        (bounded)."""
         bits_w = [int(b) for b in np.asarray(seg.bits_w)]
         if any(b > 8 for b in bits_w):
             return self.stacked_for(seg, plan)
@@ -264,71 +249,52 @@ class TransformerBackend(ModelBackend):
         if key not in cache:
             while len(cache) >= _STACKED_CACHE_SLOTS:
                 cache.pop(next(iter(cache)))
-            cache[key] = self._build_qstacked(int(plan.p), bits_w)
+            cache[key] = self._build_qstacked(seg, bits_w)
         return cache[key]
 
-    def _build_qstacked(self, p: int, bits_w: list) -> dict:
-        """For each period position, routed leaves become per-period,
-        per-tensor quantized structs at the deployed per-layer bit-widths
-        (filler bits for periods beyond the cut, never executed); the
-        other leaves are fake-quantized on the ACTIVE periods, mirroring
-        ``_stack_segment`` + ``split_blocks`` leaf for leaf. A position
-        whose active bits are all <= 4 packs two codes per byte."""
-        plen, nper = T.period_len(self.cfg), T.num_periods(self.cfg)
-        dev = self.device
+    def _build_qstacked(self, seg: DeviceSegment, bits_w: list) -> dict:
+        """Routed leaves of each device layer quantized from the master
+        weights at that layer's bits; a period position whose device
+        layers are all <= 4 bits packs two codes per byte (so every layer
+        at a position runs one kernel). Other leaves come from
+        ``seg.params`` (``split_blocks``' fake-quantization, leaf for
+        leaf what ``stacked_for`` runs)."""
+        cfg, routed = self.cfg, T.KERNEL_ROUTED
+        plen = T.period_len(cfg)
+        pack = [max(bits_w[pos::plen], default=8) <= 4
+                for pos in range(plen)]
 
-        def build_pos(pos: int):
-            active = [per * plen + pos < p for per in range(nper)]
-            abits = [bits_w[per * plen + pos]
-                     for per in range(nper) if active[per]]
-            pack = bool(abits) and max(abits) <= 4
-            fill = 4 if pack else 8
-            bits = np.array([bits_w[per * plen + pos] if active[per]
-                             else fill for per in range(nper)], np.float64)
-            levels = torch.as_tensor(2.0 ** bits - 1.0, dtype=torch.float32,
-                                     device=dev)
-            amask = torch.as_tensor(active, device=dev)
+        def struct(leaf, bits: int, packed: bool):
+            mu, phi = torch.amin(leaf), torch.amax(leaf)
+            lv = torch.full((), 2.0 ** bits - 1.0, dtype=torch.float32,
+                            device=leaf.device)
+            scale = torch.clamp((phi - mu) / lv, min=1e-12)
+            codes = torch.minimum(torch.clamp(
+                torch.round((leaf - mu) / scale), min=0), lv)
+            one = (1,) * leaf.dim()
+            out = {"scale": scale.float().reshape(one),
+                   "mu": mu.float().reshape(one)}
+            codes = codes.to(torch.uint8)
+            if packed and leaf.shape[-1] % 2 == 0:
+                out["codes_packed"] = \
+                    codes[..., 0::2] | (codes[..., 1::2] << 4)
+            else:
+                out["codes"] = codes
+            return out
 
-            def meta(leaf):
-                axes = tuple(range(1, leaf.dim()))
-                shape = (nper,) + (1,) * (leaf.dim() - 1)
-                mu = torch.amin(leaf, dim=axes, keepdim=True)
-                phi = torch.amax(leaf, dim=axes, keepdim=True)
-                lv = levels.reshape(shape)
-                scale = torch.clamp((phi - mu) / lv, min=1e-12)
-                codes = torch.minimum(torch.clamp(
-                    torch.round((leaf - mu) / scale), min=0), lv)
-                return codes, scale, mu
+        def layer(l: int):
+            master, pos = T.block_at(self.params, cfg, l)
 
-            def struct(leaf):
-                codes, scale, mu = meta(leaf)
-                out = {"scale": scale.float(), "mu": mu.float()}
-                codes = codes.to(torch.uint8)
-                if pack and leaf.shape[-1] % 2 == 0:
-                    out["codes_packed"] = \
-                        codes[..., 0::2] | (codes[..., 1::2] << 4)
-                else:
-                    out["codes"] = codes
-                return out
+            def walk(node, fq, parent=None):
+                if not isinstance(node, dict):
+                    return fq
+                return {k: (struct(v, bits_w[l], pack[pos])
+                            if parent in routed and k in routed[parent]
+                            and not isinstance(v, dict)
+                            else walk(v, fq[k], k))
+                        for k, v in node.items()}
 
-            def dense_fq(leaf):
-                codes, scale, mu = meta(leaf)
-                fq = (codes * scale + mu).to(leaf.dtype)
-                mask = amask.reshape((nper,) + (1,) * (leaf.dim() - 1))
-                return torch.where(mask, fq, leaf)
-
-            routed = T.KERNEL_ROUTED
-
-            def walk(node, parent=None):
-                if isinstance(node, dict):
-                    return {k: (struct(v)
-                                if parent in routed and k in routed[parent]
-                                and not isinstance(v, dict)
-                                else walk(v, k))
-                            for k, v in node.items()}
-                return dense_fq(node)
-
-            return walk(self.params["blocks"][pos])
+            return walk(master, seg.params[l])
 
         return {**self.params,
-                "blocks": [build_pos(pos) for pos in range(plen)]}
+                "segment_blocks": [layer(l) for l in range(len(bits_w))]}

@@ -1,6 +1,6 @@
-"""Training step: LM cross-entropy with the z-loss, remat-able, with
-gradient accumulation over microbatches — the reference's
-``train/train_loop.py`` on the port's parameter trees.
+"""Training step: LM cross-entropy with the z-loss and the MoE router
+losses, remat-able, with gradient accumulation over microbatches — the
+reference's ``train/train_loop.py`` on the port's parameter trees.
 
 Gradients come from ``torch.autograd.grad`` over the tree's leaves; on
 the card every full-sequence attention runs the flash kernel forward
@@ -25,14 +25,14 @@ def _unflatten(template, leaves):
 
 
 def lm_loss(params, cfg, batch, remat: bool = True):
-    """batch: {tokens (B, S), labels (B, S)[, positions]} -> (total,
-    metrics). Logits in f32; mean logsumexp cross-entropy plus a 1e-4
-    z-loss on the log-partition. Dense blocks add no router loss."""
-    if batch.get("embeds") is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: embeds= (frontend archs) are not ported to "
-            "repro_torch yet (ROADMAP Queue 1, model zoo)")
-    logits, aux = T.forward(params, cfg, batch["tokens"],
+    """batch: {tokens (B, S) | embeds (B, S, D), labels (B, S)[,
+    positions]} -> (total, metrics); ``embeds`` is the frontend-stub path
+    (audio / VLM backbones), ``positions`` carries M-RoPE triples when
+    present. Logits in f32; mean logsumexp cross-entropy plus a 1e-4
+    z-loss on the log-partition, and on a MoE config the router's
+    load-balance loss (``aux_loss_weight``) and its z-loss (1e-3)."""
+    logits, aux = T.forward(params, cfg, batch.get("tokens"),
+                            embeds=batch.get("embeds"),
                             positions=batch.get("positions"), remat=remat)
     logits = logits.float()
     labels = batch["labels"].long()
@@ -41,6 +41,9 @@ def lm_loss(params, cfg, batch, remat: bool = True):
     xent = torch.mean(logz - gold)
     zloss = 1e-4 * torch.mean(torch.square(logz))
     total = xent + zloss
+    if cfg.moe is not None:
+        total = total + cfg.moe.aux_loss_weight * aux["lb_loss"] \
+            + 1e-3 * aux["z_loss"]
     metrics = {"xent": xent, "zloss": zloss,
                "dropped_frac": aux["dropped_frac"]}
     return total, metrics
@@ -48,10 +51,15 @@ def lm_loss(params, cfg, batch, remat: bool = True):
 
 def value_and_grad(params, cfg, batch, remat: bool = True):
     """((loss, metrics), grads) of :func:`lm_loss` with respect to every
-    leaf of ``params``; the grads are a tree of the same nesting."""
+    leaf of ``params``; the grads are a tree of the same nesting. A leaf
+    the loss does not read (the token embedding of an ``embeds`` batch)
+    gets a zero gradient, as JAX gives it."""
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
     loss, metrics = lm_loss(live, cfg, batch, remat)
-    grads = torch.autograd.grad(loss, tree_leaves(live))
+    leaves = tree_leaves(live)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), \
         _unflatten(params, grads)
 

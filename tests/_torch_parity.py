@@ -66,3 +66,38 @@ def lm_configs(tp_pad: int = 1):
               tp_pad=tp_pad, dtype="float32")
     return (dataclasses.replace(jax_get_config("smollm-135m"), **kw),
             dataclasses.replace(torch_get_config("smollm-135m"), **kw))
+
+
+def zoo_configs(arch: str):
+    """The 2-layer ``.reduced()`` variant of an assigned arch in f32, as
+    (jax cfg, torch cfg)."""
+    return tuple(dataclasses.replace(get(arch).reduced(), dtype="float32")
+                 for get in (jax_get_config, torch_get_config))
+
+
+def assert_trees_close(got, want, tol: float, path: str = "") -> None:
+    """Every leaf of the port's tree within ``tol`` (abs and rel) of the
+    reference's, with the same nesting."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        for k in want:
+            assert_trees_close(got[k], want[k], tol, f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_trees_close(g, w, tol, f"{path}[{i}]")
+    else:
+        np.testing.assert_allclose(to_numpy(got), np.asarray(want),
+                                   atol=tol, rtol=tol, err_msg=path)
+
+
+def zoo_weights(arch: str):
+    """(jax cfg, jax params, torch cfg, torch params) of ``zoo_configs``
+    on one seeded weight tree."""
+    import jax
+    import jax.numpy as jnp
+    from repro_torch.models import transformer as TT
+    jcfg, tcfg = zoo_configs(arch)
+    tree = lm_weights(tcfg)
+    return (jcfg, jax.tree.map(jnp.asarray, tree), tcfg,
+            TT.params_from_numpy(tree, tcfg, device="cpu"))

@@ -18,7 +18,10 @@ Each gives the same bits on every call, in one launch. Beside the
 kernels: the decode session's page pool on the card (bf16 and float8
 pages, the CPU's bits), speculative decode through the kernels, bitwise
 plain greedy, and ``lm_loss``'s gradients on the card against the CPU's
-plain versions, remat included.
+plain versions, remat included. The model zoo: qmatmul / qmatmul4 at
+OLMoE-1B-7B's K = N = 2048, both attention kernels at its KV 16 x G 1 x
+hd 128 heads, and every assigned arch at ``.reduced()`` (MoE, SSM,
+hybrid and frontend blocks) in f32 on the card against the CPU.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
@@ -828,3 +831,138 @@ def test_lm_gradients_on_card_match_cpu():
                        tree_leaves(g_cpu)):
         assert torch.equal(a, b)
         assert _err(a.cpu(), c) <= 1e-3 * max(c.abs().max().item(), 1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The model zoo's shapes on the card: OLMoE-1B-7B's attention (K = N = 2048
+# projections, KV 16 x G 1 at head dim 128), and every assigned arch at
+# .reduced() against the CPU.
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("per_col", [False, True])
+@pytest.mark.parametrize("m", [1, 2, 4, 16, 17, 128, 256])
+def test_qmatmul_olmoe_projection(gen, m, per_col, packed):
+    """wq = wk = wv = wo of OLMoE-1B-7B (K = N = 2048): decode M on the
+    skinny route, prefill M on the tiled one, held as
+    ``test_qmatmul_skinny``."""
+    k = n = 2048
+    codes, scale, mu = _quant_weight(gen, k, n, per_col, 15 if packed else
+                                     255)
+    if packed:
+        codes = ref.pack_int4_ref(codes)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    fn, plain = ((qmatmul4_cuda, ref.qmatmul4_ref) if packed else
+                 (qmatmul_cuda, ref.qmatmul_ref))
+    _held_skinny(fn, plain, x, codes, scale, mu)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("m", [2, 4, 17, 128, 256])
+def test_qmatmul_olmoe_projection_f32(gen, m, packed):
+    """f32 x at K = N = 2048 (the skinny route to M = 16, the CUDA-core
+    tiled route above): held as ``test_qmatmul_ragged_f32``."""
+    k = n = 2048
+    codes, scale, mu = _quant_weight(gen, k, n, True, 15 if packed else 255)
+    if packed:
+        codes = ref.pack_int4_ref(codes)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    fn, plain = ((qmatmul4_cuda, ref.qmatmul4_ref) if packed else
+                 (qmatmul_cuda, ref.qmatmul_ref))
+    got = fn(x, codes, scale, mu, torch.float32)
+    want = plain(x, codes, scale, mu, torch.float32)
+    assert _err(got, want) <= 2e-5 * max(1.0, want.abs().max().item())
+    assert torch.equal(got, fn(x, codes, scale, mu, torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(4, 1), (4, 64), (2, 100), (16, 128)])
+def test_flash_attention_olmoe_heads(gen, dtype, b, s):
+    """KV 16, G 1, hd 128 (OLMoE's heads: no grouping), within the
+    tolerances of ``test_flash_attention_edges``, bitwise the same on a
+    second call."""
+    q = torch.randn(b, s, 16, 1, 128, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, s, 16, 128, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, s, 16, 128, generator=gen, device="cuda").to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    got = flash_attention_cuda(q, k, v)
+    assert _err(got, _blocked_causal_attention(q, k, v, s, s)) <= tol
+    assert torch.equal(got, flash_attention_cuda(q, k, v))
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16,
+                                   torch.float8_e4m3fn])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_olmoe_heads(gen, dtype, cache):
+    """B 4, KVp 16, Gp 1, hd 128 on the launcher's 96-slot ring, filled
+    and wrapped, within the tolerances of ``test_decode_attention_edges``,
+    one launch per call, bitwise the same on a second call."""
+    q = torch.randn(4, 16, 1, 128, generator=gen, device="cuda").to(dtype)
+    ck = torch.randn(4, 96, 16, 128, generator=gen, device="cuda").to(cache)
+    cv = torch.randn(4, 96, 16, 128, generator=gen, device="cuda").to(cache)
+    tol = 1e-4 if (dtype, cache) == (torch.float32, torch.float32) else 2e-2
+    for pos in (0, 63, 94, 95, 126):
+        before = decode_attention_cuda.launches
+        got = decode_attention_cuda(q, ck, cv, pos)
+        assert decode_attention_cuda.launches == before + 1
+        assert _err(got, ref.decode_attention_ref(q, ck, cv, pos)) <= tol
+        assert torch.equal(got, decode_attention_cuda(q, ck, cv, pos))
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "olmoe-1b-7b", "qwen3-14b",
+                                  "musicgen-medium", "mamba2-1.3b",
+                                  "qwen2-vl-72b", "dbrx-132b", "chatglm3-6b",
+                                  "qwen1.5-4b", "jamba-v0.1-52b"])
+def test_reduced_zoo_on_card_matches_cpu(gen, arch):
+    """Each assigned arch at ``.reduced()`` in f32 through the kernels on
+    the card against the plain versions on the CPU, same weights:
+    ``forward`` logits and router aux, ``prefill`` logits and four
+    ``decode_step``s (frontend archs through ``embeds=``, qwen2-vl with
+    M-RoPE triples). Logits within 1e-3 of the largest, aux within 1e-4
+    relative; every attention arch launches both attention kernels."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.frontend import mrope_positions, stub_embeddings
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    b, s = 2, 16
+    if cfg.frontend != "none":
+        inp = {"embeds": stub_embeddings(g, cfg, b, s, torch.float32)}
+        steps = [stub_embeddings(g, cfg, b, 1, torch.float32)
+                 for _ in range(4)]
+    else:
+        inp = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                       generator=g, dtype=torch.int32)}
+        steps = [torch.randint(0, cfg.vocab_size, (b, 1), generator=g,
+                               dtype=torch.int32) for _ in range(4)]
+    if cfg.rope == "mrope":
+        inp["positions"] = mrope_positions(b, s, (2, 2), device="cpu")
+
+    def run(params, device):
+        kw = {k: v.to(device) for k, v in inp.items()}
+        tokens = kw.pop("tokens", None)
+        logits, aux = T.forward(params, cfg, tokens, **kw)
+        pre, caches, _ = T.prefill(params, cfg, tokens, max_len=s + 4,
+                                   cache_dtype=torch.float32, **kw)
+        outs = [logits, pre]
+        for i, x in enumerate(steps):
+            lg, caches = T.decode_step(params, cfg, x.to(device), caches,
+                                       s + i)
+            outs.append(lg)
+        return [o.cpu() for o in outs], aux
+
+    want, want_aux = run(cpu, "cpu")
+    before = {k: ops.KERNELS[k].launches for k in ("flash_attention",
+                                                   "decode_attention")}
+    got, got_aux = run(tree_map(lambda t: t.cuda(), cpu), "cuda")
+    top = max(w.abs().max().item() for w in want)
+    for a, w in zip(got, want):
+        assert _err(a, w) <= 1e-3 * top
+    for k in want_aux:
+        assert abs(float(got_aux[k]) - float(want_aux[k])) <= \
+            1e-4 * max(abs(float(want_aux[k])), 1e-30), k
+    ran = {k: ops.KERNELS[k].launches - n for k, n in before.items()}
+    assert all(ran.values()) == (cfg.attn_every != 0), ran

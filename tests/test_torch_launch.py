@@ -112,7 +112,23 @@ def test_main_on_the_cpu(quant, temperature, capsys):
 
 
 def test_prefill_step_rejects_embeds():
-    _, tcfg = lm_configs()
-    step = make_prefill_step(tcfg, 8)
-    with pytest.raises(NotImplementedError, match="embeds"):
-        step({}, {"embeds": torch.zeros(1, 2, tcfg.d_model)})
+    """The prefill step, which once refused ``embeds``, now takes them
+    (a frontend config's precomputed embeddings): its logits and caches
+    are the reference's prefill step's on the same batch."""
+    from repro.launch.steps import make_prefill_step as jax_prefill_step
+    jcfg, tcfg = lm_configs()
+    tree = lm_weights(tcfg)
+    embeds = (tcfg.d_model ** -0.5 * np.random.default_rng(6).standard_normal(
+        (B, S, tcfg.d_model))).astype(np.float32)
+    want, wcaches = jax_prefill_step(jcfg, S + GEN)(
+        jax.tree.map(jnp.asarray, tree), {"embeds": jnp.asarray(embeds)})
+    got, caches = make_prefill_step(tcfg, S + GEN)(
+        TT.params_from_numpy(tree, tcfg, device="cpu"),
+        {"embeds": to_torch(embeds)})
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    for g, w in zip(caches, wcaches):
+        for name in ("k", "v"):       # bf16 caches: within one bf16 step
+            np.testing.assert_allclose(to_numpy(g[name]),
+                                       np.asarray(w[name], np.float32),
+                                       atol=2.0 ** -8, rtol=2.0 ** -8)

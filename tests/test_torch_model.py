@@ -144,10 +144,34 @@ def test_windowed_attention():
 
 
 def test_unported_blocks_raise():
-    _, tcfg = lm_configs()
-    moe = dataclasses.replace(tcfg, attn_every=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(moe, torch.Generator().manual_seed(0), device="cpu")
+    """MoE and SSM blocks, which the port once refused, now run: a
+    hybrid smollm-8m (per period of 2, a Mamba2 mixer with a dense MLP,
+    then attention with a 4-expert MoE) initialises in the reference's
+    stacked layout, and its forward logits and router aux are the
+    reference's on the same weights."""
+    from repro.configs import base as jbase
+    from repro_torch.configs import base as tbase
+    jcfg, tcfg = (dataclasses.replace(
+        cfg, attn_every=2,
+        moe=base.MoEConfig(num_experts=4, top_k=2, d_ff=128, every=2),
+        ssm=base.SSMConfig(d_state=16, head_dim=32, chunk=8))
+        for cfg, base in zip(lm_configs(), (jbase, tbase)))
+    tree = lm_weights(tcfg)
+    assert sorted(tree["blocks"][0]) == ["mlp", "norm1", "norm2", "ssm"]
+    assert sorted(tree["blocks"][1]) == ["attn", "moe", "norm1", "norm2"]
+    j = jax.eval_shape(lambda: JT.init_params(jax.random.key(0), jcfg))
+    assert jax.tree.map(lambda a: tuple(a.shape), j) == tree_shapes(tree)
+    tokens = np.random.default_rng(5).integers(0, jcfg.vocab_size, (2, SEQ))
+    jlogits, jaux = jax.jit(JT.forward, static_argnums=1)(
+        jax.tree.map(jnp.asarray, tree), jcfg, jnp.asarray(tokens))
+    tlogits, taux = TT.forward(TT.params_from_numpy(tree, tcfg, "cpu"),
+                               tcfg, to_torch(tokens))
+    np.testing.assert_allclose(to_numpy(tlogits), np.asarray(jlogits),
+                               atol=TOL, rtol=TOL)
+    for k in jaux:
+        np.testing.assert_allclose(float(taux[k]), float(jaux[k]),
+                                   rtol=1e-5, err_msg=k)
+    assert float(taux["lb_loss"]) > 0.0
 
 
 def test_seeded_init_layout():

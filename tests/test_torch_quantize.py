@@ -258,8 +258,19 @@ def test_quantize_tree_and_noise_scale():
 
 
 def test_unported_frontend_configs_raise():
+    """A frontend (embeds=) config, which the port once refused, now
+    runs: smollm-8m with an audio frontend takes precomputed frame
+    embeddings, and its forward logits are the reference's (f32 sums in
+    another order through 4 layers: 1e-4)."""
+    from repro.models import transformer as JT
     from repro_torch.models import transformer as TT
-    _, tcfg = lm_configs()
-    with pytest.raises(NotImplementedError, match="frontend"):
-        TT.forward({}, dataclasses.replace(tcfg, frontend="audio"),
-                   torch.zeros(1, 2, dtype=torch.int32))
+    jcfg, tcfg = (dataclasses.replace(c, frontend="audio")
+                  for c in lm_configs())
+    tree = lm_weights(tcfg)
+    embeds = _x((2, 8, tcfg.d_model), 3) * tcfg.d_model ** -0.5
+    want, _ = JT.forward(tree_map(jnp.asarray, tree), jcfg,
+                         embeds=jnp.asarray(embeds))
+    got, _ = TT.forward(TT.params_from_numpy(tree, tcfg, "cpu"), tcfg,
+                        embeds=to_torch(embeds))
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)

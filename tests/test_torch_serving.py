@@ -169,8 +169,10 @@ def _assert_trees_equal(jtree, ttree):
 def test_greedy_tokens_quantized_kernel_segment(pair, bits, monkeypatch):
     """The device segment on quantized wire structs (qkernels) at p in
     {0, 1, L}: the structs themselves (codes, packed nibbles, scale, mu,
-    and the fake-quantized dense leaves, including the filler periods
-    past the cut) bit for bit, and the greedy tokens of the partitioned
+    and the fake-quantized dense leaves) of every device layer bit for
+    bit those of the reference's stacked tree at that layer's period
+    (the port carries the device layers' trees alone, with no filler
+    periods past the cut), and the greedy tokens of the partitioned
     pipeline exactly. The device caches are float8 (bits_x <= 8), so the
     storage cast is on this path too."""
     monkeypatch.setenv("REPRO_KERNELS", "reference")
@@ -182,9 +184,15 @@ def test_greedy_tokens_quantized_kernel_segment(pair, bits, monkeypatch):
         js = JSession(jb, jplan, max_len=MAX_LEN, qkernels=True)
         ts = TSession(tb, tplan, max_len=MAX_LEN, qkernels=True)
         if p:
-            _assert_trees_equal(js.dev_params["blocks"],
-                                ts.dev_params["blocks"])
-            packed = "codes_packed" in ts.dev_params["blocks"][0]["attn"]["wq"]
+            layers = ts.dev_params["segment_blocks"]
+            assert len(layers) == p
+            plen = TT.period_len(tb.cfg)
+            for layer, tree in enumerate(layers):
+                per, pos = divmod(layer, plen)
+                _assert_trees_equal(jax.tree.map(
+                    lambda t, per=per: t[per], js.dev_params["blocks"][pos]),
+                    tree)
+            packed = "codes_packed" in layers[0]["attn"]["wq"]
             assert packed == (bits <= 4)
         jr, tr = js.generate(prompt, 6), ts.generate(prompt, 6)
         np.testing.assert_array_equal(tr.tokens, jr.tokens)
