@@ -96,7 +96,16 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    --quant 0, 8 and 4, the forward against the CPU, and a decode
    session at a fixed 8-bit plan at p = 24 (only the quantize kernels
    run on this attention-free family). Peak device memory per
-   sub-phase.
+   sub-phase;
+11. the step roofline (``roofline_phase``): the launcher's decode-step
+   profile at --quant 8 and 0, then the dry run's count
+   (``roofline.op_cost`` on fake tensors, no card) of the smoke's train
+   step (phase 9's profile, remat off and on) and of that decode step,
+   each set against the device-busy and wall ms measured for it: one
+   ``roofline`` line per step with the compute and memory terms at the
+   card's data-sheet rates (``repro_torch/launch/mesh.py``, the source
+   of the kernels' bound column too), their shares of the measured
+   times and the MFU; a share over 1.05 fails the run.
 
 ``--profile-launcher`` runs only that profile, and times the launcher's
 decode without a profiler (five runs per --quant); ``--profile-tiled`` only
@@ -123,7 +132,9 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import hashlib
+import importlib.util
 import json
 import re
 import shutil
@@ -136,19 +147,30 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
-BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16, data sheet
-F32_OPS_PER_S = 67e12              # H100 SXM f32 off the tensor cores
 SEED = 0
+
+
+@functools.cache
+def h100():
+    """The card's data-sheet rates (``PEAK_FLOPS_BF16``, ``PEAK_FLOPS_F32``,
+    ``HBM_BW``): the port's ``launch/mesh.py`` of this checkout, the one
+    source of the kernels' bound column and the step roofline, loaded by
+    its path so that a ``--src`` tree without it still runs."""
+    path = ROOT / "src" / "repro_torch" / "launch" / "mesh.py"
+    spec = importlib.util.spec_from_file_location("h100_rates", path)
+    mesh = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mesh          # its dataclass looks itself up
+    spec.loader.exec_module(mesh)
+    return mesh
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
+def bound_ms(nbytes: float, ops: float, ops_per_s: float | None = None):
+    t_bytes = nbytes / h100().HBM_BW * 1e3
+    t_ops = ops / (ops_per_s or h100().PEAK_FLOPS_BF16) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -247,8 +269,9 @@ def check_qmatmul(torch, timer, records):
     M = 32 (batch 2 x 16-token chunks) and prefill M = 128 (the plain
     session's batch 2 x 64) and 256 (the launcher's batch 4 x 64), each
     call repeated for bitwise equality; both timed beside ``matmul`` on
-    the dequantized bf16 weight, on the MLP up-projection at M = 2 and 4
-    and on the up- and down-projections at M = 32, 128 and 256."""
+    the dequantized bf16 weight and the plain version, on the MLP
+    up-projection at M = 2 and 4 and on the up- and down-projections at
+    M = 32, 128 and 256."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -306,17 +329,17 @@ def check_qmatmul(torch, timer, records):
                     torch.bfloat16)
                 t = timer(lambda: fn(x, codes, scale, mu, torch.bfloat16))
                 lib = timer(lambda: torch.matmul(x, w_deq))
+                plain_t = timer(lambda: plain(x, codes, scale, mu,
+                                              torch.bfloat16))
                 b, by = bound_ms(nbytes(x, codes, scale, mu) + 2 * m * n,
                                  2 * m * k * n)
                 row = dict(ms=t["ms"], ms_min=t["ms_min"],
                            ms_over_floor=t["ms_over_floor"], bound_ms=b,
                            bound_by=by, library_ms=lib["ms"],
-                           library_ms_min=lib["ms_min"])
+                           library_ms_min=lib["ms_min"],
+                           plain_ms=plain_t["ms"])
                 if m == 2:
-                    plain_t = timer(lambda: plain(x, codes, scale, mu,
-                                                  torch.bfloat16))
                     rec.update(max_abs_err=worst[name], **row,
-                               plain_ms=plain_t["ms"],
                                timed=f"x (2, {k}) bf16 @ codes ({k}, {n}), "
                                      "per-tensor, bf16 out")
                 elif m <= 16:
@@ -327,6 +350,7 @@ def check_qmatmul(torch, timer, records):
                 emit({"timing": name, "weight": wname, "m": m,
                       "route": "skinny" if m <= 16 else "tiled",
                       "kernel": t, "library": lib, "bound_ms": b,
+                      "plain_ms": plain_t["ms"],
                       "ms_over_floor": t["ms_over_floor"]})
         records[name] = rec
         emit({"timing": name, **records[name]})
@@ -524,7 +548,7 @@ def check_zoo_kernels(torch, timer, records):
     t = timer(lambda: quantize_cuda(leaf, scale, mu, 8))
     plain_t = timer(lambda: quantize_plain(leaf, scale, mu, 8))
     bnd, by = bound_ms(nbytes(leaf, scale, mu) + got.numel(),
-                       2 * leaf.numel(), F32_OPS_PER_S)
+                       2 * leaf.numel(), h100().PEAK_FLOPS_F32)
     records["quantize"]["olmoe"] = dict(
         ms=t["ms"], ms_min=t["ms_min"], ms_over_floor=t["ms_over_floor"],
         plain_ms=plain_t["ms"], bound_ms=bnd, bound_by=by,
@@ -1076,7 +1100,7 @@ def check_quantize(torch, timer, records):
                        "bf16 out")}
     for name, (fn, plain, cast, moved, out) in timed.items():
         t, plain_t = timer(fn), timer(plain)
-        b, by = bound_ms(moved, 2 * x.numel(), F32_OPS_PER_S)
+        b, by = bound_ms(moved, 2 * x.numel(), h100().PEAK_FLOPS_F32)
         records[name] = dict(
             max_abs_err=worst[name], ms=t["ms"], ms_min=t["ms_min"],
             ms_over_floor=t["ms_over_floor"], plain_ms=plain_t["ms"],
@@ -1235,13 +1259,18 @@ def profile_steps(torch, step, steps: int, watch=()) -> dict:
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # kernels summed under a short name that keeps the functor (PyTorch's
+    # elementwise kernels share their first 60 characters)
+    short = collections.Counter()
+    for name, us in by_name.items():
+        short[re.sub(r"void |at::native::|\(anonymous namespace\)::", "",
+                     name)[:100]] += us
     out = {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
            "device_busy_ms_per_step": busy_us / steps / 1e3,
            "idle_share": 1 - busy_us / wall_us if dev else None,
            "device_events_per_step": len(dev) / steps,
-           "top_device_ms_per_step": {k[:60]: v / steps / 1e3
-                                      for k, v in top}}
+           "top_device_ms_per_step": {k: v / steps / 1e3
+                                      for k, v in short.most_common(8)}}
     if watch:
         out["watched_device_ms_per_step"] = {
             w: sum(us for n, us in by_name.items() if w in n) / steps / 1e3
@@ -1268,7 +1297,9 @@ def profile_launch(torch, quant: int, batch: int = 4, prompt_len: int = 64,
     launcher — ``launch.steps``' serve step and the greedy token, as
     ``launch.serve.generate`` runs them — on full-width smollm-135m at
     ``--quant quant`` (weights quantized as ``launch.serve.run`` does),
-    batch 4, after a 64-token prompt and one step."""
+    batch 4, after a 64-token prompt and one step; before it, the
+    unprofiled wall ms of as many steps. Returns the profile with the
+    first and last position profiled."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.quantizer import quantize_params_for_serving
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -1293,9 +1324,13 @@ def profile_launch(torch, quant: int, batch: int = 4, prompt_len: int = 64,
         state["pos"] += 1
 
     step()
-    emit({"launch_decode_profile": {"arch": cfg.name, "quant": quant,
-                                    "batch": batch,
-                                    **profile_steps(torch, step, steps)}})
+    wall = wall_ms(torch, step, steps)
+    prof = {"arch": cfg.name, "quant": quant, "batch": batch,
+            "cache_len": prompt_len + gen,
+            "positions": [prompt_len + 1 + steps, prompt_len + 2 * steps],
+            **wall, **profile_steps(torch, step, steps)}
+    emit({"launch_decode_profile": prof})
+    return prof
 
 
 def launch_wall(torch, quant: int, reps: int = 5):
@@ -2111,7 +2146,7 @@ def train_step_profile(torch, cfg, params, opt_state, steps: int = 3):
     fixed batch, remat off and on — unprofiled wall ms, then
     ``profile_steps``' wall, device-busy and idle share, the flash
     backward kernels' ms and share of the busy time — and the peak
-    device memory of the profiled steps."""
+    device memory of the profiled steps. Returns the two profiles."""
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_loop import make_train_step
     torch.cuda.synchronize()
@@ -2119,6 +2154,7 @@ def train_step_profile(torch, cfg, params, opt_state, steps: int = 3):
     batch = stream_batch(torch, cfg.vocab_size, 8, 256, SEED + 11)
     torch.cuda.synchronize()
     data_ms = (time.perf_counter() - t0) * 1e3
+    out = []
     for remat in (False, True):
         step_fn = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS),
                                   remat=remat)
@@ -2132,12 +2168,14 @@ def train_step_profile(torch, cfg, params, opt_state, steps: int = 3):
         torch.cuda.reset_peak_memory_stats()
         prof = profile_steps(torch, step, steps, watch=FLASH_BWD_KERNELS)
         bwd_ms = sum(prof["watched_device_ms_per_step"].values())
-        emit({"train_step_profile": {
+        out.append({
             "flash_bwd_share_of_busy": bwd_ms / prof[
                 "device_busy_ms_per_step"],
             "arch": cfg.name, "batch": 8, "seq": 256, "remat": remat,
             "token_stream_ms_per_batch": data_ms, **wall, **prof,
-            "peak_memory_bytes": torch.cuda.max_memory_allocated()}})
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+        emit({"train_step_profile": out[-1]})
+    return out
 
 
 def trained_request_loop(torch, ops, cfg, params, seq: int = 128):
@@ -2222,7 +2260,8 @@ def train_phase(torch, ops) -> dict:
     plain versions, (ii) remat, (iii) ``launch.train.main`` for
     TRAIN_STEPS steps at B 8 x S 256 (exit 0: the loss improved), (iv)
     its checkpoint restored bitwise, a profile of its step, and (v) the
-    request loop on the trained weights. Returns each run's launches."""
+    request loop on the trained weights. Returns each run's launches and
+    the step's profiles (remat off and on)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import train as train_launch
     from repro_torch.models import transformer as T
@@ -2277,10 +2316,10 @@ def train_phase(torch, ops) -> dict:
         raise AssertionError(f"checkpoint restore: bitwise {same}, meta "
                              f"{meta}, step {int(opt_state['step'])}")
     shutil.rmtree(ck)
-    train_step_profile(torch, cfg, params, opt_state)
+    step_profiles = train_step_profile(torch, cfg, params, opt_state)
     runs["trained_request_loop"] = trained_request_loop(torch, ops, cfg,
                                                         params)
-    return runs
+    return runs, step_profiles
 
 
 # ---------------------------------------------------------------------------
@@ -2541,6 +2580,113 @@ def mamba2_phase(torch, ops) -> dict:
     del params, backend, sess
     torch.cuda.empty_cache()
     return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the step roofline
+
+SHARES = ("compute_share_busy", "compute_share_wall", "memory_share_busy",
+          "memory_share_wall", "mfu_wall")
+MAX_SHARE = 1.05
+
+
+def roofline_phase(torch, smi, train_profiles, decode_profiles) -> list:
+    """The dry run's count (``roofline.op_cost`` on fake tensors: matmul
+    FLOPs, unfused bytes) of the smoke's own steps, set against the times
+    this run measured for them: the train step (smollm-135m, B 8 x S
+    256, remat off and on, ``train_step_profile``) and the launcher's
+    decode step (batch 4 after a 64-token prompt, --quant 0 and 8,
+    counted at the last position ``profile_launch`` profiled). One
+    ``roofline`` line per step: counted GFLOP and GB, the model FLOPs,
+    the compute and memory terms at the card's data-sheet rates and
+    their bound, the measured device-busy ms per step (the profiled
+    window's) and wall ms per step (the unprofiled median; the profiled
+    one beside it), each term's share of both, the model FLOPs' share of
+    the wall (MFU), the peak used (by the matmuls' dtype), the ops that
+    move the most counted bytes and the card. A share over MAX_SHARE means the count exceeds what the
+    card did: the lines print, then the phase fails."""
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.core.quantizer import quantize_params_for_serving
+    from repro_torch.launch import steps
+    from repro_torch.roofline import op_cost
+    from repro_torch.roofline.analysis import PEAKS, analyze, model_flops_for
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import make_train_step
+    cfg = get_config("smollm-135m")
+    peak = "f32" if cfg.dtype == "float32" else "bf16"
+    card = dict(zip(("name", "power_limit"),
+                    (f.strip() for f in smi.split(","))))
+    lines = []
+
+    def line(step, fn, args, shape, prof, **what):
+        t0 = time.perf_counter()
+        summary = op_cost.count(fn, *args)
+        count_s = time.perf_counter() - t0
+        roof = analyze(summary, arch=cfg.name, shape=shape.name, peak=peak,
+                       model_flops=model_flops_for(cfg, shape))
+        busy = prof["device_busy_ms_per_step"]
+        wall = prof["unprofiled_wall_ms"]
+        top = sorted(summary.bytes_by_op.items(), key=lambda kv: -kv[1])
+        t_c, t_m = roof.t_compute * 1e3, roof.t_memory * 1e3
+        rec = {"step": step, "arch": cfg.name, **what,
+               "counted_gflop": roof.gflops, "counted_gb": roof.gbytes,
+               "model_gflops": roof.model_gflops, "t_compute_ms": t_c,
+               "t_memory_ms": t_m, "bound_ms": max(t_c, t_m),
+               "bound_by": roof.bottleneck, "busy_ms": busy,
+               "wall_ms": wall,
+               "profiled_wall_ms": prof["wall_ms_per_step"],
+               "compute_share_busy": t_c / busy,
+               "compute_share_wall": t_c / wall,
+               "memory_share_busy": t_m / busy,
+               "memory_share_wall": t_m / wall,
+               "mfu_wall": roof.model_gflops * 1e9 / (wall / 1e3
+                                                      * PEAKS[peak]),
+               "peak": peak, "peak_flops_per_s": PEAKS[peak],
+               "hbm_bytes_per_s": h100().HBM_BW,
+               "kernel_calls": summary.kernel_calls,
+               "top_gb_by_op": {k: v / 1e9 for k, v in top[:4]},
+               "count_s": count_s,
+               "card": card}
+        emit({"roofline": rec})
+        lines.append(rec)
+
+    params = steps.param_specs(cfg)
+    mode = steps.fake_mode_of(params)
+    opt_state = steps.opt_specs(params)
+    with mode:
+        batch = {k: torch.empty((8, 256), dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+    for prof in train_profiles:
+        fn = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS),
+                             remat=prof["remat"])
+        line("train", fn, (params, opt_state, batch),
+             InputShape("smoke_train", 256, 8, "train"), prof,
+             batch=8, seq=256, remat=prof["remat"])
+    serve_step = steps.make_serve_step(cfg)
+    for prof in decode_profiles:
+        served = params
+        if prof["quant"]:
+            with mode:
+                served = quantize_params_for_serving(params, prof["quant"])
+        caches = steps.cache_specs(cfg, prof["batch"], prof["cache_len"],
+                                   mode=mode)
+        with mode:
+            token = torch.empty((prof["batch"], 1), dtype=torch.int32)
+        pos = prof["positions"][1]
+
+        def step(p, tok, c, pos=pos):
+            logits, _ = serve_step(p, tok, c, pos)
+            return torch.argmax(logits[:, 0:1], -1).to(torch.int32)
+
+        line("decode", step, (served, token, caches),
+             InputShape("smoke_decode", prof["cache_len"], prof["batch"],
+                        "decode"), prof, batch=prof["batch"],
+             quant=prof["quant"], pos=pos)
+    over = [r for r in lines if max(r[k] for k in SHARES) > MAX_SHARE]
+    if over:
+        raise AssertionError(f"a roofline share over {MAX_SHARE}: the count "
+                             f"exceeds what the card did: {over}")
+    return lines
 
 
 SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
@@ -2826,7 +2972,8 @@ def main(argv=None) -> int:
             **feature_runs,
             **launch_serve(torch, ops)}
     t0 = time.perf_counter()
-    runs.update(train_phase(torch, ops))
+    train_runs, train_profiles = train_phase(torch, ops)
+    runs.update(train_runs)
     emit({"train_phase_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     runs["zoo_reduced"] = zoo_reduced(torch, ops)
@@ -2838,8 +2985,10 @@ def main(argv=None) -> int:
     if any(cls_launches.values()):
         raise AssertionError(f"the classifier loop launched kernels: "
                              f"{cls_launches}")
-    for quant in (8, 0):
-        profile_launch(torch, quant)
+    decode_profiles = [profile_launch(torch, quant) for quant in (8, 0)]
+    t0 = time.perf_counter()
+    roofline_phase(torch, smi, train_profiles, decode_profiles)
+    emit({"roofline_phase_s": time.perf_counter() - t0})
 
     missing = [f"{k} in {run}" for run, names in EXPECTED.items()
                for k in names if runs[run][k] == 0]

@@ -73,6 +73,21 @@ def qdense(x, w, n_contract: int = 1, out_dtype=None):
     contraction; output is x-batch-axes + (N...) in ``out_dtype``
     (default ``x.dtype``)."""
     out_dtype = out_dtype or x.dtype
+    x2, codes2, scale, mu, out_shape = qdense_operands(x, w, n_contract)
+    packed = "codes_packed" in w
+    if _plain(x):
+        out = (ref.qmatmul4_ref(x2, codes2, scale, mu, out_dtype) if packed
+               else ref.qmatmul_ref(x2, codes2, scale, mu, out_dtype))
+    else:
+        fn = qmatmul4_cuda if packed else qmatmul_cuda
+        out = fn(x2.contiguous(), codes2.contiguous(), scale.contiguous(),
+                 mu.contiguous(), out_dtype)
+    return out.reshape(out_shape)
+
+
+def qdense_operands(x, w, n_contract: int):
+    """:func:`qdense`'s 2-D operands: x (M, K), codes (K, N) or packed
+    (K, N/2), scale and mu (1, 1) or (1, N), and the output's shape."""
     packed = "codes_packed" in w
     codes = w["codes_packed"] if packed else w["codes"]
     k = math.prod(codes.shape[:n_contract])
@@ -101,15 +116,8 @@ def qdense(x, w, n_contract: int = 1, out_dtype=None):
         v = v[(0,) * n_contract]
         return v.broadcast_to(tuple(out_tail)).reshape(1, n)
 
-    scale, mu = _meta2d(w["scale"]), _meta2d(w["mu"])
-    if _plain(x):
-        out = (ref.qmatmul4_ref(x2, codes2, scale, mu, out_dtype) if packed
-               else ref.qmatmul_ref(x2, codes2, scale, mu, out_dtype))
-    else:
-        fn = qmatmul4_cuda if packed else qmatmul_cuda
-        out = fn(x2.contiguous(), codes2.contiguous(), scale.contiguous(),
-                 mu.contiguous(), out_dtype)
-    return out.reshape(batch + tuple(out_tail))
+    return (x2, codes2, _meta2d(w["scale"]), _meta2d(w["mu"]),
+            batch + tuple(out_tail))
 
 
 def _quant_meta(a, scale, mu):

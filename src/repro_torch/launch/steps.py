@@ -1,15 +1,36 @@
 """Step functions the launchers execute (cfg baked in by closure): the
 train step (forward, backward and the AdamW update), a full-sequence
 prefill that builds the decode caches, and one decode step against
-them."""
+them — and their inputs for every (architecture x input shape), as the
+dry run counts them.
+
+Shape kinds map to steps:
+  train_4k    -> train_step   (forward + backward + AdamW update)
+  prefill_32k -> prefill_step (full-sequence forward + cache build)
+  decode_*    -> serve_step   (ONE token against a seq_len cache)
+
+The spec builders return fake CPU tensors (``FakeTensorMode``): shapes
+and dtypes leaf for leaf as the reference's ``jax.eval_shape`` trees,
+nothing allocated. A fake CPU tensor dispatches as ``cpu``
+(``kernels.ops``), as the reference's dry run lowers on forced CPU
+devices; ``roofline.op_cost.count`` costs the kernel entry points
+themselves. All the fakes of one step share one mode.
+"""
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
-from repro_torch.configs.base import ModelConfig
+import torch
+from torch._guards import detect_fake_mode
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch.configs.base import InputShape, ModelConfig, for_shape
+from repro_torch.core.quantizer import quantize_params_for_serving
 from repro_torch.models import transformer as T
-from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_loop import make_train_step as _make_train_step
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
@@ -33,3 +54,99 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
         return T.decode_step(params, cfg, token, caches, pos)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Fake-tensor stand-ins for the steps' inputs.
+
+def fake_mode_of(tree) -> FakeTensorMode:
+    """The ``FakeTensorMode`` the tensors of ``tree`` belong to."""
+    mode = detect_fake_mode(tree_leaves(tree))
+    if mode is None:
+        raise ValueError("want fake tensors")
+    return mode
+
+
+def param_specs(cfg: ModelConfig, dtype=None, mode=None):
+    """``dtype``: cast the float params (serving runs bf16 / quantized
+    weights; training keeps f32 masters)."""
+    p = T.param_shapes(cfg, mode)
+    if dtype is None:
+        return p
+    with fake_mode_of(p):
+        return tree_map(lambda t: t.to(dtype) if t.is_floating_point()
+                        else t, p)
+
+
+def opt_specs(params_sds):
+    with fake_mode_of(params_sds):
+        return init_opt_state(params_sds)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, mode=None):
+    with mode or FakeTensorMode():
+        return T.init_cache(cfg, batch, max_len, dtype, device="cpu")
+
+
+def batch_specs(cfg: ModelConfig, shape: InputShape, mode=None) -> dict:
+    """Training / prefill batch: tokens for text archs, frontend-stub
+    embeddings (+ M-RoPE position triples) for audio / VLM backbones."""
+    b, s = shape.global_batch, shape.seq_len
+    specs: dict = {}
+    with mode or FakeTensorMode():
+        if cfg.frontend != "none":
+            specs["embeds"] = torch.empty((b, s, cfg.d_model),
+                                          dtype=torch.bfloat16)
+        else:
+            specs["tokens"] = torch.empty((b, s), dtype=torch.int32)
+        if cfg.rope == "mrope":
+            specs["positions"] = torch.empty((3, b, s), dtype=torch.int32)
+        if shape.kind == "train":
+            specs["labels"] = torch.empty((b, s), dtype=torch.int32)
+    return specs
+
+
+@dataclasses.dataclass
+class StepSpec:
+    """Everything the dry run needs for one (arch x shape): the step
+    callable, its example arguments (fake tensors of one mode) and the
+    config it was built for."""
+    kind: str
+    fn: Callable
+    args: tuple
+    cfg: ModelConfig
+
+
+def build_step(cfg: ModelConfig, shape: InputShape,
+               opt_cfg: AdamWConfig | None = None,
+               accum_steps: int = 1, serve_dtype=None,
+               serve_quant: int = 0) -> StepSpec:
+    """The step of ``shape``'s kind and its fake arguments. A decode
+    step's position is a host int, as the port's decode step takes it:
+    the last slot of a full ``seq_len`` cache."""
+    cfg = for_shape(cfg, shape)
+    mode = FakeTensorMode()
+
+    def serving_params():
+        p = param_specs(cfg, dtype=serve_dtype, mode=mode)
+        if serve_quant:
+            with mode:
+                p = quantize_params_for_serving(p, serve_quant)
+        return p
+
+    if shape.kind == "train":
+        fn = make_train_step(cfg, opt_cfg, accum_steps=accum_steps)
+        p = param_specs(cfg, mode=mode)
+        return StepSpec("train", fn, (p, opt_specs(p),
+                                      batch_specs(cfg, shape, mode)), cfg)
+    if shape.kind == "prefill":
+        fn = make_prefill_step(cfg, max_len=shape.seq_len)
+        return StepSpec("prefill", fn, (serving_params(),
+                                        batch_specs(cfg, shape, mode)), cfg)
+    fn = make_serve_step(cfg)
+    p = serving_params()
+    caches = cache_specs(cfg, shape.global_batch, shape.seq_len, mode=mode)
+    with mode:
+        token = torch.empty((shape.global_batch, 1), dtype=torch.int32)
+    return StepSpec("decode", fn, (p, token, caches, shape.seq_len - 1), cfg)

@@ -103,6 +103,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def param_shapes(cfg: ModelConfig, mode=None):
+    """The ``init_params`` tree as fake CPU tensors of ``mode`` (a
+    ``FakeTensorMode``; a new one when None): shapes and dtypes, nothing
+    allocated (for the dry run). The tree is built on ``meta`` and each
+    leaf remade as a fake CPU tensor, so that no ``meta`` tensor — which
+    stands in for a device tensor — ever reaches a step or a kernel
+    entry point (``trunc_normal_`` with a generator cannot run under the
+    fake mode itself)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = mode or FakeTensorMode()
+    tree = init_params(cfg, None, device="meta")
+    with mode:
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), tree)
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """Carry a reference ``init_params`` tree across as tensors on
     ``device``: NumPy leaves, stacked periods, the reference layouts

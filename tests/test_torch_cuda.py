@@ -29,6 +29,7 @@ Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 """
 import functools
 import hashlib
+import time
 
 import numpy as np
 import pytest
@@ -966,3 +967,56 @@ def test_reduced_zoo_on_card_matches_cpu(gen, arch):
             1e-4 * max(abs(float(want_aux[k])), 1e-30), k
     ran = {k: ops.KERNELS[k].launches - n for k, n in before.items()}
     assert all(ran.values()) == (cfg.attn_every != 0), ran
+
+
+@pytest.mark.parametrize("quant", [0, 8])
+def test_decode_step_within_its_counted_roofline(gen, quant):
+    """The dry run's count of one decode step (full-width smollm-135m,
+    batch 4, a 96-slot cache at position 72) beside the real step on the
+    card: the counted FLOPs and bytes over the data-sheet rates, divided
+    by the step's measured device-busy and wall time, never exceed 1.05
+    — a higher share would mean the count holds work the card did not
+    do."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.quantizer import quantize_params_for_serving
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.roofline import op_cost
+    from repro_torch.roofline.analysis import analyze
+    cfg = get_config("smollm-135m")
+    batch, cache_len, pos, reps = 4, 96, 72, 8
+    params = T.init_params(cfg, gen, device="cuda")
+    fake = steps.param_specs(cfg)
+    mode = steps.fake_mode_of(fake)
+    if quant:
+        params = quantize_params_for_serving(params, quant)
+        with mode:
+            fake = quantize_params_for_serving(fake, quant)
+    serve = steps.make_serve_step(cfg)
+    caches = T.init_cache(cfg, batch, cache_len, device="cuda")
+    token = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
+    serve(params, token, caches, pos)                       # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            serve(params, token, caches, pos)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / reps / 1e3
+    f_caches = steps.cache_specs(cfg, batch, cache_len, mode=mode)
+    with mode:
+        f_token = torch.empty((batch, 1), dtype=torch.int32)
+    summary = op_cost.count(lambda p, t, c: serve(p, t, c, pos), fake,
+                            f_token, f_caches)
+    roof = analyze(summary, arch=cfg.name, shape="decode")
+    assert summary.kernel_calls["decode_attention"] == cfg.num_layers
+    assert busy_ms > 0
+    for term in (roof.t_compute, roof.t_memory):
+        for ms in (busy_ms, wall_ms):
+            assert 0 < term * 1e3 / ms <= 1.05, (term, busy_ms, wall_ms)
