@@ -5,6 +5,9 @@ directly), plus the small configs both packages run."""
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -101,3 +104,19 @@ def zoo_weights(arch: str):
     tree = lm_weights(tcfg)
     return (jcfg, jax.tree.map(jnp.asarray, tree), tcfg,
             TT.params_from_numpy(tree, tcfg, device="cpu"))
+
+
+EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts, not
+    a package; the directory goes on ``sys.path`` for the helper module
+    the classifier examples share)."""
+    if str(EXAMPLES) not in sys.path:
+        sys.path.insert(0, str(EXAMPLES))
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module

@@ -1,7 +1,8 @@
 """Guards of the port's two contracts that need no GPU:
 
-* ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
-  anything of the JAX package ``repro`` (the card's machine has no JAX);
+* ``src/repro_torch``, ``chip_smoke.py`` and the port's examples
+  (``examples/torch_*.py``) import neither ``jax`` nor anything of the
+  JAX package ``repro`` (the card's machine has no JAX);
 * dispatch is by device: only a CPU tensor reaches a kernel's plain
   version. A ``meta`` tensor stands in for a device tensor — with the
   kernel loader made to fail, every entry point must raise instead of
@@ -17,7 +18,7 @@ from repro_torch.kernels import build, ops
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
