@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile-launcher [--src OTHER/src]
     python3 chip_smoke.py --profile-tiled [--src OTHER/src]
     python3 chip_smoke.py --profile-flash [--src OTHER/src]
+    python3 chip_smoke.py --profile-decode-attention [--src OTHER/src]
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -39,8 +40,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    49152, bf16) with seeded random weights: register -> calibrate ->
    build_store (3 contexts) -> serve -> execute -> generate, with every
    kernel's launch counter zeroed before and read after; a profile of
-   the served stream's decode steps follows, and a small input is then
-   checked against the plain versions on the CPU;
+   the served stream's decode steps follows, eager and replayed as CUDA
+   graphs in turns, then graphed sessions held to eager ones at p = 0,
+   15 and 30 (tokens and logits bitwise, launches equal, at most 2
+   captures), and a small input is checked against the plain versions
+   on the CPU;
 5. the fleet engine (the paper's dynamic workload balancing) over the
    request loop's calibrated server: a seeded 200-stream Poisson trace
    (50 requests/s, 32 new tokens, budgets 0.001 / 0.01 / 0.02, deadlines
@@ -91,11 +95,13 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    activations, 27.7 GB of f32 masters): the request loop (calibration
    on 16 x 128 tokens), decode sessions at a fixed 8-bit plan at p = 8
    with and without the quantized-kernel segment (bf16 tokens compared,
-   f32 tokens equal), then the launcher at --quant 0 and 8 (its
+   f32 tokens equal; the graphed bf16 one bitwise its eager twin), then
+   the launcher at --quant 0 and 8 (its
    served-weight check on the first and last period); Mamba2-1.3B at
    its registered shape (48 SSD layers, d_inner 4096): the launcher at
    --quant 0, 8 and 4, the forward against the CPU, and a decode
-   session at a fixed 8-bit plan at p = 24 (only the quantize kernels
+   session at a fixed 8-bit plan at p = 24, graphed and bitwise its
+   eager twin (only the quantize kernels
    run on this attention-free family). Peak device memory per
    sub-phase. Then the zoo trained (``zoo_train_phase``, f32 masters):
    MusicGen-medium at its registered shape (48 layers, d_model 1536,
@@ -132,7 +138,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    seeded card tensors against the kernel's plain version with phase
    3's tolerances and a bitwise repeat. Every counted run also holds
    each ``ShapeLog``'s launches equal to its kernel's, so no launch
-   goes around them.
+   goes around them; graph replays advance both (``ops.COUNTERS``).
 
 ``--profile-launcher`` runs only that profile, and times the launcher's
 decode without a profiler (five runs per --quant); ``--profile-tiled`` only
@@ -141,7 +147,10 @@ prefills that run it; ``--profile-flash`` only times the flash
 forward's serving launch and the backward kernels at the training
 shape (with SDPA's backward beside them and a digest of the float32
 route's output bits) and profiles smollm-135m's train step and
-``launch.train``. ``--src`` imports the port from another tree, so
+``launch.train``; ``--profile-decode-attention`` only times decode
+attention at the request loop's, the launcher's and a 2048-slot ring,
+host-int and device-position launches. ``--src`` imports the port
+from another tree, so
 that an earlier commit unpacked by ``git archive`` can be profiled in
 the same call as this one.
 
@@ -775,6 +784,7 @@ def count_tiled_route(ops) -> None:
                        ("qmatmul4_cuda", "qmatmul4")):
         TILED[f"{name}_tiled"] = TiledRoute(getattr(ops, attr))
         setattr(ops, attr, TILED[f"{name}_tiled"])
+        ops.watch_counter(TILED[f"{name}_tiled"])     # graph replays
 
 
 class ShapeLog:
@@ -783,8 +793,12 @@ class ShapeLog:
     passes every call through, counts in ``passed`` the calls that
     launched ``kernel``, and while ``on`` keeps each distinct signature
     of those calls (``signature``: shapes, dtypes, options) with the
-    decode positions it was called at. ``check_path_shapes`` replays
-    every kept signature against the kernel's plain version."""
+    decode positions it was called at (none for a call that a CUDA graph
+    captures with the position on the card: the stream's eager first
+    step has the same signature). ``passed`` is one of ``ops.COUNTERS``,
+    so graph replays advance it as they advance the kernel's.
+    ``check_path_shapes`` replays every kept signature against the
+    kernel's plain version."""
 
     def __init__(self, name, fn, kernel):
         self.name, self.fn, self.kernel = name, fn, kernel
@@ -823,6 +837,10 @@ def signature(name, args, kwargs):
                 str(out)[6:] if out is not None else "bfloat16"), ()
     if name == "decode_attention":
         q, ck, _, pos = args
+        if not isinstance(pos, int):    # a position tensor on the card:
+            import torch                # unreadable while a graph captures
+            if torch.cuda.is_current_stream_capturing():
+                return (dt(q), dt(ck)), ()
         return (dt(q), dt(ck)), (int(pos),)
     q, k = args[:2]
     if name == "flash_attention_bwd":
@@ -851,6 +869,7 @@ def log_shapes(ops) -> None:
             ("flash_attention_bwd", fa, "flash_attention_bwd_cuda")):
         SHAPES[name] = ShapeLog(name, getattr(mod, attr), ops.KERNELS[name])
         setattr(mod, attr, SHAPES[name])
+        ops.watch_counter(SHAPES[name], "passed")     # graph replays
 
 
 def counters(ops) -> dict:
@@ -883,11 +902,17 @@ def check_decode_attention(torch, timer, records):
     """Bf16 and float8 caches, partially filled and wrapped rings, at the
     decode shapes of smollm-135m: the request loop's (B = 2, KVp = Gp = 4,
     hd = 64, ring of 256 slots) and the launcher's (B = 4, bf16 ring of
-    96), and a 2048-slot ring that runs 16 CTAs per head; every call
-    repeated for bitwise equality. Timed on the request loop's float8
+    96), and a 2048-slot ring that runs 16 CTAs per head past 512 live
+    slots and at most 8 of its 16 below; every call repeated for bitwise
+    equality. At every case the position read by the kernel from an
+    int64 tensor on the card (the launch the decode step's CUDA graphs
+    replay) gives the host-int launch's bits, and the plain version with
+    the tensor its int call's bits. Timed on the request loop's float8
     device cache at the last step of a 32-token generation after a
-    64-token prompt, and on the launcher's bf16 cache at its last step,
-    each beside SDPA with K/V repeated per head."""
+    64-token prompt, on the launcher's bf16 cache at its last step, and
+    on the 2048-slot bf16 ring at 301 live slots: the device-position and
+    the host-int launch side by side, beside SDPA with K/V repeated per
+    head."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.models.common import to_storage
@@ -900,7 +925,7 @@ def check_decode_attention(torch, timer, records):
          (5, 95, 255, 256 + 40, 5 * 256 + 3)),
         (4, 96, (torch.bfloat16,), (0, 63, 94, 95, 96 + 30)),
         (2, 2048, (torch.bfloat16, torch.float8_e4m3fn),
-         (31, 1000, 2047, 3 * 2048 + 7)))
+         (31, 300, 511, 512, 1000, 2047, 3 * 2048 + 7)))
     timed = {}
     for b, buf, dtypes, positions in cases:
         q = torch.randn(b, kvp, gp, hd, generator=g, device="cuda").to(
@@ -910,29 +935,41 @@ def check_decode_attention(torch, timer, records):
             ck, cv = to_storage(kv[0], dt), to_storage(kv[1], dt)
             timed[(b, buf, dt)] = (q, ck, cv)
             for pos in positions:
+                pos_t = torch.tensor(pos, dtype=torch.int64, device="cuda")
                 got = decode_attention_cuda(q, ck, cv, pos)
                 again = decode_attention_cuda(q, ck, cv, pos)
+                on_card = decode_attention_cuda(q, ck, cv, pos_t)
                 want = ref.decode_attention_ref(q, ck, cv, pos)
+                want_t = ref.decode_attention_ref(q, ck, cv, pos_t)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 same = bool(torch.equal(got, again))
+                dev_same = bool(torch.equal(on_card, got))
+                plain_same = bool(torch.equal(want_t, want))
                 emit({"check": "decode_attention", "b": b, "cache": str(dt),
                       "pos": pos, "buf": buf, "max_abs_err": err, "tol": tol,
-                      "repeat_bitwise": same})
-                if not (err <= tol and same):
+                      "repeat_bitwise": same,
+                      "device_pos_bitwise_host_int": dev_same,
+                      "plain_tensor_pos_bitwise_int": plain_same})
+                if not (err <= tol and same and dev_same and plain_same):
                     raise AssertionError(
                         f"decode attention b={b} {dt} buf={buf} pos={pos}: "
-                        f"max |err| {err} > {tol} or a second call differs "
-                        f"({same})")
+                        f"max |err| {err} > {tol}, or a second call differs "
+                        f"({same}), or the device position's launch "
+                        f"({dev_same}) or plain call ({plain_same}) differs "
+                        f"from the host int's")
                 worst = max(worst, err)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rec = {}
     for b, buf, dt, pos, key in (
             (2, 256, torch.float8_e4m3fn, 64 + 31, None),   # request loop
-            (4, 96, torch.bfloat16, 64 + 30, "b4_bf16")):   # launcher
+            (4, 96, torch.bfloat16, 64 + 30, "b4_bf16"),    # launcher
+            (2, 2048, torch.bfloat16, 300, "ring2048_bf16")):
         q, ck, cv = timed[(b, buf, dt)]
         n_valid = pos + 1
-        t = timer(lambda: decode_attention_cuda(q, ck, cv, pos))
+        pos_t = torch.tensor(pos, dtype=torch.int64, device="cuda")
+        t_host = timer(lambda: decode_attention_cuda(q, ck, cv, pos))
+        t = timer(lambda: decode_attention_cuda(q, ck, cv, pos_t))
         qs = q.reshape(b, kvp * gp, 1, hd)
         ks = ck[:, :n_valid].to(torch.bfloat16).permute(0, 2, 1, 3)
         vs = cv[:, :n_valid].to(torch.bfloat16).permute(0, 2, 1, 3)
@@ -944,21 +981,58 @@ def check_decode_attention(torch, timer, records):
                            4 * b * kvp * gp * n_valid * hd)
         what = (f"B={b} KVp={kvp} Gp={gp} hd={hd}, {str(dt)[6:]} ring of "
                 f"{buf}, pos {pos} ({n_valid} live slots)")
-        emit({"timing": "decode_attention", "timed": what, "kernel": t,
+        emit({"timing": "decode_attention", "timed": what,
+              "kernel_device_pos": t, "kernel_host_int": t_host,
               "library": lib, "bound_ms": bnd,
               "ms_over_floor": t["ms_over_floor"]})
         row = dict(ms=t["ms"], ms_min=t["ms_min"],
-                   ms_over_floor=t["ms_over_floor"], bound_ms=bnd,
+                   ms_over_floor=t["ms_over_floor"],
+                   host_int_ms=t_host["ms"],
+                   host_int_ms_min=t_host["ms_min"], bound_ms=bnd,
                    library_ms=lib["ms"], library_ms_min=lib["ms_min"],
                    timed=what)
         if key is None:
-            plain_t = timer(lambda: ref.decode_attention_ref(q, ck, cv, pos))
+            plain_t = timer(lambda: ref.decode_attention_ref(q, ck, cv,
+                                                             pos_t))
             rec.update(max_abs_err=worst, plain_ms=plain_t["ms"],
                        bound_by=by, **row)
         else:
             rec[key] = row
     records["decode_attention"] = rec
     emit({"timing": "decode_attention", **records["decode_attention"]})
+
+
+def profile_decode_attention(torch, timer):
+    """Decode attention's device ms (``Timer``) at the request loop's
+    float8 ring (B 2, 256 slots, 96 live), the launcher's bf16 ring (B 4,
+    96 slots, 95 live) and the 2048-slot bf16 ring at 32, 301, 512 and
+    1000 live slots (KVp = Gp = 4, hd 64): the host-int launch, and the
+    launch that reads the position on the card where the tree has one
+    (``ops.COUNTERS`` marks it). One ``decode_attention_profile`` line
+    each; with ``--src`` an earlier tree's kernel, to compare in turns."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.models.common import to_storage
+    on_card = hasattr(ops, "COUNTERS")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    kvp, gp, hd = 4, 4, 64
+    for b, buf, dt, live in ((2, 256, torch.float8_e4m3fn, (96,)),
+                             (4, 96, torch.bfloat16, (95,)),
+                             (2, 2048, torch.bfloat16, (32, 301, 512, 1000))):
+        q = torch.randn(b, kvp, gp, hd, generator=g, device="cuda").to(
+            torch.bfloat16)
+        kv = torch.randn(2, b, buf, kvp, hd, generator=g, device="cuda")
+        ck, cv = to_storage(kv[0], dt), to_storage(kv[1], dt)
+        for n in live:
+            pos = n - 1
+            rec = {"b": b, "buf": buf, "cache": str(dt)[6:], "live": n,
+                   "host_int": timer(
+                       lambda: decode_attention_cuda(q, ck, cv, pos))}
+            if on_card:
+                pos_t = torch.tensor(pos, dtype=torch.int64, device="cuda")
+                rec["device_pos"] = timer(
+                    lambda: decode_attention_cuda(q, ck, cv, pos_t))
+            emit({"decode_attention_profile": rec})
 
 
 def check_flash_attention(torch, timer, records, calib_batch, seq):
@@ -1406,17 +1480,133 @@ def profile_steps(torch, step, steps: int, watch=()) -> dict:
     return out
 
 
-def profile_decode(torch, dep, prompt, steps: int = 4):
-    """``profile_steps`` over ``steps`` decode steps of the served
-    deployment's stream, after its prefill and one step."""
+def profile_decode(torch, dep, prompt, steps: int = 4, turns: int = 5):
+    """The served deployment's decode step, eager and replayed as CUDA
+    graphs, on ONE session in turns (eager, graphed, eager, ...):
+    ``profile_steps`` over ``steps`` steps and the wall ms of ``steps``
+    unprofiled steps, ``turns`` times each, after the prefill, the eager
+    first step and the step that captures; then ``generate`` of 32
+    tokens on fresh sessions, eager and graphed in turns, for tokens/s.
+    One ``decode_step_profile`` line with the medians of both (wall ms,
+    device-busy ms, idle share per step, unprofiled wall ms) and every
+    run."""
     sess = dep.decode_session()
-    tok = [sess.step(sess.prefill(prompt))]
+    tok = [sess.step(sess.step(sess.prefill(prompt)))]
 
     def step():
         tok[0] = sess.step(tok[0])
 
-    emit({"decode_step_profile": {"p": dep.plan.p,
-                                  **profile_steps(torch, step, steps)}})
+    runs = {"eager": [], "graphed": []}
+    for _ in range(turns):
+        for mode in runs:
+            sess.graphs = mode == "graphed"
+            run = profile_steps(torch, step, steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            run["unprofiled_wall_ms_per_step"] = \
+                (time.perf_counter() - t0) * 1e3 / steps
+            runs[mode].append(run)
+    tps = {"eager": [], "graphed": []}
+    for _ in range(turns):
+        for mode in tps:
+            out = dep.generate(prompt, 32, graphs=mode == "graphed")
+            tps[mode].append(out.tokens_per_s)
+    def median(vals):
+        vals = [v for v in vals if v is not None]
+        return statistics.median(vals) if vals else None
+
+    med = {mode: {k: median(r[k] for r in rs)
+                  for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                            "idle_share", "device_events_per_step",
+                            "unprofiled_wall_ms_per_step")}
+           for mode, rs in runs.items()}
+    for mode in med:
+        med[mode]["generate_tokens_per_s"] = statistics.median(tps[mode])
+        med[mode]["top_device_ms_per_step"] = \
+            runs[mode][-1]["top_device_ms_per_step"]
+    emit({"decode_step_profile": {
+        "p": dep.plan.p, "batch": int(np.asarray(prompt).shape[0]),
+        "steps": steps, "turns": turns, **med,
+        "wall_ratio_eager_over_graphed":
+            med["eager"]["wall_ms_per_step"]
+            / med["graphed"]["wall_ms_per_step"],
+        "runs": {mode: [{k: r[k] for k in ("wall_ms_per_step",
+                                           "device_busy_ms_per_step",
+                                           "idle_share",
+                                           "unprofiled_wall_ms_per_step")}
+                        for r in rs]
+                 for mode, rs in runs.items()},
+        "generate_tokens_per_s_runs": tps}})
+
+
+# the cuts of smollm-135m (L = 30) the graph phase holds graphs to eager at
+GRAPH_CUTS = (0, 15, 30)
+
+
+def graph_phase(torch, ops, backend, prompt, gen: int = 32) -> dict:
+    """The request loop's decode step replayed as CUDA graphs against the
+    same step run eagerly, on smollm-135m at full width at p in
+    ``GRAPH_CUTS`` (8-bit plans: int8 wire structs and a float8 device
+    cache past p = 0), batch 2, the request loop's 64-token prompt. A
+    graphed and an eager ``generate`` of ``gen`` tokens give the same
+    tokens bit for bit and the same launches kernel by kernel (replays
+    advance the counters, ``read_counters`` holds the shape logs to
+    them); stepped side by side, the graphed session's logits (the server
+    graph's static output) equal the eager session's at every step; a
+    session captures at most 2 graphs, as many for 6 tokens as for
+    ``gen``. Returns the graphed runs' launches."""
+    from repro_torch.core.solver import PartitionPlan
+    from repro_torch.serving.decode import DecodeSession
+    runs = {}
+    for p in GRAPH_CUTS:
+        plan = PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
+                             objective=0.0, psi_total=0.0, payload_bits=0.0,
+                             breakdown={})
+        seg = backend.split(plan) if p else None
+
+        def session(**kw):
+            return DecodeSession(backend, plan, segment=seg,
+                                 max_len=backend.decode_max_len, **kw)
+
+        out, launches, captures = {}, {}, {}
+        for graphs in (False, True):
+            zero_counters(torch, ops)
+            before = backend.capture_count
+            out[graphs] = session(graphs=graphs).generate(prompt, gen)
+            launches[graphs] = read_counters(torch, ops)
+            captures[graphs] = backend.capture_count - before
+        before = backend.capture_count
+        session().generate(prompt, 6)
+        captures_6 = backend.capture_count - before
+        eager, graphed = session(graphs=False), session()
+        te, tg = eager.prefill(prompt), graphed.prefill(prompt)
+        same_steps = []
+        for _ in range(4):
+            te, tg = eager.step(te), graphed.step(tg)
+            same_steps.append(bool(torch.equal(te, tg)) and bool(
+                torch.equal(eager.last_logits, graphed.last_logits)))
+        rec = {"p": p, "new_tokens": gen,
+               "tokens_bitwise": bool(np.array_equal(out[True].tokens,
+                                                     out[False].tokens)),
+               "step_logits_bitwise": same_steps,
+               "launches_equal": launches[True] == launches[False],
+               "captures": captures[True], "captures_6_tokens": captures_6,
+               "captures_eager": captures[False],
+               "tokens_per_s": {"eager": out[False].tokens_per_s,
+                                "graphed": out[True].tokens_per_s},
+               "launches": launches[True]}
+        emit({"graph_session": rec})
+        if not (rec["tokens_bitwise"] and all(same_steps)
+                and rec["launches_equal"]
+                and captures[True] == captures_6 == (2 if p else 1)
+                and captures[False] == 0):
+            raise AssertionError(f"graphed decode at p = {p} is not the "
+                                 f"eager step's: {rec}")
+        runs[f"graphs_p{p}"] = launches[True]
+    return runs
 
 
 def profile_launch(torch, quant: int, batch: int = 4, prompt_len: int = 64,
@@ -2614,11 +2804,18 @@ def moe_sessions(torch, ops, backend, prompt, gen: int = 32):
             n = gen if dt == "bf16" else 8
             torch.cuda.reset_peak_memory_stats()
             zero_counters(torch, ops)
+            captured = be.capture_count
             sess = DecodeSession(be, plan, max_len=be.decode_max_len,
                                  segment=seg, qkernels=qk)
             with recording(be, "hidden_logits", []) as seen:
                 out = sess.generate(prompt, n)
             runs[(dt, qk)] = read_counters(torch, ops)
+            if (dt, qk) == ("bf16", True):
+                graph_check = graphed_vs_eager(
+                    torch, sess, out, be.capture_count - captured,
+                    DecodeSession(be, plan, max_len=be.decode_max_len,
+                                  segment=seg, qkernels=qk, graphs=False),
+                    prompt, n, f"{be.cfg.name} session")
             toks[(dt, qk)], first[(dt, qk)] = out.tokens, seen[0].float()
             if qk:
                 layer = sess.dev_params["segment_blocks"][0]
@@ -2654,11 +2851,30 @@ def moe_sessions(torch, ops, backend, prompt, gen: int = 32):
     if not checks["f32"]["first_logits_max_abs_err"] <= checks["f32"]["tol"]:
         raise AssertionError(f"MoE session f32: first-token logits qkernels "
                              f"vs dense apart: {checks['f32']}")
-    emit({"moe_session_checks": checks})
+    emit({"moe_session_checks": checks, "graphed_vs_eager": graph_check})
     if not all(((t >= 0) & (t < backend.cfg.vocab_size)).all()
                for t in toks.values()):
         raise AssertionError(f"MoE session gave {toks!r}")
     return runs[("bf16", True)]
+
+
+def graphed_vs_eager(torch, sess, out, captures, eager, prompt, n,
+                     what) -> dict:
+    """Hold a graphed session's ``generate`` (``out``, ``captures``
+    graphs) to an eager twin's on the same plan: the tokens and the last
+    step's logits bit for bit, at most 2 captures."""
+    ref = eager.generate(prompt, n)
+    rec = {"tokens_bitwise": bool(np.array_equal(out.tokens, ref.tokens)),
+           "last_logits_bitwise": bool(torch.equal(sess.last_logits,
+                                                   eager.last_logits)),
+           "captures": captures, "graphs": sess.graphs,
+           "tokens_per_s": {"eager": ref.tokens_per_s,
+                            "graphed": out.tokens_per_s}}
+    if not (rec["graphs"] and rec["tokens_bitwise"]
+            and rec["last_logits_bitwise"] and 0 < captures <= 2):
+        raise AssertionError(f"{what}: graphed decode is not the eager "
+                             f"step's: {rec}")
+    return rec
 
 
 def olmoe_phase(torch, ops) -> dict:
@@ -2730,9 +2946,14 @@ def mamba2_phase(torch, ops) -> dict:
     prompt, _ = cycle_batch(np.random.default_rng(SEED), cfg.vocab_size, 2,
                             64)
     zero_counters(torch, ops)
+    captured = backend.capture_count
     sess = DecodeSession(backend, plan, max_len=96)
     out = sess.generate(prompt, 32)
     runs["mamba2_session"] = read_counters(torch, ops)
+    emit({"mamba2_graphed_vs_eager": graphed_vs_eager(
+        torch, sess, out, backend.capture_count - captured,
+        DecodeSession(backend, plan, max_len=96, graphs=False), prompt, 32,
+        "mamba2 session")})
     emit({"mamba2_session": {
         "p": p, "bits": 8, "batch": 2, "prompt": 64,
         "new_tokens": out.new_tokens, "ttft_s": out.ttft_s,
@@ -3175,7 +3396,8 @@ def check_path_shapes(torch, ops) -> dict:
     2e-5 of the largest output, bf16 x within 1e-3 (f32 out) or one bf16
     step of the largest output (bf16 out); decode attention at the
     smallest and largest position called, within 1e-4 on an f32 query
-    and f32 ring, else 2e-2; the flash forward within 1e-4 (f32) or 2e-2
+    and f32 ring, else 2e-2, the position read on the card bitwise the
+    host int; the flash forward within 1e-4 (f32) or 2e-2
     (bf16) of ``_blocked_causal_attention``, its lse (when called with
     one) within 1e-4; the backward as ``held_flash_bwd``. Returns the
     number of signatures by kernel."""
@@ -3216,13 +3438,16 @@ def check_path_shapes(torch, ops) -> dict:
                 kv = torch.randn((2, *cs), generator=g, device="cuda")
                 ck, cv = (to_storage(t, dtype(cdt)) for t in kv)
                 tol = 1e-4 if (qdt, cdt) == ("float32", "float32") else 2e-2
+                positions = positions or {0}
                 for pos in sorted({min(positions), max(positions)}):
                     got, again = fn(q, ck, cv, pos), fn(q, ck, cv, pos)
+                    on_card = fn(q, ck, cv, torch.tensor(pos, device="cuda"))
                     want = ref.decode_attention_ref(q, ck, cv, pos)
                     held({"kernel": name, "q": qs, "q_dtype": qdt,
                           "cache": cs, "cache_dtype": cdt, "pos": pos},
                          (got.float() - want.float()).abs().max().item(),
-                         tol, bool(torch.equal(got, again)))
+                         tol, bool(torch.equal(got, again)
+                                   and torch.equal(got, on_card)))
             elif name == "flash_attention":
                 (qs, dt), ks, with_lse = sig
                 q, k, v = randn(qs, dt), randn(ks, dt), randn(ks, dt)
@@ -3288,6 +3513,10 @@ REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13",
 EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                              "flash_attention"),
             "fleet": ("decode_attention", "flash_attention"),
+            # the graphed decode sessions of the graph phase, by cut
+            "graphs_p0": ("decode_attention",),
+            **{f"graphs_p{p}": ("qmatmul", "decode_attention")
+               for p in GRAPH_CUTS[1:]},
             **{run: ("qmatmul", "qmatmul_tiled", "decode_attention")
                for run in ("decode_plain", "decode_chunk16",
                            "decode_draft2", "decode_draft4",
@@ -3393,11 +3622,17 @@ def main(argv=None) -> int:
                     help="only build the kernels, time the flash "
                          "forward's serving launch and the backward "
                          "kernels and profile the train step")
+    ap.add_argument("--profile-decode-attention", action="store_true",
+                    help="only build the kernels and time decode "
+                         "attention at the request loop's, the launcher's "
+                         "and a 2048-slot ring, host-int and device "
+                         "position")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree whose repro_torch to import (with "
-                         "--profile-launcher, --profile-tiled or "
-                         "--profile-flash: an earlier commit's src/, "
-                         "unpacked by git archive)")
+                         "--profile-launcher, --profile-tiled, "
+                         "--profile-flash or --profile-decode-attention: "
+                         "an earlier commit's src/, unpacked by git "
+                         "archive)")
     args = ap.parse_args(argv)
     if not (args.src / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3424,7 +3659,8 @@ def main(argv=None) -> int:
             launch_wall(torch, quant)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.profile_tiled or args.profile_flash:
+    if args.profile_tiled or args.profile_flash or \
+            args.profile_decode_attention:
         from repro_torch.kernels import build
         print(smi, flush=True)
         emit({"profiled_tree": str(args.src.resolve()),
@@ -3435,6 +3671,9 @@ def main(argv=None) -> int:
         emit({"timer_floor_ms": timer.floor_ms})
         if args.profile_flash:
             profile_flash(torch, timer)
+            return 0
+        if args.profile_decode_attention:
+            profile_decode_attention(torch, timer)
             return 0
         profile_tiled(torch, timer)
         del timer
@@ -3479,6 +3718,8 @@ def main(argv=None) -> int:
                              "iiii")
     da_split = build.launcher("decode_attention", "decode_attention_split",
                               "i")
+    da_grid = build.launcher("decode_attention", "decode_attention_grid",
+                             "i")
     emit({"dynamic_smem_bytes": {
         **{f"flash_attn_tc_kernel hd={hd}": tc_smem(hd) for hd in (64, 128)},
         **{f"{name} hd={hd}": bwd_smem(hd, which)
@@ -3488,9 +3729,9 @@ def main(argv=None) -> int:
            for m in (2, 4) for k in (576, 1024, 1536, 2048)},
         **{f"qmm_tc int{bits} M={m}": qtc_smem(bits, m)
            for bits in (8, 4) for m in (32, 128)},
-        **{f"decode_split_kernel n_valid={n} Gp=4 hd=64 {dt}":
+        **{f"decode_split_kernel ring={n} Gp=4 hd=64 {dt}":
            da_smem(n, 4, 64, build.DTYPE_CODES[d])
-           for n in (95, 96, 2048)
+           for n in (96, 256, 2048)
            for dt, d in (("bf16", torch.bfloat16),
                          ("f8e4m3", torch.float8_e4m3fn))}}})
     emit({"qmm_tc_k_slices": {
@@ -3500,6 +3741,8 @@ def main(argv=None) -> int:
             ("olmoe wq", (2048, 2048)))}})
     emit({"decode_attention_ctas_per_head": {
         f"n_valid={n}": da_split(n) for n in (1, 32, 33, 95, 96, 2048)}})
+    emit({"decode_attention_cluster_per_ring": {
+        f"ring={n}": da_grid(n) for n in (1, 96, 256, 513, 720, 2048)}})
 
     calib_batch, seq = 64, 128
     timer = Timer(torch)
@@ -3522,6 +3765,9 @@ def main(argv=None) -> int:
     cfg, params, backend, loop_launches, dep, prompt, srv, batch = \
         request_loop(torch, ops, calib_batch, seq)
     profile_decode(torch, dep, prompt)
+    t0 = time.perf_counter()
+    graph_runs = graph_phase(torch, ops, backend, prompt)
+    emit({"graph_phase_s": time.perf_counter() - t0})
     reference_check(torch, cfg, params, backend)
     t0 = time.perf_counter()
     fleet_launches = lm_fleet(torch, ops, srv, batch, prompt)
@@ -3536,7 +3782,7 @@ def main(argv=None) -> int:
     emit({"decode_features_s": time.perf_counter() - t0})
     del params, backend, dep
     runs = {"request_loop": loop_launches, "fleet": fleet_launches,
-            **feature_runs,
+            **graph_runs, **feature_runs,
             **launch_serve(torch, ops)}
     t0 = time.perf_counter()
     train_runs, train_profiles = train_phase(torch, ops)

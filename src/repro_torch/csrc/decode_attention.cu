@@ -6,8 +6,12 @@
 // Computes, for one new token per batch row, out (B, KVp, Gp, hd) =
 // softmax(q . K^T * hd^-0.5) V over the live slots of the cache (B, buf,
 // KVp, hd): every slot once the ring has wrapped (pos + 1 >= buf), slots
-// 0 .. pos % buf before that. The wrapper turns the absolute position into
-// that count of live slots, so slots never written are never read. The
+// 0 .. pos % buf before that. The position is a device operand, as the
+// Pallas kernel's scalar-prefetch `pos`: the launch passes a pointer to a
+// 0-d int32 / int64 tensor (or null and the host value), and every CTA
+// reads it and works out the count of live slots itself, so slots never
+// written are never read and one launch -- one node of a CUDA graph --
+// serves every position. The
 // cache is stored in bfloat16, float8_e4m3fn or float32 and upcast to f32
 // on load; scores, the online-softmax statistics and the output
 // accumulator stay in f32.
@@ -40,6 +44,17 @@
 // cluster barrier, and the leader combines the ranks in rank order -- one
 // launch, and with no float atomics the same bits on every call. Takes
 // any B, KVp, n_valid and buf, Gp <= 16 and hd a multiple of 32 up to 256.
+//
+// With the position on the device the grid cannot follow n_valid: the
+// cluster, the staging buffers and the partials' shared memory are sized
+// for the ring (the most any n_valid <= buf asks for), and each CTA takes
+// the range that a launch sized for today's n_valid would give its rank
+// (`ranges_for`). Ranks at or past that split do no work, and the leader
+// combines only the ranks below it, in rank order -- so every n_valid
+// gives the bits of a launch sized for it alone (an empty partial added
+// to the sum would already change the sign of a zero). The idle CTAs are
+// the cost: on a ring of more than 512 slots a 16-CTA cluster runs with
+// at most 8 busy ranks while n_valid <= 512.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -112,6 +127,31 @@ struct Vec16<__nv_fp8_e4m3> {
   }
 };
 
+// The CTAs' slot ranges of a launch over n_valid live slots: `split`
+// contiguous ranges of `chunk` slots (a multiple of 16), none empty.
+// Short rings get 16-slot ranges (a 96-slot ring: 6 CTAs), so more of the
+// latency chain runs side by side; past the portable 8 the split grows
+// only for more than 512 live slots, where the work per CTA outweighs the
+// larger cluster's start-up and combine. n_valid = 0 gives no range.
+struct Ranges {
+  int split, chunk;
+};
+
+__host__ __device__ inline Ranges ranges_for(int n_valid) {
+  const int max_split =
+      n_valid > 512 ? kMaxSplit : repro::kPortableCluster;
+  int chunk = (n_valid + max_split - 1) / max_split;
+  chunk = max(16, (chunk + 15) / 16 * 16);
+  return {(n_valid + chunk - 1) / chunk, chunk};
+}
+
+// live ring slots at absolute position pos: all once wrapped, else
+// 0 .. pos % buf (none for a negative position)
+__host__ __device__ inline int live_slots(long long pos, int buf) {
+  if (pos < 0) return 0;
+  return pos + 1 >= buf ? buf : static_cast<int>(pos % buf) + 1;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1)
@@ -131,22 +171,38 @@ template <typename TQ, typename TC>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     decode_split_kernel(const TQ* __restrict__ q, const TC* __restrict__ ck,
                         const TC* __restrict__ cv, TQ* __restrict__ out,
-                        int buf, int kvp, int gp, int hd, int n_valid,
-                        int chunk, int nbufs, float scale_log2) {
+                        int buf, int kvp, int gp, int hd,
+                        const void* __restrict__ pos_dev, int pos_is64,
+                        long long pos_host, int stage_bufs,
+                        float scale_log2) {
   using V = Vec16<TC>;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int split = static_cast<int>(cluster.num_blocks());
+  const int grid_split = static_cast<int>(cluster.num_blocks());
   // matched by cluster_wait() before the push
   repro::cluster_arrive_relaxed();
+  // the position: read on the device unless the launch gave it
+  const long long pos =
+      pos_dev == nullptr
+          ? pos_host
+          : (pos_is64 ? *static_cast<const long long*>(pos_dev)
+                      : static_cast<long long>(
+                            *static_cast<const int*>(pos_dev)));
+  const int n_valid = live_slots(pos, buf);
+  // this position's ranges; ranks >= split idle, and the leader combines
+  // ranks < split alone
+  const Ranges rg = ranges_for(n_valid);
+  const int split = rg.split, chunk = rg.chunk;
+  const int nbufs = chunk > kTile ? 2 : 1;  // <= stage_bufs
   extern __shared__ __align__(16) unsigned char da_smem[];
   const int row = staged_row<TC>(hd);
   float* qs = reinterpret_cast<float*>(da_smem);  // (gp, hd)
-  // (nbufs, K | V, kTile, row) in the storage dtype
+  // (stage_bufs, K | V, kTile, row) in the storage dtype
   unsigned char* stage = da_smem + sizeof(float) * gp * hd;
+  // (grid_split, gp, hd)
   float* part_acc = reinterpret_cast<float*>(
-      stage + static_cast<size_t>(nbufs) * 2 * kTile * row);  // (split, gp, hd)
-  float* part_ml = part_acc + split * gp * hd;  // (split, gp, 2): m, l
+      stage + static_cast<size_t>(stage_bufs) * 2 * kTile * row);
+  float* part_ml = part_acc + grid_split * gp * hd;  // (.., gp, 2): m, l
 
   const int tid = threadIdx.x, lane = tid % 32, threads = blockDim.x;
   const int g = tid / 32;  // the warp's query row; none at g >= gp
@@ -179,10 +235,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     repro::cp_async_commit();
   };
 
-  if (ntiles > 0) load_tile(0);
   const size_t q_off = static_cast<size_t>(bh) * gp * hd;
-  for (int i = tid; i < gp * hd; i += threads)
-    qs[i] = repro::to_f32(q[q_off + i]);
+  if (ntiles > 0) {  // an idle rank reads nothing
+    load_tile(0);
+    for (int i = tid; i < gp * hd; i += threads)
+      qs[i] = repro::to_f32(q[q_off + i]);
+  }
 
   const int dpl = hd / 32;  // the lane's output dims: lane*dpl ..
   float m = kNegInf, l = 0.f, acc[kMaxDimsPerLane];
@@ -243,7 +301,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   // the CTA's partial (m, l, acc) goes to the cluster's leader (rank 0);
   // once every rank has stored, the leader combines them in rank order
   repro::cluster_wait();  // the start-up arrive: every CTA runs
-  if (g < gp) {
+  if (rank < split && g < gp) {
     const int at = rank * gp + g;
     float* lead_acc = cluster.map_shared_rank(part_acc, 0) + at * hd;
     float* lead_ml = cluster.map_shared_rank(part_ml, 0) + 2 * at;
@@ -277,66 +335,73 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     if (d < dpl) dst[d] = repro::from_f32<TQ>(o[d] / denom);
 }
 
-// The cluster: CTAs per (batch row, kv head), each taking a contiguous
-// range of `chunk` live slots (a multiple of 16) that it walks in 32-slot
-// tiles, double-buffered when more than one; and the launch's dynamic
-// shared memory. Short rings get 16-slot ranges (a 96-slot ring: 6 CTAs),
-// so more of the latency chain runs side by side; clusters grow past the
-// portable 8 only for rings longer than 512 slots, where the work per CTA
-// outweighs the larger cluster's start-up and combine.
+// The launch over a ring of `buf` slots, whatever the position: the
+// cluster is the largest split any n_valid <= buf asks for, the staging
+// buffers the most any of their chunks double-buffers, and the dynamic
+// shared memory holds both and the cluster's partials.
 struct Plan {
-  int split, chunk, nbufs;
+  int split, nbufs;
   size_t smem;
 };
 
-Plan plan_for(int n_valid, int gp, int hd, int esize) {
-  const int max_split = n_valid > 512 ? kMaxSplit : repro::kPortableCluster;
+Plan plan_for_ring(int buf, int gp, int hd, int esize) {
+  // up to 512 live slots: ceil(n / 16) ranges of 16 until 8 of them
+  // (n = 113), then 8 or fewer; the chunk grows with n
+  const int small = min(buf, 512);
+  int split = min(repro::kPortableCluster, (small + 15) / 16);
+  int chunk = ranges_for(small).chunk;
+  if (buf > 512) {  // the 16-split regime: some n in 721..768 reaches 16
+    chunk = max(chunk, ranges_for(buf).chunk);
+    for (int n = 513; n <= buf && split < kMaxSplit; ++n)
+      split = max(split, ranges_for(n).split);
+  }
   Plan p;
-  p.chunk = (n_valid + max_split - 1) / max_split;
-  p.chunk = max(16, (p.chunk + 15) / 16 * 16);
-  p.split = (n_valid + p.chunk - 1) / p.chunk;  // none empty
-  p.nbufs = p.chunk > kTile ? 2 : 1;
+  p.split = split;
+  p.nbufs = chunk > kTile ? 2 : 1;
   p.smem = sizeof(float) * gp * hd +
            static_cast<size_t>(p.nbufs) * 2 * kTile * (hd * esize + 16) +
            sizeof(float) * p.split * gp * (hd + 2);
   return p;
 }
 
-bool takes(int gp, int hd, int n_valid, int buf) {
-  return gp >= 1 && gp <= kMaxWarps && hd >= 32 &&
-         hd % 32 == 0 && hd <= 32 * kMaxDimsPerLane && n_valid >= 1 &&
-         n_valid <= buf;
+bool takes(int gp, int hd, int buf) {
+  return gp >= 1 && gp <= kMaxWarps && hd >= 32 && hd % 32 == 0 &&
+         hd <= 32 * kMaxDimsPerLane && buf >= 1;
 }
 
 template <typename TQ, typename TC>
 cudaError_t launch(const void* q, const void* ck, const void* cv, void* out,
-                   int batch, int buf, int kvp, int gp, int hd, int n_valid,
+                   int batch, int buf, int kvp, int gp, int hd,
+                   const void* pos_dev, int pos_is64, long long pos_host,
                    float scale, cudaStream_t stream) {
-  if (!takes(gp, hd, n_valid, buf)) return cudaErrorInvalidValue;
-  const Plan p = plan_for(n_valid, gp, hd, sizeof(TC));
+  if (!takes(gp, hd, buf)) return cudaErrorInvalidValue;
+  const Plan p = plan_for_ring(buf, gp, hd, sizeof(TC));
   return repro::launch_cluster(
       decode_split_kernel<TQ, TC>, dim3(p.split, batch * kvp),
       dim3(32 * max(kMinWarps, gp)),  // a warp per query row
       p.smem, stream, static_cast<const TQ*>(q), static_cast<const TC*>(ck),
       static_cast<const TC*>(cv), static_cast<TQ*>(out), buf, kvp, gp, hd,
-      n_valid, p.chunk, p.nbufs, scale * kLog2e);
+      pos_dev, pos_is64, pos_host, p.nbufs, scale * kLog2e);
 }
 
 template <typename TQ>
 cudaError_t launch_cache(int cache_dtype, const void* q, const void* ck,
                          const void* cv, void* out, int batch, int buf,
-                         int kvp, int gp, int hd, int n_valid, float scale,
+                         int kvp, int gp, int hd, const void* pos_dev,
+                         int pos_is64, long long pos_host, float scale,
                          cudaStream_t stream) {
   switch (cache_dtype) {
     case repro::kF32:
       return launch<TQ, float>(q, ck, cv, out, batch, buf, kvp, gp, hd,
-                               n_valid, scale, stream);
+                               pos_dev, pos_is64, pos_host, scale, stream);
     case repro::kBF16:
       return launch<TQ, __nv_bfloat16>(q, ck, cv, out, batch, buf, kvp, gp,
-                                       hd, n_valid, scale, stream);
+                                       hd, pos_dev, pos_is64, pos_host,
+                                       scale, stream);
     case repro::kF8E4M3:
       return launch<TQ, __nv_fp8_e4m3>(q, ck, cv, out, batch, buf, kvp, gp,
-                                       hd, n_valid, scale, stream);
+                                       hd, pos_dev, pos_is64, pos_host,
+                                       scale, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -356,34 +421,47 @@ int esize_of(int cache_dtype) {
 }  // namespace
 
 // q/out (B, KVp, Gp, hd) float32/bfloat16; ck/cv (B, buf, KVp, hd) in
-// cache_dtype, 16-byte aligned; n_valid the live slots (1..buf); Gp <= 16,
-// hd a multiple of 32 up to 256. Returns cudaError_t.
+// cache_dtype, 16-byte aligned; Gp <= 16, hd a multiple of 32 up to 256.
+// The absolute position: pos_dev a device pointer to one int32 (pos_is64
+// = 0) or int64 (1), read by the kernel; or pos_dev null and the value
+// in pos_host. Returns cudaError_t.
 extern "C" int decode_attention_launch(const void* q, const void* ck,
                                        const void* cv, void* out, int batch,
                                        int buf, int kvp, int gp, int hd,
-                                       int n_valid, float scale, int q_dtype,
-                                       int cache_dtype, void* stream) {
+                                       const void* pos_dev, int pos_is64,
+                                       long long pos_host, float scale,
+                                       int q_dtype, int cache_dtype,
+                                       void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (q_dtype == repro::kF32)
     return launch_cache<float>(cache_dtype, q, ck, cv, out, batch, buf, kvp,
-                               gp, hd, n_valid, scale, s);
+                               gp, hd, pos_dev, pos_is64, pos_host, scale,
+                               s);
   if (q_dtype == repro::kBF16)
     return launch_cache<__nv_bfloat16>(cache_dtype, q, ck, cv, out, batch,
-                                       buf, kvp, gp, hd, n_valid, scale, s);
+                                       buf, kvp, gp, hd, pos_dev, pos_is64,
+                                       pos_host, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// CTAs per (batch row, kv head) of a launch over n_valid live slots.
+// CTAs per (batch row, kv head) that work at n_valid live slots.
 extern "C" int decode_attention_split(int n_valid) {
   if (n_valid < 1) return -1;
-  return plan_for(n_valid, 1, 32, 1).split;
+  return ranges_for(n_valid).split;
 }
 
-// Dynamic shared memory, in bytes, of one launch; -1 for a shape the
-// kernel does not take.
-extern "C" int decode_attention_smem(int n_valid, int gp, int hd,
+// CTAs per (batch row, kv head) of a launch over a ring of buf slots: the
+// cluster, whatever the position.
+extern "C" int decode_attention_grid(int buf) {
+  if (buf < 1) return -1;
+  return plan_for_ring(buf, 1, 32, 1).split;
+}
+
+// Dynamic shared memory, in bytes, of a launch over a ring of buf slots;
+// -1 for a shape the kernel does not take.
+extern "C" int decode_attention_smem(int buf, int gp, int hd,
                                      int cache_dtype) {
   const int esize = esize_of(cache_dtype);
-  if (esize == 0 || !takes(gp, hd, n_valid, n_valid)) return -1;
-  return static_cast<int>(plan_for(n_valid, gp, hd, esize).smem);
+  if (esize == 0 || !takes(gp, hd, buf)) return -1;
+  return static_cast<int>(plan_for_ring(buf, gp, hd, esize).smem);
 }

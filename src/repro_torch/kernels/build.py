@@ -94,10 +94,12 @@ def library(name: str) -> ctypes.CDLL:
 def launcher(lib_name: str, fn_name: str, signature: str):
     """The C launch function ``fn_name`` of library ``lib_name`` with its
     ctypes argument types spelled one letter each — ``p`` pointer (the
-    stream included), ``i`` int, ``f`` float; it returns a cudaError_t.
+    stream included), ``i`` int, ``l`` 64-bit int, ``f`` float; it
+    returns a cudaError_t.
     Pointers must be declared: undeclared, ctypes cuts them to 32 bits."""
     fn = getattr(library(lib_name), fn_name)
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+             "f": ctypes.c_float}
     fn.argtypes = [kinds[c] for c in signature]
     fn.restype = ctypes.c_int
     return fn

@@ -4,7 +4,9 @@
 
 The kernel splits the live ring slots over a thread-block cluster per
 (batch row, kv head) and combines the partial softmax results in one
-launch. CUDA tensors only; the plain version is
+launch. The position may stay on the card, as the Pallas kernel's
+scalar-prefetch ``pos``: the launch is then the same for every position
+and a CUDA graph replays it. CUDA tensors only; the plain version is
 ``kernels.ref.decode_attention_ref`` and ``kernels.ops.decode_attention``
 picks by device. ``decode_attention_cuda.launches`` counts launches.
 """
@@ -15,11 +17,12 @@ import torch
 from repro_torch.kernels import build
 
 
-def decode_attention_cuda(q, ck, cv, pos: int):
+def decode_attention_cuda(q, ck, cv, pos):
     """q (B, KVp, Gp, hd) f32/bf16 post-RoPE query; ck/cv (B, buf, KVp,
     hd) the cache AFTER the step's K/V write, in f32, bf16 or
-    float8_e4m3fn; ``pos`` the absolute position. -> (B, KVp, Gp, hd) in
-    the query dtype."""
+    float8_e4m3fn; ``pos`` the absolute position, a host int or a 0-d
+    int32 / int64 tensor on q's card, which the kernel reads there (it is
+    never read on the host). -> (B, KVp, Gp, hd) in the query dtype."""
     if q.device.type != "cuda":
         raise ValueError(f"decode attention kernel needs CUDA tensors, got "
                          f"{q.device}")
@@ -46,17 +49,25 @@ def decode_attention_cuda(q, ck, cv, pos: int):
     if ck.data_ptr() % 16 or cv.data_ptr() % 16:
         raise ValueError("decode attention: the cache must be 16-byte "
                          "aligned (16-byte row loads)")
-    pos = int(pos)
-    if pos < 0:
-        raise ValueError(f"decode attention: pos {pos} < 0")
-    # live ring slots: all once wrapped, else 0 .. pos % buf
-    n_valid = buf if pos + 1 >= buf else pos % buf + 1
+    if torch.is_tensor(pos):
+        if pos.dim() != 0 or pos.device != q.device or \
+                pos.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"decode attention: a tensor pos must be a 0-d "
+                             f"int32 / int64 tensor on {q.device}, got "
+                             f"{pos.dtype} {tuple(pos.shape)} on "
+                             f"{pos.device}")
+        pos_dev, pos_is64, pos_host = (pos.data_ptr(),
+                                       int(pos.dtype == torch.int64), 0)
+    else:
+        pos_dev, pos_is64, pos_host = None, 0, int(pos)
+        if pos_host < 0:
+            raise ValueError(f"decode attention: pos {pos_host} < 0")
     out = torch.empty_like(q)
     fn = build.launcher("decode_attention", "decode_attention_launch",
-                        "ppppiiiiiifiip")
+                        "ppppiiiiipilfiip")
     with torch.cuda.device(q.device):     # launch on the tensors' card
         rc = fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(), out.data_ptr(), b,
-                buf, kvp, gp, hd, n_valid, hd ** -0.5,
+                buf, kvp, gp, hd, pos_dev, pos_is64, pos_host, hd ** -0.5,
                 build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[ck.dtype],
                 build.stream_handle(q))
     build.check(rc, "decode attention")

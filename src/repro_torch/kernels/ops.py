@@ -26,6 +26,20 @@ KERNELS = {"qmatmul": qmatmul_cuda, "qmatmul4": qmatmul4_cuda,
            "quantize_pack4": qk.quantize_pack4_cuda,
            "dequantize": qk.dequantize_cuda}
 
+# (object, attribute) of every launch counter: the wrappers' ``launches``
+# and any stand-in's counter added by ``watch_counter``. A CUDA graph's
+# replay calls no wrapper, so ``serving.decode.graphs`` puts each counter
+# back after a capture and adds its change over the capture on every
+# replay.
+COUNTERS = [(fn, "launches") for fn in KERNELS.values()]
+
+
+def watch_counter(obj, attr: str = "launches") -> None:
+    """Keep ``obj.<attr>`` with the kernels' own counters (``COUNTERS``),
+    so that graph replays advance it as the eager calls would."""
+    if not any(o is obj and a == attr for o, a in COUNTERS):
+        COUNTERS.append((obj, attr))
+
 
 def _plain(t) -> bool:
     return t.device.type == "cpu"

@@ -67,12 +67,15 @@ def decode_attention_ref(q, ck, cv, pos):
     q (B, KVp, Gp, hd) the post-RoPE query of ONE token; ck/cv
     (B, buf, KVp, hd) the cache AFTER the token's K/V were written at
     slot ``pos % buf`` (any storage dtype); ``pos`` the absolute
-    position. Scores and PV accumulate in f32; probabilities and V are
-    rounded to the query dtype first, as the reference does. Returns
-    (B, KVp, Gp, hd) in the query dtype."""
+    position, a host int or a 0-d integer tensor on q's device (the
+    validity mask is then built there, with no read on the host). Scores
+    and PV accumulate in f32; probabilities and V are rounded to the
+    query dtype first, as the reference does. Returns (B, KVp, Gp, hd)
+    in the query dtype."""
     hd = q.shape[-1]
     buf = ck.shape[1]
-    pos = int(pos)
+    if not torch.is_tensor(pos):
+        pos = int(pos)
     sc = torch.einsum("bkgd,bskd->bkgs", q.float(),
                       ck.to(q.dtype).float()) * hd ** -0.5
     # wrapped ring (pos+1 >= buf): every slot live; else slots 0..pos%buf

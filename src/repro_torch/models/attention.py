@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.common import dense_init, headnorm, to_storage
+from repro_torch.models.common import (as_bits, dense_init, headnorm,
+                                       to_storage)
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_Q = 512
@@ -205,19 +206,29 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attention_decode(params, cfg, x, cache, pos: int):
+def attention_decode(params, cfg, x, cache, pos):
     """One-token decode. x (B,1,D); ``pos`` the absolute position (same
-    for the batch). Writes the token's K/V into ``cache`` IN PLACE at
-    slot ``pos % buf`` (post-RoPE, so the ring needs no re-rotation) and
-    returns (out (B,1,D), cache)."""
+    for the batch): a host int, or a 0-d integer tensor on x's device
+    that is never read on the host (the RoPE positions, the ring slot and
+    the kernel's live slots all come from it on the device, so one CUDA
+    graph serves every position). Writes the token's K/V into ``cache``
+    IN PLACE at slot ``pos % buf`` (post-RoPE, so the ring needs no
+    re-rotation) and returns (out (B,1,D), cache)."""
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    on_device = torch.is_tensor(pos)
+    positions = pos.expand(b, 1) if on_device else \
+        torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, cfg, x)
     q = rope_lib.apply_rope(cfg.rope, q, positions, cfg.rope_theta)
     k = rope_lib.apply_rope(cfg.rope, k, positions, cfg.rope_theta)
     slot = pos % cache["k"].shape[1]
-    cache["k"][:, slot] = to_storage(k[:, 0], cache["k"].dtype)
-    cache["v"][:, slot] = to_storage(v[:, 0], cache["v"].dtype)
+    for name, new in (("k", k), ("v", v)):
+        ring = cache[name]
+        if on_device:      # the bits copied to the device slot, as below
+            as_bits(ring).index_copy_(1, slot.long().reshape(1),
+                                      as_bits(to_storage(new, ring.dtype)))
+        else:
+            ring[:, slot] = to_storage(new[:, 0], ring.dtype)
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos)
     out = out[:, None].to(x.dtype)                 # (B,1,KVp,Gp,hd)
     return _out_proj(params, cfg, out, x.dtype), cache

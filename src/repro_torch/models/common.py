@@ -76,6 +76,16 @@ def silu(x):
 _F8_ROUNDS_TO_NAN = 464.0
 
 
+# same-width integer dtypes: copies through them move bits, whatever the
+# float (index_copy_ has no float8 kernel)
+_BITS_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def as_bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` viewed as the integer dtype of its element width."""
+    return t.view(_BITS_VIEW[t.element_size()])
+
+
 def to_storage(x, dtype):
     """Cast ``x`` to a cache storage dtype. Every write into a float8
     cache goes through here, so out-of-range K/V become nan exactly as in

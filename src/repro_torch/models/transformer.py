@@ -432,11 +432,13 @@ def segment_extend(params, cfg: ModelConfig, h, caches, pos0: int,
     return h, caches
 
 
-def segment_decode_step(params, cfg: ModelConfig, x, caches, pos: int,
+def segment_decode_step(params, cfg: ModelConfig, x, caches, pos,
                         start: int, stop: int):
     """One decode step over blocks ``[start, stop)``: ``x`` (B, 1, D) the
     hidden state entering block ``start``, ``pos`` the token's absolute
-    position. Updates the caches in place; returns ``(x_out, caches)``."""
+    position, a host int or a 0-d integer tensor on x's device
+    (``attention_decode``). Updates the caches in place; returns
+    ``(x_out, caches)``."""
     for layer in range(start, stop):
         bp, p = block_at(params, cfg, layer)
         x, _, _ = _block_apply(bp, cfg, p, x, None,

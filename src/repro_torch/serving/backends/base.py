@@ -17,8 +17,13 @@ Conventions shared by all backends:
   * every forward method accepts a ``params`` override (default: the
     backend's own) so the calibration can probe perturbed weights.
 
-The reference's compile-once cache (``jitted`` / ``trace_count``) has no
-counterpart: PyTorch runs eagerly.
+The reference's compile-once cache (``jitted`` / ``trace_count``) has
+its counterpart in the decode sessions' CUDA graphs
+(``serving.decode.graphs``), counted by ``capture_count``: captured once
+per stream and stage and replayed for every token. Unlike a jitted
+program, a graph bakes in tensor addresses and segment bounds, so each
+new stream captures its own; the rest of the forward family runs
+eagerly.
 """
 from __future__ import annotations
 
@@ -49,6 +54,18 @@ class ModelBackend(abc.ABC):
 
     cfg: object          # the family's config dataclass
     params: object       # canonical full-precision parameters
+
+    # -- compile counter ------------------------------------------------
+    @property
+    def capture_count(self) -> int:
+        """CUDA graphs captured for this backend's decode sessions — the
+        counterpart of the reference's ``trace_count``: at most 2 per
+        stream whatever its number of tokens, 0 on the CPU. Kept in
+        ``__dict__`` so the dataclass backends need not declare it."""
+        return self.__dict__.get("_capture_count", 0)
+
+    def count_capture(self) -> None:
+        self.__dict__["_capture_count"] = self.capture_count + 1
 
     # -- structure ------------------------------------------------------
     @property

@@ -32,6 +32,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ATTN
+from repro_torch.models.common import as_bits
 from repro_torch.models.transformer import num_periods, period_len
 from repro_torch.serving.errors import ServingError
 from repro_torch.tree import tree_leaves
@@ -87,14 +88,6 @@ def paged_kv_ctx(tokens: int, page_tokens: int, max_len: int) -> int:
         return max_len
     pages = -(-int(tokens) // int(page_tokens))
     return min(pages * int(page_tokens), int(max_len))
-
-
-# same-width integer dtypes: page copies move bits, whatever the float
-_BITS_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
-
-
-def _bits(t: torch.Tensor) -> torch.Tensor:
-    return t.view(_BITS_VIEW[t.element_size()])
 
 
 class KVPagePool:
@@ -188,7 +181,7 @@ class PagedKVCache:
         V, over all of its owned layers at once."""
         t = self.pool.page_tokens
         dev = self.pool.data.device
-        raw = _bits(self.pool.data)
+        raw = as_bits(self.pool.data)
         src = torch.tensor(slots, device=dev)
         offs = torch.tensor([s % t for s in slots], device=dev)
         by_pos: Dict[int, list] = {}
@@ -201,7 +194,7 @@ class PagedKVCache:
                   for b in range(self.batch)] for layer, _ in owned],
                 device=dev)                         # (layers, B, n)
             for i, name in enumerate(("k", "v")):
-                rows = _bits(caches[p_pos][name])[pers][:, :, src]
+                rows = as_bits(caches[p_pos][name])[pers][:, :, src]
                 raw[pages, i, offs] = rows
 
     # -- ingest from the dense cache tree --------------------------------
@@ -235,7 +228,7 @@ class PagedKVCache:
         tests."""
         t = self.pool.page_tokens
         nblk = -(-self.buf // t)
-        raw = _bits(self.pool.data)
+        raw = as_bits(self.pool.data)
         out = [{k: v.clone() for k, v in c.items()} for c in template_caches]
         for layer, (p_pos, per) in self.attn_layers.items():
             table = torch.tensor(
@@ -249,7 +242,7 @@ class PagedKVCache:
                 dense = pages[:, :, i].reshape(
                     self.batch, nblk * t, self.pool.kvp,
                     self.pool.hd)[:, :self.buf]
-                _bits(out[p_pos][name])[per] = dense
+                as_bits(out[p_pos][name])[per] = dense
         return out
 
     @property

@@ -1,0 +1,73 @@
+"""CUDA graphs of the decode step — the port's counterpart of the
+reference's compile-once decode programs (``ModelBackend.jitted`` /
+``trace_count`` in ``repro/serving/backends/base.py``; the ``embed`` and
+``decode_seg`` programs of ``repro/serving/backends/transformer.py``).
+
+The reference traces ``embed`` and ``decode_seg`` once and replays the
+compiled programs for every token. Here a ``DecodeSession`` on a CUDA
+backend runs its first plain decode step eagerly (the warm-up), then
+captures each stage of the step once as a ``torch.cuda.CUDAGraph`` and
+replays the graphs for every later token:
+
+  * the device stage: ``embed`` -> ``decode_segment([0, p))`` -> the
+    quantized channel hop (none at p = 0);
+  * the server stage: ``decode_segment([p, L))`` -> unembed -> argmax
+    (at p = 0 it embeds the token first; at p = L it is the unembed and
+    the argmax alone).
+
+The step's position lives on the card (a 0-d int64 tensor the session
+fills before each step), down into the decode-attention kernel, so one
+graph serves every position.
+
+``ModelBackend.capture_count`` counts the graphs captured for a
+backend's sessions, as ``trace_count`` counts the reference's traces: at
+most 2 for a stream, however many tokens it decodes. The one departure:
+a graph bakes in tensor addresses and the segment bounds, so unlike the
+reference's ``decode_seg`` (dynamic ``start, stop, pos``, shared by every
+session of a backend) each new stream — a new session, a new cut, or a
+new prefill that allocates new caches — captures anew.
+
+A replay calls no kernel wrapper, so no launch counter moves by itself.
+A capture records each counter's change (``kernels.ops.COUNTERS``) and
+puts the counter back, since a capture launches nothing; every replay
+then adds the recorded change. There is no fallback: a capture that
+fails raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+class StageGraph:
+    """One stage captured as a CUDA graph: ``fn(*inputs)`` recorded once
+    on ``inputs``, tensors that stay the graph's static inputs (a replay
+    copies its arguments into them unless it is handed them back). The
+    stage's outputs stay in ``outputs``, overwritten by every replay.
+    ``pool`` shares another graph's memory pool; graphs that share one
+    replay in the order they were captured."""
+
+    def __init__(self, fn, inputs, pool=None):
+        self.inputs = tuple(inputs)
+        watched = list(ops.COUNTERS)
+        before = [getattr(obj, attr) for obj, attr in watched]
+        self.graph = torch.cuda.CUDAGraph()
+        self.counts = []
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.outputs = fn(*self.inputs)
+        finally:     # a capture launches nothing, even one that raised
+            for (obj, attr), was in zip(watched, before):
+                if getattr(obj, attr) != was:
+                    self.counts.append((obj, attr, getattr(obj, attr) - was))
+                    setattr(obj, attr, was)
+
+    def replay(self, *inputs):
+        for static, x in zip(self.inputs, inputs):
+            if x is not static:
+                static.copy_(x)
+        self.graph.replay()
+        for obj, attr, n in self.counts:
+            setattr(obj, attr, getattr(obj, attr) + n)
+        return self.outputs

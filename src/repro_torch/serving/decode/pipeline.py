@@ -22,8 +22,12 @@ wraps) and take neither chunking nor speculation.
 On a CUDA backend the device segment runs from quantized wire structs
 through the qmatmul/qmatmul4 kernels by default (``qkernels``), and
 every decode step's attention through the decode-attention kernel.
-Stage boundaries are fenced with ``torch.cuda.synchronize`` so the
-wall-clock stage seconds measure finished work.
+Plain decode steps keep their position on the device and, after the
+stream's first step, replay CUDA graphs of their two stages
+(``graphs``, the reference's compile-once decode programs; see
+``serving.decode.graphs``). Stage boundaries are fenced with
+``torch.cuda.synchronize`` so the wall-clock stage seconds measure
+finished work.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from repro_torch.serving.decode.cache import (DEFAULT_PAGE_TOKENS,
                                               segment_cache_bytes,
                                               segment_nonattn_cache_bytes,
                                               segment_page_pool)
+from repro_torch.serving.decode.graphs import StageGraph
 from repro_torch.serving.errors import ServingError
 
 
@@ -108,7 +113,11 @@ class DecodeSession:
     when the backend lives on CUDA) runs the device segment from wire
     structs (``qstacked_for``) instead of dense fake-quantized weights
     (``stacked_for``). ``page_pool`` shares one ``KVPagePool`` between
-    paged sessions (default: a pool of this stream's worst case)."""
+    paged sessions (default: a pool of this stream's worst case).
+    ``graphs`` (default: on when the backend lives on CUDA) replays the
+    plain decode step's stages as CUDA graphs after the stream's first
+    step; off, a CUDA session steps eagerly through the same code. CPU
+    sessions step eagerly."""
 
     def __init__(self, backend, plan, *, max_len: int,
                  segment=None, qkernels: Optional[bool] = None,
@@ -116,7 +125,7 @@ class DecodeSession:
                  page_tokens: int = DEFAULT_PAGE_TOKENS,
                  page_pool: Optional[KVPagePool] = None,
                  prefill_chunk_tokens: Optional[int] = None,
-                 draft_tokens: int = 0):
+                 draft_tokens: int = 0, graphs: Optional[bool] = None):
         if not getattr(backend, "supports_decode", False):
             raise ServingError(
                 f"{type(backend).__name__} has no autoregressive decode "
@@ -189,6 +198,19 @@ class DecodeSession:
                     f"(kv page = {self.page_tokens} tokens)")
             self.prefill_chunk_tokens = c
         self.pos = 0
+        # the decode position on the device, filled from ``pos`` before
+        # each plain step: ``pos`` stays the one source of truth
+        self._pos_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.graphs = self.device.type == "cuda" if graphs is None \
+            else bool(graphs)
+        if self.graphs and self.device.type != "cuda":
+            raise ServingError(f"CUDA graphs need a CUDA backend, not "
+                               f"{self.device}")
+        self._graphs = {}          # stage name -> StageGraph, per stream
+        self._plain_steps = 0      # plain decode steps of this stream
+        # (B, V) of the last plain step; on a graphed step the server
+        # graph's output buffer, which the next replay overwrites
+        self.last_logits = None
         self.t_device_s = 0.0
         self.t_server_s = 0.0
         self.rounds = 0
@@ -278,6 +300,8 @@ class DecodeSession:
         (B,) and records stage seconds (TTFT = their sum)."""
         prompt = to_device(prompt, self.device, torch.int32)
         b, s = prompt.shape
+        # a new stream: new caches, so graphs of an earlier one are stale
+        self._graphs, self._plain_steps = {}, 0
         if s + 1 > self.max_len:
             raise ServingError(
                 f"prompt ({s}) leaves no room in max_len={self.max_len}")
@@ -356,31 +380,64 @@ class DecodeSession:
         self.pos = s
         return token
 
+    def _device_stage(self, tok):
+        """The plain step's device stage at the device position: embed
+        ``tok`` (B, 1), blocks ``[0, p)``, the quantized channel hop."""
+        x = self.backend.embed(tok, params=self.dev_params)
+        x, self.dev_caches = self.backend.decode_segment(
+            x, self.dev_caches, self._pos_t, 0, self.p,
+            params=self.dev_params)
+        return self._quant_hop(x)
+
+    def _server_stage(self, x):
+        """The plain step's server stage: blocks ``[p, L)`` over the hop's
+        hidden (at p == 0, the embedded token ``x``) -> (logits (B, V),
+        the greedy token (B,) int32)."""
+        if self.p == 0:
+            x = self.backend.embed(x)
+        x, self.srv_caches = self.backend.decode_segment(
+            x, self.srv_caches, self._pos_t, self.p, self.L)
+        logits = self.backend.hidden_logits(x)
+        return logits, torch.argmax(logits, -1).to(torch.int32)
+
+    def _stage(self, name: str, fn, x):
+        """Run stage ``fn`` on ``x``: eagerly without graphs and on the
+        stream's first step (the warm-up); else replay its graph,
+        captured here on first use. The server stage reads the device
+        stage's output where it lies, in the device graph's pool."""
+        if not self.graphs or self._plain_steps == 0:
+            return fn(x)
+        graph = self._graphs.get(name)
+        if graph is None:
+            dev = self._graphs.get("device")
+            static = x if dev is not None and x is dev.outputs else x.clone()
+            graph = StageGraph(fn, (static,),
+                               pool=dev.graph.pool() if dev else None)
+            self._graphs[name] = graph
+            self.backend.count_capture()
+        return graph.replay(x)
+
     def step(self, token):
         """One decode step feeding ``token`` (B,); returns the next
-        greedy token (B,)."""
+        greedy token (B,), a tensor no later step overwrites. The logits
+        stay in ``last_logits``."""
         if self.pos + 1 > self.max_len:
             raise ServingError(f"decode past max_len={self.max_len}")
         tok = to_device(token, self.device).reshape(-1, 1)
+        self._pos_t.fill_(self.pos)
         t0 = time.perf_counter()
+        x = tok
         if self.p > 0:
-            x = self.backend.embed(tok, params=self.dev_params)
-            x_dev, self.dev_caches = self.backend.decode_segment(
-                x, self.dev_caches, self.pos, 0, self.p,
-                params=self.dev_params)
-            x_in = _fence(self._quant_hop(x_dev))
+            x = _fence(self._stage("device", self._device_stage, tok))
             if self.paged_kv is not None:
                 self.paged_kv.append_step(self.dev_caches, self.pos)
         t1 = time.perf_counter()
-        if self.p == 0:
-            x_in = self.backend.embed(tok)
-        x_srv, self.srv_caches = self.backend.decode_segment(
-            x_in, self.srv_caches, self.pos, self.p, self.L)
-        logits = self.backend.hidden_logits(x_srv)
-        nxt = _fence(torch.argmax(logits, -1).to(torch.int32))
+        self.last_logits, nxt = self._stage("server", self._server_stage, x)
+        nxt = _fence(nxt.clone())
         t2 = time.perf_counter()
         self.t_device_s += t1 - t0
         self.t_server_s += t2 - t1
+        self._plain_steps += 1
         self.pos += 1
         return nxt
 

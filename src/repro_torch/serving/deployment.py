@@ -128,12 +128,14 @@ class Deployment:
     # -- generate (autoregressive decode) -------------------------------
     def decode_session(self, max_len: Optional[int] = None,
                        prefill_chunk_tokens: Optional[int] = None,
-                       draft_tokens: int = 0):
+                       draft_tokens: int = 0,
+                       graphs: Optional[bool] = None):
         """A fresh ``DecodeSession`` on this deployment's plan, reusing
         the lazily-materialized quantized device segment. The serving-
         shape knobs pass through: ``prefill_chunk_tokens`` admits the
         prompt in chunks, ``draft_tokens`` turns decode rounds
-        speculative."""
+        speculative, ``graphs`` (default: on CUDA) replays the plain
+        decode step as CUDA graphs."""
         from repro_torch.serving.decode import DecodeSession
         seg = self.device_segment().segment if self.plan.p else None
         if max_len is None:
@@ -142,12 +144,12 @@ class Deployment:
         return DecodeSession(self.backend, self.plan, max_len=max_len,
                              segment=seg,
                              prefill_chunk_tokens=prefill_chunk_tokens,
-                             draft_tokens=draft_tokens)
+                             draft_tokens=draft_tokens, graphs=graphs)
 
     def generate(self, prompt, max_new_tokens: int, *,
                  max_len: Optional[int] = None, stream_cb=None,
                  prefill_chunk_tokens: Optional[int] = None,
-                 draft_tokens: int = 0):
+                 draft_tokens: int = 0, graphs: Optional[bool] = None):
         """Stream ``max_new_tokens`` greedy tokens through the
         partitioned prefill→decode pipeline. Wall-clock stage seconds
         land in ``result.extra['measured_decode']`` (what
@@ -155,7 +157,8 @@ class Deployment:
         ``decode.GenerationResult``."""
         sess = self.decode_session(max_len=max_len,
                                    prefill_chunk_tokens=prefill_chunk_tokens,
-                                   draft_tokens=draft_tokens)
+                                   draft_tokens=draft_tokens,
+                                   graphs=graphs)
         out = sess.generate(prompt, max_new_tokens, stream_cb=stream_cb)
         self.result.extra["measured_decode"] = {
             "batch": int(out.tokens.shape[0]),

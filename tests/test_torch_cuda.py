@@ -21,7 +21,12 @@ plain greedy, and ``lm_loss``'s gradients on the card against the CPU's
 plain versions, remat included. The model zoo: qmatmul / qmatmul4 at
 OLMoE-1B-7B's K = N = 2048, both attention kernels at its KV 16 x G 1 x
 hd 128 heads, and every assigned arch at ``.reduced()`` (MoE, SSM,
-hybrid and frontend blocks) in f32 on the card against the CPU.
+hybrid and frontend blocks) in f32 on the card against the CPU. The
+decode step's CUDA graphs: decode attention reading its position on the
+card bitwise the host-int launch, graphed sessions bitwise eager ones
+(tokens and logits) at three cuts, at most 2 captures per stream
+whatever its length, launch counters advanced by replays as by eager
+steps, and a capture that cannot succeed raising.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
@@ -1020,3 +1025,158 @@ def test_decode_step_within_its_counted_roofline(gen, quant):
     for term in (roof.t_compute, roof.t_memory):
         for ms in (busy_ms, wall_ms):
             assert 0 < term * 1e3 / ms <= 1.05, (term, busy_ms, wall_ms)
+
+
+@pytest.mark.parametrize("ring,cache", [(256, torch.bfloat16),
+                                        (256, torch.float8_e4m3fn),
+                                        (2048, torch.bfloat16),
+                                        (4096, torch.float8_e4m3fn)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_attention_device_pos_bitwise_host_int(gen, ring, cache, hd):
+    """The position read by the kernel from a 0-d int32 / int64 tensor on
+    the card gives the host-int launch's bits at every change of the CTA
+    count up to the ring and on the wrapped ring, one launch per call;
+    the plain version with a tensor position gives its int call's bits;
+    and the kernel stays within ``test_decode_attention_edges``' 2e-2 of
+    the plain version."""
+    b, kvp, gp = 2, 4, 4
+    q = torch.randn(b, kvp, gp, hd, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ck = torch.randn(b, ring, kvp, hd, generator=gen, device="cuda").to(cache)
+    cv = torch.randn(b, ring, kvp, hd, generator=gen, device="cuda").to(cache)
+    positions = [n - 1 for n in _split_boundaries(ring)] + [3 * ring + 5]
+    for pos in positions:
+        want = decode_attention_cuda(q, ck, cv, pos)
+        plain = ref.decode_attention_ref(q, ck, cv, pos)
+        for dt in (torch.int32, torch.int64):
+            pos_t = torch.tensor(pos, dtype=dt, device="cuda")
+            before = decode_attention_cuda.launches
+            got = decode_attention_cuda(q, ck, cv, pos_t)
+            assert decode_attention_cuda.launches == before + 1
+            assert torch.equal(got, want), (pos, dt)
+            assert torch.equal(ref.decode_attention_ref(q, ck, cv, pos_t),
+                               plain), (pos, dt)
+        assert _err(want, plain) <= 2e-2, pos
+
+
+def _plan(p, bits=8.0):
+    import numpy as np
+    from repro_torch.core.solver import PartitionPlan
+    return PartitionPlan(p=p, bits_w=np.full(p, bits), bits_x=bits,
+                         objective=0.0, psi_total=0.0, payload_bits=0.0,
+                         breakdown={})
+
+
+def _prompt(b=2, s=24):
+    import numpy as np
+    return np.random.default_rng(0).integers(0, 256, (b, s)).astype(np.int32)
+
+
+@pytest.mark.parametrize("p", [0, 2, 4])
+def test_graphed_decode_bitwise_eager(gen, p):
+    """At three cuts of the 4-layer model (int8 wire structs, float8
+    device cache): the graphed session's tokens, and its logits at every
+    step (the server graph's static output), bitwise the eager session's
+    on the same plan; one graph per stage, so 1 capture at p = 0 and 2
+    past it."""
+    import numpy as np
+    from repro_torch.serving.decode import DecodeSession
+    backend = _small_lm()
+    plan, prompt = _plan(p), _prompt()
+    eager = DecodeSession(backend, plan, max_len=96, graphs=False)
+    graphed = DecodeSession(backend, plan, max_len=96)
+    assert graphed.graphs and not eager.graphs
+    before = backend.capture_count
+    te, tg = eager.prefill(prompt), graphed.prefill(prompt)
+    assert torch.equal(te, tg)
+    for i in range(6):
+        te, tg = eager.step(te), graphed.step(tg)
+        assert torch.equal(te, tg), i
+        assert torch.equal(eager.last_logits, graphed.last_logits), i
+    assert backend.capture_count - before == (1 if p == 0 else 2)
+    assert len(graphed._graphs) == (1 if p == 0 else 2)
+    want = DecodeSession(backend, plan, max_len=96,
+                         graphs=False).generate(prompt, 12)
+    got = DecodeSession(backend, plan, max_len=96).generate(prompt, 12)
+    assert np.array_equal(got.tokens, want.tokens)
+
+
+def test_capture_count_does_not_grow_with_tokens(gen):
+    """A 6-token and a 64-token generation at the same cut capture the
+    same number of graphs (2): compile once, replay per token."""
+    from repro_torch.serving.decode import DecodeSession
+    backend = _small_lm()
+    plan, prompt = _plan(2), _prompt()
+    counts = []
+    for n in (6, 64):
+        before = backend.capture_count
+        DecodeSession(backend, plan, max_len=96).generate(prompt, n)
+        counts.append(backend.capture_count - before)
+    assert counts == [2, 2]
+
+
+def test_graphed_launch_counters_equal_eager(gen):
+    """Replays advance the kernels' launch counters, and a watched
+    stand-in's, by what the captured step launched: a graphed
+    ``generate`` counts the eager one's launches exactly."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.decode import DecodeSession
+
+    class Watched:
+        launches = 0
+
+    watched = Watched()
+    ops.watch_counter(watched)
+    wrapped = ops.decode_attention_cuda
+
+    def counting(*args, **kwargs):
+        watched.launches += 1
+        return wrapped(*args, **kwargs)
+
+    ops.decode_attention_cuda = counting
+    try:
+        backend = _small_lm()
+        plan, prompt = _plan(2), _prompt()
+        runs = []
+        for graphs in (False, True):
+            torch.cuda.synchronize()
+            before = {k: f.launches for k, f in ops.KERNELS.items()}
+            w0 = watched.launches
+            DecodeSession(backend, plan, max_len=96,
+                          graphs=graphs).generate(prompt, 16)
+            runs.append(({k: f.launches - before[k]
+                          for k, f in ops.KERNELS.items()},
+                         watched.launches - w0))
+    finally:
+        ops.decode_attention_cuda = wrapped
+        ops.COUNTERS.remove((watched, "launches"))
+    assert runs[0] == runs[1]
+    assert runs[0][0]["decode_attention"] == runs[0][1] > 0
+    assert runs[0][0]["qmatmul"] > 0
+
+
+def test_capture_that_cannot_succeed_raises(gen, monkeypatch):
+    """A step that reads the card from the host cannot be captured: the
+    capture raises, and nothing runs the step eagerly instead."""
+    from repro_torch.serving.decode import DecodeSession
+    backend = _small_lm()
+    sess = DecodeSession(backend, _plan(2), max_len=96)
+    hidden_logits = backend.hidden_logits
+
+    def synced(h, params=None):
+        float(h.float().sum())              # a host read inside the step
+        return hidden_logits(h, params)
+
+    monkeypatch.setattr(backend, "hidden_logits", synced)
+    tok = sess.step(sess.prefill(_prompt()))   # the eager first step
+    from repro_torch.kernels import ops
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    with pytest.raises(RuntimeError):
+        sess.step(tok)
+    torch.cuda.synchronize()
+    # the device stage was captured and replayed once; the failed server
+    # capture put its counts back
+    dev = {obj: n for obj, _, n in sess._graphs["device"].counts}
+    assert "server" not in sess._graphs
+    assert {k: f.launches - before[k] for k, f in ops.KERNELS.items()} == \
+        {k: dev.get(f, 0) for k, f in ops.KERNELS.items()}
