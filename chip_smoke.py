@@ -70,12 +70,16 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    of the monolithic one, counters zeroed before each run;
 8. the serving launcher (``repro_torch.launch.serve``) on the same
    full-width model, batch 4, 64-token prompts, 32 new tokens, once each
-   at --quant 0, 8 and 4, counters zeroed before each run: quantize
-   seconds, prefill seconds, decode tokens/s and launches per kernel;
-   after a quantized run its served weights are dequantized through
-   ``ops.dequantize_tensor`` (|w - deq| <= scale / 2) and the tree is
-   compared byte for byte with the one the plain versions build on the
-   CPU; then a profile of the launcher's decode step at --quant 8 and 0;
+   at --quant 0, 8 and 4, its decode step replayed as one whole-model
+   CUDA graph (the launcher's default on the card; 1 capture per run),
+   counters zeroed before each run: quantize seconds, prefill seconds,
+   decode tokens/s and launches per kernel; after a quantized run its
+   served weights are dequantized through ``ops.dequantize_tensor``
+   (|w - deq| <= scale / 2) and the tree is compared byte for byte with
+   the one the plain versions build on the CPU; on each run's weights
+   and prompt the graphed ``generate`` is held to ``graphs=False``
+   (tokens and a replayed step's logits bitwise, launches equal, 1
+   capture against 0), greedy at each --quant and sampled at --quant 8;
 9. training (``repro_torch.launch.train``) on the same full-width model
    (bf16 activations, f32 masters), counters zeroed before each run: one
    loss backward of a 2-layer f32 copy on the card against the CPU's
@@ -97,9 +101,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    with and without the quantized-kernel segment (bf16 tokens compared,
    f32 tokens equal; the graphed bf16 one bitwise its eager twin), then
    the launcher at --quant 0 and 8 (its
-   served-weight check on the first and last period); Mamba2-1.3B at
-   its registered shape (48 SSD layers, d_inner 4096): the launcher at
-   --quant 0, 8 and 4, the forward against the CPU, and a decode
+   served-weight check on the first and last period; graphed held to
+   eager at --quant 8; its decode step profiled eager and graphed in
+   turns at both, with the expert stacks' per-step casts timed alone);
+   Mamba2-1.3B at its registered shape (48 SSD layers, d_inner 4096):
+   the launcher at --quant 0, 8 and 4 (graphed held to eager at --quant
+   4), the forward against the CPU, and a decode
    session at a fixed 8-bit plan at p = 24, graphed and bitwise its
    eager twin (only the quantize kernels
    run on this attention-free family). Peak device memory per
@@ -112,7 +119,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    profile (OLMoE: the MoE blocks' share of busy time), and
    ``launch.train.main`` on MusicGen-medium for 10 steps;
 11. the step roofline (``roofline_phase``): the launcher's decode-step
-   profile at --quant 8 and 0, then the dry run's count
+   profile at --quant 8 and 0 (eager and graphed in turns on one cache
+   state; the roofline reads the graphed step), then the dry run's count
    (``roofline.op_cost`` on fake tensors, no card) of the smoke's train
    step (phase 9's profile, remat off and on), of that decode step and
    of the zoo's two train steps (phase 10's profiles),
@@ -140,8 +148,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    each ``ShapeLog``'s launches equal to its kernel's, so no launch
    goes around them; graph replays advance both (``ops.COUNTERS``).
 
-``--profile-launcher`` runs only that profile, and times the launcher's
-decode without a profiler (five runs per --quant); ``--profile-tiled`` only
+``--profile-launcher`` runs only that profile (at --quant 8, 0 and 4),
+and times the launcher's decode without a profiler (five runs per
+--quant and mode, eager and graphed in turns; an earlier tree without
+the graph, eager alone); ``--profile-tiled`` only
 times the tiled qmatmul route over a sweep of shapes and profiles the
 prefills that run it; ``--profile-flash`` only times the flash
 forward's serving launch and the backward kernels at the training
@@ -1439,17 +1449,21 @@ def request_loop(torch, ops, calib_batch: int, seq: int,
     return cfg, params, backend, launches, dep, prompt, srv, (x_te, y_te)
 
 
-def profile_steps(torch, step, steps: int, watch=()) -> dict:
+def profile_steps(torch, step, steps: int, watch=(),
+                  cpu: bool = True) -> dict:
     """Where a decode step's wall time goes: ``torch.profiler`` over
     ``steps`` calls of ``step`` — device busy time (the sum of kernel and
     memcpy durations on the card), the idle share of the wall time, device
     events per step and the costliest device consumers; with ``watch``,
     also the device ms per step of the events whose name holds each of
-    those strings."""
+    those strings. ``cpu=False`` traces the card alone (no host ops: a
+    cheaper trace to take and to read)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -1609,62 +1623,184 @@ def graph_phase(torch, ops, backend, prompt, gen: int = 32) -> dict:
     return runs
 
 
-def profile_launch(torch, quant: int, batch: int = 4, prompt_len: int = 64,
-                   gen: int = 32, steps: int = 8):
-    """``profile_steps`` over ``steps`` decode steps of the serving
-    launcher — ``launch.steps``' serve step and the greedy token, as
-    ``launch.serve.generate`` runs them — on full-width smollm-135m at
-    ``--quant quant`` (weights quantized as ``launch.serve.run`` does),
-    batch 4, after a 64-token prompt and one step; before it, the
-    unprofiled wall ms of as many steps. Returns the profile with the
-    first and last position profiled."""
+def launcher_graphs(serve) -> bool:
+    """Whether the tree's launcher replays its decode step as a CUDA
+    graph (``generate(graphs=)``); an earlier tree's steps eagerly at
+    host-int positions."""
+    import inspect
+    return "graphs" in inspect.signature(serve.generate).parameters
+
+
+def expert_cast_ms(torch, params, cfg, reps: int = 5) -> float:
+    """The device ms per decode step of what a MoE step does to its
+    expert stacks before their products: each layer's ``_dequant_block``
+    of its ``moe`` node (the int-N structs dequantized at ``--quant``
+    8 / 4) and the cast of each 3-D stack to the activations' dtype, as
+    ``moe_apply`` casts it (the f32 masters at ``--quant 0``); all
+    layers between two CUDA events, the median of ``reps``."""
+    from repro_torch.models import transformer as T
+    dt = T.model_dtype(cfg)
+
+    def casts():
+        for layer in range(cfg.num_layers):
+            if not cfg.uses_moe(layer):
+                continue
+            bp, _ = T.block_at(params, cfg, layer)
+            moe = T._dequant_block({"moe": bp["moe"]}, cfg)["moe"]
+            for w in moe.values():
+                if w.dim() == 3:
+                    w.to(dt)
+
+    casts()
+    times = []
+    for _ in range(reps):
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        casts()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def profile_launch(torch, quant: int, arch: str = "smollm-135m",
+                   params=None, batch: int = 4, prompt_len: int = 64,
+                   gen: int = 32, steps: int = 8, prof_steps: int = 4,
+                   turns: int = 5):
+    """The serving launcher's decode step — ``launch.steps``' serve step
+    and the greedy token, as ``launch.serve.generate`` runs them — on
+    ``arch`` at full width at ``--quant quant`` (``params``, or weights
+    quantized as ``launch.serve.run`` does), batch 4, after a 64-token
+    prompt and one eager step, eager and replayed as the one
+    whole-model CUDA graph ``generate`` captures, on ONE cache state in
+    turns (eager, graphed, eager, ...; ``turns`` runs each, each run
+    from the same position): the unprofiled wall ms of ``steps`` steps
+    (each ended by a synchronisation), then ``profile_steps`` over
+    ``prof_steps`` more, the card alone traced. One
+    ``launch_decode_profile`` line with the medians
+    of both modes (unprofiled and profiled wall ms, device-busy ms, idle
+    share, top device consumers) and every run; on a MoE arch, the
+    expert stacks' per-step casts timed alone (``expert_cast_ms``) and
+    their share of each mode's busy time. A tree without the graph
+    (``launcher_graphs``) runs the eager mode alone at host-int
+    positions. Returns the graphed medians (the eager ones on such a
+    tree) with the first and last position profiled."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.quantizer import quantize_params_for_serving
+    from repro_torch.launch import serve
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import transformer as T
-    cfg = get_config("smollm-135m")
+    cfg = get_config(arch)
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    params = T.init_params(cfg, g, device="cuda")
-    if quant:
-        params = quantize_params_for_serving(params, quant)
+    if params is None:
+        params = T.init_params(cfg, g, device="cuda")
+        if quant:
+            params = quantize_params_for_serving(params, quant)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=g, device="cuda", dtype=torch.int32)
     logits, caches = make_prefill_step(cfg, prompt_len + gen)(
         params, {"tokens": prompt})
     serve_step = make_serve_step(cfg)
+    graphed = launcher_graphs(serve)
+    pos_t = torch.zeros((), dtype=torch.int32, device="cuda")
     state = {"tok": torch.argmax(logits[:, -1:], -1).to(torch.int32),
-             "caches": caches, "pos": prompt_len}
+             "pos": prompt_len}
 
-    def step():
-        logits, state["caches"] = serve_step(params, state["tok"],
-                                             state["caches"], state["pos"])
+    def position():
+        if not graphed:
+            return state["pos"]
+        pos_t.fill_(state["pos"])
+        return pos_t
+
+    def advance(logits):
         state["tok"] = torch.argmax(logits[:, 0:1], -1).to(torch.int32)
         state["pos"] += 1
 
-    step()
-    wall = wall_ms(torch, step, steps)
+    def eager():
+        advance(serve_step(params, state["tok"], caches, position())[0])
+
+    eager()                          # generate's first step, the warm-up
+    modes = {"eager": eager}
+    if graphed:
+        from repro_torch.serving.decode.graphs import StageGraph
+        position()
+        graph = StageGraph(lambda t: serve_step(params, t, caches,
+                                                pos_t)[0],
+                           (state["tok"].clone(),))
+
+        def replayed():
+            position()
+            advance(graph.replay(state["tok"]))
+
+        replayed()                   # the step that captured
+        modes["graphed"] = replayed
+    first = state["pos"]
+    runs = {mode: [] for mode in modes}
+    for _ in range(turns):
+        for mode, step in modes.items():
+            state["pos"] = first
+            run = wall_ms(torch, step, steps)
+            run.update(profile_steps(torch, step, prof_steps, cpu=False))
+            runs[mode].append(run)
+    keys = ("unprofiled_wall_ms", "unprofiled_wall_ms_min",
+            "wall_ms_per_step", "device_busy_ms_per_step", "idle_share",
+            "device_events_per_step")
+    med = {mode: {k: statistics.median(r[k] for r in rs) for k in keys}
+           for mode, rs in runs.items()}
+    for mode in med:
+        med[mode]["top_device_ms_per_step"] = \
+            runs[mode][-1]["top_device_ms_per_step"]
     prof = {"arch": cfg.name, "quant": quant, "batch": batch,
             "cache_len": prompt_len + gen,
-            "positions": [prompt_len + 1 + steps, prompt_len + 2 * steps],
-            **wall, **profile_steps(torch, step, steps)}
+            "positions": [first + steps, first + steps + prof_steps - 1],
+            "steps": steps, "prof_steps": prof_steps, "turns": turns,
+            "graphs": graphed, **med}
+    if graphed:
+        prof["unprofiled_wall_ratio_eager_over_graphed"] = \
+            med["eager"]["unprofiled_wall_ms"] \
+            / med["graphed"]["unprofiled_wall_ms"]
+    if cfg.moe is not None:
+        cast = expert_cast_ms(torch, params, cfg)
+        prof["expert_cast_ms_per_step"] = cast
+        prof["expert_cast_share_of_busy"] = {
+            mode: cast / m["device_busy_ms_per_step"]
+            for mode, m in med.items()}
+    prof["runs"] = {mode: [{k: r[k] for k in keys[:-1]} for r in rs]
+                    for mode, rs in runs.items()}
     emit({"launch_decode_profile": prof})
-    return prof
+    return {k: v for k, v in prof.items() if k not in modes} | \
+        med["graphed" if graphed else "eager"]
 
 
 def launch_wall(torch, quant: int, reps: int = 5):
     """The serving launcher's decode tokens/s without a profiler:
     ``launch.serve.run`` on full-width smollm-135m at ``--quant quant``
-    (batch 4 x 64, 32 tokens), ``reps`` runs after a warm-up, each as
-    the smoke's ``launch_serve`` line reports it."""
+    (batch 4 x 64, 32 tokens), eager and graphed in turns, ``reps`` runs
+    each after a warm-up, each as the smoke's ``launch_serve`` line
+    reports it (decode tokens/s, and tokens/s over the whole
+    ``generate``, its prefill included). A tree without the graph runs
+    its eager launcher alone."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
     cfg = get_config("smollm-135m")
+    modes = {"eager": {"graphs": False}, "graphed": {"graphs": True}} \
+        if launcher_graphs(serve) else {"eager": {}}
     serve.run(cfg, quant=quant, device="cuda", seed=SEED)
-    tps = [4 * 31 / serve.run(cfg, quant=quant, device="cuda",
-                              seed=SEED)["decode_s"] for _ in range(reps)]
-    emit({"launch_decode_wall": {"arch": cfg.name, "quant": quant,
-                                 "decode_tokens_per_s": tps,
-                                 "median": statistics.median(tps)}})
+    tps = {mode: {"decode": [], "generate": []} for mode in modes}
+    for _ in range(reps):
+        for mode, kw in modes.items():
+            out = serve.run(cfg, quant=quant, device="cuda", seed=SEED, **kw)
+            tps[mode]["decode"].append(4 * 31 / out["decode_s"])
+            tps[mode]["generate"].append(4 * 32 / out["generate_s"])
+    emit({"launch_decode_wall": {
+        "arch": cfg.name, "quant": quant,
+        "decode_tokens_per_s": {m: t["decode"] for m, t in tps.items()},
+        "generate_tokens_per_s": {m: t["generate"] for m, t in tps.items()},
+        "median": {m: statistics.median(t["decode"])
+                   for m, t in tps.items()},
+        "generate_median": {m: statistics.median(t["generate"])
+                            for m, t in tps.items()}}})
 
 
 def wall_ms(torch, fn, reps: int) -> dict:
@@ -2205,13 +2341,17 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
 def launch_serve(torch, ops, batch: int = 4, prompt_len: int = 64,
                  gen: int = 32, arch: str = "smollm-135m",
                  quants=(0, 8, 4), tag: str = "launch",
-                 sample_periods=None):
+                 sample_periods=None, graph_checks=(), profiles=()):
     """``repro_torch.launch.serve.run`` on full-width ``arch`` at each
-    --quant of ``quants``, each run with the counters zeroed before and
-    read after (its served-weight check included; ``sample_periods``
-    restricts that check to those periods of each stacked leaf), the
-    card's peak memory reset before and read after. Returns the launches
-    of each run, keyed ``{tag}_q{quant}``."""
+    --quant of ``quants``, graphed (the launcher's default on the card),
+    each run with the counters zeroed before and read after (its
+    served-weight check included; ``sample_periods`` restricts that
+    check to those periods of each stacked leaf), the card's peak memory
+    reset before and read after. After a run, on its weights and prompt:
+    ``launcher_graph_check`` at each (quant, temperature) of
+    ``graph_checks``, and ``profile_launch`` at each quant of
+    ``profiles``. Returns the launches of each run, keyed
+    ``{tag}_q{quant}``."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
     cfg = get_config(arch)
@@ -2238,6 +2378,8 @@ def launch_serve(torch, ops, batch: int = 4, prompt_len: int = 64,
         emit({"launch_serve": {
             "arch": cfg.name, "layers": cfg.num_layers, "quant": quant,
             "batch": batch, "prompt_len": prompt_len, "gen": gen,
+            "graphs": serve._use_graphs(None, "cuda"),
+            "captures": out["captures"],
             "quantize_s": out["quantize_s"],
             "quantize_launches": quantize_launches,
             "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
@@ -2247,8 +2389,67 @@ def launch_serve(torch, ops, batch: int = 4, prompt_len: int = 64,
             "peak_memory_gb": peak / 1e9,
             "first_row": toks[0, :8].tolist(), **check,
             "launches": launches}})
+        if out["captures"] != 1:
+            raise AssertionError(f"{arch} launch --quant {quant}: "
+                                 f"{out['captures']} captures, not 1")
+        for q, temperature in graph_checks:
+            if q == quant:
+                launcher_graph_check(torch, ops, cfg, out, quant,
+                                     temperature)
+        if quant in profiles:
+            profile_launch(torch, quant, arch=arch, params=out["params"],
+                           batch=batch, prompt_len=prompt_len, gen=gen,
+                           steps=4, prof_steps=2)
         del out
     return runs
+
+
+def launcher_graph_check(torch, ops, cfg, out, quant: int,
+                         temperature: float = 0.0) -> dict:
+    """The launcher's graphed ``generate`` held to ``graphs=False`` on
+    one run's weights and prompt (``out`` of ``launch.serve.run``),
+    counters zeroed before each and read after, the card's peak memory
+    reset before each: the tokens and the last step's logits (a replayed
+    step's) bit for bit, the launches equal kernel by kernel, 1 capture
+    against 0; greedy (the graphed tokens also the run's own), or sampled
+    at ``temperature`` with generators of one seed. One
+    ``launch_graph_check`` line with both calls' decode tokens/s and
+    peak memory."""
+    from repro_torch.launch import serve
+    prompt, (b, gen) = out["prompt"], out["tokens"].shape
+    res = {}
+    for graphs in (True, False):
+        stats = {}
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(torch, ops)
+        toks = serve.generate(out["params"], cfg, prompt,
+                              max_len=prompt.shape[1] + gen, gen=gen,
+                              temperature=temperature, generator=g,
+                              stats=stats, graphs=graphs)
+        res[graphs] = (toks, stats, read_counters(torch, ops),
+                       peak_gb(torch))
+    (tg, sg, lg, pg), (te, se, le, pe) = res[True], res[False]
+    rec = {"arch": cfg.name, "quant": quant, "temperature": temperature,
+           "batch": b, "gen": gen,
+           "tokens_bitwise": bool(torch.equal(tg, te)),
+           "last_logits_bitwise": bool(torch.equal(sg["last_logits"],
+                                                   se["last_logits"])),
+           "launches_equal": lg == le,
+           "captures": sg["captures"], "captures_eager": se["captures"],
+           "decode_tokens_per_s": {"graphed": b * (gen - 1) / sg["decode_s"],
+                                   "eager": b * (gen - 1) / se["decode_s"]},
+           "peak_memory_gb": {"graphed": pg, "eager": pe},
+           "launches": lg}
+    if temperature == 0.0:
+        rec["run_tokens_bitwise"] = bool(torch.equal(tg, out["tokens"]))
+    emit({"launch_graph_check": rec})
+    if not (rec["tokens_bitwise"] and rec["last_logits_bitwise"]
+            and rec["launches_equal"] and rec.get("run_tokens_bitwise", True)
+            and (rec["captures"], rec["captures_eager"]) == (1, 0)):
+        raise AssertionError(f"{cfg.name} --quant {quant}: the graphed "
+                             f"launcher is not the eager one: {rec}")
+    return rec
 
 
 def served_weights_check(torch, ops, out, quant, periods=None):
@@ -2313,6 +2514,11 @@ def served_weights_check(torch, ops, out, quant, periods=None):
     return {"served_leaves": n, "max_err_over_scale": worst,
             "tree_equals_cpu_plain": same, "cpu_plain_quantize_s": plain_s,
             "checked_periods": "all" if periods is None else list(periods)}
+
+
+# the launcher's graphed-vs-eager checks on smollm-135m: (--quant,
+# temperature), greedy at each --quant and one sampled run
+LAUNCH_GRAPH_CHECKS = ((0, 0.0), (8, 0.0), (4, 0.0), (8, 1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -2902,7 +3108,8 @@ def olmoe_phase(torch, ops) -> dict:
     torch.cuda.empty_cache()
     runs.update(launch_serve(torch, ops, arch="olmoe-1b-7b", quants=(0, 8),
                              tag="olmoe_launch",
-                             sample_periods=(0, cfg.num_layers - 1)))
+                             sample_periods=(0, cfg.num_layers - 1),
+                             graph_checks=((8, 0.0),), profiles=(0, 8)))
     torch.cuda.empty_cache()
     return runs
 
@@ -2928,7 +3135,8 @@ def mamba2_phase(torch, ops) -> dict:
           flush=True)
     runs = launch_serve(torch, ops, arch=arch, quants=(0, 8, 4),
                         tag="mamba2_launch",
-                        sample_periods=(0, cfg.num_layers - 1))
+                        sample_periods=(0, cfg.num_layers - 1),
+                        graph_checks=((4, 0.0),))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
@@ -3136,8 +3344,9 @@ def roofline_phase(torch, smi, train_profiles, decode_profiles,
     FLOPs, unfused bytes) of the smoke's own steps, set against the times
     this run measured for them: the train step (smollm-135m, B 8 x S
     256, remat off and on, ``train_step_profile``), the launcher's
-    decode step (batch 4 after a 64-token prompt, --quant 0 and 8,
-    counted at the last position ``profile_launch`` profiled) and the
+    decode step (batch 4 after a 64-token prompt, --quant 0 and 8, the
+    graphed step ``profile_launch`` measured, counted at the last
+    position it profiled, a host int) and the
     zoo's train steps (``zoo_profiles``: (config, profile) pairs of
     ``zoo_train``, B 8 x S 256, remat off). One
     ``roofline`` line per step: counted GFLOP and GB, the model FLOPs,
@@ -3612,8 +3821,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-launcher", action="store_true",
                     help="only build the kernels, profile the serving "
-                         "launcher's decode step at --quant 8 and 0 and "
-                         "time its decode without a profiler")
+                         "launcher's decode step, eager and graphed in "
+                         "turns, at --quant 8, 0 and 4 and time its "
+                         "decode without a profiler")
     ap.add_argument("--profile-tiled", action="store_true",
                     help="only build the kernels, time the tiled qmatmul "
                          "route over a sweep of M, K and N and profile "
@@ -3654,7 +3864,7 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         emit({"profiled_tree": str(args.src.resolve()),
               "build_dir": str(build.build_all())})
-        for quant in (8, 0):
+        for quant in (8, 0, 4):
             profile_launch(torch, quant)
             launch_wall(torch, quant)
         return 0
@@ -3783,7 +3993,7 @@ def main(argv=None) -> int:
     del params, backend, dep
     runs = {"request_loop": loop_launches, "fleet": fleet_launches,
             **graph_runs, **feature_runs,
-            **launch_serve(torch, ops)}
+            **launch_serve(torch, ops, graph_checks=LAUNCH_GRAPH_CHECKS)}
     t0 = time.perf_counter()
     train_runs, train_profiles = train_phase(torch, ops)
     runs.update(train_runs)

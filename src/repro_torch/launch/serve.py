@@ -8,6 +8,22 @@ One card holds smollm-135m whole, so there is no mesh. At ``--quant 8``
 / ``4`` the block weights are quantized on the device by the quantize /
 quantize-and-pack-int4 kernels and served through the dequantize-fused
 qmatmul / qmatmul4 kernels.
+
+The decode step is compiled once per :func:`generate` call, as the
+reference's ``jstep = jax.jit(...)`` in ``repro/launch/serve.py`` is:
+on CUDA, ``generate`` runs its first decode step eagerly (the warm-up),
+captures the serve step (embed -> blocks ``[0, L)`` -> unembed) as ONE
+CUDA graph on the next (``serving.decode.graphs.StageGraph``, which
+keeps the launch counters with the replays) and replays it for every
+later token. The position lives on the card, a 0-d int32 tensor filled
+before each step, as the reference's ``jnp.array(s + i, jnp.int32)``.
+The graph bakes in the addresses of the weights and of the caches that
+the call's prefill built, so it is private to the call and goes with
+it: one capture per call (``stats["captures"]``), as the reference's
+fresh ``jax.jit`` traces once per call. Token choice (argmax, or
+softmax and ``torch.multinomial`` with the caller's generator) stays
+outside the graph, as in the reference. There is no fallback: a capture
+that fails raises.
 """
 from __future__ import annotations
 
@@ -20,6 +36,7 @@ from repro_torch.configs.base import get_config, list_configs
 from repro_torch.core.quantizer import quantize_params_for_serving
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import transformer as T
+from repro_torch.serving.decode.graphs import StageGraph
 
 
 def _sync(device) -> None:
@@ -27,13 +44,38 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _use_graphs(graphs, device) -> bool:
+    """``graphs`` resolved for ``device``: on by default for CUDA; asked
+    for anywhere else, it raises."""
+    cuda = torch.device(device).type == "cuda"
+    if graphs and not cuda:
+        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+    return cuda if graphs is None else bool(graphs)
+
+
+def _choose(logits, temperature: float, generator):
+    """The next token (B, 1) int32 from a step's logits (B, 1, V)."""
+    if temperature > 0.0:
+        probs = torch.softmax(logits[:, 0].float() / temperature, -1)
+        return torch.multinomial(probs, 1, generator=generator).to(
+            torch.int32)
+    return torch.argmax(logits[:, 0:1], -1).to(torch.int32)
+
+
 def generate(params, cfg, prompt, max_len: int, gen: int, *,
-             temperature: float = 0.0, generator=None, stats=None):
+             temperature: float = 0.0, generator=None, stats=None,
+             graphs=None):
     """Greedy (or, at ``temperature`` > 0, sampled with ``generator``)
     generation: prefill then ``gen - 1`` decode steps -> (B, gen) int32.
-    ``stats``, when a dict, receives ``prefill_s`` and ``decode_s``, wall
-    seconds each ended by a device synchronisation."""
+    ``graphs`` (default: on for a CUDA prompt) replays the decode step
+    as one CUDA graph from the second step on; ``graphs=False`` runs
+    every step eagerly through the same code, and ``graphs=True`` on
+    the CPU raises. ``stats``, when a dict, receives ``prefill_s`` and
+    ``decode_s`` (wall seconds, each ended by a device synchronisation),
+    ``captures`` (1 for a graphed call of ``gen`` >= 3, else 0) and
+    ``last_logits`` (a copy of the last step's logits (B, 1, V))."""
     b, s = prompt.shape
+    graphs = _use_graphs(graphs, prompt.device)
     prefill_step = make_prefill_step(cfg, max_len)
     serve_step = make_serve_step(cfg)
     t0 = time.perf_counter()
@@ -43,30 +85,39 @@ def generate(params, cfg, prompt, max_len: int, gen: int, *,
         _sync(prompt.device)
         t1 = time.perf_counter()
         stats["prefill_s"] = t1 - t0
+    pos = torch.zeros((), dtype=torch.int32, device=prompt.device)
+    graph = None
     out = [tok]
     for i in range(gen - 1):
-        logits, caches = serve_step(params, tok, caches, s + i)
-        if temperature > 0.0:
-            probs = torch.softmax(logits[:, 0].float() / temperature, -1)
-            tok = torch.multinomial(probs, 1, generator=generator).to(
-                torch.int32)
+        pos.fill_(s + i)
+        if not graphs or i == 0:
+            logits, caches = serve_step(params, tok, caches, pos)
         else:
-            tok = torch.argmax(logits[:, 0:1], -1).to(torch.int32)
+            if graph is None:       # the caches are this call's own
+                graph = StageGraph(
+                    lambda t: serve_step(params, t, caches, pos)[0],
+                    (tok.clone(),))
+            logits = graph.replay(tok)
+        tok = _choose(logits, temperature, generator)
         out.append(tok)
     toks = torch.cat(out, dim=1)
     if stats is not None:
         _sync(prompt.device)
         stats["decode_s"] = time.perf_counter() - t1
+        stats["captures"] = int(graph is not None)
+        stats["last_logits"] = logits.clone() if gen > 1 else None
     return toks
 
 
 def run(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
         temperature: float = 0.0, quant: int = 0, device="cuda",
-        seed: int = 0) -> dict:
+        seed: int = 0, graphs=None) -> dict:
     """Seeded weights on ``device`` -> (at ``quant`` 8 or 4) int-N wire
-    structs -> a seeded random prompt -> :func:`generate`. Returns the
-    tokens, both weight trees and the phases' seconds (``quantize_s``,
-    ``prefill_s``, ``decode_s``, ``generate_s``)."""
+    structs -> a seeded random prompt -> :func:`generate` (``graphs`` as
+    there). Returns the tokens, the prompt, both weight trees, the
+    phases' seconds (``quantize_s``, ``prefill_s``, ``decode_s``,
+    ``generate_s``), ``captures`` and ``last_logits``."""
+    _use_graphs(graphs, device)
     g = torch.Generator(device=device).manual_seed(seed)
     weights = T.init_params(cfg, g, device=device)
     params, stats = weights, {"quantize_s": 0.0}
@@ -80,9 +131,11 @@ def run(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
                            generator=g, device=device, dtype=torch.int32)
     t0 = time.perf_counter()
     toks = generate(params, cfg, prompt, max_len=prompt_len + gen, gen=gen,
-                    temperature=temperature, generator=g, stats=stats)
+                    temperature=temperature, generator=g, stats=stats,
+                    graphs=graphs)
     stats["generate_s"] = time.perf_counter() - t0
-    return {"tokens": toks, "weights": weights, "params": params, **stats}
+    return {"tokens": toks, "prompt": prompt, "weights": weights,
+            "params": params, **stats}
 
 
 def main(argv=None):

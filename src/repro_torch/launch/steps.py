@@ -123,8 +123,10 @@ def build_step(cfg: ModelConfig, shape: InputShape,
                accum_steps: int = 1, serve_dtype=None,
                serve_quant: int = 0) -> StepSpec:
     """The step of ``shape``'s kind and its fake arguments. A decode
-    step's position is a host int, as the port's decode step takes it:
-    the last slot of a full ``seq_len`` cache."""
+    step's position is a fake 0-d int32 tensor of the step's mode, as the
+    reference's traced scalar and the launcher's compile-once step take
+    it (``op_cost.count`` costs it as the last slot of a full ``seq_len``
+    cache)."""
     cfg = for_shape(cfg, shape)
     mode = FakeTensorMode()
 
@@ -149,4 +151,5 @@ def build_step(cfg: ModelConfig, shape: InputShape,
     caches = cache_specs(cfg, shape.global_batch, shape.seq_len, mode=mode)
     with mode:
         token = torch.empty((shape.global_batch, 1), dtype=torch.int32)
-    return StepSpec("decode", fn, (p, token, caches, shape.seq_len - 1), cfg)
+        pos = torch.empty((), dtype=torch.int32)
+    return StepSpec("decode", fn, (p, token, caches, pos), cfg)

@@ -206,6 +206,27 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _decode_rows(pos, b: int, device):
+    """The (B, 1) RoPE positions of a decode step at ``pos``."""
+    if torch.is_tensor(pos):
+        return pos.expand(b, 1)
+    return torch.full((b, 1), pos, dtype=torch.int32, device=device)
+
+
+def _write_ring(cache, k, v, pos) -> None:
+    """Write the token's post-RoPE K/V (B, 1, KVp, hd) into ring slot
+    ``pos % buf`` of ``cache`` in place; a device position's slot is
+    computed and written on the device (the same bits)."""
+    slot = pos % cache["k"].shape[1]
+    for name, new in (("k", k), ("v", v)):
+        ring = cache[name]
+        if torch.is_tensor(pos):
+            as_bits(ring).index_copy_(1, slot.long().reshape(1),
+                                      as_bits(to_storage(new, ring.dtype)))
+        else:
+            ring[:, slot] = to_storage(new[:, 0], ring.dtype)
+
+
 def attention_decode(params, cfg, x, cache, pos):
     """One-token decode. x (B,1,D); ``pos`` the absolute position (same
     for the batch): a host int, or a 0-d integer tensor on x's device
@@ -214,21 +235,11 @@ def attention_decode(params, cfg, x, cache, pos):
     graph serves every position). Writes the token's K/V into ``cache``
     IN PLACE at slot ``pos % buf`` (post-RoPE, so the ring needs no
     re-rotation) and returns (out (B,1,D), cache)."""
-    b = x.shape[0]
-    on_device = torch.is_tensor(pos)
-    positions = pos.expand(b, 1) if on_device else \
-        torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    positions = _decode_rows(pos, x.shape[0], x.device)
     q, k, v = _project_qkv(params, cfg, x)
     q = rope_lib.apply_rope(cfg.rope, q, positions, cfg.rope_theta)
     k = rope_lib.apply_rope(cfg.rope, k, positions, cfg.rope_theta)
-    slot = pos % cache["k"].shape[1]
-    for name, new in (("k", k), ("v", v)):
-        ring = cache[name]
-        if on_device:      # the bits copied to the device slot, as below
-            as_bits(ring).index_copy_(1, slot.long().reshape(1),
-                                      as_bits(to_storage(new, ring.dtype)))
-        else:
-            ring[:, slot] = to_storage(new[:, 0], ring.dtype)
+    _write_ring(cache, k, v, pos)
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos)
     out = out[:, None].to(x.dtype)                 # (B,1,KVp,Gp,hd)
     return _out_proj(params, cfg, out, x.dtype), cache

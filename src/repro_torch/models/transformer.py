@@ -526,9 +526,11 @@ def prefill(params, cfg: ModelConfig, tokens=None, *, embeds=None,
 def decode_step(params, cfg: ModelConfig, token, caches, pos):
     """token (B, 1) ids, or a frontend's embedding (B, 1, D), at
     absolute position ``pos`` -> (logits (B, 1, V), caches), the caches
-    updated in place."""
+    updated in place. ``pos`` is a host int or a 0-d int32 / int64
+    tensor on the token's device, never read on the host (the serving
+    launcher's compile-once step fills one and replays a CUDA graph)."""
     x = _embed(params, cfg, token) if token.dim() == 2 \
         else token.to(model_dtype(cfg))
-    x, caches = segment_decode_step(params, cfg, x, caches, int(pos), 0,
+    x, caches = segment_decode_step(params, cfg, x, caches, pos, 0,
                                     cfg.num_layers)
     return _unembed(params, cfg, x), caches

@@ -32,6 +32,16 @@ instead is too slow: their blocked attention loops over block pairs in
 Python.) Swapping module attributes makes :func:`count` neither
 reentrant nor thread-safe.
 
+A decode position on the device (a 0-d integer tensor, as the serving
+launcher's compile-once step and the dry run's ``build_step`` pass it)
+is costed as the host int it stands for: the position's own bookkeeping
+(its (B, 1) RoPE rows and each ring's slot write, ``models.attention``'s
+``_decode_rows`` and ``_write_ring``) runs the host-int route on slot 0,
+which moves the same bytes at every slot; the ``decode_attention``
+stand-in reads the whole ring, as the kernel's grid is sized for it. A
+fake position has no value to address a slot with, and counted as it
+runs, an ``index_copy_`` would book the whole ring read and written.
+
 One card has no inter-card link, so no collective is counted.
 """
 from __future__ import annotations
@@ -50,6 +60,7 @@ from torch.utils._pytree import tree_leaves as _pytree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.kernels import ops
+from repro_torch.models import attention
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_leaves
 
@@ -192,7 +203,10 @@ def _stand_ins(counter: _Counter) -> dict:
     def decode_attention(q, ck, cv, pos):
         _require_fake("decode_attention", q, ck, cv, pos)
         b, kvp, gp, hd = q.shape
-        n_valid = min(int(pos) + 1, ck.shape[1])
+        # a position on the device is never read: the kernel's grid is
+        # sized for the whole ring
+        n_valid = ck.shape[1] if torch.is_tensor(pos) else \
+            min(int(pos) + 1, ck.shape[1])
         live = (ck[:, :n_valid], cv[:, :n_valid])
         return counter.kernel("decode_attention",
                               4 * b * kvp * gp * n_valid * hd, (q, *live),
@@ -242,6 +256,20 @@ def _stand_ins(counter: _Counter) -> dict:
             "dequantize_tensor": dequantize_tensor}
 
 
+def _host_positions() -> dict:
+    """``models.attention``'s position bookkeeping, a device position run
+    as the host int 0 (the module docstring says why)."""
+    rows, write = attention._decode_rows, attention._write_ring
+
+    def host(pos):
+        return 0 if torch.is_tensor(pos) else pos
+
+    return {"_decode_rows": lambda pos, b, device: rows(host(pos), b,
+                                                        device),
+            "_write_ring": lambda cache, k, v, pos: write(cache, k, v,
+                                                          host(pos))}
+
+
 @contextlib.contextmanager
 def _swapped(module, replacements: dict):
     saved = {name: getattr(module, name) for name in replacements}
@@ -264,7 +292,9 @@ def count(fn, *args, **kwargs) -> CostSummary:
                         "hold none")
     counter = _Counter()
     flop_counter = FlopCounterMode(display=False)
-    with _swapped(ops, _stand_ins(counter)), mode, flop_counter, counter:
+    with _swapped(ops, _stand_ins(counter)), \
+            _swapped(attention, _host_positions()), mode, flop_counter, \
+            counter:
         fn(*args, **kwargs)
     return CostSummary(
         flops=float(flop_counter.get_total_flops() + counter.kernel_flops),

@@ -27,6 +27,11 @@ reference's ``decode_seg`` (dynamic ``start, stop, pos``, shared by every
 session of a backend) each new stream — a new session, a new cut, or a
 new prefill that allocates new caches — captures anew.
 
+The serving launcher's ``launch.serve.generate`` captures its whole
+serve step (embed -> blocks ``[0, L)`` -> unembed) as one
+``StageGraph`` per call, from the caches its own prefill built, as the
+reference's launcher compiles its ``jstep`` once per call.
+
 A replay calls no kernel wrapper, so no launch counter moves by itself.
 A capture records each counter's change (``kernels.ops.COUNTERS``) and
 puts the counter back, since a capture launches nothing; every replay

@@ -1180,3 +1180,130 @@ def test_capture_that_cannot_succeed_raises(gen, monkeypatch):
     assert "server" not in sess._graphs
     assert {k: f.launches - before[k] for k, f in ops.KERNELS.items()} == \
         {k: dev.get(f, 0) for k, f in ops.KERNELS.items()}
+
+
+def _launcher(quant, b=4, s=24, seed=0):
+    """The 4-layer model of ``_small_lm`` as the serving launcher serves
+    it (``--quant`` 0 / 8 / 4) and a seeded (b, s) prompt on the card."""
+    from repro_torch.core.quantizer import quantize_params_for_serving
+    backend = _small_lm(seed)
+    params = backend.params
+    if quant:
+        params = quantize_params_for_serving(params, quant)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompt = torch.randint(0, backend.cfg.vocab_size, (b, s), generator=g,
+                           device="cuda", dtype=torch.int32)
+    return backend.cfg, params, prompt
+
+
+@pytest.mark.parametrize("quant,temperature", [(0, 0.0), (8, 0.0),
+                                               (4, 0.0), (8, 1.0)],
+                         ids=["q0", "q8", "q4", "q8-sampled"])
+def test_launcher_graphed_bitwise_eager(gen, quant, temperature):
+    """``launch.serve.generate`` replaying its one whole-model graph
+    gives the eager call's tokens bit for bit (sampled: with generators
+    of one seed), and its last step, a replayed one, the eager step's
+    logits at the same position; 1 capture against 0."""
+    from repro_torch.launch import serve
+    cfg, params, prompt = _launcher(quant)
+    out = {}
+    for graphs in (False, True):
+        stats = {}
+        g = torch.Generator(device="cuda").manual_seed(7)
+        toks = serve.generate(params, cfg, prompt, max_len=40, gen=12,
+                              temperature=temperature, generator=g,
+                              stats=stats, graphs=graphs)
+        out[graphs] = (toks, stats)
+    (te, se), (tg, sg) = out[False], out[True]
+    assert torch.equal(te, tg)
+    assert torch.equal(se["last_logits"], sg["last_logits"])
+    assert (se["captures"], sg["captures"]) == (0, 1)
+    # the default on the card is the graph
+    stats = {}
+    serve.generate(params, cfg, prompt, max_len=40, gen=4, stats=stats)
+    assert stats["captures"] == 1
+
+
+def test_launcher_captures_do_not_grow_with_tokens(gen):
+    """A 6-token and a 64-token launcher generation each capture one
+    graph: compile once per call, replay per token."""
+    from repro_torch.launch import serve
+    cfg, params, prompt = _launcher(8)
+    counts = []
+    for n in (6, 64):
+        stats = {}
+        serve.generate(params, cfg, prompt, max_len=24 + n, gen=n,
+                       stats=stats)
+        counts.append(stats["captures"])
+    assert counts == [1, 1]
+
+
+def test_launcher_graphed_counters_equal_eager(gen):
+    """A graphed launcher ``generate`` counts the eager one's launches
+    kernel by kernel, a watched stand-in's included."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    class Watched:
+        launches = 0
+
+    watched = Watched()
+    ops.watch_counter(watched)
+    wrapped = ops.qmatmul_cuda
+
+    def counting(*args, **kwargs):
+        watched.launches += 1
+        return wrapped(*args, **kwargs)
+
+    ops.qmatmul_cuda = counting
+    try:
+        cfg, params, prompt = _launcher(8)
+        runs = []
+        for graphs in (False, True):
+            torch.cuda.synchronize()
+            before = {k: f.launches for k, f in ops.KERNELS.items()}
+            w0 = watched.launches
+            serve.generate(params, cfg, prompt, max_len=40, gen=16,
+                           graphs=graphs)
+            runs.append(({k: f.launches - before[k]
+                          for k, f in ops.KERNELS.items()},
+                         watched.launches - w0))
+    finally:
+        ops.qmatmul_cuda = wrapped
+        ops.COUNTERS.remove((watched, "launches"))
+    assert runs[0] == runs[1]
+    assert runs[0][0]["qmatmul"] == runs[0][1] > 0
+    assert runs[0][0]["decode_attention"] > 0
+
+
+def test_launcher_capture_that_cannot_succeed_raises(gen, monkeypatch):
+    """A serve step that reads the card from the host cannot be
+    captured: ``generate`` raises at its second step, nothing runs it
+    eagerly instead, and the counters hold the eager prefill's and first
+    step's launches only."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg, params, prompt = _launcher(8)
+    unembed = T._unembed
+
+    def synced(params, cfg, x):
+        float(x.float().sum())              # a host read inside the step
+        return unembed(params, cfg, x)
+
+    monkeypatch.setattr(T, "_unembed", synced)
+    counts = []
+    for graphs, n in ((False, 2), (True, 8)):
+        torch.cuda.synchronize()
+        before = {k: f.launches for k, f in ops.KERNELS.items()}
+        if graphs:
+            with pytest.raises(RuntimeError):
+                serve.generate(params, cfg, prompt, max_len=40, gen=n,
+                               graphs=True)
+        else:
+            serve.generate(params, cfg, prompt, max_len=40, gen=n,
+                           graphs=False)
+        torch.cuda.synchronize()
+        counts.append({k: f.launches - before[k]
+                       for k, f in ops.KERNELS.items()})
+    assert counts[0] == counts[1]

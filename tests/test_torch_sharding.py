@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as P
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro.configs.base import (ASSIGNED_ARCHS, INPUT_SHAPES, for_shape,
                                 get_config)
@@ -195,9 +196,9 @@ def test_batch_specs_and_pspecs_match_reference(arch, shape_name):
 @pytest.mark.parametrize("arch", ["smollm-135m", "jamba-v0.1-52b"])
 def test_build_step_args_match_reference(arch, serve):
     """``build_step``'s arguments for every shape kind, as the dry run
-    counts them: leaf for leaf the reference's, but for the decode
-    position, a host int (the last slot of a full cache) where the
-    reference has a traced int32 scalar."""
+    counts them: leaf for leaf the reference's, the decode position (a
+    fake 0-d int32 tensor, the reference's traced int32 scalar)
+    included."""
     dtype, bits = serve
     for shape_name, shape in INPUT_SHAPES.items():
         ref = j_steps.build_step(get_config(arch), shape,
@@ -208,19 +209,15 @@ def test_build_step_args_match_reference(arch, serve):
                                   serve_quant=bits)
         assert port.kind == ref.kind and port.cfg.name == ref.cfg.name
         assert port.cfg.sliding_window == ref.cfg.sliding_window
-        ref_args, port_args = ref.args, port.args
-        if port.kind == "decode":
-            assert ref_args[3].shape == () and ref_args[3].dtype == jnp.int32
-            assert port_args[3] == shape.seq_len - 1
-            ref_args, port_args = ref_args[:3], port_args[:3]
-        _same_structs(list(port_args), list(ref_args))
-        t_steps.fake_mode_of(port_args)      # one mode for every fake
+        _same_structs(list(port.args), list(ref.args))
+        mode = t_steps.fake_mode_of(port.args)
+        assert all(isinstance(t, FakeTensor) and t.fake_mode is mode
+                   for t in _port_leaves(list(port.args)).values())
 
 
 def test_param_shapes_allocate_nothing_and_carry_no_meta():
     """``param_shapes`` builds on ``meta`` and hands back fake CPU
     tensors of one mode: no ``meta`` tensor leaves it."""
-    from torch._subclasses.fake_tensor import FakeTensor
 
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
