@@ -65,7 +65,14 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (plain PyTorch: no kernel);
 7. the decode session's features on the request loop's model at a fixed
    8-bit plan at p = L/2: plain, chunked prefill, speculative decode
-   (2 and 4 drafts) and paged KV, speculative tokens bitwise plain,
+   (2 and 4 drafts) and paged KV, and at p = L plain and 4 drafts (every
+   draft accepted); each speculative run as a graphed session (its
+   rounds replayed as CUDA graphs) and its ``graphs=False`` twin in 3
+   turns, tokens/s medians and each stream's seconds split at its
+   ``round_stream`` yields (prefill, warm-up round, capture round,
+   replayed rounds, tail), the graphed stream bitwise its twin (tokens,
+   each round's drafts and verified tokens, both caches) with equal
+   launches and 2 captures; speculative tokens bitwise plain,
    ``to_dense`` bitwise the dense ring, chunked prefill within tolerance
    of the monolithic one, counters zeroed before each run;
 8. the serving launcher (``repro_torch.launch.serve``) on the same
@@ -2217,66 +2224,231 @@ def as_bits(torch, t):
                    4: torch.int32}[t.element_size()])
 
 
+SPEC_TURNS = 3
+
+
+@contextlib.contextmanager
+def stamping(sess, marks: list):
+    """Append (host clock, drafts proposed, backend captures) at every
+    yield of ``sess.round_stream`` while inside: the prefill's yield,
+    then one per decode round."""
+    inner = sess.round_stream
+
+    def stamped(prompt, n):
+        for out in inner(prompt, n):
+            marks.append((time.perf_counter(), sess.drafts_proposed,
+                          sess.backend.capture_count))
+            yield out
+
+    sess.round_stream = stamped
+    try:
+        yield marks
+    finally:
+        del sess.round_stream
+
+
+def stream_split(t0: float, marks: list, k: int, captured: int) -> dict:
+    """A stream's seconds from its ``stamping`` marks (``t0`` before
+    ``generate``, ``captured`` the capture count before it): the prefill,
+    the first round at the draft length ``k`` (the warm-up), the second
+    (with graphs, the capture), the later rounds at ``k`` (replays) and
+    the tail (rounds at a smaller k, plain steps); and which round at
+    ``k`` captured."""
+    out = {"prefill_s": marks[0][0] - t0, "first_round_s": None,
+           "second_round_s": None, "later_rounds_s": 0.0,
+           "later_rounds": 0, "later_round_ms_median": None,
+           "tail_s": 0.0, "tail_rounds": 0, "captured_in_round_at_k": None}
+    later, at_k = [], 0
+    prev = (marks[0][0], marks[0][1], captured)
+    for mark in marks[1:]:
+        dt = mark[0] - prev[0]
+        if mark[1] - prev[1] == k:
+            at_k += 1
+            if mark[2] > prev[2]:
+                out["captured_in_round_at_k"] = at_k
+            if at_k == 1:
+                out["first_round_s"] = dt
+            elif at_k == 2:
+                out["second_round_s"] = dt
+            else:
+                later.append(dt)
+        else:
+            out["tail_s"] += dt
+            out["tail_rounds"] += 1
+        prev = mark
+    if later:
+        out.update(later_rounds_s=sum(later), later_rounds=len(later),
+                   later_round_ms_median=1e3 * statistics.median(later))
+    return out
+
+
+def spec_run(torch, ops, make, prompt, gen: int, graphs: bool) -> dict:
+    """One speculative stream (a new session from ``make(graphs=)``),
+    counters zeroed before: its result, every round's drafts and verified
+    tokens (``_round_ids``' host copies), launches, captures and the
+    ``stream_split`` of its seconds."""
+    sess = make(graphs=graphs)
+    zero_counters(torch, ops)
+    captured = sess.backend.capture_count
+    with recording(sess, "_round_ids", []) as ids, \
+            stamping(sess, []) as marks:
+        t0 = time.perf_counter()
+        out = sess.generate(prompt, gen)
+    return {"sess": sess, "out": out, "ids": ids,
+            "launches": read_counters(torch, ops),
+            "captures": sess.backend.capture_count - captured,
+            "split": stream_split(t0, marks, sess.draft_tokens, captured)}
+
+
+def spec_twins_bitwise(torch, graphed: dict, eager: dict) -> dict:
+    """A graphed speculative stream against its ``graphs=False`` twin:
+    tokens, each round's drafts and verified tokens, both caches (bit
+    patterns) and launches."""
+    caches = all(
+        torch.equal(as_bits(torch, a[n]), as_bits(torch, b[n]))
+        for side in ("dev_caches", "srv_caches")
+        for a, b in zip(getattr(graphed["sess"], side) or [],
+                        getattr(eager["sess"], side) or []) for n in a)
+    return {
+        "tokens": bool(np.array_equal(graphed["out"].tokens,
+                                      eager["out"].tokens)),
+        "drafts_and_verified": len(graphed["ids"]) == len(eager["ids"])
+        and all(np.array_equal(dg, de) and np.array_equal(gg, ge)
+                for (dg, gg), (de, ge) in zip(graphed["ids"], eager["ids"])),
+        "caches": caches,
+        "launches": graphed["launches"] == eager["launches"]}
+
+
 def decode_features(torch, ops, backend, prompt, gen: int = 32,
                     chunk: int = 16, page: int = 16):
     """Chunked prefill, speculative decode and paged KV on the fixed
     8-bit plan at p = L/2 (int8 wire structs, float8 device cache), batch
     2, the request loop's 64-token prompt, ``gen`` new tokens: one session
-    each plain, chunked, drafting 2 and 4, and paged + chunked + drafting
-    2, counters zeroed before each. Speculative tokens must equal plain
-    ones bit for bit (the paged run's: the chunked run's); the paged
-    cache's ``to_dense`` must equal the dense ring bit for bit; the
-    chunked prefill's first-token logits and caches must lie within
-    tolerance of the monolithic prefill's (logits and the server's bf16
-    caches 5e-2 of the largest value, the float8 device caches two e4m3
-    steps of their top binade: the qmatmul and attention shapes change
-    with the chunk, so the sums round differently)."""
+    each plain and chunked, then each speculative run (drafting 2 and 4,
+    paged + chunked + drafting 2, and drafting 4 at p = L, where every
+    draft is accepted, beside a plain session at p = L) as a new graphed
+    session and its ``graphs=False`` twin in ``SPEC_TURNS`` turns
+    (graphed first in odd turns), counters zeroed before each. Each
+    speculative line has the medians of the turns' tokens/s and the
+    ``stream_split`` of their seconds (prefill, warm-up round, capture
+    round, replayed rounds, tail). A graphed run must equal its twin bit
+    for bit (tokens, each round's drafts and verified tokens, both
+    caches) with the same launches, and capture 2 graphs, in its second
+    round at the draft length. Speculative tokens must equal plain ones
+    bit for bit (the paged run's: the chunked run's); the paged cache's
+    ``to_dense`` must equal the dense ring bit for bit; the chunked
+    prefill's first-token logits and caches must lie within tolerance of
+    the monolithic prefill's (logits and the server's bf16 caches 5e-2 of
+    the largest value, the float8 device caches two e4m3 steps of their
+    top binade: the qmatmul and attention shapes change with the chunk,
+    so the sums round differently). Returns the launches of each run's
+    (first) graphed session."""
     from repro_torch.core.solver import PartitionPlan
     from repro_torch.serving.decode import DecodeSession
     from repro_torch.serving.decode.cache import segment_cache_bytes
     cfg = backend.cfg
     L = cfg.num_layers
+
+    def plan_at(p):
+        return PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
+                             objective=0.0, psi_total=0.0, payload_bits=0.0,
+                             breakdown={})
+
     p = L // 2
-    plan = PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
-                         objective=0.0, psi_total=0.0, payload_bits=0.0,
-                         breakdown={})
-    seg = backend.split(plan)
+    plan, plan_l = plan_at(p), plan_at(L)
+    segs = {p: backend.split(plan), L: backend.split(plan_l)}
     max_len = backend.decode_max_len
-    knobs = {"decode_plain": {},
-             f"decode_chunk{chunk}": dict(prefill_chunk_tokens=chunk),
-             "decode_draft2": dict(draft_tokens=2),
-             "decode_draft4": dict(draft_tokens=4),
-             "decode_paged": dict(paged=True, page_tokens=page,
-                                  prefill_chunk_tokens=chunk,
-                                  draft_tokens=2)}
-    runs, outs, sessions = {}, {}, {}
-    for name, kw in knobs.items():
-        sess = DecodeSession(backend, plan, max_len=max_len, segment=seg,
-                             **kw)
-        zero_counters(torch, ops)
-        out = sess.generate(prompt, gen)
-        runs[name] = read_counters(torch, ops)
+    knobs = {"decode_plain": (plan, {}),
+             f"decode_chunk{chunk}": (plan, dict(prefill_chunk_tokens=chunk)),
+             "decode_draft2": (plan, dict(draft_tokens=2)),
+             "decode_draft4": (plan, dict(draft_tokens=4)),
+             "decode_paged": (plan, dict(paged=True, page_tokens=page,
+                                         prefill_chunk_tokens=chunk,
+                                         draft_tokens=2)),
+             "decode_plain_pL": (plan_l, {}),
+             "decode_draft4_pL": (plan_l, dict(draft_tokens=4))}
+    runs, outs, sessions, twins, captures = {}, {}, {}, {}, {}
+    for name, (pl, kw) in knobs.items():
+        def make(graphs=None, pl=pl, kw=kw):
+            return DecodeSession(backend, pl, max_len=max_len,
+                                 segment=segs[pl.p], graphs=graphs, **kw)
+        spec = kw.get("draft_tokens", 0) > 0
+        turns = {True: [], False: []}
+        for turn in range(SPEC_TURNS if spec else 1):
+            order = (True, False) if turn % 2 == 0 else (False, True)
+            done = {g: spec_run(torch, ops, make, prompt, gen, g)
+                    for g in (order if spec else (True,))}
+            for g, r in done.items():
+                turns[g].append(r)
+            if spec:
+                same = spec_twins_bitwise(torch, done[True], done[False])
+                twins.setdefault(name, []).append(same)
+                captures.setdefault(name, []).append(done[True]["captures"])
+                emit({"decode_feature_turn": {
+                    "run": name, "turn": turn, "order": [
+                        "graphed" if g else "eager" for g in order],
+                    "bitwise": same, **{
+                        "graphed" if g else "eager": {
+                            "tokens_per_s": r["out"].tokens_per_s,
+                            "captures": r["captures"], **r["split"]}
+                        for g, r in done.items()}}})
+                if not (all(same.values()) and done[True]["captures"] == 2
+                        and done[False]["captures"] == 0
+                        and done[True]["split"]["captured_in_round_at_k"]
+                        == 2):
+                    raise AssertionError(
+                        f"{name} turn {turn}: the graphed speculative "
+                        f"stream is not its eager twin's: {same}, "
+                        f"captures {done[True]['captures']} / "
+                        f"{done[False]['captures']}, split "
+                        f"{done[True]['split']}")
+            del done
+        first = turns[True][0]
+        sess, out = first["sess"], first["out"]
+        runs[name] = first["launches"]
         outs[name], sessions[name] = out, sess
-        dense_bytes = segment_cache_bytes(cfg, sess.dev_caches, 0, p)
-        emit({"decode_feature": {
-            "run": name, "p": p, "bits": 8, "batch": int(prompt.shape[0]),
-            "prompt": int(prompt.shape[1]), "new_tokens": out.new_tokens,
-            "ttft_s": out.ttft_s, "tokens_per_s": out.tokens_per_s,
-            "t_device_s": out.t_device_s, "t_server_s": out.t_server_s,
-            "rounds": out.rounds, "draft_tokens": out.draft_tokens,
-            "accept_rate": out.accept_rate,
-            "prefill_chunks": out.prefill_chunks,
-            "held_pages": sess.paged_kv.held_pages if sess.paged_kv else None,
-            "device_cache_bytes": out.device_cache_bytes,
-            "dense_reservation_bytes": dense_bytes,
-            "device_cache_dtype": out.device_cache_dtype,
-            "launches": runs[name]}})
+        dense_bytes = segment_cache_bytes(cfg, sess.dev_caches, 0, pl.p)
+        rec = {"run": name, "p": pl.p, "bits": 8,
+               "batch": int(prompt.shape[0]),
+               "prompt": int(prompt.shape[1]), "new_tokens": out.new_tokens,
+               "ttft_s": out.ttft_s, "tokens_per_s": out.tokens_per_s,
+               "t_device_s": out.t_device_s, "t_server_s": out.t_server_s,
+               "rounds": out.rounds, "draft_tokens": out.draft_tokens,
+               "accept_rate": out.accept_rate,
+               "prefill_chunks": out.prefill_chunks,
+               "held_pages": (sess.paged_kv.held_pages if sess.paged_kv
+                              else None),
+               "device_cache_bytes": out.device_cache_bytes,
+               "dense_reservation_bytes": dense_bytes,
+               "device_cache_dtype": out.device_cache_dtype,
+               "graphs": sess.graphs, "captures": first["captures"],
+               "split": first["split"], "launches": runs[name]}
+        if spec:
+            rec["turns"] = SPEC_TURNS
+            rec["tokens_per_s_median"] = {
+                "graphed" if g else "eager": statistics.median(
+                    r["out"].tokens_per_s for r in turns[g])
+                for g in (True, False)}
+            rec["split_median"] = {
+                "graphed" if g else "eager": {
+                    key: statistics.median(r["split"][key] for r in turns[g])
+                    for key in ("prefill_s", "first_round_s",
+                                "second_round_s", "later_rounds_s",
+                                "later_round_ms_median", "tail_s")
+                    if all(r["split"][key] is not None for r in turns[g])}
+                for g in (True, False)}
+        emit({"decode_feature": rec})
+        del turns, first
     plain = outs["decode_plain"].tokens
     chunked = outs[f"decode_chunk{chunk}"].tokens
-    for name in ("decode_draft2", "decode_draft4"):
-        if not np.array_equal(outs[name].tokens, plain):
+    for name, want in (("decode_draft2", plain), ("decode_draft4", plain),
+                       ("decode_draft4_pL", outs["decode_plain_pL"].tokens)):
+        if not np.array_equal(outs[name].tokens, want):
             raise AssertionError(f"{name}: speculative tokens differ from "
                                  "plain greedy")
+    if outs["decode_draft4_pL"].accept_rate != 1.0:
+        raise AssertionError("drafting at p = L: acceptance "
+                             f"{outs['decode_draft4_pL'].accept_rate}, not 1")
     if not np.array_equal(outs["decode_paged"].tokens, chunked):
         raise AssertionError("paged + chunked + draft 2: tokens differ from "
                              "the chunked plain session's")
@@ -2295,7 +2467,8 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
     cmp = {}
     for name, kw in (("mono", {}), ("chunked",
                                     dict(prefill_chunk_tokens=chunk))):
-        s = DecodeSession(backend, plan, max_len=max_len, segment=seg, **kw)
+        s = DecodeSession(backend, plan, max_len=max_len, segment=segs[p],
+                          **kw)
         with recording(backend, "hidden_logits", []) as seen:
             s.prefill(prompt)
         cmp[name] = (seen[-1].float(), s)
@@ -2319,6 +2492,10 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
     same_tokens = int((chunked == plain).sum())
     emit({"decode_feature_checks": {
         "speculative_bitwise_plain": True,
+        "speculative_graphed_bitwise_eager": {
+            name: all(all(t.values()) for t in ts)
+            for name, ts in twins.items()},
+        "captures_per_stream": captures,
         "paged_tokens_bitwise_chunked": True,
         "paged_to_dense_bitwise": paged_same,
         "paged_owned_slices_bitwise": owned_same,
@@ -3729,7 +3906,8 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
             **{run: ("qmatmul", "qmatmul_tiled", "decode_attention")
                for run in ("decode_plain", "decode_chunk16",
                            "decode_draft2", "decode_draft4",
-                           "decode_paged")},
+                           "decode_paged", "decode_plain_pL",
+                           "decode_draft4_pL")},
             "launch_q0": ("decode_attention", "flash_attention"),
             "launch_q8": ("quantize", "qmatmul", "qmatmul_tiled",
                           "dequantize", "decode_attention",

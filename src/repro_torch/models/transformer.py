@@ -447,12 +447,15 @@ def segment_decode_step(params, cfg: ModelConfig, x, caches, pos,
     return x, caches
 
 
-def segment_verify(params, cfg: ModelConfig, xs, caches, pos0: int,
+def segment_verify(params, cfg: ModelConfig, xs, caches, pos0,
                    start: int, stop: int):
     """Speculative-decode verification: run the ``s`` hidden rows ``xs``
     (B, S, D) — the cut-point activations of a drafted token batch at
     positions ``pos0 .. pos0 + s - 1`` — through blocks ``[start, stop)``
-    and unembed EVERY row. Returns ``(logits (B, S, V), caches)``.
+    and unembed EVERY row. ``pos0`` is a host int or a 0-d integer
+    tensor on the device, whose row positions ``pos0 + j`` are computed
+    there (a CUDA graph of the round serves every round start). Returns
+    ``(logits (B, S, V), caches)``.
 
     The rows run one at a time through the EXACT ``segment_decode_step``
     + unembed of a plain decode step, so each row's logits are bitwise

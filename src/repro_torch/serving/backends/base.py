@@ -20,7 +20,8 @@ Conventions shared by all backends:
 The reference's compile-once cache (``jitted`` / ``trace_count``) has
 its counterpart in the decode sessions' CUDA graphs
 (``serving.decode.graphs``), counted by ``capture_count``: captured once
-per stream and stage and replayed for every token. Unlike a jitted
+per stream and stage (plain step or speculative round) and replayed for
+every token or round. Unlike a jitted
 program, a graph bakes in tensor addresses and segment bounds, so each
 new stream captures its own; the rest of the forward family runs
 eagerly.
@@ -59,9 +60,11 @@ class ModelBackend(abc.ABC):
     @property
     def capture_count(self) -> int:
         """CUDA graphs captured for this backend's decode sessions — the
-        counterpart of the reference's ``trace_count``: at most 2 per
-        stream whatever its number of tokens, 0 on the CPU. Kept in
-        ``__dict__`` so the dataclass backends need not declare it."""
+        counterpart of the reference's ``trace_count``: whatever a
+        stream's number of tokens, at most 2 for its plain steps and 2
+        for its speculative rounds (so at most 2 for a plain stream, 4
+        for a speculative one), 0 on the CPU. Kept in ``__dict__`` so
+        the dataclass backends need not declare it."""
         return self.__dict__.get("_capture_count", 0)
 
     def count_capture(self) -> None:

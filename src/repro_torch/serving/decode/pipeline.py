@@ -22,9 +22,10 @@ wraps) and take neither chunking nor speculation.
 On a CUDA backend the device segment runs from quantized wire structs
 through the qmatmul/qmatmul4 kernels by default (``qkernels``), and
 every decode step's attention through the decode-attention kernel.
-Plain decode steps keep their position on the device and, after the
-stream's first step, replay CUDA graphs of their two stages
-(``graphs``, the reference's compile-once decode programs; see
+Plain decode steps and speculative rounds keep their position on the
+device and, after the stream's first step / first round at its draft
+length, replay CUDA graphs of their two stages (``graphs``, the
+reference's compile-once decode programs; see
 ``serving.decode.graphs``). Stage boundaries are fenced with
 ``torch.cuda.synchronize`` so the wall-clock stage seconds measure
 finished work.
@@ -50,6 +51,11 @@ from repro_torch.serving.decode.cache import (DEFAULT_PAGE_TOKENS,
                                               segment_page_pool)
 from repro_torch.serving.decode.graphs import StageGraph
 from repro_torch.serving.errors import ServingError
+
+
+# the second stage of each graphed pair -> the first, whose memory pool
+# it shares and whose output it reads
+_FIRST_STAGE = {"server": "device", "spec_server": "spec_device"}
 
 
 def _fence(t):
@@ -116,8 +122,9 @@ class DecodeSession:
     paged sessions (default: a pool of this stream's worst case).
     ``graphs`` (default: on when the backend lives on CUDA) replays the
     plain decode step's stages as CUDA graphs after the stream's first
-    step; off, a CUDA session steps eagerly through the same code. CPU
-    sessions step eagerly."""
+    step, and a speculative round's after the stream's first round at
+    ``draft_tokens``; off, a CUDA session steps eagerly through the same
+    code. CPU sessions step eagerly."""
 
     def __init__(self, backend, plan, *, max_len: int,
                  segment=None, qkernels: Optional[bool] = None,
@@ -199,7 +206,8 @@ class DecodeSession:
             self.prefill_chunk_tokens = c
         self.pos = 0
         # the decode position on the device, filled from ``pos`` before
-        # each plain step: ``pos`` stays the one source of truth
+        # each plain step and speculative round: ``pos`` stays the one
+        # source of truth
         self._pos_t = torch.zeros((), dtype=torch.int64, device=self.device)
         self.graphs = self.device.type == "cuda" if graphs is None \
             else bool(graphs)
@@ -208,6 +216,7 @@ class DecodeSession:
                                f"{self.device}")
         self._graphs = {}          # stage name -> StageGraph, per stream
         self._plain_steps = 0      # plain decode steps of this stream
+        self._spec_rounds = 0      # its speculative rounds at draft_tokens
         # (B, V) of the last plain step; on a graphed step the server
         # graph's output buffer, which the next replay overwrites
         self.last_logits = None
@@ -301,7 +310,7 @@ class DecodeSession:
         prompt = to_device(prompt, self.device, torch.int32)
         b, s = prompt.shape
         # a new stream: new caches, so graphs of an earlier one are stale
-        self._graphs, self._plain_steps = {}, 0
+        self._graphs, self._plain_steps, self._spec_rounds = {}, 0, 0
         if s + 1 > self.max_len:
             raise ServingError(
                 f"prompt ({s}) leaves no room in max_len={self.max_len}")
@@ -400,19 +409,25 @@ class DecodeSession:
         logits = self.backend.hidden_logits(x)
         return logits, torch.argmax(logits, -1).to(torch.int32)
 
-    def _stage(self, name: str, fn, x):
-        """Run stage ``fn`` on ``x``: eagerly without graphs and on the
-        stream's first step (the warm-up); else replay its graph,
-        captured here on first use. The server stage reads the device
-        stage's output where it lies, in the device graph's pool."""
-        if not self.graphs or self._plain_steps == 0:
+    def _stage(self, name: str, fn, x, eager: bool):
+        """Run stage ``fn`` on ``x``: eagerly if ``eager`` (no graphs, the
+        stream's warm-up, a speculative tail round); else replay its
+        graph, captured here on first use. The second stage of a pair
+        (``server`` after ``device``, ``spec_server`` after
+        ``spec_device``) shares the first's memory pool, so the pair
+        replays in capture order, and reads the first's output where it
+        lies in that pool. Each pair has a pool of its own: a stream may
+        mix speculative rounds with a plain tail step."""
+        if eager:
             return fn(x)
         graph = self._graphs.get(name)
         if graph is None:
-            dev = self._graphs.get("device")
-            static = x if dev is not None and x is dev.outputs else x.clone()
+            first = self._graphs.get(_FIRST_STAGE.get(name))
+            outs = () if first is None else first.outputs
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            static = x if any(x is o for o in outs) else x.clone()
             graph = StageGraph(fn, (static,),
-                               pool=dev.graph.pool() if dev else None)
+                               pool=first.graph.pool() if first else None)
             self._graphs[name] = graph
             self.backend.count_capture()
         return graph.replay(x)
@@ -427,12 +442,14 @@ class DecodeSession:
         self._pos_t.fill_(self.pos)
         t0 = time.perf_counter()
         x = tok
+        eager = not self.graphs or self._plain_steps == 0
         if self.p > 0:
-            x = _fence(self._stage("device", self._device_stage, tok))
+            x = _fence(self._stage("device", self._device_stage, tok, eager))
             if self.paged_kv is not None:
                 self.paged_kv.append_step(self.dev_caches, self.pos)
         t1 = time.perf_counter()
-        self.last_logits, nxt = self._stage("server", self._server_stage, x)
+        self.last_logits, nxt = self._stage("server", self._server_stage, x,
+                                            eager)
         nxt = _fence(nxt.clone())
         t2 = time.perf_counter()
         self.t_device_s += t1 - t0
@@ -440,6 +457,49 @@ class DecodeSession:
         self._plain_steps += 1
         self.pos += 1
         return nxt
+
+    def _spec_device(self, cur, k: int, pos):
+        """The round's device stage from its round start ``pos`` (a host
+        int or a 0-d integer tensor on the device, never read on the
+        host): for j = 0..k embed ``cur`` (B, 1), blocks ``[0, p)`` at
+        ``pos + j``, the quantized hop; for j < k the draft head's argmax
+        becomes the next ``cur``. At p == 0 the embeds and draft heads
+        alone. Returns (hh (B, k+1, D), drafts (B, k) int32)."""
+        qs, drafts = [], []
+        for j in range(k + 1):
+            if self.p > 0:
+                x = self.backend.embed(cur, params=self.dev_params)
+                x_dev, self.dev_caches = self.backend.decode_segment(
+                    x, self.dev_caches, pos + j, 0, self.p,
+                    params=self.dev_params)
+                q = self._quant_hop(x_dev)
+            else:
+                q = self.backend.embed(cur)
+            qs.append(q)
+            if j < k:
+                d = torch.argmax(
+                    self.backend.hidden_logits(q, params=self.dev_params),
+                    -1).to(torch.int32)
+                drafts.append(d)
+                cur = d.reshape(-1, 1)
+        return torch.cat(qs, dim=1), torch.stack(drafts, dim=1)
+
+    def _spec_server(self, hh, pos):
+        """The round's server stage: verify the k+1 rows of ``hh`` from
+        the round start ``pos`` through blocks ``[p, L)`` -> the verified
+        greedy tokens g (B, k+1) int32."""
+        logits, self.srv_caches = self.backend.verify_segment(
+            hh, self.srv_caches, pos, self.p, self.L)
+        return torch.argmax(logits, -1).to(torch.int32)
+
+    @staticmethod
+    def _round_ids(drafts, g):
+        """The round's drafts (B, k) and verified tokens (B, k+1) on the
+        host, in one copy off the card (before a replay overwrites
+        them)."""
+        k = drafts.shape[1]
+        ids = torch.cat([drafts, g], dim=1).cpu().numpy()
+        return ids[:, :k], ids[:, k:]
 
     def _spec_round(self, token, k: int) -> List[np.ndarray]:
         """One speculative round: draft ``k`` tokens through the device
@@ -452,39 +512,33 @@ class DecodeSession:
         planned bit-widths is the draft model (at p == L the full model,
         so acceptance is exactly 1). No cache rollback on rejection: every
         slot past the acceptance point is rewritten by a later round
-        before any query attends it (slot == position)."""
+        before any query attends it (slot == position).
+
+        Both stages run from the device position; with graphs, the
+        stream's first round at ``draft_tokens`` runs eagerly, the next
+        captures both stages, later ones replay them; a round at a
+        smaller k (the stream's last) runs eagerly."""
         P = self.pos
         t0 = time.perf_counter()
         cur = to_device(token, self.device, torch.int32).reshape(-1, 1)
-        qs, drafts = [], []
-        for j in range(k + 1):
-            if self.p > 0:
-                x = self.backend.embed(cur, params=self.dev_params)
-                x_dev, self.dev_caches = self.backend.decode_segment(
-                    x, self.dev_caches, P + j, 0, self.p,
-                    params=self.dev_params)
-                q = self._quant_hop(x_dev)
-            else:
-                q = self.backend.embed(cur)
-            qs.append(q)
-            if j < k:
-                d = torch.argmax(
-                    self.backend.hidden_logits(q, params=self.dev_params),
-                    -1).to(torch.int32)
-                drafts.append(d)
-                cur = d.reshape(-1, 1)
-        hh = _fence(torch.cat(qs, dim=1))           # (B, k+1, D)
+        self._pos_t.fill_(P)
+        eager = (not self.graphs or k != self.draft_tokens
+                 or self._spec_rounds == 0)
+        hh, drafts = self._stage(
+            "spec_device", lambda c: self._spec_device(c, k, self._pos_t),
+            cur, eager)
+        _fence(hh)
         if self.paged_kv is not None:
             self.paged_kv.ingest_range(self.dev_caches, P, P + k + 1)
         t1 = time.perf_counter()
-        logits, self.srv_caches = self.backend.verify_segment(
-            hh, self.srv_caches, P, self.p, self.L)
-        g = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+        g = self._stage("spec_server",
+                        lambda h: self._spec_server(h, self._pos_t), hh,
+                        eager)
+        d_np, g = self._round_ids(drafts, g)
         t2 = time.perf_counter()
         # acceptance = longest prefix where every batch row's draft
         # matches the verified greedy token (min over rows keeps all rows
         # on their true greedy trajectory)
-        d_np = torch.stack(drafts, dim=1).cpu().numpy()     # (B, k)
         a = k
         for i in range(k):
             if not np.array_equal(d_np[:, i], g[:, i]):
@@ -497,6 +551,7 @@ class DecodeSession:
         self.t_server_s += t2 - t1
         self.drafts_proposed += k
         self.drafts_accepted += a
+        self._spec_rounds += k == self.draft_tokens
         self.pos = P + a + 1
         return [g[:, i] for i in range(a + 1)]
 

@@ -26,7 +26,11 @@ decode step's CUDA graphs: decode attention reading its position on the
 card bitwise the host-int launch, graphed sessions bitwise eager ones
 (tokens and logits) at three cuts, at most 2 captures per stream
 whatever its length, launch counters advanced by replays as by eager
-steps, and a capture that cannot succeed raising.
+steps, and a capture that cannot succeed raising. The speculative
+round's graphs: graphed speculative sessions bitwise their eager twins
+(tokens, each round's drafts and verified tokens, both caches, launches)
+at four cuts and three draft lengths, paged and on a reduced OLMoE, 2
+captures per stream whatever its length.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
@@ -1180,6 +1184,120 @@ def test_capture_that_cannot_succeed_raises(gen, monkeypatch):
     assert "server" not in sess._graphs
     assert {k: f.launches - before[k] for k, f in ops.KERNELS.items()} == \
         {k: dev.get(f, 0) for k, f in ops.KERNELS.items()}
+
+
+def _small_moe(seed=0):
+    """OLMoE-1B-7B at ``.reduced()`` (2 layers, 4 experts top-2, bf16) on
+    the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import TransformerBackend
+    cfg = get_config("olmoe-1b-7b").reduced()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    return TransformerBackend(cfg, params, seq_len=32, decode_max_len=96)
+
+
+def _spec_twins(backend, plan, k, n=16, **kw):
+    """A speculative session run eagerly (``graphs=False``) and graphed on
+    one prompt: per session its result, every round's drafts and verified
+    tokens (``_round_ids``' host copies), launches per kernel and
+    captures."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.decode import DecodeSession
+    prompt = _prompt()
+    runs = []
+    for graphs in (False, True):
+        sess = DecodeSession(backend, plan, max_len=96, draft_tokens=k,
+                             graphs=graphs, **kw)
+        seen, ids = [], sess._round_ids
+        sess._round_ids = lambda d, g: seen.append(ids(d, g)) or seen[-1]
+        torch.cuda.synchronize()
+        before = {name: f.launches for name, f in ops.KERNELS.items()}
+        captured = backend.capture_count
+        out = sess.generate(prompt, n)
+        torch.cuda.synchronize()
+        runs.append({"sess": sess, "out": out, "rounds": seen,
+                     "launches": {name: f.launches - before[name]
+                                  for name, f in ops.KERNELS.items()},
+                     "captures": backend.capture_count - captured})
+    return runs
+
+
+def _assert_twins_bitwise(eager, graphed, k):
+    """Tokens, each round's drafts and verified tokens, both caches and
+    the launches of the graphed session equal its eager twin's; the
+    graphed stream captured its two round stages, the eager none."""
+    import numpy as np
+    assert np.array_equal(graphed["out"].tokens, eager["out"].tokens)
+    assert len(graphed["rounds"]) == len(eager["rounds"])
+    for (dg, gg), (de, ge) in zip(graphed["rounds"], eager["rounds"]):
+        assert np.array_equal(dg, de) and np.array_equal(gg, ge)
+    for side in ("dev_caches", "srv_caches"):
+        a, b = getattr(graphed["sess"], side), getattr(eager["sess"], side)
+        if a is not None:
+            assert all(torch.equal(_bits(x[n]), _bits(y[n]))
+                       for x, y in zip(a, b) for n in x), side
+    assert graphed["launches"] == eager["launches"]
+    at_k = sum(d.shape[1] == k for d, _ in graphed["rounds"])
+    assert eager["captures"] == 0
+    assert graphed["captures"] == (2 if at_k >= 2 else 0)
+    assert graphed["sess"]._spec_rounds == at_k
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("p", [0, 1, 2, 4])
+def test_graphed_speculative_bitwise_eager(gen, p, k):
+    """At p = 0, 1, L/2 and L of the 4-layer model (int8 wire structs,
+    float8 device cache) and k = 1, 2, 3: the graphed speculative
+    session (its rounds at k replayed from the second on) gives its
+    ``graphs=False`` twin's tokens, drafts and verified tokens per round,
+    both caches bit for bit and the same launches, with 2 captures; at p
+    = L every draft is accepted."""
+    eager, graphed = _spec_twins(_small_lm(), _plan(p), k)
+    _assert_twins_bitwise(eager, graphed, k)
+    if p == 4:
+        assert graphed["out"].accept_rate == 1.0
+
+
+@pytest.mark.parametrize("case", ["paged", "moe"])
+def test_graphed_speculative_paged_and_moe(gen, case):
+    """Paged KV (8-token pages, chunked prefill, draft 2; the pages
+    ingested between the two stages, ``to_dense`` bitwise the ring) and
+    a reduced OLMoE (MoE blocks in the captured rounds, draft 3, p = 1):
+    the graphed session bitwise its eager twin, and both plain greedy."""
+    import numpy as np
+    from repro_torch.serving.decode import DecodeSession
+    if case == "paged":
+        backend, p, k = _small_lm(), 2, 2
+        kw = dict(paged=True, page_tokens=8, prefill_chunk_tokens=8)
+    else:
+        backend, p, k, kw = _small_moe(), 1, 3, {}
+    eager, graphed = _spec_twins(backend, _plan(p), k, n=20, **kw)
+    _assert_twins_bitwise(eager, graphed, k)
+    if case == "paged":
+        sess = graphed["sess"]
+        rebuilt = sess.paged_kv.to_dense(sess.dev_caches)
+        assert all(torch.equal(_bits(a[n]), _bits(b[n]))
+                   for a, b in zip(rebuilt, sess.dev_caches) for n in a)
+        assert sess.paged_kv.held_pages == eager["sess"].paged_kv.held_pages
+    plain = DecodeSession(backend, _plan(p), max_len=96,
+                          **kw).generate(_prompt(), 20)
+    assert np.array_equal(graphed["out"].tokens, plain.tokens)
+
+
+def test_speculative_captures_do_not_grow_with_tokens(gen):
+    """A speculative stream of 8 and of 64 tokens captures 2 graphs each
+    (its two round stages), and replays advance the launch counters as
+    eager rounds do."""
+    backend, plan = _small_lm(), _plan(2)
+    counts = []
+    for n in (8, 64):
+        eager, graphed = _spec_twins(backend, plan, 2, n=n)
+        assert graphed["launches"] == eager["launches"]
+        assert graphed["launches"]["decode_attention"] > 0
+        counts.append(graphed["captures"])
+    assert counts == [2, 2]
 
 
 def _launcher(quant, b=4, s=24, seed=0):
