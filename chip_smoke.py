@@ -67,14 +67,22 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    8-bit plan at p = L/2: plain, chunked prefill, speculative decode
    (2 and 4 drafts) and paged KV, and at p = L plain and 4 drafts (every
    draft accepted); each speculative run as a graphed session (its
-   rounds replayed as CUDA graphs) and its ``graphs=False`` twin in 3
-   turns, tokens/s medians and each stream's seconds split at its
-   ``round_stream`` yields (prefill, warm-up round, capture round,
-   replayed rounds, tail), the graphed stream bitwise its twin (tokens,
-   each round's drafts and verified tokens, both caches) with equal
-   launches and 2 captures; speculative tokens bitwise plain,
-   ``to_dense`` bitwise the dense ring, chunked prefill within tolerance
-   of the monolithic one, counters zeroed before each run;
+   prefill chunks and rounds replayed as the backend's CUDA graphs) and
+   its ``graphs=False`` twin in 3 turns, tokens/s medians and each
+   stream's seconds split at its ``round_stream`` yields (prefill, first
+   round at k, second, later rounds, tail), the graphed stream bitwise
+   its twin (tokens, each round's drafts and verified tokens, both
+   caches) with equal launches, capturing exactly the stage keys no
+   earlier stream ran; speculative tokens bitwise plain, ``to_dense``
+   bitwise the dense ring, chunked prefill within tolerance of the
+   monolithic one, counters zeroed before each run; then the request
+   series: QPART's request loop (``Deployment.generate``, a fresh
+   session per request) on one backend, 4 requests each plain, chunked
+   by 16, drafting 2 and 4, then 48-token requests and two concurrent
+   sessions, each request bitwise its ``graphs=False`` twin with equal
+   launches, from the second request of a shape on capturing nothing;
+   one line per request (TTFT, tokens/s, captures, the split, peak
+   memory);
 8. the serving launcher (``repro_torch.launch.serve``) on the same
    full-width model, batch 4, 64-token prompts, 32 new tokens, once each
    at --quant 0, 8 and 4, its decode step replayed as one whole-model
@@ -166,7 +174,8 @@ shape (with SDPA's backward beside them and a digest of the float32
 route's output bits) and profiles smollm-135m's train step and
 ``launch.train``; ``--profile-decode-attention`` only times decode
 attention at the request loop's, the launcher's and a 2048-slot ring,
-host-int and device-position launches. ``--src`` imports the port
+host-int and device-position launches; ``--profile-requests`` only
+times the request series (twice, without twins). ``--src`` imports the port
 from another tree, so
 that an earlier commit unpacked by ``git archive`` can be profiled in
 the same call as this one.
@@ -1505,8 +1514,9 @@ def profile_decode(torch, dep, prompt, steps: int = 4, turns: int = 5):
     """The served deployment's decode step, eager and replayed as CUDA
     graphs, on ONE session in turns (eager, graphed, eager, ...):
     ``profile_steps`` over ``steps`` steps and the wall ms of ``steps``
-    unprofiled steps, ``turns`` times each, after the prefill, the eager
-    first step and the step that captures; then ``generate`` of 32
+    unprofiled steps, ``turns`` times each, after the prefill and two
+    steps (a key's first use runs eagerly and captures); then
+    ``generate`` of 32
     tokens on fresh sessions, eager and graphed in turns, for tokens/s.
     One ``decode_step_profile`` line with the medians of both (wall ms,
     device-busy ms, idle share per step, unprofiled wall ms) and every
@@ -1568,19 +1578,24 @@ GRAPH_CUTS = (0, 15, 30)
 
 
 def graph_phase(torch, ops, backend, prompt, gen: int = 32) -> dict:
-    """The request loop's decode step replayed as CUDA graphs against the
-    same step run eagerly, on smollm-135m at full width at p in
-    ``GRAPH_CUTS`` (8-bit plans: int8 wire structs and a float8 device
-    cache past p = 0), batch 2, the request loop's 64-token prompt. A
-    graphed and an eager ``generate`` of ``gen`` tokens give the same
-    tokens bit for bit and the same launches kernel by kernel (replays
-    advance the counters, ``read_counters`` holds the shape logs to
-    them); stepped side by side, the graphed session's logits (the server
-    graph's static output) equal the eager session's at every step; a
-    session captures at most 2 graphs, as many for 6 tokens as for
-    ``gen``. Returns the graphed runs' launches."""
+    """The request loop's prefill and decode step replayed as CUDA graphs
+    against the same stages run eagerly, on smollm-135m at full width at
+    p in ``GRAPH_CUTS`` (8-bit plans: int8 wire structs and a float8
+    device cache past p = 0), batch 2, the request loop's 64-token
+    prompt, on a copy of the backend with no graph yet. A graphed and an
+    eager ``generate`` of ``gen`` tokens give the same tokens bit for
+    bit and the same launches kernel by kernel (replays advance the
+    counters, ``read_counters`` holds the shape logs to them). A key's
+    first use runs eagerly and its second captures: the first graphed
+    session captures the step's stages (the device stage's and the
+    server's; at p = 0 the server's alone), a second one of 6 tokens the
+    prefill chunk's (no device stage at p = 0, no server stage at p = L),
+    a third none; stepped side by side, the third session's logits (the
+    server graph's static output) equal the eager session's at every
+    step. Returns the graphed runs' launches."""
     from repro_torch.core.solver import PartitionPlan
     from repro_torch.serving.decode import DecodeSession
+    backend = dataclasses.replace(backend)       # no stage graph yet
     runs = {}
     for p in GRAPH_CUTS:
         plan = PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
@@ -1592,29 +1607,40 @@ def graph_phase(torch, ops, backend, prompt, gen: int = 32) -> dict:
             return DecodeSession(backend, plan, segment=seg,
                                  max_len=backend.decode_max_len, **kw)
 
-        out, launches, captures = {}, {}, {}
+        out, launches, captures, keys = {}, {}, {}, {}
+        uses, want = collections.Counter(), []
         for graphs in (False, True):
             zero_counters(torch, ops)
             before = backend.capture_count
-            out[graphs] = session(graphs=graphs).generate(prompt, gen)
+            sess = session(graphs=graphs)
+            out[graphs] = sess.generate(prompt, gen)
             launches[graphs] = read_counters(torch, ops)
             captures[graphs] = backend.capture_count - before
+            keys[graphs] = len(sess.graph_keys)
+        want.append(len(second_uses(uses, sess)))
         before = backend.capture_count
-        session().generate(prompt, 6)
+        sess = session()
+        sess.generate(prompt, 6)
         captures_6 = backend.capture_count - before
+        want.append(len(second_uses(uses, sess)))
         eager, graphed = session(graphs=False), session()
+        before = backend.capture_count
         te, tg = eager.prefill(prompt), graphed.prefill(prompt)
         same_steps = []
         for _ in range(4):
             te, tg = eager.step(te), graphed.step(tg)
             same_steps.append(bool(torch.equal(te, tg)) and bool(
                 torch.equal(eager.last_logits, graphed.last_logits)))
+        captures_3 = backend.capture_count - before
+        graphed.sever()          # the next cut's sessions take its slots
         rec = {"p": p, "new_tokens": gen,
                "tokens_bitwise": bool(np.array_equal(out[True].tokens,
                                                      out[False].tokens)),
                "step_logits_bitwise": same_steps,
                "launches_equal": launches[True] == launches[False],
-               "captures": captures[True], "captures_6_tokens": captures_6,
+               "captures": captures[True], "stage_keys": keys[True],
+               "captures_6_tokens": captures_6,
+               "captures_third_session": captures_3,
                "captures_eager": captures[False],
                "tokens_per_s": {"eager": out[False].tokens_per_s,
                                 "graphed": out[True].tokens_per_s},
@@ -1622,8 +1648,11 @@ def graph_phase(torch, ops, backend, prompt, gen: int = 32) -> dict:
         emit({"graph_session": rec})
         if not (rec["tokens_bitwise"] and all(same_steps)
                 and rec["launches_equal"]
-                and captures[True] == captures_6 == (2 if p else 1)
-                and captures[False] == 0):
+                and [captures[True], captures_6] == want
+                and captures[True] == {0: 1}.get(p, 2)
+                and keys[True] == {0: 2, backend.num_layers: 3}.get(p, 4)
+                and captures[True] + captures_6 == keys[True]
+                and captures_3 == captures[False] == keys[False] == 0):
             raise AssertionError(f"graphed decode at p = {p} is not the "
                                  f"eager step's: {rec}")
         runs[f"graphs_p{p}"] = launches[True]
@@ -2250,10 +2279,11 @@ def stamping(sess, marks: list):
 def stream_split(t0: float, marks: list, k: int, captured: int) -> dict:
     """A stream's seconds from its ``stamping`` marks (``t0`` before
     ``generate``, ``captured`` the capture count before it): the prefill,
-    the first round at the draft length ``k`` (the warm-up), the second
-    (with graphs, the capture), the later rounds at ``k`` (replays) and
-    the tail (rounds at a smaller k, plain steps); and which round at
-    ``k`` captured."""
+    the first round at the draft length ``k`` (0: plain steps; with
+    graphs, an eager run on the key's first use, an eager run and the
+    capture on its second, else a replay), the second, the later rounds
+    at ``k`` and the tail (rounds at a smaller k, plain steps); and which
+    round at ``k`` captured, if one did."""
     out = {"prefill_s": marks[0][0] - t0, "first_round_s": None,
            "second_round_s": None, "later_rounds_s": 0.0,
            "later_rounds": 0, "later_round_ms_median": None,
@@ -2282,6 +2312,17 @@ def stream_split(t0: float, marks: list, k: int, captured: int) -> dict:
     return out
 
 
+def second_uses(uses: collections.Counter, sess) -> set:
+    """The stage keys ``sess``'s stream used for the second time, which
+    it captured (a key's first use runs eagerly, its second captures,
+    later ones replay); ``uses``, the backend's uses of each key before
+    the stream, is updated."""
+    out = {key for key, n in sess.graph_keys.items()
+           if uses[key] < 2 <= uses[key] + n}
+    uses.update(sess.graph_keys)
+    return out
+
+
 def spec_run(torch, ops, make, prompt, gen: int, graphs: bool) -> dict:
     """One speculative stream (a new session from ``make(graphs=)``),
     counters zeroed before: its result, every round's drafts and verified
@@ -2298,6 +2339,23 @@ def spec_run(torch, ops, make, prompt, gen: int, graphs: bool) -> dict:
             "launches": read_counters(torch, ops),
             "captures": sess.backend.capture_count - captured,
             "split": stream_split(t0, marks, sess.draft_tokens, captured)}
+
+
+def paged_dense_checks(torch, sess) -> tuple:
+    """A paged session's pages against its dense ring: ``to_dense`` of
+    the ring bit for bit the ring, and the slices its pages own read back
+    bit for bit from zeros."""
+    rebuilt = sess.paged_kv.to_dense(sess.dev_caches)
+    paged_same = all(torch.equal(as_bits(torch, a[k]), as_bits(torch, b[k]))
+                     for a, b in zip(rebuilt, sess.dev_caches) for k in a)
+    zero = sess.paged_kv.to_dense([{k: torch.zeros_like(v)
+                                    for k, v in c.items()}
+                                   for c in sess.dev_caches])
+    owned_same = all(
+        torch.equal(as_bits(torch, zero[pos][k][per]),
+                    as_bits(torch, sess.dev_caches[pos][k][per]))
+        for pos, per in sess.paged_kv.attn_layers.values() for k in "kv")
+    return paged_same, owned_same
 
 
 def spec_twins_bitwise(torch, graphed: dict, eager: dict) -> dict:
@@ -2328,13 +2386,16 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
     paged + chunked + drafting 2, and drafting 4 at p = L, where every
     draft is accepted, beside a plain session at p = L) as a new graphed
     session and its ``graphs=False`` twin in ``SPEC_TURNS`` turns
-    (graphed first in odd turns), counters zeroed before each. Each
-    speculative line has the medians of the turns' tokens/s and the
-    ``stream_split`` of their seconds (prefill, warm-up round, capture
-    round, replayed rounds, tail). A graphed run must equal its twin bit
-    for bit (tokens, each round's drafts and verified tokens, both
-    caches) with the same launches, and capture 2 graphs, in its second
-    round at the draft length. Speculative tokens must equal plain ones
+    (graphed first in odd turns), counters zeroed before each, all on a
+    copy of the backend with no graph yet. Each speculative line has the
+    medians of the turns' tokens/s and the ``stream_split`` of their
+    seconds (prefill, first round at k, second, later rounds, tail). A
+    graphed run must equal its twin bit for bit (tokens, each round's
+    drafts and verified tokens, both caches) with the same launches, and
+    capture exactly the stage keys it uses for the second time in the
+    phase (the third turn none), the round at k in its second round at k
+    on the key's first stream, in its first on the second, and in none
+    after. Speculative tokens must equal plain ones
     bit for bit (the paged run's: the chunked run's); the paged cache's
     ``to_dense`` must equal the dense ring bit for bit; the chunked
     prefill's first-token logits and caches must lie within tolerance of
@@ -2346,6 +2407,7 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
     from repro_torch.core.solver import PartitionPlan
     from repro_torch.serving.decode import DecodeSession
     from repro_torch.serving.decode.cache import segment_cache_bytes
+    backend = dataclasses.replace(backend)       # no stage graph yet
     cfg = backend.cfg
     L = cfg.num_layers
 
@@ -2368,6 +2430,7 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
              "decode_plain_pL": (plan_l, {}),
              "decode_draft4_pL": (plan_l, dict(draft_tokens=4))}
     runs, outs, sessions, twins, captures = {}, {}, {}, {}, {}
+    uses = collections.Counter()
     for name, (pl, kw) in knobs.items():
         def make(graphs=None, pl=pl, kw=kw):
             return DecodeSession(backend, pl, max_len=max_len,
@@ -2380,6 +2443,18 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
                     for g in (order if spec else (True,))}
             for g, r in done.items():
                 turns[g].append(r)
+            ran = done[True]["sess"].graph_keys
+            at_k = [key for key in ran if key[0] == "spec_device"
+                    and key[2] == kw.get("draft_tokens", 0) + 1]
+            prior = uses[at_k[0]] if at_k else 2
+            want_round = 1 if prior == 1 else (
+                2 if prior == 0 and at_k and ran[at_k[0]] >= 2 else None)
+            new_keys = second_uses(uses, done[True]["sess"])
+            if done[True]["captures"] != len(new_keys) or (turn >= 2
+                                                           and new_keys):
+                raise AssertionError(
+                    f"{name} turn {turn}: {done[True]['captures']} "
+                    f"captures, {len(new_keys)} keys used a second time")
             if spec:
                 same = spec_twins_bitwise(torch, done[True], done[False])
                 twins.setdefault(name, []).append(same)
@@ -2392,10 +2467,9 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
                             "tokens_per_s": r["out"].tokens_per_s,
                             "captures": r["captures"], **r["split"]}
                         for g, r in done.items()}}})
-                if not (all(same.values()) and done[True]["captures"] == 2
-                        and done[False]["captures"] == 0
+                if not (all(same.values()) and done[False]["captures"] == 0
                         and done[True]["split"]["captured_in_round_at_k"]
-                        == 2):
+                        == want_round):
                     raise AssertionError(
                         f"{name} turn {turn}: the graphed speculative "
                         f"stream is not its eager twin's: {same}, "
@@ -2407,6 +2481,10 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
         sess, out = first["sess"], first["out"]
         runs[name] = first["launches"]
         outs[name], sessions[name] = out, sess
+        if name == "decode_paged":
+            # the last graphed stream's slots, before another stream
+            # acquires them
+            paged_checks = paged_dense_checks(torch, turns[True][-1]["sess"])
         dense_bytes = segment_cache_bytes(cfg, sess.dev_caches, 0, pl.p)
         rec = {"run": name, "p": pl.p, "bits": 8,
                "batch": int(prompt.shape[0]),
@@ -2452,17 +2530,7 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
     if not np.array_equal(outs["decode_paged"].tokens, chunked):
         raise AssertionError("paged + chunked + draft 2: tokens differ from "
                              "the chunked plain session's")
-    sess = sessions["decode_paged"]
-    rebuilt = sess.paged_kv.to_dense(sess.dev_caches)
-    paged_same = all(torch.equal(as_bits(torch, a[k]), as_bits(torch, b[k]))
-                     for a, b in zip(rebuilt, sess.dev_caches) for k in a)
-    zero = sess.paged_kv.to_dense([{k: torch.zeros_like(v)
-                                    for k, v in c.items()}
-                                   for c in sess.dev_caches])
-    owned_same = all(
-        torch.equal(as_bits(torch, zero[pos][k][per]),
-                    as_bits(torch, sess.dev_caches[pos][k][per]))
-        for pos, per in sess.paged_kv.attn_layers.values() for k in "kv")
+    paged_same, owned_same = paged_checks
     # chunked against monolithic prefill: first-token logits and caches
     cmp = {}
     for name, kw in (("mono", {}), ("chunked",
@@ -2510,6 +2578,329 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
         raise AssertionError(f"chunked prefill vs monolithic out of "
                              f"tolerance: {bad} {diffs}")
     return runs
+
+
+# the request series (phase 7): QPART's own loop, one fresh session per
+# request through ``Deployment.generate``, by mode (its knobs)
+REQUEST_MODES = {"plain": {}, "chunk16": dict(prefill_chunk_tokens=16),
+                 "draft2": dict(draft_tokens=2),
+                 "draft4": dict(draft_tokens=4)}
+REQUESTS = 4                 # requests of each mode on the series' prompt
+OTHER_PROMPT = 48            # the odd request's prompt length (3 x 16)
+
+
+def profile_requests(torch, ops, passes: int = 2) -> None:
+    """``request_series`` (with its ``length_series``) without twins,
+    ``passes`` times, each on a new copy of one seeded smollm-135m
+    backend at its registered shape (the smoke's phase 7 shape: 256-slot
+    caches, a 64-token cycle-task prompt of batch 2); one
+    ``request_series_pass`` line with each pass's seconds."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import TransformerBackend
+    cfg = get_config("smollm-135m")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    backend = TransformerBackend(cfg, params, seq_len=128,
+                                 decode_max_len=256)
+    prompt, _ = cycle_batch(np.random.default_rng(SEED), cfg.vocab_size, 2,
+                            64)
+    for i in range(passes):
+        t0 = time.perf_counter()
+        request_series(torch, ops, backend, prompt, twins=False)
+        emit({"request_series_pass": {"pass": i,
+                                      "s": time.perf_counter() - t0}})
+
+
+def fixed_deployment(backend, p: int, bits: float = 8.0):
+    """A ``Deployment`` of ``backend`` at a fixed plan (``p`` layers at
+    ``bits``, the hop at 8 bits), priced by ``simulate_plan`` under the
+    default profiles: QPART's request loop without the solver's pick."""
+    from repro_torch.core.cost_model import (Channel, DeviceProfile,
+                                             ObjectiveWeights, ServerProfile)
+    from repro_torch.core.solver import PartitionPlan
+    from repro_torch.serving.deployment import Deployment
+    from repro_torch.serving.simulator import (InferenceRequest,
+                                               simulate_plan)
+    plan = PartitionPlan(p=p, bits_w=np.full(p, bits), bits_x=8.0,
+                         objective=0.0, psi_total=0.0, payload_bits=0.0,
+                         breakdown={})
+    req = InferenceRequest(model="smollm", accuracy_budget=0.01,
+                           device=DeviceProfile(), channel=Channel())
+    result = simulate_plan(plan, backend.layer_specs(), req.device,
+                           ServerProfile(), req.channel, ObjectiveWeights())
+    return Deployment("smollm", backend, req, plan, result)
+
+
+def series_request(torch, ops, dep, prompt, gen: int, graphs: bool,
+                   knobs: dict) -> dict:
+    """One request of the series: ``dep.generate`` on a fresh session,
+    counters zeroed and the peak memory reset before. Its result, the
+    session, every round's drafts and verified tokens, launches,
+    captures, peak allocated GB, reserved GB (now and at the peak) and
+    the ``stream_split`` of its seconds."""
+    made = []
+    make = dep.decode_session
+    with contextlib.ExitStack() as stack:
+        def session(**kw):
+            sess = make(**kw)
+            made.append((sess, stack.enter_context(
+                recording(sess, "_round_ids", [])), stack.enter_context(
+                    stamping(sess, []))))
+            return sess
+
+        dep.decode_session = session
+        zero_counters(torch, ops)
+        torch.cuda.reset_peak_memory_stats()
+        captured = dep.backend.capture_count
+        try:
+            t0 = time.perf_counter()
+            out = dep.generate(prompt, gen, graphs=graphs, **knobs)
+        finally:
+            del dep.decode_session
+        sess, ids, marks = made[0]
+        return {"sess": sess, "out": out, "ids": ids,
+                "launches": read_counters(torch, ops),
+                "captures": dep.backend.capture_count - captured,
+                "peak_memory_gb": peak_gb(torch), **reserved_gb(torch),
+                "split": stream_split(t0, marks, sess.draft_tokens,
+                                      captured)}
+
+
+def request_series(torch, ops, backend, prompt, gen: int = 32,
+                   twins: bool = True) -> dict:
+    """QPART's request loop on ONE backend (a copy with no graph yet):
+    ``Deployment.generate`` on a fresh session per request, at the 8-bit
+    plan at p = L/2, batch 2, ``gen`` new tokens. For each mode of
+    ``REQUEST_MODES``, ``REQUESTS`` requests on ``prompt``, then (plain
+    and chunked) one on its first ``OTHER_PROMPT`` tokens (a new
+    monolithic key; the chunk keys shared), then two concurrent plain
+    sessions, then ``length_series``. One ``request_series`` line per
+    request: TTFT, tokens/s, captures, the ``stream_split``, peak
+    allocated and reserved GB; one ``request_series_mode`` line per mode
+    with request 1 against the median of the later ones.
+
+    With ``twins`` (the smoke run), each (mode, prompt) first runs a
+    ``graphs=False`` twin, and every request must equal it bit for bit
+    (tokens; speculative: each round's drafts and verified tokens and
+    both caches) with the same launches, capture exactly the stage keys
+    it uses for the second time (a key's first use runs eagerly), none
+    from the third request of a shape on, and hold the series' slots;
+    the concurrent sessions must hold distinct slots and give the twin's
+    tokens. Without (``--profile-requests``, timing in turns with an
+    earlier tree, whose graphs live per stream) every request must give
+    the first one's tokens. Returns the launches of the series' first
+    request."""
+    from repro_torch.serving.decode import DecodeSession
+    backend = dataclasses.replace(backend)       # no stage graph yet
+    shared = hasattr(backend, "stage_graphs")
+    dep = fixed_deployment(backend, backend.num_layers // 2)
+    plan = [(mode, REQUESTS, prompt, knobs)
+            for mode, knobs in REQUEST_MODES.items()]
+    plan += [(mode, 1, prompt[:, :OTHER_PROMPT], REQUEST_MODES[mode])
+             for mode in ("plain", "chunk16")]
+    uses, first_launches, summary = collections.Counter(), None, {}
+    slots = set()
+    for mode, n, x, knobs in plan:
+        twin = series_request(torch, ops, dep, x, gen, False, knobs) \
+            if twins else None
+        recs = []
+        for i in range(n):
+            r = series_request(torch, ops, dep, x, gen, True, knobs)
+            sess = r["sess"]
+            rec = {"mode": mode, "request": i + 1, "prompt": int(x.shape[1]),
+                   "batch": int(x.shape[0]), "new_tokens": gen,
+                   "ttft_s": r["out"].ttft_s,
+                   "tokens_per_s": r["out"].tokens_per_s,
+                   "captures": r["captures"],
+                   "peak_memory_gb": r["peak_memory_gb"],
+                   "reserved_gb": r["reserved_gb"],
+                   "max_reserved_gb": r["max_reserved_gb"],
+                   "split": r["split"]}
+            if shared:
+                new = second_uses(uses, sess)
+                rec["stage_keys"] = len(sess.graph_keys)
+                rec["captured_stage_keys"] = sorted(
+                    f"{k[0]}:{k[2]}" for k in new)
+                slots.add((sess._dev_slot, sess._srv_slot))
+            if twins and shared:
+                rec["bitwise"] = same = spec_twins_bitwise(torch, r, twin)
+                ok = (all(same.values()) and twin["captures"] == 0
+                      and r["captures"] == len(new) and len(slots) == 1
+                      and (i < 2 or r["captures"] == 0))
+                if not ok:
+                    raise AssertionError(f"request series {mode} request "
+                                         f"{i + 1}: {rec}")
+            elif recs and not np.array_equal(r["out"].tokens,
+                                             recs[0][1].tokens):
+                raise AssertionError(f"request series {mode}: request "
+                                     f"{i + 1}'s tokens differ")
+            emit({"request_series": rec})
+            recs.append((rec, r["out"]))
+            first_launches = first_launches or r["launches"]
+            del r, sess
+        later = [rec for rec, _ in recs[1:]]
+        if later:
+            summary[mode] = {
+                "prompt": int(x.shape[1]),
+                "first": {k: recs[0][0][k] for k in
+                          ("ttft_s", "tokens_per_s", "captures")},
+                "later_median": {k: statistics.median(rec[k] for rec in later)
+                                 for k in ("ttft_s", "tokens_per_s")},
+                "later_captures": [rec["captures"] for rec in later],
+                **{f"{k}_max": max(rec[k] for rec, _ in recs)
+                   for k in ("peak_memory_gb", "reserved_gb",
+                             "max_reserved_gb")}}
+            emit({"request_series_mode": {"mode": mode, **summary[mode]}})
+        del twin
+    # two concurrent plain streams of one shape, stepped in turns
+    pair = [dep.decode_session() for _ in range(2)]
+    captured = backend.capture_count
+    streams = [s.round_stream(prompt, gen) for s in pair]
+    toks = [[], []]
+    for outs in zip(*streams):
+        for got, out in zip(toks, outs):
+            got.extend(out)
+    for stream in streams:
+        stream.close()
+    toks = [np.stack(t, axis=1) for t in toks]
+    rec = {"mode": "concurrent", "sessions": 2,
+           "captures": backend.capture_count - captured,
+           "tokens_equal": bool(np.array_equal(toks[0], toks[1]))}
+    if shared:
+        rec["distinct_slots"] = all(
+            getattr(pair[0], a) is not getattr(pair[1], a)
+            for a in ("_dev_slot", "_srv_slot"))
+    if twins and shared:
+        want = DecodeSession(backend, dep.plan, max_len=backend.decode_max_len,
+                             segment=dep.device_segment().segment,
+                             graphs=False).generate(prompt, gen).tokens
+        rec["tokens_bitwise_twin"] = bool(np.array_equal(toks[0], want))
+        if not (rec["tokens_equal"] and rec["tokens_bitwise_twin"]
+                and rec["distinct_slots"]):
+            raise AssertionError(f"concurrent sessions: {rec}")
+    emit({"request_series": rec})
+    del pair, streams
+    length_series(torch, ops, dep, twins=twins)
+    return first_launches
+
+
+# the length series: prompt lengths drawn uniformly, with replacement,
+# from LENGTHS (a synthetic stand-in for varied traffic, not a trace)
+LENGTHS = tuple(range(16, 112, 4))      # 24 lengths, 16 .. 108 tokens
+LENGTH_REQUESTS = 48
+LENGTH_GEN = 8
+
+
+def cached_stages(backend) -> dict:
+    """The backend's stage-graph cache as it stands: pair key -> (the
+    eager uses of each stage, the stages captured)."""
+    return {key: (dict(entry.uses), set(entry.graphs)) for key, entry in
+            backend.__dict__.get("_stage_graphs", {}).items()}
+
+
+def stage_fates(before: dict, sess) -> dict:
+    """What each stage key of ``sess``'s stream found in the backend's
+    cache (``before``, ``cached_stages`` ahead of the stream) and so did:
+    ``replayed`` (a graph), ``captured`` (its second use since it was
+    cached) or ``eager``. A key evicted since its last use counts from
+    zero again."""
+    from repro_torch.serving.decode.pipeline import _FIRST_STAGE
+    out = {}
+    for key, n in sess.graph_keys.items():
+        uses, graphs = before.get((_FIRST_STAGE.get(key[0], key[0]),)
+                                  + key[1:], ({}, set()))
+        prior = uses.get(key[0], 0)
+        out[key] = ("replayed" if key[0] in graphs else
+                    "captured" if prior < 2 <= prior + n else "eager")
+    return out
+
+
+def length_series(torch, ops, dep, twins: bool = True) -> dict:
+    """``LENGTH_REQUESTS`` plain requests of ``dep`` (after the request
+    series, on its backend), each of ``LENGTH_GEN`` tokens on a
+    cycle-task prompt whose length is drawn uniformly from ``LENGTHS``
+    (seeded). Per request: TTFT, tokens/s, captures, how often the
+    series saw its length before, and (a tree whose graphs live on the
+    backend) what its prefill found in the backend's cache: ``eager`` (a
+    key new, or evicted, to the cache), ``captured`` (its second use) or
+    ``replayed``. One ``request_length_series`` line with the share of
+    requests in each class and their median TTFT, the captures, the
+    stage-graph keys the backend keeps and ``memory_reserved`` before
+    and after the series and at its peak. With ``twins`` (and such a
+    tree), every request must equal a ``graphs=False`` twin of its length
+    bit for bit and capture exactly its stage keys' second uses, and the
+    backend must keep at most ``_STAGE_GRAPH_KEYS`` keys with the card's
+    reserved memory at most 0.5 GB above its level before the series."""
+    from repro_torch.serving.backends import base as base_lib
+    from repro_torch.serving.decode import DecodeSession
+    backend = dep.backend
+    shared = hasattr(backend, "stage_graphs")
+    rng = np.random.default_rng(SEED + 1)
+    lengths = [int(n) for n in rng.choice(LENGTHS, LENGTH_REQUESTS)]
+    text, _ = cycle_batch(rng, backend.cfg.vocab_size, 2, max(LENGTHS))
+    torch.cuda.reset_peak_memory_stats()
+    before = reserved_gb(torch)["reserved_gb"]
+    seen, want, recs = collections.Counter(), {}, []
+    for n in lengths:
+        x = text[:, :n]
+        if twins and n not in want:
+            want[n] = DecodeSession(
+                backend, dep.plan, max_len=backend.decode_max_len,
+                segment=dep.device_segment().segment,
+                graphs=False).generate(x, LENGTH_GEN).tokens
+        captured = backend.capture_count
+        cache = cached_stages(backend) if shared else None
+        sess = dep.decode_session()
+        out = sess.generate(x, LENGTH_GEN)
+        rec = {"prompt": n, "seen_before": seen[n], "ttft_s": out.ttft_s,
+               "tokens_per_s": out.tokens_per_s,
+               "captures": backend.capture_count - captured}
+        seen[n] += 1
+        if shared:
+            fates = stage_fates(cache, sess)
+            rec["prefill"] = fates[next(k for k in fates
+                                        if k[0] == "extend_device")]
+            rec["captures_expected"] = sum(f == "captured"
+                                           for f in fates.values())
+        if twins:
+            rec["bitwise"] = bool(np.array_equal(out.tokens, want[n]))
+        emit({"request_length": rec})
+        recs.append(rec)
+        del sess
+    after = reserved_gb(torch)
+
+    def by(field, classes):
+        groups = {c: [r for r in recs if classes(r[field]) == c]
+                  for c in dict.fromkeys(classes(r[field]) for r in recs)}
+        return {"share": {c: len(rs) / len(recs) for c, rs in groups.items()},
+                "ttft_median_s": {c: statistics.median(r["ttft_s"] for r in rs)
+                                  for c, rs in groups.items()}}
+
+    summary = {
+        "distribution": f"uniform over {len(LENGTHS)} lengths "
+                        f"{LENGTHS[0]}..{LENGTHS[-1]} step 4, seed "
+                        f"{SEED + 1}",
+        "requests": len(recs), "distinct_lengths": len(seen),
+        "new_tokens": LENGTH_GEN,
+        "by_times_seen": by("seen_before", lambda m: min(m, 2)),
+        "captures": sum(r["captures"] for r in recs),
+        "reserved_gb_before": before, "reserved_gb_after":
+            after["reserved_gb"], "max_reserved_gb": after["max_reserved_gb"]}
+    if shared:
+        summary["by_prefill"] = by("prefill", lambda f: f)
+        summary["stage_graph_keys_kept"] = len(backend.__dict__.get(
+            "_stage_graphs", {}))
+        summary["stage_graph_keys_cap"] = base_lib._STAGE_GRAPH_KEYS
+    emit({"request_length_series": summary})
+    if twins and shared and not (
+            all(r["bitwise"] for r in recs)
+            and all(r["captures"] == r["captures_expected"] for r in recs)
+            and summary["stage_graph_keys_kept"]
+            <= summary["stage_graph_keys_cap"]
+            and after["reserved_gb"] <= before + 0.5):
+        raise AssertionError(f"length series: {summary}")
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -3146,6 +3537,16 @@ def peak_gb(torch) -> float:
     return torch.cuda.max_memory_allocated() / 1e9
 
 
+def reserved_gb(torch) -> dict:
+    """What the caching allocator holds from the card, now and at its
+    peak since the last ``reset_peak_memory_stats`` (GB): unlike the
+    allocated peak, it counts the memory the cached graphs' private
+    pools keep between replays."""
+    torch.cuda.synchronize()
+    return {"reserved_gb": torch.cuda.memory_reserved() / 1e9,
+            "max_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+
+
 def moe_sessions(torch, ops, backend, prompt, gen: int = 32):
     """The decode session on a MoE arch at a fixed 8-bit plan at p = L/2
     with the quantized-kernel device segment (``qkernels=True``:
@@ -3217,7 +3618,7 @@ def moe_sessions(torch, ops, backend, prompt, gen: int = 32):
                 "peak_memory_gb": peak_gb(torch),
                 "launches": runs[(dt, qk)]}})
             del sess
-        be.__dict__.pop("_qstacked_cache", None)
+        be.clear_qstacked()
     checks = {}
     for dt in ("bf16", "f32"):
         a, b = first[(dt, True)], first[(dt, False)]
@@ -3244,17 +3645,22 @@ def moe_sessions(torch, ops, backend, prompt, gen: int = 32):
 def graphed_vs_eager(torch, sess, out, captures, eager, prompt, n,
                      what) -> dict:
     """Hold a graphed session's ``generate`` (``out``, ``captures``
-    graphs) to an eager twin's on the same plan: the tokens and the last
-    step's logits bit for bit, at most 2 captures."""
+    graphs), its backend's first on its plan, to an eager twin's on the
+    same plan: the tokens and the last step's logits bit for bit, one
+    capture per stage key the stream used more than once (a key's
+    second use captures)."""
     ref = eager.generate(prompt, n)
     rec = {"tokens_bitwise": bool(np.array_equal(out.tokens, ref.tokens)),
            "last_logits_bitwise": bool(torch.equal(sess.last_logits,
                                                    eager.last_logits)),
-           "captures": captures, "graphs": sess.graphs,
+           "captures": captures, "stage_keys": len(sess.graph_keys),
+           "graphs": sess.graphs,
            "tokens_per_s": {"eager": ref.tokens_per_s,
                             "graphed": out.tokens_per_s}}
     if not (rec["graphs"] and rec["tokens_bitwise"]
-            and rec["last_logits_bitwise"] and 0 < captures <= 2):
+            and rec["last_logits_bitwise"]
+            and 0 < captures == len(second_uses(collections.Counter(),
+                                                sess))):
         raise AssertionError(f"{what}: graphed decode is not the eager "
                              f"step's: {rec}")
     return rec
@@ -3278,7 +3684,7 @@ def olmoe_phase(torch, ops) -> dict:
     emit({"olmoe_request_loop": {"s": time.perf_counter() - t0,
                                  "peak_memory_gb": peak_gb(torch)}})
     del dep, srv
-    backend.__dict__.pop("_qstacked_cache", None)
+    backend.clear_qstacked()
     torch.cuda.empty_cache()
     runs["olmoe_session"] = moe_sessions(torch, ops, backend, prompt)
     del params, backend
@@ -4015,12 +4421,17 @@ def main(argv=None) -> int:
                          "attention at the request loop's, the launcher's "
                          "and a 2048-slot ring, host-int and device "
                          "position")
+    ap.add_argument("--profile-requests", action="store_true",
+                    help="only build the kernels and time the request "
+                         "series (phase 7's QPART request loop, one "
+                         "session per request) on a seeded smollm-135m, "
+                         "twice")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree whose repro_torch to import (with "
                          "--profile-launcher, --profile-tiled, "
-                         "--profile-flash or --profile-decode-attention: "
-                         "an earlier commit's src/, unpacked by git "
-                         "archive)")
+                         "--profile-flash, --profile-decode-attention or "
+                         "--profile-requests: an earlier commit's src/, "
+                         "unpacked by git archive)")
     args = ap.parse_args(argv)
     if not (args.src / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -4047,6 +4458,14 @@ def main(argv=None) -> int:
             launch_wall(torch, quant)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.profile_requests:
+        from repro_torch.kernels import build, ops
+        print(smi, flush=True)
+        emit({"profiled_tree": str(args.src.resolve()),
+              "build_dir": str(build.build_all())})
+        count_tiled_route(ops)
+        profile_requests(torch, ops)
+        return 0
     if args.profile_tiled or args.profile_flash or \
             args.profile_decode_attention:
         from repro_torch.kernels import build
@@ -4168,6 +4587,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     feature_runs = decode_features(torch, ops, backend, prompt)
     emit({"decode_features_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    feature_runs["request_series"] = request_series(torch, ops, backend,
+                                                    prompt)
+    emit({"request_series_s": time.perf_counter() - t0})
     del params, backend, dep
     runs = {"request_loop": loop_launches, "fleet": fleet_launches,
             **graph_runs, **feature_runs,

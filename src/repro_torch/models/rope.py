@@ -65,7 +65,10 @@ def apply_rope(kind: str, x, positions, theta: float):
     raise ValueError(f"unknown rope kind {kind!r}")
 
 
-def text_positions(batch: int, seq: int, offset: int = 0, device="cuda"):
+def text_positions(batch: int, seq: int, offset=0, device="cuda"):
+    """(batch, seq) int32 positions ``offset .. offset + seq - 1``;
+    ``offset`` a host int or a 0-d integer tensor on ``device`` (added
+    there, never read on the host)."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] \
         + offset
     return pos.expand(batch, seq)

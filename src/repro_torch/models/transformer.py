@@ -37,8 +37,8 @@ from repro_torch.models.attention import (NEG_INF, DEFAULT_BLOCK_K,
                                           _project_qkv, _windowed_attention,
                                           attention_decode, attention_forward,
                                           attn_init, init_kv_cache)
-from repro_torch.models.common import (embed_init, norm_apply, norm_init,
-                                       to_storage)
+from repro_torch.models.common import (as_bits, embed_init, norm_apply,
+                                       norm_init, to_storage)
 from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import (init_ssm_cache, ssm_decode, ssm_forward,
@@ -373,20 +373,23 @@ def segment_prefill(params, cfg: ModelConfig, h, caches, start: int,
     return h, caches
 
 
-def _attn_extend_with_cache(ap, cfg, h, positions, cache, pos0: int):
+def _attn_extend_with_cache(ap, cfg, h, positions, cache):
     """Multi-token attention against a PARTIALLY POPULATED ring cache:
     project/RoPE the ``s`` incoming rows at absolute ``positions``, write
-    their K/V into the cache at ``pos0`` (in place), then attend every row
-    against the whole ring under a per-row validity mask (ring index <=
-    row position), reading K/V back through the cache's storage dtype.
-    Callers guarantee ``pos0 + s <= buf`` (slot == position)."""
-    b, s, _ = h.shape
+    their K/V into the ring slots at those positions (in place, an
+    ``index_copy_`` on the device, so no position is read on the host),
+    then attend every row against the whole ring under a per-row validity
+    mask (ring index <= row position), reading K/V back through the
+    cache's storage dtype. Callers guarantee the last position < buf
+    (slot == position)."""
     buf = cache["k"].shape[1]
     q, k, v = _project_qkv(ap, cfg, h)
     qr = rope_lib.apply_rope(cfg.rope, q, positions, cfg.rope_theta)
     kr = rope_lib.apply_rope(cfg.rope, k, positions, cfg.rope_theta)
-    cache["k"][:, pos0:pos0 + s] = to_storage(kr, cache["k"].dtype)
-    cache["v"][:, pos0:pos0 + s] = to_storage(v, cache["v"].dtype)
+    slots = positions[0].long()
+    for name, new in (("k", kr), ("v", v)):
+        as_bits(cache[name]).index_copy_(
+            1, slots, as_bits(to_storage(new, cache[name].dtype)))
     hd = qr.shape[-1]
     kb = cache["k"].to(qr.dtype).float()
     vb = cache["v"].to(qr.dtype)
@@ -412,13 +415,16 @@ def _attention_only(cfg: ModelConfig, what: str) -> None:
                 f"block kind at period position {pos} is not ATTN")
 
 
-def segment_extend(params, cfg: ModelConfig, h, caches, pos0: int,
+def segment_extend(params, cfg: ModelConfig, h, caches, pos0,
                    start: int, stop: int):
     """Blocks ``[start, stop)`` over ``s`` NEW rows ``h`` (B, S, D)
     entering at absolute position ``pos0``, extending their ring caches
     in place (the monolithic prefill of a decode session is one such
-    extend from ``pos0 = 0``). Attention blocks only. Returns ``(h_out,
-    caches)``."""
+    extend from ``pos0 = 0``). ``pos0`` is a host int or a 0-d integer
+    tensor on the device, never read on the host (the reference's
+    dynamic ``pos0``: a CUDA graph of a chunk serves every chunk offset),
+    and both give the same bits. Attention blocks only. Returns
+    ``(h_out, caches)``."""
     _attention_only(cfg, "segment_extend")
     b, s, _ = h.shape
     positions = rope_lib.text_positions(b, s, offset=pos0, device=h.device)
@@ -427,7 +433,7 @@ def segment_extend(params, cfg: ModelConfig, h, caches, pos0: int,
         bp = _dequant_block(bp, cfg)
         mixed, _ = _attn_extend_with_cache(
             bp["attn"], cfg, norm_apply(cfg.norm, bp["norm1"], h),
-            positions, _cache_at(caches, cfg, layer), pos0)
+            positions, _cache_at(caches, cfg, layer))
         h, _ = _feed_forward(bp, cfg, h + mixed)
     return h, caches
 

@@ -18,17 +18,19 @@ Conventions shared by all backends:
     backend's own) so the calibration can probe perturbed weights.
 
 The reference's compile-once cache (``jitted`` / ``trace_count``) has
-its counterpart in the decode sessions' CUDA graphs
-(``serving.decode.graphs``), counted by ``capture_count``: captured once
-per stream and stage (plain step or speculative round) and replayed for
-every token or round. Unlike a jitted
-program, a graph bakes in tensor addresses and segment bounds, so each
-new stream captures its own; the rest of the forward family runs
+its counterpart in ``stage_graphs`` / ``capture_count``: the decode
+sessions' CUDA graphs (``serving.decode.graphs``: prefill chunks, plain
+steps, speculative rounds) live on the backend, keyed by what each
+bakes in, and every later session of the backend replays them. Unlike a
+jitted program, a graph bakes in tensor addresses and segment bounds,
+so a new cut or a new cache slot captures once more, and the backend
+keeps only the keys used last; the rest of the forward family runs
 eagerly.
 """
 from __future__ import annotations
 
 import abc
+import collections
 import dataclasses
 from typing import List, Optional
 
@@ -41,6 +43,7 @@ from repro_torch.core.partition import DeviceSegment, segment_memory_bytes
 from repro_torch.core.solver import PartitionPlan
 
 _EVAL_MEMO_SLOTS = 4         # distinct test sets remembered per backend
+_STAGE_GRAPH_KEYS = 16       # stage-graph keys a backend keeps (LRU)
 
 
 def to_device(x, device, dtype=None) -> torch.Tensor:
@@ -50,21 +53,75 @@ def to_device(x, device, dtype=None) -> torch.Tensor:
                            dtype=dtype, device=device)
 
 
+class StageGraphs:
+    """The stage graphs of one key (a pair of stages, device then
+    server): ``graphs``, stage name -> graph in capture order; ``uses``,
+    stage name -> the eager runs of that stage under the key; ``reads``,
+    the params trees the graphs read, held while they live."""
+
+    def __init__(self, reads=()):
+        self.reads = tuple(reads)
+        self.graphs = {}
+        self.uses = {}
+
+
+def _free_graphs(entries) -> None:
+    """Drop the graphs of ``entries``; where one was captured, hand the
+    memory pools it leaves free back to the card (the caching allocator
+    would keep them reserved)."""
+    captured = any(entry.graphs for entry in entries)
+    for entry in entries:
+        entry.graphs.clear()
+    if captured and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
 class ModelBackend(abc.ABC):
     """Architecture adapter for the QPART serving pipeline."""
 
     cfg: object          # the family's config dataclass
     params: object       # canonical full-precision parameters
 
-    # -- compile counter ------------------------------------------------
+    # -- shared stage graphs -------------------------------------------
+    # Kept in __dict__ so the dataclass backends need not declare them.
+    def stage_graphs(self, key, reads=()) -> "StageGraphs":
+        """The stage graphs cached under ``key`` — the counterpart of the
+        reference's ``jitted`` —, new and empty on a miss; the caller
+        captures into it and counts each capture (``count_capture``).
+        ``reads`` are the params trees the graphs read by address, held
+        with them. The backend keeps the ``_STAGE_GRAPH_KEYS`` keys used
+        last: an older key's graphs go, and their memory pools back to
+        the card, so the graphs' memory stays bounded however many
+        prompt lengths, cuts and slots the traffic brings. A key holds
+        the cache slots its graphs write, so neither a slot nor a tree
+        is freed while a graph of it can replay."""
+        cache = self.__dict__.setdefault("_stage_graphs",
+                                         collections.OrderedDict())
+        entry = cache.get(key)
+        if entry is None:
+            if len(cache) >= _STAGE_GRAPH_KEYS:
+                _free_graphs([cache.popitem(last=False)[1]])
+            entry = cache[key] = StageGraphs(reads)
+        else:
+            cache.move_to_end(key)
+        return entry
+
+    def drop_stage_graphs(self, obj) -> int:
+        """Drop the cached stage graphs whose key holds ``obj`` (a cache
+        slot) or that read it (a params tree); returns how many went."""
+        cache = self.__dict__.get("_stage_graphs", {})
+        gone = [cache.pop(key) for key in list(cache)
+                if any(x is obj for x in (*key, *cache[key].reads))]
+        dropped = sum(len(entry.graphs) for entry in gone)
+        _free_graphs(gone)
+        return dropped
+
     @property
     def capture_count(self) -> int:
-        """CUDA graphs captured for this backend's decode sessions — the
-        counterpart of the reference's ``trace_count``: whatever a
-        stream's number of tokens, at most 2 for its plain steps and 2
-        for its speculative rounds (so at most 2 for a plain stream, 4
-        for a speculative one), 0 on the CPU. Kept in ``__dict__`` so
-        the dataclass backends need not declare it."""
+        """Stage graphs captured for this backend's decode sessions — the
+        counterpart of the reference's ``trace_count``: at most one per
+        stage of a key, whatever the number of sessions or tokens (once
+        more if the key was evicted and comes back), 0 on the CPU."""
         return self.__dict__.get("_capture_count", 0)
 
     def count_capture(self) -> None:

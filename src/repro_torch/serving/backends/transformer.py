@@ -16,6 +16,7 @@ Mapping onto the protocol:
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import List, Optional
 
 import numpy as np
@@ -220,9 +221,17 @@ class TransformerBackend(ModelBackend):
         precision stack with the segment's fake-quantized layer trees in
         front (``segment_blocks``, read by ``transformer.block_at``), so
         no stacked leaf is copied — at OLMoE's width a copy of the expert
-        stacks would take 26 GB. ``plan`` is accepted for the
+        stacks would take 26 GB. One tree per segment while the segment
+        lives, so every session on it reads the same tree (and replays
+        the stage graphs that read it). ``plan`` is accepted for the
         reference's signature."""
-        return {**self.params, "segment_blocks": list(seg.params)}
+        cache = self.__dict__.setdefault("_stacked_cache", {})
+        tree = cache.get(id(seg))
+        if tree is None:
+            tree = cache[id(seg)] = {**self.params,
+                                     "segment_blocks": list(seg.params)}
+            weakref.finalize(seg, cache.pop, id(seg), None)
+        return tree
 
     def run_device_segment(self, seg: DeviceSegment, plan, x):
         params = self.stacked_for(seg, plan)
@@ -240,7 +249,7 @@ class TransformerBackend(ModelBackend):
         the segment's fake-quantized one. Plans deploying > 8 bits fall
         back to ``stacked_for`` (the uint8 wire cannot carry them).
         Built on first execution and cached per DEPLOYED plan
-        (bounded)."""
+        (bounded; an evicted tree's stage graphs are dropped with it)."""
         bits_w = [int(b) for b in np.asarray(seg.bits_w)]
         if any(b > 8 for b in bits_w):
             return self.stacked_for(seg, plan)
@@ -248,9 +257,15 @@ class TransformerBackend(ModelBackend):
         cache = self.__dict__.setdefault("_qstacked_cache", {})
         if key not in cache:
             while len(cache) >= _STACKED_CACHE_SLOTS:
-                cache.pop(next(iter(cache)))
+                self.drop_stage_graphs(cache.pop(next(iter(cache))))
             cache[key] = self._build_qstacked(seg, bits_w)
         return cache[key]
+
+    def clear_qstacked(self) -> None:
+        """Free every cached ``qstacked_for`` tree and the stage graphs
+        that read it."""
+        for tree in self.__dict__.pop("_qstacked_cache", {}).values():
+            self.drop_stage_graphs(tree)
 
     def _build_qstacked(self, seg: DeviceSegment, bits_w: list) -> dict:
         """Routed leaves of each device layer quantized from the master

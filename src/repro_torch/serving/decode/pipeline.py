@@ -22,18 +22,20 @@ wraps) and take neither chunking nor speculation.
 On a CUDA backend the device segment runs from quantized wire structs
 through the qmatmul/qmatmul4 kernels by default (``qkernels``), and
 every decode step's attention through the decode-attention kernel.
-Plain decode steps and speculative rounds keep their position on the
-device and, after the stream's first step / first round at its draft
-length, replay CUDA graphs of their two stages (``graphs``, the
-reference's compile-once decode programs; see
-``serving.decode.graphs``). Stage boundaries are fenced with
-``torch.cuda.synchronize`` so the wall-clock stage seconds measure
+Prefill chunks, plain decode steps and speculative rounds keep their
+offset / position on the device, run on caches from the backend's slot
+pool, and replay CUDA graphs of their two stages that the backend keeps
+for every later session (``graphs``, the reference's compile-once
+programs; see ``serving.decode.graphs``). Stage boundaries are fenced
+with ``torch.cuda.synchronize`` so the wall-clock stage seconds measure
 finished work.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
+import weakref
 from typing import List, Optional
 
 import numpy as np
@@ -49,13 +51,15 @@ from repro_torch.serving.decode.cache import (DEFAULT_PAGE_TOKENS,
                                               segment_cache_bytes,
                                               segment_nonattn_cache_bytes,
                                               segment_page_pool)
-from repro_torch.serving.decode.graphs import StageGraph
+from repro_torch.serving.decode.graphs import (CacheSlot, StageGraph,
+                                               acquire_slot, release_slots)
 from repro_torch.serving.errors import ServingError
 
 
 # the second stage of each graphed pair -> the first, whose memory pool
 # it shares and whose output it reads
-_FIRST_STAGE = {"server": "device", "spec_server": "spec_device"}
+_FIRST_STAGE = {"server": "device", "spec_server": "spec_device",
+                "extend_server": "extend_device"}
 
 
 def _fence(t):
@@ -120,11 +124,18 @@ class DecodeSession:
     structs (``qstacked_for``) instead of dense fake-quantized weights
     (``stacked_for``). ``page_pool`` shares one ``KVPagePool`` between
     paged sessions (default: a pool of this stream's worst case).
-    ``graphs`` (default: on when the backend lives on CUDA) replays the
-    plain decode step's stages as CUDA graphs after the stream's first
-    step, and a speculative round's after the stream's first round at
-    ``draft_tokens``; off, a CUDA session steps eagerly through the same
-    code. CPU sessions step eagerly."""
+    ``graphs`` (default: on when the backend lives on CUDA) takes the
+    stream's caches from the backend's slot pool and runs each stage
+    (prefill chunk, plain step, speculative round) through the
+    backend's stage graphs: eagerly on its key's first use, eagerly and
+    captured on its second, replayed on every later use by this or any
+    later session; off, a CUDA session allocates its own caches and
+    steps eagerly through the same code. CPU sessions step eagerly.
+
+    A graphed session's caches (``dev_caches``, ``srv_caches``) and
+    ``last_logits`` (the server graph's output buffer) stay readable
+    after its stream ends, until another stream acquires its slots; it
+    steps no more (``ServingError``) until a new ``prefill``."""
 
     def __init__(self, backend, plan, *, max_len: int,
                  segment=None, qkernels: Optional[bool] = None,
@@ -205,18 +216,20 @@ class DecodeSession:
                     f"(kv page = {self.page_tokens} tokens)")
             self.prefill_chunk_tokens = c
         self.pos = 0
-        # the decode position on the device, filled from ``pos`` before
-        # each plain step and speculative round: ``pos`` stays the one
-        # source of truth
-        self._pos_t = torch.zeros((), dtype=torch.int64, device=self.device)
         self.graphs = self.device.type == "cuda" if graphs is None \
             else bool(graphs)
         if self.graphs and self.device.type != "cuda":
             raise ServingError(f"CUDA graphs need a CUDA backend, not "
                                f"{self.device}")
-        self._graphs = {}          # stage name -> StageGraph, per stream
-        self._plain_steps = 0      # plain decode steps of this stream
-        self._spec_rounds = 0      # its speculative rounds at draft_tokens
+        # the stream's cache slots (from the backend's pool when graphed,
+        # else the session's own); each slot's ``pos`` is filled from
+        # ``pos`` before each stage, which stays the one source of truth
+        self._dev_slot: Optional[CacheSlot] = None
+        self._srv_slot: Optional[CacheSlot] = None
+        self._held: List[CacheSlot] = []     # pool slots held, if any
+        weakref.finalize(self, release_slots, backend, self._held)
+        # the stage keys of the backend's graphs this stream ran -> uses
+        self.graph_keys = collections.Counter()
         # (B, V) of the last plain step; on a graphed step the server
         # graph's output buffer, which the next replay overwrites
         self.last_logits = None
@@ -275,11 +288,44 @@ class DecodeSession:
                                    self.L)
 
     def sever(self) -> int:
-        """End the stream: return every held KV page to the pool (no-op
-        for dense sessions). Returns the page count released."""
+        """End the stream: return its cache slots to the backend's pool
+        and every held KV page to the page pool. Returns the page count
+        released (0 for dense sessions)."""
+        release_slots(self.backend, self._held)
         if self.paged_kv is None:
             return 0
         return self.paged_kv.free_all()
+
+    @property
+    def _pos_t(self):
+        """The stream's position on the device (its server slot's)."""
+        return self._srv_slot.pos
+
+    def _open_stream(self, b: int) -> None:
+        """The stream's caches: with graphs a device slot (past p = 0)
+        and a server slot from the backend's pool, zeroed (the last
+        stream's slots go back first); else fresh caches of its own."""
+        release_slots(self.backend, self._held)
+        self.graph_keys = collections.Counter()
+        shapes = [(b, self.max_len, self.dev_dtype)] if self.p > 0 else []
+        shapes.append((b, self.max_len, self.model_dtype))
+        if self.graphs:
+            self._held.extend(acquire_slot(self.backend, *shape)
+                              for shape in shapes)
+            slots = list(self._held)
+        else:
+            slots = [CacheSlot(self.cfg, *shape, self.device)
+                     for shape in shapes]
+        self._dev_slot = slots[0] if self.p > 0 else None
+        self._srv_slot = slots[-1]
+        self.dev_caches = self._dev_slot.caches if self.p > 0 else None
+        self.srv_caches = self._srv_slot.caches
+
+    def _set_pos(self, pos: int) -> None:
+        """Fill the slots' device positions for the next stage."""
+        for slot in (self._dev_slot, self._srv_slot):
+            if slot is not None:
+                slot.pos.fill_(pos)
 
     # -- pipeline stages -------------------------------------------------
     @staticmethod
@@ -309,23 +355,21 @@ class DecodeSession:
         (B,) and records stage seconds (TTFT = their sum)."""
         prompt = to_device(prompt, self.device, torch.int32)
         b, s = prompt.shape
-        # a new stream: new caches, so graphs of an earlier one are stale
-        self._graphs, self._plain_steps, self._spec_rounds = {}, 0, 0
         if s + 1 > self.max_len:
             raise ServingError(
                 f"prompt ({s}) leaves no room in max_len={self.max_len}")
+        self._open_stream(b)
         if self.prefill_chunk_tokens is not None:
             return self._prefill_chunked(prompt, self.prefill_chunk_tokens)
         if self._cache_extendable:
             return self._prefill_chunked(prompt, None)
-        # a wrapping (sliding-window) ring: the whole prompt at once
+        # a wrapping (sliding-window) ring or an SSM stack: the whole
+        # prompt at once, eagerly, into the stream's slots
         t0 = time.perf_counter()
         if self.p > 0:
             h0 = self.backend.embed(prompt, params=self.dev_params)
-            cache0 = T.init_cache(self.cfg, b, self.max_len, self.dev_dtype,
-                                  self.device)
             h_dev, self.dev_caches = self.backend.prefill_segment(
-                h0, cache0, 0, self.p, params=self.dev_params)
+                h0, self.dev_caches, 0, self.p, params=self.dev_params)
             h_in = _fence(self._quant_hop(h_dev))
             if self.paged:
                 self._open_paged(b)
@@ -333,10 +377,8 @@ class DecodeSession:
         t1 = time.perf_counter()
         if self.p == 0:
             h_in = self.backend.embed(prompt)
-        cache0 = T.init_cache(self.cfg, b, self.max_len, self.model_dtype,
-                              self.device)
         h_srv, self.srv_caches = self.backend.prefill_segment(
-            h_in, cache0, self.p, self.L)
+            h_in, self.srv_caches, self.p, self.L)
         logits = self.backend.hidden_logits(h_srv[:, -1:, :])
         token = _fence(torch.argmax(logits, -1).to(torch.int32))
         t2 = time.perf_counter()
@@ -347,37 +389,32 @@ class DecodeSession:
 
     def _prefill_chunked(self, prompt, chunk_tokens: Optional[int]):
         """Chunk-granular prefill (``chunk_tokens=None``: one chunk, the
-        monolithic case): each chunk runs device extend → quantized hop
-        → server extend, and (when paged) its pages are ingested as it
-        lands."""
+        monolithic case): each chunk runs its device stage (embed →
+        extend ``[0, p)`` → quantized hop) and its server stage (extend
+        ``[p, L)``) at its offset on the device, and (when paged) its
+        pages are ingested between the two as it lands. The first
+        token's unembed and argmax run after the last chunk."""
         b, s = prompt.shape
         bounds = [(0, s)] if chunk_tokens is None \
             else self.chunk_bounds(s, chunk_tokens)
         self.prefill_chunks = len(bounds)
-        if self.p > 0:
-            self.dev_caches = T.init_cache(self.cfg, b, self.max_len,
-                                           self.dev_dtype, self.device)
-            if self.paged:
-                self._open_paged(b)
-        self.srv_caches = T.init_cache(self.cfg, b, self.max_len,
-                                       self.model_dtype, self.device)
+        if self.paged:
+            self._open_paged(b)
         h_srv = None
         for lo, hi in bounds:
             chunk = prompt[:, lo:hi]
+            self._set_pos(lo)
             t0 = time.perf_counter()
+            h_in = chunk
             if self.p > 0:
-                h0 = self.backend.embed(chunk, params=self.dev_params)
-                h_dev, self.dev_caches = self.backend.extend_segment(
-                    h0, self.dev_caches, lo, 0, self.p,
-                    params=self.dev_params)
-                h_in = _fence(self._quant_hop(h_dev))
+                h_in = _fence(self._stage("extend_device",
+                                          self._extend_device, chunk,
+                                          hi - lo))
                 if self.paged_kv is not None:
                     self.paged_kv.ingest_range(self.dev_caches, lo, hi)
             t1 = time.perf_counter()
-            if self.p == 0:
-                h_in = self.backend.embed(chunk)
-            h_srv, self.srv_caches = self.backend.extend_segment(
-                h_in, self.srv_caches, lo, self.p, self.L)
+            h_srv = h_in if self.p == self.L else self._stage(
+                "extend_server", self._extend_server, h_in, hi - lo)
             _fence(h_srv)
             t2 = time.perf_counter()
             self.t_device_s += t1 - t0
@@ -389,12 +426,32 @@ class DecodeSession:
         self.pos = s
         return token
 
+    def _extend_device(self, chunk):
+        """A prefill chunk's device stage at the device slot's offset:
+        embed the chunk's ids (B, S), extend blocks ``[0, p)``, the
+        quantized channel hop."""
+        h = self.backend.embed(chunk, params=self.dev_params)
+        h, self.dev_caches = self.backend.extend_segment(
+            h, self.dev_caches, self._dev_slot.pos, 0, self.p,
+            params=self.dev_params)
+        return self._quant_hop(h)
+
+    def _extend_server(self, h):
+        """A prefill chunk's server stage at the server slot's offset:
+        extend blocks ``[p, L)`` over the hop's rows (at p == 0, embed
+        the chunk's ids ``h`` first) -> (B, S, D)."""
+        if self.p == 0:
+            h = self.backend.embed(h)
+        h, self.srv_caches = self.backend.extend_segment(
+            h, self.srv_caches, self._srv_slot.pos, self.p, self.L)
+        return h
+
     def _device_stage(self, tok):
         """The plain step's device stage at the device position: embed
         ``tok`` (B, 1), blocks ``[0, p)``, the quantized channel hop."""
         x = self.backend.embed(tok, params=self.dev_params)
         x, self.dev_caches = self.backend.decode_segment(
-            x, self.dev_caches, self._pos_t, 0, self.p,
+            x, self.dev_caches, self._dev_slot.pos, 0, self.p,
             params=self.dev_params)
         return self._quant_hop(x)
 
@@ -405,32 +462,59 @@ class DecodeSession:
         if self.p == 0:
             x = self.backend.embed(x)
         x, self.srv_caches = self.backend.decode_segment(
-            x, self.srv_caches, self._pos_t, self.p, self.L)
+            x, self.srv_caches, self._srv_slot.pos, self.p, self.L)
         logits = self.backend.hidden_logits(x)
         return logits, torch.argmax(logits, -1).to(torch.int32)
 
-    def _stage(self, name: str, fn, x, eager: bool):
-        """Run stage ``fn`` on ``x``: eagerly if ``eager`` (no graphs, the
-        stream's warm-up, a speculative tail round); else replay its
-        graph, captured here on first use. The second stage of a pair
-        (``server`` after ``device``, ``spec_server`` after
-        ``spec_device``) shares the first's memory pool, so the pair
-        replays in capture order, and reads the first's output where it
-        lies in that pool. Each pair has a pool of its own: a stream may
-        mix speculative rounds with a plain tail step."""
-        if eager:
+    def _graph_key(self, name: str, rows: int) -> tuple:
+        """What stage ``name``'s graph over ``rows`` rows bakes in: the
+        cut, the rows, the stream's slots and the params trees it reads
+        (the slots fix batch, ``max_len`` and the cache dtypes)."""
+        return (name, self.p, rows, self._dev_slot, self._srv_slot,
+                id(self.dev_params), id(self.backend.params))
+
+    def _stage(self, name: str, fn, x, rows: int):
+        """Run stage ``fn`` on ``x`` (``rows`` rows per batch row):
+        eagerly without graphs; else through the backend's graphs of its
+        key: the key's first use runs eagerly, its second eagerly and
+        then captures it, every later use (by any session) replays it.
+        The second stage of a pair (``extend_server``, ``server``,
+        ``spec_server``) is cached under its first stage's key, shares
+        its memory pool, so the pair replays in capture order, and reads
+        its output where it lies in that pool."""
+        if not self.graphs:
             return fn(x)
-        graph = self._graphs.get(name)
-        if graph is None:
-            first = self._graphs.get(_FIRST_STAGE.get(name))
-            outs = () if first is None else first.outputs
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            static = x if any(x is o for o in outs) else x.clone()
-            graph = StageGraph(fn, (static,),
-                               pool=first.graph.pool() if first else None)
-            self._graphs[name] = graph
+        lead = _FIRST_STAGE.get(name, name)
+        key = self._graph_key(lead, rows)
+        entry = self.backend.stage_graphs(
+            key, reads=(self.dev_params, self.backend.params))
+        self.graph_keys[(name,) + key[1:]] += 1
+        graph = entry.graphs.get(name)
+        if graph is not None:
+            return graph.replay(x)
+        entry.uses[name] = uses = entry.uses.get(name, 0) + 1
+        out = fn(x)
+        if uses >= 2:
+            first = entry.graphs.get(lead) if lead != name else None
+            if first is None:
+                static, pool = x.clone(), None
+            else:
+                outs = first.outputs
+                static = outs[0] if isinstance(outs, tuple) else outs
+                pool = first.graph.pool()
+            entry.graphs[name] = StageGraph(fn, (static,), pool=pool)
             self.backend.count_capture()
-        return graph.replay(x)
+        return out
+
+    def _check_stream(self) -> None:
+        """A graphed session steps only while its stream holds its slots
+        (after ``generate``, a closed ``round_stream`` or ``sever``, they
+        may be another stream's)."""
+        if self.graphs and not self._held:
+            raise ServingError(
+                "no live stream: this session's cache slots went back to "
+                "the backend's pool (or prefill has not run); prefill "
+                "starts a new stream")
 
     def step(self, token):
         """One decode step feeding ``token`` (B,); returns the next
@@ -438,23 +522,22 @@ class DecodeSession:
         stay in ``last_logits``."""
         if self.pos + 1 > self.max_len:
             raise ServingError(f"decode past max_len={self.max_len}")
+        self._check_stream()
         tok = to_device(token, self.device).reshape(-1, 1)
-        self._pos_t.fill_(self.pos)
+        self._set_pos(self.pos)
         t0 = time.perf_counter()
         x = tok
-        eager = not self.graphs or self._plain_steps == 0
         if self.p > 0:
-            x = _fence(self._stage("device", self._device_stage, tok, eager))
+            x = _fence(self._stage("device", self._device_stage, tok, 1))
             if self.paged_kv is not None:
                 self.paged_kv.append_step(self.dev_caches, self.pos)
         t1 = time.perf_counter()
         self.last_logits, nxt = self._stage("server", self._server_stage, x,
-                                            eager)
+                                            1)
         nxt = _fence(nxt.clone())
         t2 = time.perf_counter()
         self.t_device_s += t1 - t0
         self.t_server_s += t2 - t1
-        self._plain_steps += 1
         self.pos += 1
         return nxt
 
@@ -514,26 +597,24 @@ class DecodeSession:
         slot past the acceptance point is rewritten by a later round
         before any query attends it (slot == position).
 
-        Both stages run from the device position; with graphs, the
-        stream's first round at ``draft_tokens`` runs eagerly, the next
-        captures both stages, later ones replay them; a round at a
-        smaller k (the stream's last) runs eagerly."""
+        Both stages run from the device position, through the backend's
+        graphs of their key (k among it) when graphed."""
+        self._check_stream()
         P = self.pos
         t0 = time.perf_counter()
         cur = to_device(token, self.device, torch.int32).reshape(-1, 1)
-        self._pos_t.fill_(P)
-        eager = (not self.graphs or k != self.draft_tokens
-                 or self._spec_rounds == 0)
+        self._set_pos(P)
+        dev_pos = (self._dev_slot or self._srv_slot).pos
         hh, drafts = self._stage(
-            "spec_device", lambda c: self._spec_device(c, k, self._pos_t),
-            cur, eager)
+            "spec_device", lambda c: self._spec_device(c, k, dev_pos),
+            cur, k + 1)
         _fence(hh)
         if self.paged_kv is not None:
             self.paged_kv.ingest_range(self.dev_caches, P, P + k + 1)
         t1 = time.perf_counter()
+        srv_pos = self._srv_slot.pos
         g = self._stage("spec_server",
-                        lambda h: self._spec_server(h, self._pos_t), hh,
-                        eager)
+                        lambda h: self._spec_server(h, srv_pos), hh, k + 1)
         d_np, g = self._round_ids(drafts, g)
         t2 = time.perf_counter()
         # acceptance = longest prefix where every batch row's draft
@@ -551,7 +632,6 @@ class DecodeSession:
         self.t_server_s += t2 - t1
         self.drafts_proposed += k
         self.drafts_accepted += a
-        self._spec_rounds += k == self.draft_tokens
         self.pos = P + a + 1
         return [g[:, i] for i in range(a + 1)]
 
@@ -560,23 +640,28 @@ class DecodeSession:
         """Generator of per-round token lists: the first yield is the
         prefill's ``[token0]``; each later yield is one decode round's
         emissions — ``[token]`` for plain greedy, 1..k+1 tokens for a
-        speculative round. ``self.rounds`` counts the decode rounds."""
-        token = self.prefill(prompt)
-        yield [token.cpu().numpy()]
-        emitted = 1
-        while emitted < max_new_tokens:
-            remaining = max_new_tokens - emitted
-            k = min(self.draft_tokens, remaining - 1,
-                    self.max_len - 1 - self.pos)
-            if k >= 1:
-                out = self._spec_round(token, k)
-                token = out[-1]
-            else:
-                token = self.step(token)
-                out = [token.cpu().numpy()]
-            self.rounds += 1
-            emitted += len(out)
-            yield out
+        speculative round. ``self.rounds`` counts the decode rounds. The
+        stream's cache slots go back to the backend's pool when the
+        generator ends or is closed."""
+        try:
+            token = self.prefill(prompt)
+            yield [token.cpu().numpy()]
+            emitted = 1
+            while emitted < max_new_tokens:
+                remaining = max_new_tokens - emitted
+                k = min(self.draft_tokens, remaining - 1,
+                        self.max_len - 1 - self.pos)
+                if k >= 1:
+                    out = self._spec_round(token, k)
+                    token = out[-1]
+                else:
+                    token = self.step(token)
+                    out = [token.cpu().numpy()]
+                self.rounds += 1
+                emitted += len(out)
+                yield out
+        finally:
+            release_slots(self.backend, self._held)
 
     def stream(self, prompt, max_new_tokens: int):
         """Generator of (step_index, token (B,) np.ndarray) — token 0 is

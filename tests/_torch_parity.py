@@ -1,12 +1,14 @@
 """Shared helpers of the ``test_torch_*`` parity tests: arrays and trees
 cross from the JAX package to the PyTorch port as NumPy (bfloat16 and
 float8 by their bit patterns, which NumPy cannot hand to torch
-directly), plus the small configs both packages run."""
+directly), plus the small configs both packages run and a CPU stand-in
+for the decode session's CUDA graphs (``FakeGraph``)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib.util
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -120,3 +122,39 @@ def load_example(name: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+class FakeGraph:
+    """``StageGraph`` on the CPU: ``fn`` run on its static inputs when
+    captured and again at every replay, its results copied into the
+    capture's outputs (a real capture launches nothing; the stages are
+    idempotent, each writing the same cache slots from the same
+    inputs). Every capture and replay is logged."""
+
+    log = []
+
+    def __init__(self, fn, inputs, pool=None):
+        self.fn, self.inputs, self.pool = fn, tuple(inputs), pool
+        self.outputs = fn(*self.inputs)
+        self.graph = types.SimpleNamespace(pool=lambda: self)
+        self.log.append(("capture", self))
+
+    def replay(self, *inputs):
+        for static, x in zip(self.inputs, inputs):
+            if x is not static:
+                static.copy_(x)
+        new = self.fn(*self.inputs)
+        outs = self.outputs if isinstance(self.outputs, tuple) \
+            else (self.outputs,)
+        for o, n in zip(outs, new if isinstance(new, tuple) else (new,)):
+            o.copy_(n)
+        self.log.append(("replay", self))
+        return self.outputs
+
+
+def stage_graphs(backend) -> dict:
+    """The backend's cached stage graphs, stage key -> graph (a pair's
+    key with the stage's own name in front)."""
+    return {(name,) + key[1:]: g for key, entry in
+            backend.__dict__.get("_stage_graphs", {}).items()
+            for name, g in entry.graphs.items()}

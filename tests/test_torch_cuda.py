@@ -1076,13 +1076,35 @@ def _prompt(b=2, s=24):
     return np.random.default_rng(0).integers(0, 256, (b, s)).astype(np.int32)
 
 
+# stage keys a graphed plain stream runs at p = 0 / 2 / 4 of the 4-layer
+# model: the prefill chunk's pair (no device stage at p = 0, no server
+# stage at p = L) and the step's pair (no device stage at p = 0); the
+# first stream captures the step's stages (used more than once), the
+# second the prefill chunk's
+STREAM_KEYS = {0: 2, 2: 4, 4: 3}
+FIRST_STREAM_CAPTURES = {0: 1, 2: 2, 4: 2}
+
+
+def _second_uses(uses, sess) -> int:
+    """How many stage keys ``sess``'s stream used for the second time —
+    what it captured (a key's first use runs eagerly, its second
+    captures); ``uses``, the backend's uses of each key before the
+    stream, is updated."""
+    n = sum(1 for key, c in sess.graph_keys.items()
+            if uses[key] < 2 <= uses[key] + c)
+    uses.update(sess.graph_keys)
+    return n
+
+
 @pytest.mark.parametrize("p", [0, 2, 4])
 def test_graphed_decode_bitwise_eager(gen, p):
     """At three cuts of the 4-layer model (int8 wire structs, float8
-    device cache): the graphed session's tokens, and its logits at every
-    step (the server graph's static output), bitwise the eager session's
-    on the same plan; one graph per stage, so 1 capture at p = 0 and 2
-    past it."""
+    device cache): the graphed session's first token, tokens and its
+    logits at every step (the server graph's static output) bitwise the
+    eager session's on the same plan; the step's stages captured on
+    their second use. Later graphed ``generate`` calls on the slots it
+    gave back give the eager tokens: the second captures the prefill
+    chunk's stages, the third nothing."""
     import numpy as np
     from repro_torch.serving.decode import DecodeSession
     backend = _small_lm()
@@ -1097,26 +1119,37 @@ def test_graphed_decode_bitwise_eager(gen, p):
         te, tg = eager.step(te), graphed.step(tg)
         assert torch.equal(te, tg), i
         assert torch.equal(eager.last_logits, graphed.last_logits), i
-    assert backend.capture_count - before == (1 if p == 0 else 2)
-    assert len(graphed._graphs) == (1 if p == 0 else 2)
+    assert backend.capture_count - before == FIRST_STREAM_CAPTURES[p]
+    assert len(graphed.graph_keys) == STREAM_KEYS[p]
+    graphed.sever()
     want = DecodeSession(backend, plan, max_len=96,
                          graphs=False).generate(prompt, 12)
-    got = DecodeSession(backend, plan, max_len=96).generate(prompt, 12)
-    assert np.array_equal(got.tokens, want.tokens)
+    counts = []
+    for _ in range(2):
+        before = backend.capture_count
+        again = DecodeSession(backend, plan, max_len=96)
+        got = again.generate(prompt, 12)
+        assert np.array_equal(got.tokens, want.tokens)
+        counts.append(backend.capture_count - before)
+        assert again.graph_keys.keys() == graphed.graph_keys.keys()
+    assert counts == [STREAM_KEYS[p] - FIRST_STREAM_CAPTURES[p], 0]
 
 
 def test_capture_count_does_not_grow_with_tokens(gen):
-    """A 6-token and a 64-token generation at the same cut capture the
-    same number of graphs (2): compile once, replay per token."""
+    """A 6-token generation at a cut captures the step's 2 stage graphs
+    (on the step's second use), a 64-token one after it on the same
+    backend the prefill chunk's 2 (the chunk's second use), and another
+    64-token one none: compile once, replay per token and per
+    session."""
     from repro_torch.serving.decode import DecodeSession
     backend = _small_lm()
     plan, prompt = _plan(2), _prompt()
     counts = []
-    for n in (6, 64):
+    for n in (6, 64, 64):
         before = backend.capture_count
         DecodeSession(backend, plan, max_len=96).generate(prompt, n)
         counts.append(backend.capture_count - before)
-    assert counts == [2, 2]
+    assert counts == [2, 2, 0]
 
 
 def test_graphed_launch_counters_equal_eager(gen):
@@ -1160,10 +1193,19 @@ def test_graphed_launch_counters_equal_eager(gen):
 
 
 def test_capture_that_cannot_succeed_raises(gen, monkeypatch):
-    """A step that reads the card from the host cannot be captured: the
-    capture raises, and nothing runs the step eagerly instead."""
+    """A step that reads the card from the host cannot be captured: its
+    first use runs eagerly, its second too, then the server stage's
+    capture raises (the session does not carry on eagerly) and puts the
+    launch counters back, so they hold the eager step's launches; the
+    device stage's graph stays cached, the server stage's is not."""
+    from repro_torch.kernels import ops
     from repro_torch.serving.decode import DecodeSession
     backend = _small_lm()
+    twin = DecodeSession(backend, _plan(2), max_len=96, graphs=False)
+    tok = twin.prefill(_prompt())
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    twin.step(tok)
+    eager = {k: f.launches - before[k] for k, f in ops.KERNELS.items()}
     sess = DecodeSession(backend, _plan(2), max_len=96)
     hidden_logits = backend.hidden_logits
 
@@ -1172,18 +1214,17 @@ def test_capture_that_cannot_succeed_raises(gen, monkeypatch):
         return hidden_logits(h, params)
 
     monkeypatch.setattr(backend, "hidden_logits", synced)
-    tok = sess.step(sess.prefill(_prompt()))   # the eager first step
-    from repro_torch.kernels import ops
+    tok = sess.prefill(_prompt())       # the unembed runs outside graphs
+    tok = sess.step(tok)                # the first use: eager
     before = {k: f.launches for k, f in ops.KERNELS.items()}
     with pytest.raises(RuntimeError):
         sess.step(tok)
     torch.cuda.synchronize()
-    # the device stage was captured and replayed once; the failed server
-    # capture put its counts back
-    dev = {obj: n for obj, _, n in sess._graphs["device"].counts}
-    assert "server" not in sess._graphs
     assert {k: f.launches - before[k] for k, f in ops.KERNELS.items()} == \
-        {k: dev.get(f, 0) for k, f in ops.KERNELS.items()}
+        eager
+    cached = {name for entry in backend.__dict__["_stage_graphs"].values()
+              for name in entry.graphs}
+    assert cached == {"device"}
 
 
 def _small_moe(seed=0):
@@ -1224,10 +1265,14 @@ def _spec_twins(backend, plan, k, n=16, **kw):
     return runs
 
 
-def _assert_twins_bitwise(eager, graphed, k):
+def _assert_twins_bitwise(eager, graphed, k, uses=None):
     """Tokens, each round's drafts and verified tokens, both caches and
     the launches of the graphed session equal its eager twin's; the
-    graphed stream captured its two round stages, the eager none."""
+    graphed stream ran its two round stages at each k it drafted and
+    captured the keys it used for the second time (``uses``: the
+    backend's uses before it; none on a fresh backend), the eager
+    none."""
+    import collections
     import numpy as np
     assert np.array_equal(graphed["out"].tokens, eager["out"].tokens)
     assert len(graphed["rounds"]) == len(eager["rounds"])
@@ -1239,10 +1284,13 @@ def _assert_twins_bitwise(eager, graphed, k):
             assert all(torch.equal(_bits(x[n]), _bits(y[n]))
                        for x, y in zip(a, b) for n in x), side
     assert graphed["launches"] == eager["launches"]
-    at_k = sum(d.shape[1] == k for d, _ in graphed["rounds"])
+    keys = graphed["sess"].graph_keys
     assert eager["captures"] == 0
-    assert graphed["captures"] == (2 if at_k >= 2 else 0)
-    assert graphed["sess"]._spec_rounds == at_k
+    assert graphed["captures"] == _second_uses(
+        collections.Counter() if uses is None else uses, graphed["sess"])
+    assert {"spec_device", "spec_server"} <= {key[0] for key in keys}
+    assert {key[2] - 1 for key in keys if key[0] == "spec_device"} == \
+        {d.shape[1] for d, _ in graphed["rounds"]}
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])
@@ -1250,10 +1298,10 @@ def _assert_twins_bitwise(eager, graphed, k):
 def test_graphed_speculative_bitwise_eager(gen, p, k):
     """At p = 0, 1, L/2 and L of the 4-layer model (int8 wire structs,
     float8 device cache) and k = 1, 2, 3: the graphed speculative
-    session (its rounds at k replayed from the second on) gives its
-    ``graphs=False`` twin's tokens, drafts and verified tokens per round,
-    both caches bit for bit and the same launches, with 2 captures; at p
-    = L every draft is accepted."""
+    session (each stage key captured on its first use, replayed after)
+    gives its ``graphs=False`` twin's tokens, drafts and verified tokens
+    per round, both caches bit for bit and the same launches, one
+    capture per key used twice; at p = L every draft is accepted."""
     eager, graphed = _spec_twins(_small_lm(), _plan(p), k)
     _assert_twins_bitwise(eager, graphed, k)
     if p == 4:
@@ -1287,17 +1335,152 @@ def test_graphed_speculative_paged_and_moe(gen, case):
 
 
 def test_speculative_captures_do_not_grow_with_tokens(gen):
-    """A speculative stream of 8 and of 64 tokens captures 2 graphs each
-    (its two round stages), and replays advance the launch counters as
-    eager rounds do."""
+    """Speculative streams of 8, 64, 64 and 64 tokens on one backend:
+    each captures only the keys it uses for the second time (the first
+    its rounds at k, later ones the prefill and the tail rounds), the
+    fourth none; replays advance the launch counters as eager rounds
+    do."""
+    import collections
     backend, plan = _small_lm(), _plan(2)
-    counts = []
-    for n in (8, 64):
+    counts, uses = [], collections.Counter()
+    for n in (8, 64, 64, 64):
         eager, graphed = _spec_twins(backend, plan, 2, n=n)
         assert graphed["launches"] == eager["launches"]
         assert graphed["launches"]["decode_attention"] > 0
+        assert np.array_equal(graphed["out"].tokens, eager["out"].tokens)
+        assert graphed["captures"] == _second_uses(uses, graphed["sess"])
         counts.append(graphed["captures"])
-    assert counts == [2, 2]
+    assert counts[0] > 0 and counts[3] == 0
+
+
+def test_extend_device_offset_bitwise_host_int(gen):
+    """On the card, chunk by chunk (8-row chunks of a 24-token prompt:
+    the skinny qmatmul route at M = 16; the whole prompt: the tiled one
+    at M = 48), the device segment's extend from wire structs into a
+    float8 cache and the server's into a bf16 cache at a 0-d int64
+    offset give the host-int offset's rows and caches bit for bit."""
+    from repro_torch.models import transformer as T
+    backend = _small_lm()
+    plan = _plan(2)
+    dev_params = backend.qstacked_for(backend.split(plan), plan)
+    emb = backend.embed(_prompt())
+    for bounds in ([(0, 8), (8, 16), (16, 24)], [(0, 24)]):
+        for params, (start, stop), dt in (
+                (dev_params, (0, 2), torch.float8_e4m3fn),
+                (backend.params, (2, 4), torch.bfloat16)):
+            host = T.init_cache(backend.cfg, 2, 96, dt, "cuda")
+            dev = T.init_cache(backend.cfg, 2, 96, dt, "cuda")
+            offset = torch.zeros((), dtype=torch.int64, device="cuda")
+            for lo, hi in bounds:
+                offset.fill_(lo)
+                want, _ = T.segment_extend(params, backend.cfg,
+                                           emb[:, lo:hi], host, lo, start,
+                                           stop)
+                got, _ = T.segment_extend(params, backend.cfg,
+                                          emb[:, lo:hi], dev, offset, start,
+                                          stop)
+                assert torch.equal(_bits(got), _bits(want)), (lo, start)
+                assert all(torch.equal(_bits(a[n]), _bits(b[n]))
+                           for a, b in zip(dev, host) for n in a)
+
+
+@pytest.mark.parametrize("chunk", [None, 8], ids=["monolithic", "chunk8"])
+def test_graphed_prefill_bitwise_eager(gen, chunk):
+    """The graphed prefill (the monolithic one, captured by the second
+    session and replayed by the third, or 8-token chunks with the chunk
+    offset on the card, captured at the second chunk and replayed from
+    the third) gives the eager prefill's first token, its logits and
+    both caches bit for bit with the same launches; the last graphed
+    session of the shape replays every chunk and captures nothing."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.decode import DecodeSession
+    backend, plan, prompt = _small_lm(), _plan(2), _prompt()
+    runs = {}
+    for graphs in (False, True, True, True):
+        sess = DecodeSession(backend, plan, max_len=96, graphs=graphs,
+                             prefill_chunk_tokens=chunk)
+        torch.cuda.synchronize()
+        before = {k: f.launches for k, f in ops.KERNELS.items()}
+        captured = backend.capture_count
+        seen = []
+        hidden_logits = backend.hidden_logits
+        backend.hidden_logits = lambda h, params=None: seen.append(
+            hidden_logits(h, params)) or seen[-1]
+        try:
+            tok = sess.prefill(prompt)
+        finally:
+            del backend.hidden_logits
+        torch.cuda.synchronize()
+        runs.setdefault(graphs, []).append(dict(
+            sess=sess, tok=tok, logits=seen[-1],
+            launches={k: f.launches - before[k]
+                      for k, f in ops.KERNELS.items()},
+            captures=backend.capture_count - captured))
+        if graphs:
+            sess.sever()
+    (eager,), graphed = runs[False], runs[True]
+    # one chunk length either way: one pair of stage graphs, on its
+    # second use
+    assert [r["captures"] for r in [eager] + graphed] == \
+        ([0, 0, 2, 0] if chunk is None else [0, 2, 0, 0])
+    for got in graphed:
+        assert torch.equal(got["tok"], eager["tok"])
+        assert torch.equal(got["logits"], eager["logits"])
+        assert got["launches"] == eager["launches"]
+        for side in ("dev_caches", "srv_caches"):
+            assert all(torch.equal(_bits(a[n]), _bits(b[n])) for a, b in
+                       zip(getattr(got["sess"], side),
+                           getattr(eager["sess"], side)) for n in a), side
+    assert eager["launches"]["qmatmul"] > 0
+
+
+def test_session_series_on_one_backend(gen):
+    """QPART's request loop on one backend, one fresh session per
+    request: per mode (plain, chunks of 8, drafting 2) three graphed
+    requests of 24 tokens and one of 16, each bitwise its
+    ``graphs=False`` twin (a session with caches of its own) with the
+    same launches, on the same slots; each captures the stage keys it
+    uses for the second time, so request 3 captures nothing. Then two
+    live sessions hold distinct slots and step to the twin's tokens."""
+    import collections
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving.decode import DecodeSession
+    backend, plan = _small_lm(), _plan(2)
+    long, short = _prompt(), _prompt(s=16)
+    modes = {"plain": {}, "chunk8": dict(prefill_chunk_tokens=8),
+             "draft2": dict(draft_tokens=2)}
+    uses = collections.Counter()
+    for name, kw in modes.items():
+        slots = set()
+        for i, prompt in enumerate((long, long, long, short)):
+            out = {}
+            for graphs in (False, True):
+                sess = DecodeSession(backend, plan, max_len=96,
+                                     graphs=graphs, **kw)
+                torch.cuda.synchronize()
+                before = {k: f.launches for k, f in ops.KERNELS.items()}
+                captured = backend.capture_count
+                res = sess.generate(prompt, 16)
+                torch.cuda.synchronize()
+                out[graphs] = (res, {k: f.launches - before[k]
+                                     for k, f in ops.KERNELS.items()},
+                               backend.capture_count - captured, sess)
+            (want, la, ca, _), (got, lb, cb, sess) = out[False], out[True]
+            assert np.array_equal(got.tokens, want.tokens), (name, i)
+            assert la == lb and ca == 0, (name, i)
+            assert cb == _second_uses(uses, sess), (name, i)
+            if i == 2:
+                assert cb == 0, (name, i)
+            slots.add((sess._dev_slot, sess._srv_slot))
+        assert len(slots) == 1, name
+    a, b = (DecodeSession(backend, plan, max_len=96) for _ in range(2))
+    twin = DecodeSession(backend, plan, max_len=96, graphs=False)
+    ta, tb_, tt = (s.prefill(long) for s in (a, b, twin))
+    assert not set(a._held) & set(b._held)
+    for _ in range(4):
+        ta, tb_, tt = a.step(ta), b.step(tb_), twin.step(tt)
+        assert torch.equal(ta, tt) and torch.equal(tb_, tt)
 
 
 def _launcher(quant, b=4, s=24, seed=0):

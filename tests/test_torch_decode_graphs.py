@@ -114,7 +114,7 @@ def test_session_at_device_position_matches_reference(pair, where,
     ts = TSession(tb, TPlan(**kw), max_len=MAX_LEN, qkernels=True)
     want, got = js.generate(prompt, 6), ts.generate(prompt, 6)
     np.testing.assert_array_equal(got.tokens, want.tokens)
-    assert not ts.graphs and ts._graphs == {}
+    assert not ts.graphs and ts._held == []     # its own caches, no slot
     assert tb.capture_count == 0
     assert int(ts._pos_t) == ts.pos - 1 == SEQ + 4
     assert ts.last_logits.shape == (2, tb.cfg.padded_vocab())

@@ -4,16 +4,17 @@ and k in {1, 3} (tokens, rounds, drafts proposed and accepted), the
 round's two stages at a host-int round start bitwise the same stages at
 a 0-d int32 / int64 position tensor, and the graph bookkeeping of
 ``DecodeSession`` through a stand-in for ``StageGraph`` that re-runs the
-stage on its static inputs: the first round at the draft length eager,
-the second capturing both stages, later ones replaying, smaller-k tail
-rounds eager, a new prefill dropping the graphs. The graphs themselves
-run only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+stage on its static inputs: each stage key's first use eager, its
+second eager and captured, later uses replaying — in the stream and in
+later sessions of the backend, a third of which captures nothing — and
+a new prefill of the session replaying the chunk graphs on the same
+slots. The graphs
+themselves run only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
 
 Exact throughout: the same f32 4-layer smollm-8m and seeded prompt in
 both packages, greedy ids compared as integers, caches by bit pattern.
 """
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +29,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving.backends import TransformerBackend as TBackend
 from repro_torch.serving.decode import DecodeSession as TSession
 from repro_torch.serving.decode import pipeline
-from tests._torch_parity import lm_configs, lm_weights
+from tests._torch_parity import (FakeGraph, lm_configs, lm_weights,
+                                 stage_graphs)
 
 SEQ, MAX_LEN, PAGE, L = 12, 48, 4, 4
 
@@ -83,9 +85,9 @@ def test_spec_session_matches_reference(pair, p, k, paged):
     np.testing.assert_array_equal(got.tokens, want.tokens)
     assert (got.rounds, got.drafts_proposed, got.drafts_accepted) == \
         (want.rounds, want.drafts_proposed, want.drafts_accepted)
-    assert not ts.graphs and ts._graphs == {}
+    assert not ts.graphs and ts._held == []     # its own caches, no slot
     assert tb.capture_count == before
-    assert ts._spec_rounds >= 1
+    assert ts.drafts_proposed >= k
     if p == L:
         assert got.accept_rate == 1.0
 
@@ -120,34 +122,6 @@ def test_round_at_host_int_bitwise_device_position(pair, p):
             assert _caches_bitwise(sess_t.dev_caches, sess.dev_caches)
 
 
-class FakeGraph:
-    """``StageGraph`` on the CPU: ``fn`` run on its static inputs when
-    captured and again at every replay, its results copied into the
-    capture's outputs (a real capture launches nothing; the stages are
-    idempotent, each writing the same cache slots from the same
-    inputs). Every capture and replay is logged."""
-
-    log = []
-
-    def __init__(self, fn, inputs, pool=None):
-        self.fn, self.inputs, self.pool = fn, tuple(inputs), pool
-        self.outputs = fn(*self.inputs)
-        self.graph = types.SimpleNamespace(pool=lambda: self)
-        self.log.append(("capture", self))
-
-    def replay(self, *inputs):
-        for static, x in zip(self.inputs, inputs):
-            if x is not static:
-                static.copy_(x)
-        new = self.fn(*self.inputs)
-        outs = self.outputs if isinstance(self.outputs, tuple) \
-            else (self.outputs,)
-        for o, n in zip(outs, new if isinstance(new, tuple) else (new,)):
-            o.copy_(n)
-        self.log.append(("replay", self))
-        return self.outputs
-
-
 def _graphed(tb, p, **kw):
     """A CPU session stepping through ``_stage``'s graph path (a CUDA
     session's default; the constructor refuses it off the card)."""
@@ -156,77 +130,132 @@ def _graphed(tb, p, **kw):
     return sess
 
 
+def _fresh(tb):
+    """A backend on ``tb``'s params with no stage graph or cache slot."""
+    return TBackend(tb.cfg, tb.params, seq_len=SEQ, decode_max_len=MAX_LEN)
+
+
 def _rounds(sess, prompt, n):
-    """Each decode round's (drafts proposed, logged graph events by
-    stage name), and the stream's tokens."""
-    names = {}
-    out, toks = [], []
-    for i, emitted in enumerate(sess.round_stream(prompt, n)):
+    """The prefill's and each decode round's (drafts proposed, logged
+    graph events by stage name), and the stream's tokens."""
+    out, toks, proposed = [], [], 0
+    FakeGraph.log.clear()
+    for emitted in sess.round_stream(prompt, n):
         toks.extend(emitted)
-        if i:
-            names.update({id(g): name for name, g in sess._graphs.items()})
-            out.append((sess.drafts_proposed - proposed,
-                        [(what, names[id(g)]) for what, g in FakeGraph.log]))
+        names = {id(g): key[0] for key, g in stage_graphs(sess.backend).items()}
+        out.append((sess.drafts_proposed - proposed,
+                    [(what, names[id(g)]) for what, g in FakeGraph.log]))
         FakeGraph.log.clear()
         proposed = sess.drafts_proposed
     return out, np.stack(toks, axis=1)
 
 
+def _captured(*names):
+    return [("capture", name) for name in names]
+
+
+def _replayed(*names):
+    return [("replay", name) for name in names]
+
+
+PAIR = {"extend": ("extend_device", "extend_server"),
+        "spec": ("spec_device", "spec_server"), "plain": ("device", "server")}
+
+
 @pytest.mark.parametrize("p", [1, L], ids=["p1", "pL"])
 def test_spec_graph_bookkeeping(pair, p, monkeypatch):
-    """Round 1 at the draft length runs eagerly, round 2 captures
-    ``spec_device`` then ``spec_server`` (in a pool of their own, the
-    second in the first's) and replays both, later rounds replay them;
-    rounds at a smaller k and the plain tail step run eagerly. The tokens
-    and counts are the eager session's; the stream captures 2 graphs,
-    and a new prefill drops them."""
+    """Three sessions of one shape on a backend with no graphs. A stage
+    key's first use runs eagerly, its second eagerly and then captures
+    the pair (the server stage in the device stage's pool, reading its
+    output), later uses replay. Stream 1: the prefill chunk (no server
+    stage at p == L), the first round at the draft length and each
+    smaller-k tail round or plain tail step eager, the second round at k
+    capturing, later ones replaying. Stream 2 captures what stream 1 ran
+    once and replays the rest; stream 3 replays every stage in the same
+    order, and a new prefill of it replays the chunk's graphs on the
+    same slots. Tokens and counts are the eager session's throughout."""
     monkeypatch.setattr(pipeline, "StageGraph", FakeGraph)
     _, tb, prompt = pair
     k = 2
     n = 12 if p == L else 10     # at p == L: 3 rounds of 3 tokens, 1 of 2
     eager = TSession(tb, TPlan(**_kw(p)), max_len=MAX_LEN, draft_tokens=k)
     want = eager.generate(prompt, n)
-    sess = _graphed(tb, p, draft_tokens=k)
-    before = tb.capture_count
-    rounds, tokens = _rounds(sess, prompt, n)
-    np.testing.assert_array_equal(tokens, want.tokens)
-    assert (len(rounds), sess.drafts_proposed, sess.drafts_accepted) == \
-        (want.rounds, want.drafts_proposed, want.drafts_accepted)
-    at_k = [events for proposed, events in rounds if proposed == k]
+    be = _fresh(tb)
+    seg = be.split(TPlan(**_kw(p)))
+    streams, sessions = [], []
+    for _ in range(3):
+        sessions.append(_graphed(be, p, draft_tokens=k, segment=seg))
+        rounds, tokens = _rounds(sessions[-1], prompt, n)
+        np.testing.assert_array_equal(tokens, want.tokens)
+        assert (len(rounds) - 1, sessions[-1].drafts_proposed,
+                sessions[-1].drafts_accepted) == \
+            (want.rounds, want.drafts_proposed, want.drafts_accepted)
+        streams.append(rounds)
+    first, second, third = streams
+    extend = PAIR["extend"][:1 if p == L else 2]
+    assert first[0] == (0, [])
+    at_k = [events for proposed, events in first[1:] if proposed == k]
     assert len(at_k) >= 3
     assert at_k[0] == []
-    assert at_k[1] == [("capture", "spec_device"), ("replay", "spec_device"),
-                       ("capture", "spec_server"), ("replay", "spec_server")]
-    assert all(e == [("replay", "spec_device"), ("replay", "spec_server")]
-               for e in at_k[2:])
-    assert all(events == [] for proposed, events in rounds
-               if proposed != k)
+    assert at_k[1] == _captured(*PAIR["spec"])
+    assert all(e == _replayed(*PAIR["spec"]) for e in at_k[2:])
+    tail = [proposed for proposed, _ in first[1:] if proposed != k]
+    assert tail and all(events == [] for proposed, events in first[1:]
+                        if proposed != k)
     if p == L:
-        assert [proposed for proposed, _ in rounds] == [2, 2, 2, 1]
-    assert tb.capture_count - before == 2
-    dev, srv = sess._graphs["spec_device"], sess._graphs["spec_server"]
-    assert set(sess._graphs) == {"spec_device", "spec_server"}
+        assert [proposed for proposed, _ in first[1:]] == [2, 2, 2, 1]
+    assert second[0] == (0, _captured(*extend))
+    assert [events for _, events in second[1:]] == [
+        _replayed(*PAIR["spec"]) if proposed == k
+        else _captured(*PAIR["spec" if proposed else "plain"])
+        for proposed, _ in first[1:]]
+    graphs = stage_graphs(be)
+    assert be.capture_count == len(graphs) == len(extend) + 2 + 2 * len(tail)
+    assert [[("replay", name) for _, name in events]
+            for _, events in second] == [events for _, events in third]
+    keys = {key[0:1] + key[2:3]: g for key, g in graphs.items()}
+    dev, srv = keys[("spec_device", k + 1)], keys[("spec_server", k + 1)]
     assert dev.pool is None and srv.pool is dev
     assert srv.inputs[0] is dev.outputs[0]
-    sess.prefill(prompt)
-    assert sess._graphs == {} and sess._spec_rounds == 0
+    last = sessions[-1]
+    assert (last._dev_slot, last._srv_slot) == \
+        (sessions[0]._dev_slot, sessions[0]._srv_slot)
+    FakeGraph.log.clear()
+    last.prefill(prompt)
+    assert [(what, key[0]) for what, g in FakeGraph.log
+            for key, h in graphs.items() if h is g] == _replayed(*extend)
+    assert len(last._held) == 2 and be.capture_count == len(graphs)
+    last.sever()
+    assert last._held == [] and not sessions[0]._srv_slot.held
 
 
 def test_plain_step_graph_bookkeeping(pair, monkeypatch):
-    """The plain step through the same ``_stage``: step 1 eager, step 2
-    captures ``device`` then ``server`` (the server in the device's pool,
-    reading its output), later steps replay; the eager session's
+    """The plain step through the same ``_stage``: in stream 1 the
+    prefill chunk and step 1 run eagerly, step 2 captures ``device`` /
+    ``server`` (the server in the device's pool, reading its output),
+    later steps replay; stream 2 captures the prefill chunk's pair
+    ``extend_device`` / ``extend_server`` on its second use and replays
+    the steps; stream 3 replays all of it. The eager session's
     tokens."""
     monkeypatch.setattr(pipeline, "StageGraph", FakeGraph)
     _, tb, prompt = pair
     want = TSession(tb, TPlan(**_kw(1)), max_len=MAX_LEN).generate(prompt, 6)
-    sess = _graphed(tb, 1)
-    rounds, tokens = _rounds(sess, prompt, 6)
-    np.testing.assert_array_equal(tokens, want.tokens)
-    assert [events for _, events in rounds] == [
-        [], [("capture", "device"), ("replay", "device"),
-             ("capture", "server"), ("replay", "server")]] + \
-        [[("replay", "device"), ("replay", "server")]] * 3
-    dev, srv = sess._graphs["device"], sess._graphs["server"]
-    assert dev.pool is None and srv.pool is dev
-    assert srv.inputs[0] is dev.outputs
+    be = _fresh(tb)
+    seg = be.split(TPlan(**_kw(1)))
+    streams = []
+    for _ in range(3):
+        rounds, tokens = _rounds(_graphed(be, 1, segment=seg), prompt, 6)
+        np.testing.assert_array_equal(tokens, want.tokens)
+        streams.append([events for _, events in rounds])
+    assert streams[0] == [[], [], _captured(*PAIR["plain"])] + \
+        [_replayed(*PAIR["plain"])] * 3
+    assert streams[1] == [_captured(*PAIR["extend"])] + \
+        [_replayed(*PAIR["plain"])] * 5
+    assert streams[2] == [_replayed(*PAIR["extend"])] + \
+        [_replayed(*PAIR["plain"])] * 5
+    graphs = {key[0]: g for key, g in stage_graphs(be).items()}
+    for first, second in (PAIR["plain"], PAIR["extend"]):
+        dev, srv = graphs[first], graphs[second]
+        assert dev.pool is None and srv.pool is dev
+        assert srv.inputs[0] is dev.outputs
+    assert be.capture_count == 4
