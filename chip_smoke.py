@@ -6,6 +6,8 @@
     python3 chip_smoke.py --profile-tiled [--src OTHER/src]
     python3 chip_smoke.py --profile-flash [--src OTHER/src]
     python3 chip_smoke.py --profile-decode-attention [--src OTHER/src]
+    python3 chip_smoke.py --profile-requests [--src OTHER/src]
+    python3 chip_smoke.py --profile-forward [--src OTHER/src]
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -38,20 +40,29 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 4. the request loop on smollm-135m at its registered shape (30 layers,
    d_model 576, 9/3 heads padded to 4 x 4 by tp_pad=16, d_ff 1536, vocab
    49152, bf16) with seeded random weights: register -> calibrate ->
-   build_store (3 contexts) -> serve -> execute -> generate, with every
-   kernel's launch counter zeroed before and read after; a profile of
+   build_store (3 contexts) -> serve -> execute -> generate (and the
+   deployment executed again before its stage times go into the
+   ledger), with every kernel's launch counter zeroed before and read
+   after; the forward family's block graphs then held to their
+   ``forward_graphs=False`` twin on a copy of the backend with no graph
+   (``forward_graphs_phase``: the calibration probes, the activations
+   and suffixes at four starts, the deployment executed 4 times and
+   every distinct served plan executed, bitwise with equal launches and
+   one capture per block shape; the seconds of both and the block
+   copy's ms beside the block's); a profile of
    the served stream's decode steps follows, eager and replayed as CUDA
    graphs in turns, then graphed sessions held to eager ones at p = 0,
    15 and 30 (tokens and logits bitwise, launches equal, at most 2
    captures), and a small input is checked against the plain versions
-   on the CPU;
+   on the CPU (its graphed forward bitwise its eager twin's);
 5. the fleet engine (the paper's dynamic workload balancing) over the
    request loop's calibrated server: a seeded 200-stream Poisson trace
    (50 requests/s, 32 new tokens, budgets 0.001 / 0.01 / 0.02, deadlines
    0.5 / 1 / 2 s) on two default server profiles under EDF, priced
    analytically under SLO degrade and observe; up to four admitted
-   deployments with distinct plans execute and generate on the card
-   (counters zeroed before, read after), their stage times are fed to
+   deployments with distinct plans execute (twice: the second
+   execution's stage times are the ones recorded) and generate on the
+   card (counters zeroed before, read after), their stage times are fed to
    the calibration ledger, the fitted rates print, and the same trace is
    priced again from them; each run's summary, the cut points chosen
    and the engine's host wall time print. Then the fleet benchmark's two
@@ -112,7 +123,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    qwen2-vl with M-RoPE triples); OLMoE-1B-7B at its registered shape
    (16 layers, d_model 2048, 16 heads of 128, 64 experts top-8, bf16
    activations, 27.7 GB of f32 masters): the request loop (calibration
-   on 16 x 128 tokens), decode sessions at a fixed 8-bit plan at p = 8
+   on 16 x 128 tokens, held to its eager twin, the block copy's ms
+   beside the block's), its graphed forward in f32 against the CPU and
+   its twin, decode sessions at a fixed 8-bit plan at p = 8
    with and without the quantized-kernel segment (bf16 tokens compared,
    f32 tokens equal; the graphed bf16 one bitwise its eager twin), then
    the launcher at --quant 0 and 8 (its
@@ -121,7 +134,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    turns at both, with the expert stacks' per-step casts timed alone);
    Mamba2-1.3B at its registered shape (48 SSD layers, d_inner 4096):
    the launcher at --quant 0, 8 and 4 (graphed held to eager at --quant
-   4), the forward against the CPU, and a decode
+   4), the forward against the CPU (graphed, bitwise its eager twin),
+   and a decode
    session at a fixed 8-bit plan at p = 24, graphed and bitwise its
    eager twin (only the quantize kernels
    run on this attention-free family). Peak device memory per
@@ -175,7 +189,10 @@ route's output bits) and profiles smollm-135m's train step and
 ``launch.train``; ``--profile-decode-attention`` only times decode
 attention at the request loop's, the launcher's and a 2048-slot ring,
 host-int and device-position launches; ``--profile-requests`` only
-times the request series (twice, without twins). ``--src`` imports the port
+times the request series (twice, without twins); ``--profile-forward``
+only times QPART's calibration (three ``QPARTServer.calibrate`` calls on
+one backend) and four executions each of the loop's deployment and of
+p = 0 (``profile_forward``). ``--src`` imports the port
 from another tree, so
 that an earlier commit unpacked by ``git archive`` can be profiled in
 the same call as this one.
@@ -1352,11 +1369,18 @@ def cycle_batch(rng, vocab: int, n: int, seq: int):
 
 
 def request_loop(torch, ops, calib_batch: int, seq: int,
-                 arch: str = "smollm-135m", fixed_plans: bool = True):
+                 arch: str = "smollm-135m", fixed_plans: bool = True,
+                 forward_checks: str = "full"):
     """register -> calibrate -> build_store -> serve -> execute ->
     generate on ``arch`` at its registered shape, with seeded weights on
     the card. ``fixed_plans`` adds a session on a fixed 8- / 4-bit plan
-    for a matmul kernel no served plan ran."""
+    for a matmul kernel no served plan ran. The deployment is executed
+    a second time before its stage times go into the ledger (the first
+    pays the segment's fake-quantization and the block graphs' warm-up
+    and capture). After the counted run, the forward family's block
+    graphs are held to their eager twin (``forward_graphs_phase``:
+    ``forward_checks`` "full", or "calibrate" for the calibration check
+    alone)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.cost_model import (Channel, DeviceProfile,
                                              ObjectiveWeights)
@@ -1428,6 +1452,10 @@ def request_loop(torch, ops, calib_batch: int, seq: int,
                       "accuracy_degradation": res.accuracy_degradation,
                       **res.extra["measured"]}})
     out = run("generate", lambda: dep.generate(prompt, 32))
+    again = dep.execute(x_te, y_te)
+    emit({"execute_again": {"arch": cfg.name, "p": dep.plan.p,
+                            "accuracy": again.accuracy,
+                            **again.extra["measured"]}})
     srv.record_execution(dep)
     srv.record_decode(dep)
     emit({"generate": {"arch": cfg.name, "p": dep.plan.p,
@@ -1462,6 +1490,11 @@ def request_loop(torch, ops, calib_batch: int, seq: int,
                                          extra.device_cache_dtype}})
     launches = read_counters(torch, ops)
     emit({"request_loop_launches": launches, "arch": cfg.name})
+    t0 = time.perf_counter()
+    forward_graphs_phase(torch, ops, backend, x_cal, (x_te, y_te), deps,
+                         dep, full=forward_checks == "full")
+    emit({"forward_graphs_phase_s": time.perf_counter() - t0,
+          "arch": cfg.name})
     return cfg, params, backend, launches, dep, prompt, srv, (x_te, y_te)
 
 
@@ -1688,16 +1721,7 @@ def expert_cast_ms(torch, params, cfg, reps: int = 5) -> float:
                     w.to(dt)
 
     casts()
-    times = []
-    for _ in range(reps):
-        start, stop = (torch.cuda.Event(enable_timing=True)
-                       for _ in range(2))
-        start.record()
-        casts()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    return event_ms(torch, casts, reps)
 
 
 def profile_launch(torch, quant: int, arch: str = "smollm-135m",
@@ -1909,27 +1933,330 @@ def profile_prefill(torch, reps: int = 5):
 def reference_check(torch, cfg, params, backend, rel: float = 5e-2):
     """The kernels' forward against the plain versions on the CPU, on a
     small input at full width and depth: logits agree within ``rel`` of
-    the largest logit (5%: bf16 accuracy through smollm's 30 layers)."""
+    the largest logit (5%: bf16 accuracy through smollm's 30 layers).
+    The card's forward runs through the backend's block graphs (a new
+    shape: its first block eager, its second captured, the rest
+    replayed) and is held bitwise to its ``forward_graphs=False`` twin."""
+    from repro_torch.models import transformer as T
     from repro_torch.serving.backends import TransformerBackend
     from repro_torch.tree import tree_map
     cpu = TransformerBackend(cfg, tree_map(lambda t: t.cpu(), params),
                              seq_len=backend.seq_len)
     x, _ = cycle_batch(np.random.default_rng(SEED + 3), cfg.vocab_size, 2,
                        16)
-    got = backend.forward(x).float().cpu()
+    captured = backend.capture_count
+    graphed = backend.forward(x)
+    captures = backend.capture_count - captured
+    twin = twin_of(backend).forward(x)
+    got = graphed.float().cpu()
     want = cpu.forward(x).float()
     live = slice(0, cfg.vocab_size)
     err = (got[:, live] - want[:, live]).abs().max().item()
     tol = rel * want[:, live].abs().max().item()
     same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    bitwise = bool(torch.equal(graphed, twin))
     emit({"reference_check": {"arch": cfg.name, "dtype": cfg.dtype,
                               "max_abs_err": err, "tol": tol,
                               "argmax_agreement": same,
+                              "graphed_bitwise_twin": bitwise,
+                              "captures": captures,
                               "finite": bool(torch.isfinite(
                                   got[:, live]).all())}})
     if not (err <= tol and torch.isfinite(got[:, live]).all()):
         raise AssertionError(f"forward logits vs CPU plain versions: "
                              f"max |err| {err} > {tol}")
+    if not bitwise or captures > T.period_len(cfg):
+        raise AssertionError(f"graphed forward of {cfg.name}: bitwise its "
+                             f"twin {bitwise}, {captures} captures")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the forward family's block graphs against their eager twin
+
+FORWARD_STARTS = (0, 10, 20, 29)      # smollm-135m's starts held bitwise
+EXECUTIONS = 4                        # executions of the loop's deployment
+
+
+def twin_of(backend):
+    """``backend``'s eager twin: the same params, its forward family with
+    no block graph (``forward_graphs=False``)."""
+    return dataclasses.replace(backend, forward_graphs=False)
+
+
+def timed_counts(torch, ops, fn):
+    """``fn()`` with the counters zeroed just before it, between device
+    syncs -> (its result, seconds, each counter read just after)."""
+    zero_counters(torch, ops)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counters(torch, ops)
+
+
+def event_ms(torch, fn, reps: int = 5) -> float:
+    """Median device ms of ``fn()`` between CUDA events, one pair a rep."""
+    out = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def block_copy(torch, backend) -> dict:
+    """The block graph the backend used last: the ms of copying one
+    layer's leaves into its static buffers (``torch._foreach_copy_``, as a
+    replay does) beside the ms of the graph's replay alone (the block's
+    busy time), by CUDA events, medians of 5."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    key, graph = [(k, e.graphs["block"]) for k, e in
+                  backend.__dict__["_stage_graphs"].items()
+                  if k[0] == "block" and "block" in e.graphs][-1]
+    leaves = tree_leaves(T.block_at(backend.params, backend.cfg,
+                                    key[1])[0])
+    statics = list(graph.inputs[1:])
+    copy_ms = event_ms(torch, lambda: torch._foreach_copy_(statics, leaves))
+    block_ms = event_ms(torch, graph.graph.replay)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    return {"batch": key[3], "seq": key[4], "leaf_bytes": nbytes,
+            "copy_ms": copy_ms, "block_ms": block_ms,
+            "copy_share_of_block": copy_ms / block_ms,
+            "copy_gb_per_s": 2 * nbytes / copy_ms / 1e6}
+
+
+@contextlib.contextmanager
+def capture_seconds():
+    """The host seconds of each block-graph capture made inside (the
+    ``StageGraph`` constructions of ``serving/backends/graphs.py``)."""
+    from repro_torch.serving.backends import graphs as graphs_lib
+    stage_graph, out = graphs_lib.StageGraph, []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        graph = stage_graph(*args, **kwargs)
+        out.append(time.perf_counter() - t0)
+        return graph
+
+    graphs_lib.StageGraph = timed
+    try:
+        yield out
+    finally:
+        graphs_lib.StageGraph = stage_graph
+
+
+def forward_graphs_phase(torch, ops, backend, x_cal, batch, deps, dep,
+                         full: bool = True) -> None:
+    """The forward family's block graphs (``serving/backends/graphs.py``)
+    on a copy of the request loop's backend with no graph yet, each run
+    against the same run on its ``forward_graphs=False`` twin, counters
+    zeroed before each: ``calibrate_probes`` on the calibration set
+    (energies and logits bitwise, launches equal, one capture per period
+    position; seconds of both, and of a second graphed calibration, all
+    replays), and the block copy's ms beside the block's; with ``full``
+    also ``layer_activations`` and ``forward_from_layer`` at
+    ``FORWARD_STARTS``, the loop's deployment executed ``EXECUTIONS``
+    times on each (logits, accuracy and launches equal; captures only in
+    execution 1, the test set's new shape; each execution's stage
+    seconds), and ``execute_plan`` of every distinct served plan
+    (bitwise, no capture)."""
+    import copy
+    from repro_torch.models import transformer as T
+    cfg = backend.cfg
+    plen = T.period_len(cfg)
+    graphed, twin = dataclasses.replace(backend), twin_of(backend)
+    with capture_seconds() as capture_s:
+        (ge, g_s, g_n) = timed_counts(
+            torch, ops, lambda: graphed.calibrate_probes(x_cal))
+    captures = graphed.capture_count
+    (te, t_s, t_n) = timed_counts(
+        torch, ops, lambda: twin.calibrate_probes(x_cal))
+    (ge2, g2_s, g2_n) = timed_counts(
+        torch, ops, lambda: graphed.calibrate_probes(x_cal))
+    same = all(np.array_equal(a, b) for a, b in zip(ge[:2], te[:2])) and \
+        torch.equal(ge[2], te[2]) and \
+        all(np.array_equal(a, b) for a, b in zip(ge2[:2], te[:2]))
+    rec = {"arch": cfg.name, "batch": int(x_cal.shape[0]),
+           "seq": int(x_cal.shape[1]), "bitwise": same,
+           "launches_equal": g_n == t_n == g2_n, "captures": captures,
+           "captures_second": graphed.capture_count - captures,
+           "period_positions": plen, "graphed_s": g_s, "eager_s": t_s,
+           "graphed_again_s": g2_s, "capture_s": capture_s,
+           "launches": g_n,
+           "block_copy": block_copy(torch, graphed)}
+    emit({"forward_graphs_calibrate": rec})
+    if not (same and rec["launches_equal"] and captures == plen
+            and rec["captures_second"] == 0 and twin.capture_count == 0):
+        raise AssertionError(f"graphed calibration is not its twin's: "
+                             f"{rec}")
+    del ge, te, ge2
+    if not full:
+        return
+    before = graphed.capture_count
+    (ga, ga_s, ga_n) = timed_counts(
+        torch, ops, lambda: graphed.layer_activations(x_cal))
+    (ta, ta_s, ta_n) = timed_counts(
+        torch, ops, lambda: twin.layer_activations(x_cal))
+    starts = {}
+    for start in FORWARD_STARTS:
+        (g, _, gn) = timed_counts(
+            torch, ops, lambda: graphed.forward_from_layer(ga[0][start],
+                                                           start))
+        (t, _, tn) = timed_counts(
+            torch, ops, lambda: twin.forward_from_layer(ta[0][start],
+                                                        start))
+        starts[start] = bool(torch.equal(g, t)) and gn == tn
+    rec = {"arch": cfg.name, "acts_bitwise": all(
+        torch.equal(g, t) for g, t in zip(ga[0], ta[0]))
+        and len(ga[0]) == len(ta[0]) and bool(torch.equal(ga[1], ta[1])),
+        "acts_launches_equal": ga_n == ta_n, "acts_graphed_s": ga_s,
+        "acts_eager_s": ta_s, "starts_bitwise": starts,
+        "captures": graphed.capture_count - before}
+    emit({"forward_graphs_activations": rec})
+    if not (rec["acts_bitwise"] and rec["acts_launches_equal"]
+            and all(starts.values()) and rec["captures"] == 0):
+        raise AssertionError(f"graphed activations / suffixes are not "
+                             f"their twin's: {rec}")
+    del ga, ta
+    x_te, y_te = batch
+    name = "forward_from_layer" if dep.plan.p else "forward"
+    deps2 = {False: dataclasses.replace(dep, backend=twin,
+                                        result=copy.deepcopy(dep.result),
+                                        _segment=None),
+             True: dataclasses.replace(dep, backend=graphed,
+                                       result=copy.deepcopy(dep.result),
+                                       _segment=None)}
+    runs = []
+    for i in range(EXECUTIONS):
+        run = {}
+        for graphs in (True, False):
+            be, logged = (graphed if graphs else twin), []
+            before = be.capture_count
+            with recording(be, name, logged):
+                (res, s, n) = timed_counts(
+                    torch, ops, lambda: deps2[graphs].execute(x_te, y_te))
+            m = res.extra["measured"]
+            run[graphs] = {"logits": logged[0], "accuracy": res.accuracy,
+                           "t_device_s": m["t_device_s"],
+                           "t_server_s": m["t_server_s"], "s": s,
+                           "launches": n,
+                           "captures": be.capture_count - before}
+        g, t = run[True], run[False]
+        rec = {"arch": cfg.name, "execution": i + 1, "p": dep.plan.p,
+               "bitwise": bool(torch.equal(g["logits"], t["logits"]))
+               and g["accuracy"] == t["accuracy"],
+               "launches_equal": g["launches"] == t["launches"],
+               **{f"{k}_{mode}": v for mode, r in (("graphed", g),
+                                                   ("eager", t))
+                  for k, v in r.items() if k not in ("logits", "launches")},
+               "launches": g["launches"]}
+        emit({"forward_graphs_execute": rec})
+        want_captures = plen if i == 0 and \
+            tuple(x_te.shape) != tuple(x_cal.shape) else 0
+        if not (rec["bitwise"] and rec["launches_equal"]
+                and rec["captures_graphed"] == want_captures
+                and rec["captures_eager"] == 0):
+            raise AssertionError(f"graphed execution {i + 1} is not its "
+                                 f"twin's: {rec}")
+        runs.append(rec)
+    plans = {}
+    for d in deps:
+        plans.setdefault((d.plan.p, tuple(np.asarray(d.plan.bits_w)),
+                          float(d.plan.bits_x)), d.plan)
+    before = graphed.capture_count
+    same_plans = {}
+    for plan in plans.values():
+        (g, _, gn) = timed_counts(
+            torch, ops, lambda: graphed.execute_plan(plan, x_te))
+        (t, _, tn) = timed_counts(
+            torch, ops, lambda: twin.execute_plan(plan, x_te))
+        same_plans[f"p{plan.p}"] = bool(torch.equal(g, t)) and gn == tn
+    later = runs[1:]
+    rec = {"arch": cfg.name, "plans_bitwise": same_plans,
+           "plans_captures": graphed.capture_count - before,
+           "calibrate_s": {"graphed": g_s, "eager": t_s,
+                           "graphed_again": g2_s},
+           **{f"{k}_{mode}": {"execution_1": runs[0][f"{k}_{mode}"],
+                              "executions_2_4": [r[f"{k}_{mode}"]
+                                                 for r in later]}
+              for k in ("t_device_s", "t_server_s")
+              for mode in ("graphed", "eager")},
+           "captures": graphed.capture_count}
+    emit({"forward_graphs": rec})
+    if not (all(same_plans.values()) and rec["plans_captures"] == 0):
+        raise AssertionError(f"graphed plans are not their twin's: {rec}")
+
+
+CALIBRATIONS = 3                      # QPARTServer.calibrate calls a turn
+
+
+def profile_forward(torch, ops) -> None:
+    """The forward family as QPART's loop runs it, on a seeded
+    smollm-135m at its registered shape: ``QPARTServer.calibrate`` on 64
+    x 128 cycle-task tokens ``CALIBRATIONS`` times on one backend (the
+    first pays the block graphs' eager first use and capture, later ones
+    replay; a tree without the graphs runs all eagerly), then the
+    request loop's deployment (the highest p of the first context's
+    three budgets) and the same deployment at p = 0 executed
+    ``EXECUTIONS`` times each on 16 x 128 tokens. One ``forward_profile``
+    line: every run's seconds, the medians of the later calibrations and
+    of executions 2-4, the launches of one calibration."""
+    import copy
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.cost_model import (Channel, DeviceProfile,
+                                             ObjectiveWeights)
+    from repro_torch.core.solver import PartitionPlan
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import TransformerBackend
+    from repro_torch.serving.qpart_server import QPARTServer
+    from repro_torch.serving.simulator import InferenceRequest
+    cfg = get_config("smollm-135m")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    backend = TransformerBackend(cfg, params, seq_len=128,
+                                 decode_max_len=256)
+    rng = np.random.default_rng(SEED)
+    x_cal, y_cal = cycle_batch(rng, cfg.vocab_size, 64, 128)
+    x_te, y_te = cycle_batch(rng, cfg.vocab_size, 16, 128)
+    srv = QPARTServer()
+    srv.register("smollm", backend, x_cal, y_cal)
+    calibrate, launches = [], None
+    for _ in range(CALIBRATIONS):
+        (_, s, n) = timed_counts(torch, ops, lambda: srv.calibrate("smollm"))
+        calibrate.append(s)
+        launches = launches or n
+    dev, ch, w = DeviceProfile(), Channel(capacity_bps=2e6), \
+        ObjectiveWeights(eta=1e7)
+    ctx = srv.build_store("smollm", dev, ch, w)
+    dep = max((srv.serve(InferenceRequest("smollm", a, dev, ch, w,
+                                          segment_cached=True), ctx)
+               for a in (0.001, 0.01, 0.02)), key=lambda d: d.plan.p)
+    p0 = PartitionPlan(p=0, bits_w=np.zeros(0), bits_x=16.0, objective=0.0,
+                       psi_total=0.0, payload_bits=0.0, breakdown={})
+    execute = {}
+    for plan in (dep.plan, p0):
+        d = dataclasses.replace(dep, plan=plan,
+                                result=copy.deepcopy(dep.result),
+                                _segment=None)
+        stages = []
+        for _ in range(EXECUTIONS):
+            m = d.execute(x_te, y_te).extra["measured"]
+            stages.append({"t_device_s": m["t_device_s"],
+                           "t_server_s": m["t_server_s"]})
+        execute[f"p{plan.p}"] = {
+            "runs": stages,
+            **{f"{k}_median_2_4": statistics.median(
+                r[k] for r in stages[1:])
+               for k in ("t_device_s", "t_server_s")}}
+    emit({"forward_profile": {
+        "calibrate_s": calibrate,
+        "calibrate_first_s": calibrate[0],
+        "calibrate_later_median_s": statistics.median(calibrate[1:]),
+        "calibrate_launches": launches, "execute": execute,
+        "captures": backend.capture_count}})
 
 
 # ---------------------------------------------------------------------------
@@ -2000,6 +2327,9 @@ def lm_fleet(torch, ops, srv, batch, prompt) -> dict:
     x_te, y_te = batch
     zero_counters(torch, ops)
     for dep in picked.values():
+        # the first execution pays the segment's fake-quantization (and a
+        # new shape's graph captures): the ledger takes the second
+        first = dict(dep.execute(x_te, y_te).extra["measured"])
         res = dep.execute(x_te, y_te)
         out = dep.generate(prompt, 32)
         srv.record_execution(dep)
@@ -2009,6 +2339,8 @@ def lm_fleet(torch, ops, srv, batch, prompt) -> dict:
             "bits_w": [int(b) for b in np.ceil(dep.plan.bits_w)],
             "bits_x": float(dep.plan.bits_x),
             "accuracy": res.accuracy, **res.extra["measured"],
+            "first_execution": {k: first[k] for k in
+                                ("t_device_s", "t_server_s", "t_total_s")},
             "ttft_s": out.ttft_s, "tokens_per_s": out.tokens_per_s}})
         vocab = dep.backend.cfg.vocab_size
         if out.tokens.shape != (prompt.shape[0], 32) or not (
@@ -3670,8 +4002,9 @@ def olmoe_phase(torch, ops) -> dict:
     """OLMoE-1B-7B at its registered shape (16 layers, d_model 2048,
     16/16 heads of 128, 64 experts top-8 of d_ff 1024, vocab 50304, bf16
     activations, f32 masters of 27.7 GB): the request loop (calibration
-    on 16 x 128 cycle-task tokens), the fixed-plan MoE sessions at p = 8
-    (L/2),
+    on 16 x 128 cycle-task tokens, its calibration held to the eager
+    twin's), the graphed forward in f32 against the CPU and its twin,
+    the fixed-plan MoE sessions at p = 8 (L/2),
     then, with the backend freed, the launcher at --quant 0 and 8. Peak
     memory per sub-phase. Returns the launches by run."""
     runs = {}
@@ -3679,11 +4012,19 @@ def olmoe_phase(torch, ops) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg, params, backend, launches, dep, prompt, srv, _ = request_loop(
-        torch, ops, 16, 128, arch="olmoe-1b-7b", fixed_plans=False)
+        torch, ops, 16, 128, arch="olmoe-1b-7b", fixed_plans=False,
+        forward_checks="calibrate")
     runs["olmoe_request_loop"] = launches
     emit({"olmoe_request_loop": {"s": time.perf_counter() - t0,
                                  "peak_memory_gb": peak_gb(torch)}})
     del dep, srv
+    # in f32 on both sides (TF32 off), as Mamba2's: bf16 routing on the
+    # card and the CPU may part at a near tie
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    reference_check(torch, f32, params, dataclasses.replace(
+        backend, cfg=f32), rel=1e-3)
+    emit({"olmoe_reference_check_s": time.perf_counter() - t0})
     backend.clear_qstacked()
     torch.cuda.empty_cache()
     runs["olmoe_session"] = moe_sessions(torch, ops, backend, prompt)
@@ -4426,11 +4767,16 @@ def main(argv=None) -> int:
                          "series (phase 7's QPART request loop, one "
                          "session per request) on a seeded smollm-135m, "
                          "twice")
+    ap.add_argument("--profile-forward", action="store_true",
+                    help="only build the kernels and time QPART's "
+                         "calibration and execution (the forward family) "
+                         "on a seeded smollm-135m")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree whose repro_torch to import (with "
                          "--profile-launcher, --profile-tiled, "
-                         "--profile-flash, --profile-decode-attention or "
-                         "--profile-requests: an earlier commit's src/, "
+                         "--profile-flash, --profile-decode-attention, "
+                         "--profile-requests or --profile-forward: an "
+                         "earlier commit's src/, "
                          "unpacked by git archive)")
     args = ap.parse_args(argv)
     if not (args.src / "repro_torch").is_dir():
@@ -4458,13 +4804,17 @@ def main(argv=None) -> int:
             launch_wall(torch, quant)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.profile_requests:
+    if args.profile_requests or args.profile_forward:
         from repro_torch.kernels import build, ops
         print(smi, flush=True)
         emit({"profiled_tree": str(args.src.resolve()),
               "build_dir": str(build.build_all())})
         count_tiled_route(ops)
-        profile_requests(torch, ops)
+        if args.profile_forward:
+            torch.backends.cudnn.allow_tf32 = False
+            profile_forward(torch, ops)
+        else:
+            profile_requests(torch, ops)
         return 0
     if args.profile_tiled or args.profile_flash or \
             args.profile_decode_attention:

@@ -18,14 +18,22 @@ Conventions shared by all backends:
     backend's own) so the calibration can probe perturbed weights.
 
 The reference's compile-once cache (``jitted`` / ``trace_count``) has
-its counterpart in ``stage_graphs`` / ``capture_count``: the decode
-sessions' CUDA graphs (``serving.decode.graphs``: prefill chunks, plain
-steps, speculative rounds) live on the backend, keyed by what each
-bakes in, and every later session of the backend replays them. Unlike a
-jitted program, a graph bakes in tensor addresses and segment bounds,
-so a new cut or a new cache slot captures once more, and the backend
-keeps only the keys used last; the rest of the forward family runs
-eagerly.
+its counterpart in ``stage_graphs`` / ``capture_count``: CUDA graphs
+that live on the backend, keyed by what each bakes in, and that every
+later caller of the backend replays. Two families share them:
+
+  * the decode sessions' stage graphs (``serving.decode.graphs``:
+    prefill chunks, plain steps, speculative rounds). A stage graph
+    bakes in tensor addresses and segment bounds, so a new cut or a new
+    cache slot captures once more;
+  * the forward family's block graphs (``serving.backends.graphs``:
+    ``forward``, ``forward_from_layer``, ``layer_activations``, the
+    calibration probes and the quantized device segment), one per block
+    shape, with the block's weights copied in at each replay, so a
+    capture serves every layer, cut, plan and probe. ``forward_graphs``
+    switches them (default: on when the parameters live on CUDA).
+
+The backend keeps only the keys used last, of both families together.
 """
 from __future__ import annotations
 
@@ -81,6 +89,9 @@ class ModelBackend(abc.ABC):
 
     cfg: object          # the family's config dataclass
     params: object       # canonical full-precision parameters
+    # the forward family through block graphs (serving.backends.graphs):
+    # None = on when the parameters live on CUDA; False = eagerly
+    forward_graphs = None
 
     # -- shared stage graphs -------------------------------------------
     # Kept in __dict__ so the dataclass backends need not declare them.
@@ -118,10 +129,12 @@ class ModelBackend(abc.ABC):
 
     @property
     def capture_count(self) -> int:
-        """Stage graphs captured for this backend's decode sessions — the
-        counterpart of the reference's ``trace_count``: at most one per
-        stage of a key, whatever the number of sessions or tokens (once
-        more if the key was evicted and comes back), 0 on the CPU."""
+        """Graphs captured for this backend — its decode sessions' stage
+        graphs and its forward family's block graphs —, the counterpart
+        of the reference's ``trace_count``: at most one per stage of a
+        key, whatever the number of sessions, tokens, layers, cuts or
+        probes (once more if the key was evicted and comes back), 0 on
+        the CPU."""
         return self.__dict__.get("_capture_count", 0)
 
     def count_capture(self) -> None:

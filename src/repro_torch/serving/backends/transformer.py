@@ -9,9 +9,12 @@ Mapping onto the protocol:
     ``transformer_layer_specs`` is dropped).
   * "logits" = next-token logits at the LAST sequence position, shape
     (B, V), with y = the next token.
-  * the forward family runs ``transformer.segment_forward`` over exactly
-    the layers a call needs; the backend's device is its parameters'
-    device, and inputs (NumPy arrays or tensors) move to it.
+  * the forward family runs exactly the layers a call needs
+    (``graphs.run_blocks``, bitwise ``transformer.segment_forward``),
+    each block through the backend's graph of its shape when
+    ``forward_graphs`` is on (by default on CUDA); the backend's device
+    is its parameters' device, and inputs (NumPy arrays or tensors) move
+    to it.
 """
 from __future__ import annotations
 
@@ -28,10 +31,11 @@ from repro_torch.core.cost_model import (LayerSpec, kv_bytes_row as _kv_row,
                                          transformer_layer_specs)
 from repro_torch.core.partition import DeviceSegment, split_blocks
 from repro_torch.core.quantizer import fake_quant
-from repro_torch.models import rope as rope_lib
 from repro_torch.models import transformer as T
 from repro_torch.serving.backends.base import ModelBackend, to_device
+from repro_torch.serving.backends.graphs import run_blocks
 from repro_torch.serving.decode.cache import paged_kv_ctx
+from repro_torch.serving.errors import ServingError
 from repro_torch.tree import tree_map
 
 PROBE_CHUNK = 4      # the reference's layers per probe step (see below)
@@ -43,7 +47,10 @@ class TransformerBackend(ModelBackend):
     """cfg: ModelConfig; params: a ``transformer.init_params`` /
     ``params_from_numpy`` tree (its device is the backend's). ``seq_len``
     is the reference sequence length requests are planned at; ``mode``
-    follows ``transformer_layer_specs`` ("prefill" | "decode")."""
+    follows ``transformer_layer_specs`` ("prefill" | "decode").
+    ``forward_graphs`` runs the forward family through the backend's
+    block graphs (``serving.backends.graphs``): None = on for CUDA
+    parameters, False = eagerly (the twin the graphs are held to)."""
     cfg: ModelConfig
     params: dict
     seq_len: int
@@ -54,8 +61,14 @@ class TransformerBackend(ModelBackend):
     # KV page size in ring slots: set -> admission prices streams at their
     # page-rounded actual context instead of decode_max_len
     kv_page_tokens: Optional[int] = None
+    forward_graphs: Optional[bool] = None
 
     supports_decode = True
+
+    def __post_init__(self):
+        if self.forward_graphs and self.device.type != "cuda":
+            raise ServingError(f"CUDA graphs need a CUDA backend, not "
+                               f"{self.device}")
 
     @property
     def num_layers(self) -> int:
@@ -147,21 +160,26 @@ class TransformerBackend(ModelBackend):
         return T.unembed(self._p(params), self.cfg, h[:, -1:, :])[:, -1, :]
 
     # -- forward family ---------------------------------------------------
+    # The reference's tokens_logits / h_logits / acts / cut programs: the
+    # embed, the last position's unembed and the cut's quantization run
+    # eagerly, the blocks through run_blocks (one graph per block shape).
     def forward(self, x, params=None):
         params = self._p(params)
         h = T.embed_tokens(params, self.cfg, self._tokens(x))
-        return T.segment_logits(params, self.cfg, h, 0, self.num_layers)
+        return self.hidden_logits(
+            run_blocks(self, params, h, 0, self.num_layers), params)
 
     def forward_from_layer(self, a, start: int, params=None):
-        return T.segment_logits(self._p(params), self.cfg, a, start,
-                                self.num_layers)
+        params = self._p(params)
+        return self.hidden_logits(
+            run_blocks(self, params, a, start, self.num_layers), params)
 
     def layer_activations(self, x, params=None):
         params = self._p(params)
         h = T.embed_tokens(params, self.cfg, self._tokens(x))
-        h, acts = T.segment_forward(params, self.cfg, h, 0, self.num_layers,
-                                    collect=True)
-        return list(acts), T.unembed(params, self.cfg, h[:, -1:, :])[:, -1, :]
+        h, acts = run_blocks(self, params, h, 0, self.num_layers,
+                             collect=True)
+        return list(acts), self.hidden_logits(h, params)
 
     def with_layer_quantized(self, layer: int, bits: int):
         per, pos = divmod(layer, T.period_len(self.cfg))
@@ -190,23 +208,27 @@ class TransformerBackend(ModelBackend):
         is accepted and changes nothing: the probes run one layer at a
         time, each bit for bit the port's scalar loop of perturbed
         forwards (``noise.backend_layer_energies``), which batching probes
-        of different layers into one forward would not keep."""
+        of different layers into one forward would not keep.
+
+        The probed block and both suffixes run through the forward
+        family's block graphs (the perturbed leaves copied in), and the
+        energies stay on the device until one transfer at the end, as
+        the reference's ``np.asarray``: f32 sums widened to float64."""
         cfg, L = self.cfg, self.num_layers
         acts, logits = self.layer_activations(x)
-        b, s = acts[0].shape[:2]
-        positions = rope_lib.text_positions(b, s, device=self.device)
-        e_w, e_x = np.zeros(L), np.zeros(L)
+        sums_w, sums_x = [], []
         for l in range(L):
-            bp, pos = T.block_at(self.params, cfg, l)
+            bp, _ = T.block_at(self.params, cfg, l)
             qbp = tree_map(lambda t: fake_quant(t, probe_bits), bp)
-            h, _, _ = T.apply_block(qbp, cfg, pos, acts[l], positions)
-            d_w = T.segment_logits(self.params, cfg, h, l + 1, L) - logits
-            e_w[l] = float(torch.sum(torch.square(d_w.float())))
-            d_x = T.segment_logits(self.params, cfg,
-                                   fake_quant(acts[l], probe_bits), l, L) \
-                - logits
-            e_x[l] = float(torch.sum(torch.square(d_x.float())))
-        return e_w, e_x, logits
+            h = run_blocks(self, self.params, acts[l], l, L,
+                           replace={l: qbp})
+            d_w = self.hidden_logits(h) - logits
+            sums_w.append(torch.sum(torch.square(d_w.float())))
+            d_x = self.forward_from_layer(fake_quant(acts[l], probe_bits),
+                                          l) - logits
+            sums_x.append(torch.sum(torch.square(d_x.float())))
+        e = torch.stack(sums_w + sums_x).cpu().numpy().astype(np.float64)
+        return e[:L], e[L:], logits
 
     # -- device-segment execution ---------------------------------------
     def _device_blocks(self, p: int):
@@ -236,7 +258,7 @@ class TransformerBackend(ModelBackend):
     def run_device_segment(self, seg: DeviceSegment, plan, x):
         params = self.stacked_for(seg, plan)
         h = T.embed_tokens(params, self.cfg, self._tokens(x))
-        h = T.segment_forward(params, self.cfg, h, 0, plan.p)
+        h = run_blocks(self, params, h, 0, plan.p)
         return fake_quant(h, int(seg.bits_x))
 
     # -- quantized-kernel device segment ---------------------------------

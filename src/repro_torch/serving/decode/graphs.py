@@ -2,7 +2,11 @@
 the reference's compile-once programs (``ModelBackend.jitted`` /
 ``trace_count`` in ``repro/serving/backends/base.py``; the ``embed``,
 ``extend_seg``, ``decode_seg``, ``h_logits`` and ``verify_seg`` programs
-of ``repro/serving/backends/transformer.py``).
+of ``repro/serving/backends/transformer.py``). The rest of that file's
+programs, the forward family (``tokens_logits``, ``h_logits``, ``acts``,
+``cut``, ``probe_all``), replay ``StageGraph``s too: one per block shape,
+with the block's weights copied in (``serving.backends.graphs``), kept
+in the same backend cache.
 
 The reference traces each program once per shape and every session of
 its backend replays it. Here a ``DecodeSession`` on a CUDA backend runs
@@ -89,7 +93,8 @@ class StageGraph:
     """One stage captured as a CUDA graph: ``fn(*inputs)`` recorded once
     on ``inputs``, tensors that stay the graph's static inputs (a replay
     copies its arguments into them unless it is handed them back). The
-    stage's outputs stay in ``outputs``, overwritten by every replay.
+    stage's outputs stay in ``outputs``, overwritten by every replay; a
+    replay copies all its arguments in with one ``torch._foreach_copy_``.
     ``pool`` shares another graph's memory pool; graphs that share one
     replay in the order they were captured."""
 
@@ -109,9 +114,11 @@ class StageGraph:
                     setattr(obj, attr, was)
 
     def replay(self, *inputs):
-        for static, x in zip(self.inputs, inputs):
-            if x is not static:
-                static.copy_(x)
+        pairs = [(static, x) for static, x in zip(self.inputs, inputs)
+                 if x is not static]
+        if pairs:                       # one call for all the copies
+            torch._foreach_copy_([static for static, _ in pairs],
+                                 [x for _, x in pairs])
         self.graph.replay()
         for obj, attr, n in self.counts:
             setattr(obj, attr, getattr(obj, attr) + n)

@@ -100,7 +100,12 @@ class Deployment:
         ``result.accuracy_degradation`` (vs the full-precision model on
         the SAME test set). The two compute stages are wall-clock fenced
         and recorded into ``result.extra['measured']`` beside the
-        predicted breakdown."""
+        predicted breakdown, and so feedable into
+        ``QPARTServer.record_execution`` / the calibration ledger. First
+        execution of a (p, shape) pays the segment's fake-quantization
+        and the block graphs' eager first uses and capture; re-execute
+        (the segment and the graphs persist) before trusting the
+        timings."""
         t0 = time.perf_counter()
         if self.plan.p:
             h = _fence(self.device_segment()(test_x))

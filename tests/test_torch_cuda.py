@@ -30,7 +30,11 @@ steps, and a capture that cannot succeed raising. The speculative
 round's graphs: graphed speculative sessions bitwise their eager twins
 (tokens, each round's drafts and verified tokens, both caches, launches)
 at four cuts and three draft lengths, paged and on a reduced OLMoE, 2
-captures per stream whatever its length.
+captures per stream whatever its length. The forward family's block
+graphs: ``forward``, activations, every start, every p and the
+calibration probes bitwise the ``forward_graphs=False`` twin with equal
+launches, one capture per block shape at depth 2 and 6, MoE and SSD
+blocks in the capture, and a block that cannot be captured raising.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
@@ -1608,3 +1612,122 @@ def test_launcher_capture_that_cannot_succeed_raises(gen, monkeypatch):
         counts.append({k: f.launches - before[k]
                        for k, f in ops.KERNELS.items()})
     assert counts[0] == counts[1]
+
+
+def _forward_twins(backend):
+    """``backend`` with its forward family graphed (the default on the
+    card) and a ``forward_graphs=False`` twin on the same params."""
+    import dataclasses
+    graphed = dataclasses.replace(backend)
+    eager = dataclasses.replace(backend, forward_graphs=False)
+    return graphed, eager
+
+
+def _counted(fn):
+    """``fn()`` and the kernels' launches it made."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches - before[k] for k, f in ops.KERNELS.items()}
+
+
+def test_forward_family_graphed_bitwise_eager(gen):
+    """The forward family through the block graphs on the card (bf16,
+    the flash kernel inside the capture): ``forward`` three times,
+    ``layer_activations``, ``forward_from_layer`` at every start,
+    ``execute_plan`` at every p and ``calibrate_probes`` bitwise the
+    ``forward_graphs=False`` twin, with equal launches; one capture for
+    the one (B, S), none after it."""
+    backend = _small_lm()
+    graphed, eager = _forward_twins(backend)
+    x = _prompt(4, 32)
+    for _ in range(3):
+        got, n_got = _counted(lambda: graphed.forward(x))
+        want, n_want = _counted(lambda: eager.forward(x))
+        assert torch.equal(got, want) and n_got == n_want
+    assert n_got["flash_attention"] == 4
+    assert graphed.capture_count == 1 and eager.capture_count == 0
+    acts, logits = graphed.layer_activations(x)
+    wacts, wlogits = eager.layer_activations(x)
+    assert torch.equal(logits, wlogits)
+    assert all(torch.equal(a, w) for a, w in zip(acts, wacts))
+    for l in range(4):
+        assert torch.equal(graphed.forward_from_layer(acts[l], l),
+                           eager.forward_from_layer(wacts[l], l)), l
+    for p in range(5):
+        got, n_got = _counted(lambda: graphed.execute_plan(_plan(p), x))
+        want, n_want = _counted(lambda: eager.execute_plan(_plan(p), x))
+        assert torch.equal(got, want) and n_got == n_want, p
+    (e_w, e_x, lg), n_got = _counted(lambda: graphed.calibrate_probes(x))
+    (w_w, w_x, wl), n_want = _counted(lambda: eager.calibrate_probes(x))
+    assert np.array_equal(e_w, w_w) and np.array_equal(e_x, w_x)
+    assert torch.equal(lg, wl) and n_got == n_want
+    assert graphed.capture_count == 1
+
+
+def test_forward_graphs_depth_independent(gen):
+    """``TestCompileOnce`` on the card: forward, activations, every
+    start and every p at depth 2 and 6 capture once each."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import TransformerBackend
+    counts = {}
+    for layers in (2, 6):
+        cfg = dataclasses.replace(_small_lm().cfg, num_layers=layers)
+        params = T.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        be = TransformerBackend(cfg, params, seq_len=32)
+        x = _prompt(2, 32)
+        be.forward(x)
+        acts, _ = be.layer_activations(x)
+        for l in range(layers):
+            be.forward_from_layer(acts[l], l)
+        for p in range(1, layers + 1):
+            be.execute_plan(_plan(p), x)
+        counts[layers] = be.capture_count
+    assert counts[2] == counts[6] == 1, counts
+
+
+@pytest.mark.parametrize("arch", ["olmoe", "mamba2"])
+def test_forward_graphs_moe_and_ssm(gen, arch):
+    """A MoE block (reduced OLMoE) and an SSD block (reduced Mamba2) in
+    the capture: ``forward`` and ``calibrate_probes`` bitwise the eager
+    twin, one capture."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import TransformerBackend
+    if arch == "olmoe":
+        backend = _small_moe()
+    else:
+        cfg = get_config("mamba2-1.3b").reduced()
+        params = T.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        backend = TransformerBackend(cfg, params, seq_len=32)
+    graphed, eager = _forward_twins(backend)
+    x = _prompt(2, 32)
+    for _ in range(3):
+        assert torch.equal(graphed.forward(x), eager.forward(x))
+    got, want = graphed.calibrate_probes(x), eager.calibrate_probes(x)
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    assert graphed.capture_count == 1
+
+
+def test_forward_capture_that_cannot_succeed_raises(gen, monkeypatch):
+    """A block that reads the card from the host cannot be captured: the
+    key's second use raises (nothing runs it eagerly instead)."""
+    from repro_torch.models import transformer as T
+    backend = _small_lm()
+    apply_block = T.apply_block
+
+    def synced(bp, cfg, pos, x, positions, **kw):
+        float(x.float().sum())              # a host read inside the block
+        return apply_block(bp, cfg, pos, x, positions, **kw)
+
+    monkeypatch.setattr(T, "apply_block", synced)
+    with pytest.raises(RuntimeError):
+        backend.forward(_prompt(2, 32))
+    assert backend.capture_count == 0
