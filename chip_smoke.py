@@ -71,9 +71,13 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 6. the classifier loop: ``examples/torch_quickstart.py``'s stages on
    the card — the paper's MNIST MLP at full width trained by plain
    autograd, calibrate -> build_store -> serve (1% budget) -> execute,
-   its degradation held to the quickstart's bound, then the three
-   baselines at the served cut, and a CIFAR CNN forward against the CPU
-   (plain PyTorch: no kernel);
+   its degradation held to the quickstart's bound; its programs' CUDA
+   graphs on a copy of the backend held to the ``forward_graphs=False``
+   twin (``classifier_graphs``: ``calibrate_probes`` five times and the
+   served deployment executed 4 times, bitwise, captures on a program's
+   second use, the seconds of both); then the three baselines at the
+   served cut, and a CIFAR CNN forward against the CPU (plain PyTorch:
+   no kernel);
 7. the decode session's features on the request loop's model at a fixed
    8-bit plan at p = L/2: plain, chunked prefill, speculative decode
    (2 and 4 drafts) and paged KV, and at p = L plain and 4 drafts (every
@@ -138,8 +142,18 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    and a decode
    session at a fixed 8-bit plan at p = 24, graphed and bitwise its
    eager twin (only the quantize kernels
-   run on this attention-free family). Peak device memory per
-   sub-phase. Then the zoo trained (``zoo_train_phase``, f32 masters):
+   run on this attention-free family), then QPART's request loop on it
+   (``ring_series``: 4 fresh sessions on one backend at a 48-token
+   prompt, the ring prefill's stage pair eager in request 1, captured
+   in 2, replayed from 3 on, each request bitwise its ``graphs=False``
+   twin with equal launches; TTFT and stage seconds of both); jamba's
+   ring requests at its registered widths, two layers deep (an SSD and
+   an attention + 16-expert MoE block), at p = 1 (``jamba_ring``:
+   ``flash_attention`` inside the server prefill graph, the tiled
+   qmatmul inside the device one); smollm-135m's ring requests with
+   ``long_500k``'s 4096-token window under a 4608-token prompt at p =
+   15 (``window_ring``: the windowed attention, both rings written
+   whole, the device ring float8). Peak device memory per sub-phase. Then the zoo trained (``zoo_train_phase``, f32 masters):
    MusicGen-medium at its registered shape (48 layers, d_model 1536,
    fed through ``embeds=``) and OLMoE-1B-7B at full width and 4 of its
    16 layers (router losses in the loss), each 20 steps at B 8 x S 256
@@ -1626,14 +1640,11 @@ def graph_phase(torch, ops, backend, prompt, gen: int = 32) -> dict:
     a third none; stepped side by side, the third session's logits (the
     server graph's static output) equal the eager session's at every
     step. Returns the graphed runs' launches."""
-    from repro_torch.core.solver import PartitionPlan
     from repro_torch.serving.decode import DecodeSession
     backend = dataclasses.replace(backend)       # no stage graph yet
     runs = {}
     for p in GRAPH_CUTS:
-        plan = PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
-                             objective=0.0, psi_total=0.0, payload_bits=0.0,
-                             breakdown={})
+        plan = fixed_plan(p)
         seg = backend.split(plan) if p else None
 
         def session(**kw):
@@ -1890,7 +1901,6 @@ def profile_prefill(torch, reps: int = 5):
     profiler's own cost."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.quantizer import quantize_params_for_serving
-    from repro_torch.core.solver import PartitionPlan
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import transformer as T
     from repro_torch.serving.backends import TransformerBackend
@@ -1902,9 +1912,7 @@ def profile_prefill(torch, reps: int = 5):
     backend = TransformerBackend(cfg, params, seq_len=128, decode_max_len=256)
     rng = np.random.default_rng(SEED)
     prompt, _ = cycle_batch(rng, cfg.vocab_size, 2, 64)
-    plan = PartitionPlan(p=L // 2, bits_w=np.full(L // 2, 8.0), bits_x=8.0,
-                         objective=0.0, psi_total=0.0, payload_bits=0.0,
-                         breakdown={})
+    plan = fixed_plan(L // 2)
     seg = backend.split(plan)
     for name, kw in (("decode_plain", {}),
                      ("decode_chunk16", dict(prefill_chunk_tokens=16))):
@@ -2466,6 +2474,91 @@ def example(name: str):
     return module
 
 
+CLASSIFIER_CALIBRATIONS = 5     # calibrate_probes calls a mode
+
+
+def classifier_graphs(torch, ops, backend, dep, x_cal, test) -> None:
+    """The classifier's programs through their graphs
+    (``serving/backends/classifier.py``) on a copy of the quickstart's
+    backend with no graph yet, each run against the same run on its
+    ``forward_graphs=False`` twin: ``calibrate_probes`` on the
+    calibration set ``CLASSIFIER_CALIBRATIONS`` times (the probe
+    program's eager first use, its capture, then replays; energies and
+    logits bitwise), then the served
+    deployment executed ``EXECUTIONS`` times on each (logits and accuracy
+    bitwise; captures: at p > 0 the prefix and from-layer programs' in
+    execution 2, their second use; at p = 0 the forward's in execution
+    1, where ``evaluate`` runs it a second time). Seconds of both."""
+    import copy
+    graphed, twin = dataclasses.replace(backend), twin_of(backend)
+    cal = []
+    for i in range(CLASSIFIER_CALIBRATIONS):
+        before = graphed.capture_count
+        g, g_s, _ = timed_counts(
+            torch, ops, lambda: graphed.calibrate_probes(x_cal))
+        t, t_s, _ = timed_counts(
+            torch, ops, lambda: twin.calibrate_probes(x_cal))
+        cal.append({"graphed_s": g_s, "eager_s": t_s,
+                    "captures": graphed.capture_count - before,
+                    "bitwise": bool(np.array_equal(g[0], t[0])
+                                    and np.array_equal(g[1], t[1])
+                                    and torch.equal(g[2], t[2]))})
+    emit({"classifier_graphs_calibrate": {
+        "model": backend.cfg.name, "batch": int(x_cal.shape[0]),
+        "runs": cal}})
+    if not (all(c["bitwise"] for c in cal)
+            and [c["captures"] for c in cal]
+            == [0, 1] + [0] * (CLASSIFIER_CALIBRATIONS - 2)):
+        raise AssertionError(f"graphed classifier calibration is not its "
+                             f"twin's: {cal}")
+    x_te, y_te = test
+    p = dep.plan.p
+    name = "forward_from_layer" if p else "forward"
+    deps = {g: dataclasses.replace(dep, backend=be,
+                                   result=copy.deepcopy(dep.result),
+                                   _segment=None)
+            for g, be in ((True, graphed), (False, twin))}
+    want = [0, 2, 0, 0] if p else [1, 0, 0, 0]
+    runs = []
+    for i in range(EXECUTIONS):
+        run = {}
+        for graphs in (True, False):
+            be, logged = deps[graphs].backend, []
+            before = be.capture_count
+            with recording(be, name, logged):
+                res, secs, _ = timed_counts(
+                    torch, ops, lambda: deps[graphs].execute(x_te, y_te))
+            m = res.extra["measured"]
+            run[graphs] = {"logits": logged[0], "accuracy": res.accuracy,
+                           "t_device_s": m["t_device_s"],
+                           "t_server_s": m["t_server_s"], "s": secs,
+                           "captures": be.capture_count - before}
+        g, t = run[True], run[False]
+        rec = {"model": backend.cfg.name, "execution": i + 1, "p": p,
+               "batch": int(x_te.shape[0]),
+               "bitwise": bool(torch.equal(g["logits"], t["logits"]))
+               and g["accuracy"] == t["accuracy"],
+               **{f"{k}_{mode}": v for mode, r in (("graphed", g),
+                                                   ("eager", t))
+                  for k, v in r.items() if k != "logits"}}
+        emit({"classifier_graphs_execute": rec})
+        if not (rec["bitwise"] and rec["captures_graphed"] == want[i]
+                and rec["captures_eager"] == 0):
+            raise AssertionError(f"graphed classifier execution {i + 1} is "
+                                 f"not its twin's: {rec}")
+        runs.append(rec)
+    emit({"classifier_graphs": {
+        "model": backend.cfg.name, "p": p,
+        "calibrate_s": {mode: [c[f"{mode}_s"] for c in cal]
+                        for mode in ("graphed", "eager")},
+        **{f"{k}_{mode}": {"execution_1": runs[0][f"{k}_{mode}"],
+                           "executions_2_4": [r[f"{k}_{mode}"]
+                                              for r in runs[1:]]}
+           for k in ("t_device_s", "t_server_s")
+           for mode in ("graphed", "eager")},
+        "captures": graphed.capture_count}})
+
+
 def classifier_loop(torch, ops):
     """``examples/torch_quickstart.py``'s stages on the card: the paper's
     MNIST MLP at full width (784-512-256-128-64-32-10, f32) trained on
@@ -2516,6 +2609,10 @@ def classifier_loop(torch, ops):
         "accuracy_degradation": res.accuracy_degradation,
         "objective": dep.objective, "phase_s": secs,
         "measured": res.extra["measured"]}})
+    t0 = time.perf_counter()
+    classifier_graphs(torch, ops, backend, dep, m.calib_x,
+                      (test_x, test_y))
+    emit({"classifier_graphs_s": time.perf_counter() - t0})
     with torch.no_grad():
         base = m.base_accuracy
         server = ServerProfile()
@@ -2736,7 +2833,6 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
     top binade: the qmatmul and attention shapes change with the chunk,
     so the sums round differently). Returns the launches of each run's
     (first) graphed session."""
-    from repro_torch.core.solver import PartitionPlan
     from repro_torch.serving.decode import DecodeSession
     from repro_torch.serving.decode.cache import segment_cache_bytes
     backend = dataclasses.replace(backend)       # no stage graph yet
@@ -2744,9 +2840,7 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
     L = cfg.num_layers
 
     def plan_at(p):
-        return PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
-                             objective=0.0, psi_total=0.0, payload_bits=0.0,
-                             breakdown={})
+        return fixed_plan(p)
 
     p = L // 2
     plan, plan_l = plan_at(p), plan_at(L)
@@ -2944,19 +3038,24 @@ def profile_requests(torch, ops, passes: int = 2) -> None:
                                       "s": time.perf_counter() - t0}})
 
 
+def fixed_plan(p: int, bits: float = 8.0):
+    """A plan of ``p`` device layers at ``bits``, the hop at 8 bits."""
+    from repro_torch.core.solver import PartitionPlan
+    return PartitionPlan(p=p, bits_w=np.full(p, bits), bits_x=8.0,
+                         objective=0.0, psi_total=0.0, payload_bits=0.0,
+                         breakdown={})
+
+
 def fixed_deployment(backend, p: int, bits: float = 8.0):
     """A ``Deployment`` of ``backend`` at a fixed plan (``p`` layers at
     ``bits``, the hop at 8 bits), priced by ``simulate_plan`` under the
     default profiles: QPART's request loop without the solver's pick."""
     from repro_torch.core.cost_model import (Channel, DeviceProfile,
                                              ObjectiveWeights, ServerProfile)
-    from repro_torch.core.solver import PartitionPlan
     from repro_torch.serving.deployment import Deployment
     from repro_torch.serving.simulator import (InferenceRequest,
                                                simulate_plan)
-    plan = PartitionPlan(p=p, bits_w=np.full(p, bits), bits_x=8.0,
-                         objective=0.0, psi_total=0.0, payload_bits=0.0,
-                         breakdown={})
+    plan = fixed_plan(p, bits)
     req = InferenceRequest(model="smollm", accuracy_budget=0.01,
                            device=DeviceProfile(), channel=Channel())
     result = simulate_plan(plan, backend.layer_specs(), req.device,
@@ -3902,13 +4001,10 @@ def moe_sessions(torch, ops, backend, prompt, gen: int = 32):
     token's logits within 5e-2 of the largest (``reference_check``'s
     criterion); the bf16 logits' difference and the tokens equal between
     the two are reported. Returns the bf16 qkernels run's launches."""
-    from repro_torch.core.solver import PartitionPlan
     from repro_torch.serving.backends import TransformerBackend
     from repro_torch.serving.decode import DecodeSession
     p = backend.cfg.num_layers // 2
-    plan = PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
-                         objective=0.0, psi_total=0.0, payload_bits=0.0,
-                         breakdown={})
+    plan = fixed_plan(p)
     seg = backend.split(plan)
     f32 = TransformerBackend(dataclasses.replace(backend.cfg,
                                                  dtype="float32"),
@@ -4038,6 +4134,152 @@ def olmoe_phase(torch, ops) -> dict:
     return runs
 
 
+RING_REQUESTS = 4     # Mamba2's request series: fresh sessions, one backend
+RING_PROMPT = 48      # its prompt length (the phase's session used 64)
+RING_GEN = 8          # tokens per request
+RING_MAX_LEN = 96     # the sessions' max_len
+# the windowed series' prompt: past smollm-135m's long_500k window (4096),
+# a multiple of the windowed attention's 512-row query block
+WINDOW_PROMPT = 4608
+
+
+def ring_request(torch, ops, backend, plan, seg, prompt, graphs: bool,
+                 gen: int = RING_GEN, max_len: int = RING_MAX_LEN) -> dict:
+    """One request of a ring-prefill stack (SSM or hybrid): a fresh
+    ``DecodeSession`` (``graphs`` as given) generating ``gen`` tokens,
+    counters zeroed before and read after -> its result, the session,
+    the launches, the captures, each stage key's fate (``stage_fates``)
+    and its seconds."""
+    from repro_torch.serving.decode import DecodeSession
+    before = cached_stages(backend)
+    captured = backend.capture_count
+    sess = DecodeSession(backend, plan, max_len=max_len, segment=seg,
+                         graphs=graphs)
+    out, secs, launches = timed_counts(torch, ops,
+                                       lambda: sess.generate(prompt, gen))
+    return {"out": out, "sess": sess, "launches": launches,
+            "captures": backend.capture_count - captured, "s": secs,
+            "fates": stage_fates(before, sess)}
+
+
+def ring_series(torch, ops, backend, plan, prompt, requests: int,
+                tag: str, max_len: int = RING_MAX_LEN) -> dict:
+    """QPART's request loop over a ring-prefill stack: ``requests`` fresh
+    graphed sessions on ``backend`` at one prompt length, each against a
+    fresh ``graphs=False`` twin run just before it: tokens, the last
+    step's logits and both caches bitwise, launches equal; each request
+    captures exactly the stage keys it uses for the second time, and
+    from its third on replays both ring-prefill stages and captures
+    nothing. One line per request (TTFT, ``t_device_s``, ``t_server_s``
+    of both, captures, each stage key's fate). Returns the last
+    request's launches."""
+    seg = backend.split(plan) if plan.p else None
+    for i in range(requests):
+        t = ring_request(torch, ops, backend, plan, seg, prompt, False,
+                         max_len=max_len)
+        g = ring_request(torch, ops, backend, plan, seg, prompt, True,
+                         max_len=max_len)
+        sess, twin = g["sess"], t["sess"]
+        caches = all(torch.equal(as_bits(torch, a[k]), as_bits(torch, b[k]))
+                     for side in ("dev_caches", "srv_caches")
+                     for a, b in zip(getattr(sess, side) or [],
+                                     getattr(twin, side) or [])
+                     for k in a)
+        prefill = {k[0]: fate for k, fate in g["fates"].items()
+                   if k[0].startswith("prefill")}
+        rec = {"arch": backend.cfg.name, "request": i + 1, "p": plan.p,
+               "batch": int(prompt.shape[0]),
+               "prompt": int(prompt.shape[1]),
+               "new_tokens": g["out"].new_tokens,
+               "tokens_bitwise": bool(np.array_equal(g["out"].tokens,
+                                                     t["out"].tokens)),
+               "last_logits_bitwise": bool(torch.equal(sess.last_logits,
+                                                       twin.last_logits)),
+               "caches_bitwise": caches,
+               "launches_equal": g["launches"] == t["launches"],
+               "captures": g["captures"],
+               "fates": collections.Counter(g["fates"].values()),
+               "prefill_stages": prefill,
+               **{f"{k}_{mode}": getattr(r["out"], k)
+                  for mode, r in (("graphed", g), ("eager", t))
+                  for k in ("ttft_s", "t_device_s", "t_server_s")},
+               "s_graphed": g["s"], "s_eager": t["s"],
+               "launches": g["launches"]}
+        emit({f"{tag}_ring_request": rec})
+        want = {"prefill_server"} | ({"prefill_device"} if plan.p else set())
+        if not (rec["tokens_bitwise"] and rec["last_logits_bitwise"]
+                and caches and rec["launches_equal"]
+                and rec["captures"] == rec["fates"]["captured"]
+                and set(prefill) == want and t["captures"] == 0
+                and (i < 2 or (rec["captures"] == 0 and set(
+                    prefill.values()) == {"replayed"}))):
+            raise AssertionError(f"{tag} ring request {i + 1} is not its "
+                                 f"twin's: {rec}")
+    return g["launches"]
+
+
+def jamba_ring(torch, ops) -> dict:
+    """Jamba-v0.1 at its registered widths (d_model 4096, 32 heads of
+    128 over 8 KV heads, SSD d_state 16 with heads of 64, 16 experts
+    top-2 at d_ff 14336, vocab 65536, bf16) with the depth cut to one
+    pair of blocks, as ``.reduced()`` pairs them (``attn_every`` 2:
+    layer 0 an SSD block, layer 1 attention with MoE), on the card at a
+    fixed 8-bit plan at p = 1: the device prefill graph runs the SSD
+    block's quantized projections, the server prefill graph
+    ``flash_attention`` and the MoE; three requests on one backend, each
+    bitwise its twin with equal launches, the third replaying both
+    prefill stages. Returns that request's launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import TransformerBackend
+    cfg = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(cfg, name=cfg.name + "-2l", num_layers=2,
+                              attn_every=2)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    backend = TransformerBackend(cfg, params, seq_len=64,
+                                 decode_max_len=RING_MAX_LEN)
+    prompt, _ = cycle_batch(np.random.default_rng(SEED), cfg.vocab_size, 2,
+                            RING_PROMPT)
+    launches = ring_series(torch, ops, backend, fixed_plan(1), prompt, 3,
+                           "jamba")
+    emit({"jamba_ring_peak_memory_gb": peak_gb(torch)})
+    if not launches["flash_attention"]:
+        raise AssertionError(f"jamba's replayed ring prefill launched no "
+                             f"flash attention: {launches}")
+    return launches
+
+
+def window_ring(torch, ops) -> dict:
+    """smollm-135m at its registered shape with the sliding window that
+    ``configs.for_shape`` gives a full-attention arch at ``long_500k``
+    (4096), on the card at a fixed 8-bit plan at p = L/2 under one
+    prompt of ``WINDOW_PROMPT`` tokens, past the window: the ring
+    prefill takes the windowed attention and writes both slots' rings
+    whole (rolled as bit patterns; the device ring is float8); three
+    requests on one backend, each bitwise its twin with equal launches,
+    the third replaying both prefill stages. Returns that request's
+    launches."""
+    from repro_torch.configs.base import INPUT_SHAPES, for_shape, get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import TransformerBackend
+    cfg = for_shape(get_config("smollm-135m"), INPUT_SHAPES["long_500k"])
+    max_len = WINDOW_PROMPT + RING_GEN
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    backend = TransformerBackend(cfg, params, seq_len=64,
+                                 decode_max_len=max_len)
+    prompt, _ = cycle_batch(np.random.default_rng(SEED), cfg.vocab_size, 1,
+                            WINDOW_PROMPT)
+    launches = ring_series(torch, ops, backend,
+                           fixed_plan(cfg.num_layers // 2), prompt, 3,
+                           "window", max_len=max_len)
+    emit({"window_ring": {"window": cfg.sliding_window,
+                          "prompt": WINDOW_PROMPT, "max_len": max_len,
+                          "peak_memory_gb": peak_gb(torch)}})
+    return launches
+
+
 def mamba2_phase(torch, ops) -> dict:
     """Mamba2-1.3B at its registered shape (48 SSD layers, d_model 2048,
     d_inner 4096, 64 heads of 64, d_state 128, chunk 256, vocab 50280,
@@ -4048,7 +4290,6 @@ def mamba2_phase(torch, ops) -> dict:
     then decode). The family is attention-free: only the quantize
     kernels launch here. Returns the launches by run."""
     from repro_torch.configs.base import get_config
-    from repro_torch.core.solver import PartitionPlan
     from repro_torch.models import transformer as T
     from repro_torch.serving.backends import TransformerBackend
     from repro_torch.serving.decode import DecodeSession
@@ -4072,9 +4313,7 @@ def mamba2_phase(torch, ops) -> dict:
     reference_check(torch, f32, params,
                     TransformerBackend(f32, params, seq_len=64), rel=1e-3)
     p = cfg.num_layers // 2
-    plan = PartitionPlan(p=p, bits_w=np.full(p, 8.0), bits_x=8.0,
-                         objective=0.0, psi_total=0.0, payload_bits=0.0,
-                         breakdown={})
+    plan = fixed_plan(p)
     prompt, _ = cycle_batch(np.random.default_rng(SEED), cfg.vocab_size, 2,
                             64)
     zero_counters(torch, ops)
@@ -4099,8 +4338,21 @@ def mamba2_phase(torch, ops) -> dict:
     if out.tokens.shape != (2, 32) or not (
             (out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all():
         raise AssertionError(f"mamba2 session gave {out.tokens!r}")
+    t0 = time.perf_counter()
+    series, _ = cycle_batch(np.random.default_rng(SEED + 1), cfg.vocab_size,
+                            2, RING_PROMPT)
+    runs["mamba2_ring"] = ring_series(torch, ops, backend, plan, series,
+                                      RING_REQUESTS, "mamba2")
+    emit({"mamba2_ring_series_s": time.perf_counter() - t0})
     del params, backend, sess
     torch.cuda.empty_cache()
+    for name, phase in (("jamba_ring", jamba_ring),
+                        ("window_ring", window_ring)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runs[name] = phase(torch, ops)
+        emit({f"{name}_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
     return runs
 
 
@@ -4682,6 +4934,11 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                                 "dequantize", "decode_attention",
                                 "flash_attention"),
             "mamba2_launch_q8": ("quantize", "dequantize"),
+            # jamba's replayed ring request: flash inside the prefill graph
+            "jamba_ring": ("flash_attention", "decode_attention",
+                           "qmatmul_tiled"),
+            # the windowed ring: quantized device blocks at 4608 rows
+            "window_ring": ("qmatmul_tiled", "decode_attention"),
             "mamba2_launch_q4": ("quantize_pack4", "dequantize")}
 
 

@@ -164,13 +164,25 @@ def _ssm_forward_with_state(params, cfg, x):
 def ssm_prefill(params, cfg, x, cache):
     """Forward + populate the decode cache in place: the final state and
     the conv ring's last ``W - 1`` PRE-conv channel values of [x, B, C].
-    Returns (out, cache)."""
+    Returns (out, cache).
+
+    The ring rows are the reference's slice ``[S - (W - 1), S)`` with
+    Python's reading of a negative start: a prompt shorter than the ring
+    gives fewer rows (one, for ``W = 4``), which the reference's masked
+    cache write broadcasts over the whole ring, and so does this one.
+    That broadcast is a defect of the reference, kept on purpose so the
+    port's sessions give the reference's tokens: the causal conv of the
+    model's own forward reads zeros before the prompt, so the right ring
+    of a 2-token prompt is [0, x0, x1], not [x1, x1, x1], and the next
+    decode step disagrees with a full forward over the same tokens. It
+    reaches every ring prefill of an SSM layer under S < W - 1 (decode
+    sessions, the launcher's prefill); ROADMAP Queue 3 keeps it open."""
     out, state = _ssm_forward_with_state(params, cfg, x)
     _, xr, br, cr, _ = _project_in(params, x)
     ring = cache["conv"]
-    take = min(x.shape[1], ring.shape[1])
-    tail = torch.cat([xr, br, cr], dim=-1)[:, x.shape[1] - take:]
-    ring[:, ring.shape[1] - take:] = to_storage(tail, ring.dtype)
+    s = x.shape[1]
+    tail = torch.cat([xr, br, cr], dim=-1)[:, s - ring.shape[1]:s]
+    ring[:] = to_storage(tail, ring.dtype)
     cache["state"].copy_(state)
     return out, cache
 

@@ -331,8 +331,10 @@ def _attn_prefill_with_cache(ap, cfg, h, positions, cache):
     for name, t in (("k", kr), ("v", v)):
         w = to_storage(t[:, s - take:], cache[name].dtype)
         if take == buf:
-            # ring layout: position pos0 + i lands in slot (pos0 + i) % buf
-            cache[name][:] = torch.roll(w, (s - take) % buf, dims=1)
+            # ring layout: position pos0 + i lands in slot (pos0 + i) % buf;
+            # rolled as bit patterns (CUDA's roll takes no float8)
+            as_bits(cache[name])[:] = torch.roll(as_bits(w),
+                                                 (s - take) % buf, dims=1)
         else:
             cache[name][:, :take] = w
     return out, cache

@@ -23,14 +23,15 @@ that live on the backend, keyed by what each bakes in, and that every
 later caller of the backend replays. Two families share them:
 
   * the decode sessions' stage graphs (``serving.decode.graphs``:
-    prefill chunks, plain steps, speculative rounds). A stage graph
-    bakes in tensor addresses and segment bounds, so a new cut or a new
-    cache slot captures once more;
-  * the forward family's block graphs (``serving.backends.graphs``:
+    ring prefills, prefill chunks, plain steps, speculative rounds). A
+    stage graph bakes in tensor addresses and segment bounds, so a new
+    cut or a new cache slot captures once more;
+  * the forward family's graphs (``serving.backends.graphs``:
     ``forward``, ``forward_from_layer``, ``layer_activations``, the
-    calibration probes and the quantized device segment), one per block
-    shape, with the block's weights copied in at each replay, so a
-    capture serves every layer, cut, plan and probe. ``forward_graphs``
+    calibration probes and the quantized device segment): a
+    transformer's one per block shape, a classifier's one per program
+    and shape, with the weights copied in at each replay, so a capture
+    serves every layer, cut, plan and probe. ``forward_graphs``
     switches them (default: on when the parameters live on CUDA).
 
 The backend keeps only the keys used last, of both families together.
@@ -89,8 +90,8 @@ class ModelBackend(abc.ABC):
 
     cfg: object          # the family's config dataclass
     params: object       # canonical full-precision parameters
-    # the forward family through block graphs (serving.backends.graphs):
-    # None = on when the parameters live on CUDA; False = eagerly
+    # the forward family through graphs (serving.backends.graphs): None =
+    # on when the parameters live on CUDA; False = eagerly
     forward_graphs = None
 
     # -- shared stage graphs -------------------------------------------
@@ -130,7 +131,7 @@ class ModelBackend(abc.ABC):
     @property
     def capture_count(self) -> int:
         """Graphs captured for this backend — its decode sessions' stage
-        graphs and its forward family's block graphs —, the counterpart
+        graphs and its forward family's graphs —, the counterpart
         of the reference's ``trace_count``: at most one per stage of a
         key, whatever the number of sessions, tokens, layers, cuts or
         probes (once more if the key was evicted and comes back), 0 on

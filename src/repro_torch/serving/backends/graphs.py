@@ -1,7 +1,8 @@
-"""The forward family's block graphs — the port's counterpart of the
+"""The forward family's graphs — the port's counterpart of the
 reference's compile-once forward programs (``tokens_logits``,
 ``h_logits``, ``acts``, ``cut`` and ``probe_all`` in
-``repro/serving/backends/transformer.py``).
+``repro/serving/backends/transformer.py``; the classifier's programs,
+``serving.backends.classifier``, go through ``graphed_call`` too).
 
 The reference compiles each of those once per shape, with the segment
 bounds as dynamic operands, so every start, cut and probe at a shape
@@ -38,6 +39,16 @@ from __future__ import annotations
 from repro_torch.models import rope as rope_lib
 from repro_torch.models import transformer as T
 from repro_torch.serving.decode.graphs import StageGraph
+from repro_torch.serving.errors import ServingError
+
+
+def refuse_off_card(backend) -> None:
+    """Raise ``ServingError`` when ``forward_graphs=True`` is asked of a
+    backend whose parameters are not on CUDA (a backend's
+    ``__post_init__``)."""
+    if backend.forward_graphs and backend.device.type != "cuda":
+        raise ServingError(f"CUDA graphs need a CUDA backend, not "
+                           f"{backend.device}")
 
 
 def graphed(backend) -> bool:
@@ -83,6 +94,26 @@ def _block_fn(cfg, pos: int, paths):
     return fn
 
 
+def graphed_call(backend, key: tuple, fn, inputs):
+    """``fn(*inputs)`` through the backend's graph of ``key`` (the stage
+    name first): the key's first use runs ``fn`` eagerly, its second
+    eagerly again and then captures it on clones of ``inputs``, every
+    later use replays it with ``inputs`` copied in -> (the outputs,
+    whether they are the graph's buffers, which the next replay
+    overwrites)."""
+    name = key[0]
+    entry = backend.stage_graphs(key)
+    graph = entry.graphs.get(name)
+    if graph is not None:
+        return graph.replay(*inputs), True
+    entry.uses[name] = uses = entry.uses.get(name, 0) + 1
+    out = fn(*inputs)
+    if uses >= 2:
+        entry.graphs[name] = StageGraph(fn, [t.clone() for t in inputs])
+        backend.count_capture()
+    return out, False
+
+
 def _graphed_block(backend, bp, pos: int, h):
     """Block ``bp`` on ``h`` through the backend's graph of its key ->
     (h_out, whether h_out is the graph's output buffer)."""
@@ -90,18 +121,8 @@ def _graphed_block(backend, bp, pos: int, h):
     key = ("block", pos,
            tuple((p, t.shape, t.dtype) for p, t in zip(paths, leaves)),
            h.shape[0], h.shape[1], h.dtype)
-    entry = backend.stage_graphs(key)
-    graph = entry.graphs.get("block")
-    if graph is not None:
-        return graph.replay(h, *leaves), True
-    entry.uses["block"] = uses = entry.uses.get("block", 0) + 1
-    fn = _block_fn(backend.cfg, pos, paths)
-    out = fn(h, *leaves)
-    if uses >= 2:
-        entry.graphs["block"] = StageGraph(
-            fn, [t.clone() for t in (h, *leaves)])
-        backend.count_capture()
-    return out, False
+    return graphed_call(backend, key, _block_fn(backend.cfg, pos, paths),
+                        (h, *leaves))
 
 
 def run_blocks(backend, params, h, start: int, stop: int, *,

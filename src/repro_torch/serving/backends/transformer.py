@@ -33,9 +33,8 @@ from repro_torch.core.partition import DeviceSegment, split_blocks
 from repro_torch.core.quantizer import fake_quant
 from repro_torch.models import transformer as T
 from repro_torch.serving.backends.base import ModelBackend, to_device
-from repro_torch.serving.backends.graphs import run_blocks
+from repro_torch.serving.backends.graphs import refuse_off_card, run_blocks
 from repro_torch.serving.decode.cache import paged_kv_ctx
-from repro_torch.serving.errors import ServingError
 from repro_torch.tree import tree_map
 
 PROBE_CHUNK = 4      # the reference's layers per probe step (see below)
@@ -66,9 +65,7 @@ class TransformerBackend(ModelBackend):
     supports_decode = True
 
     def __post_init__(self):
-        if self.forward_graphs and self.device.type != "cuda":
-            raise ServingError(f"CUDA graphs need a CUDA backend, not "
-                               f"{self.device}")
+        refuse_off_card(self)
 
     @property
     def num_layers(self) -> int:

@@ -1,12 +1,13 @@
 """CUDA graphs of the decode session's stages — the port's counterpart of
 the reference's compile-once programs (``ModelBackend.jitted`` /
 ``trace_count`` in ``repro/serving/backends/base.py``; the ``embed``,
-``extend_seg``, ``decode_seg``, ``h_logits`` and ``verify_seg`` programs
-of ``repro/serving/backends/transformer.py``). The rest of that file's
-programs, the forward family (``tokens_logits``, ``h_logits``, ``acts``,
-``cut``, ``probe_all``), replay ``StageGraph``s too: one per block shape,
-with the block's weights copied in (``serving.backends.graphs``), kept
-in the same backend cache.
+``prefill_seg``, ``extend_seg``, ``decode_seg``, ``h_logits`` and
+``verify_seg`` programs of ``repro/serving/backends/transformer.py``).
+The rest of that file's programs, the forward family (``tokens_logits``,
+``h_logits``, ``acts``, ``cut``, ``probe_all``), and the classifier's
+(``repro/serving/backends/classifier.py``) replay ``StageGraph``s too,
+with their weights copied in (``serving.backends.graphs``), kept in the
+same backend cache.
 
 The reference traces each program once per shape and every session of
 its backend replays it. Here a ``DecodeSession`` on a CUDA backend runs
@@ -18,7 +19,14 @@ every later use of the key, in this stream or any later stream of the
 backend, replays it. So a key used once (a prompt length seen once)
 never pays for a capture. The stages come in pairs, device then server:
 
-  * a prefill chunk (the monolithic prefill is one chunk):
+  * the ring prefill of sliding-window and SSM stacks, always one
+    chunk: ``prefill_device`` — ``embed`` -> ``prefill_segment([0, p))``
+    into the device slot's rings -> the quantized hop; ``prefill_server``
+    — ``prefill_segment([p, L))`` -> unembed of the last row -> argmax
+    (at p = 0 it embeds first; at p = L the unembed and argmax alone).
+    Paged sessions ingest the device ring's pages between the two;
+  * a prefill chunk of a full-context attention stack (the monolithic
+    prefill is one chunk):
     ``extend_device`` — ``embed`` -> ``extend_segment([0, p))`` -> the
     quantized hop; ``extend_server`` — ``extend_segment([p, L))`` (at
     p = 0 it embeds first; at p = L there is none). The first token's
@@ -35,8 +43,8 @@ never pays for a capture. The stages come in pairs, device then server:
     ``verify_segment`` of the k+1 rows over ``[p, L)`` -> argmax.
 
 A pair's key holds what its graphs bake in: the stage pair, the cut
-(its segment bounds), rows (the chunk length, 1, or k + 1), the
-stream's two cache slots (which fix batch, ``max_len`` and the cache
+(its segment bounds), rows (the prompt or chunk length, 1, or k + 1),
+the stream's two cache slots (which fix batch, ``max_len`` and the cache
 dtypes) and the params trees the graphs read. A chunk's offset, a
 step's position and a round's start are not in it: they live on the
 card, in the slot's 0-d ``pos`` tensor the session fills before each

@@ -16,17 +16,18 @@ the prompt in chunks through the cache-mediated extend path,
 ``draft_tokens`` turns decode rounds speculative (the quantized device
 segment drafts, the server verifies every draft in one round trip —
 bitwise plain greedy), ``paged`` tracks the device KV page by page.
-Sliding-window configs prefill through ``prefill_segment`` (their ring
-wraps) and take neither chunking nor speculation.
+Sliding-window and SSM stacks prefill through ``prefill_segment`` (a
+window's ring wraps; an SSM state is a running reduction), as one ring-
+prefill stage pair, and take neither chunking nor speculation.
 
 On a CUDA backend the device segment runs from quantized wire structs
 through the qmatmul/qmatmul4 kernels by default (``qkernels``), and
 every decode step's attention through the decode-attention kernel.
-Prefill chunks, plain decode steps and speculative rounds keep their
-offset / position on the device, run on caches from the backend's slot
-pool, and replay CUDA graphs of their two stages that the backend keeps
-for every later session (``graphs``, the reference's compile-once
-programs; see ``serving.decode.graphs``). Stage boundaries are fenced
+Ring prefills, prefill chunks, plain decode steps and speculative
+rounds keep their offset / position on the device, run on caches from
+the backend's slot pool, and replay CUDA graphs of their two stages that
+the backend keeps for every later session (``graphs``, the reference's
+compile-once programs; see ``serving.decode.graphs``). Stage boundaries are fenced
 with ``torch.cuda.synchronize`` so the wall-clock stage seconds measure
 finished work.
 """
@@ -59,7 +60,8 @@ from repro_torch.serving.errors import ServingError
 # the second stage of each graphed pair -> the first, whose memory pool
 # it shares and whose output it reads
 _FIRST_STAGE = {"server": "device", "spec_server": "spec_device",
-                "extend_server": "extend_device"}
+                "extend_server": "extend_device",
+                "prefill_server": "prefill_device"}
 
 
 def _fence(t):
@@ -126,10 +128,10 @@ class DecodeSession:
     paged sessions (default: a pool of this stream's worst case).
     ``graphs`` (default: on when the backend lives on CUDA) takes the
     stream's caches from the backend's slot pool and runs each stage
-    (prefill chunk, plain step, speculative round) through the
-    backend's stage graphs: eagerly on its key's first use, eagerly and
-    captured on its second, replayed on every later use by this or any
-    later session; off, a CUDA session allocates its own caches and
+    (ring prefill, prefill chunk, plain step, speculative round) through
+    the backend's stage graphs: eagerly on its key's first use, eagerly
+    and captured on its second, replayed on every later use by this or
+    any later session; off, a CUDA session allocates its own caches and
     steps eagerly through the same code. CPU sessions step eagerly.
 
     A graphed session's caches (``dev_caches``, ``srv_caches``) and
@@ -230,8 +232,9 @@ class DecodeSession:
         weakref.finalize(self, release_slots, backend, self._held)
         # the stage keys of the backend's graphs this stream ran -> uses
         self.graph_keys = collections.Counter()
-        # (B, V) of the last plain step; on a graphed step the server
-        # graph's output buffer, which the next replay overwrites
+        # (B, V) of the last plain step or ring prefill; on a graphed
+        # stage the server graph's output buffer, which the next replay
+        # overwrites
         self.last_logits = None
         self.t_device_s = 0.0
         self.t_server_s = 0.0
@@ -364,23 +367,21 @@ class DecodeSession:
         if self._cache_extendable:
             return self._prefill_chunked(prompt, None)
         # a wrapping (sliding-window) ring or an SSM stack: the whole
-        # prompt at once, eagerly, into the stream's slots
+        # prompt at once into the stream's slots, through the ring-
+        # prefill stage pair (always one chunk, so the first token's
+        # unembed and argmax are the server stage's last ops)
         t0 = time.perf_counter()
+        h_in = prompt
         if self.p > 0:
-            h0 = self.backend.embed(prompt, params=self.dev_params)
-            h_dev, self.dev_caches = self.backend.prefill_segment(
-                h0, self.dev_caches, 0, self.p, params=self.dev_params)
-            h_in = _fence(self._quant_hop(h_dev))
+            h_in = _fence(self._stage("prefill_device",
+                                      self._prefill_device, prompt, s))
             if self.paged:
                 self._open_paged(b)
                 self.paged_kv.ingest_prefill(self.dev_caches, s)
         t1 = time.perf_counter()
-        if self.p == 0:
-            h_in = self.backend.embed(prompt)
-        h_srv, self.srv_caches = self.backend.prefill_segment(
-            h_in, self.srv_caches, self.p, self.L)
-        logits = self.backend.hidden_logits(h_srv[:, -1:, :])
-        token = _fence(torch.argmax(logits, -1).to(torch.int32))
+        self.last_logits, token = self._stage(
+            "prefill_server", self._prefill_server, h_in, s)
+        token = _fence(token.clone())
         t2 = time.perf_counter()
         self.t_device_s += t1 - t0
         self.t_server_s += t2 - t1
@@ -425,6 +426,27 @@ class DecodeSession:
         self.t_server_s += time.perf_counter() - t1
         self.pos = s
         return token
+
+    def _prefill_device(self, prompt):
+        """The ring prefill's device stage: embed the prompt's ids (B,
+        S), prefill blocks ``[0, p)`` into the device slot's rings, the
+        quantized channel hop."""
+        h = self.backend.embed(prompt, params=self.dev_params)
+        h, self.dev_caches = self.backend.prefill_segment(
+            h, self.dev_caches, 0, self.p, params=self.dev_params)
+        return self._quant_hop(h)
+
+    def _prefill_server(self, h):
+        """The ring prefill's server stage: prefill blocks ``[p, L)``
+        over the hop's rows into the server slot's rings (at p == 0,
+        embed the prompt's ids ``h`` first), unembed the last row ->
+        (logits (B, V), the first greedy token (B,) int32)."""
+        if self.p == 0:
+            h = self.backend.embed(h)
+        h, self.srv_caches = self.backend.prefill_segment(
+            h, self.srv_caches, self.p, self.L)
+        logits = self.backend.hidden_logits(h[:, -1:, :])
+        return logits, torch.argmax(logits, -1).to(torch.int32)
 
     def _extend_device(self, chunk):
         """A prefill chunk's device stage at the device slot's offset:
@@ -478,10 +500,11 @@ class DecodeSession:
         eagerly without graphs; else through the backend's graphs of its
         key: the key's first use runs eagerly, its second eagerly and
         then captures it, every later use (by any session) replays it.
-        The second stage of a pair (``extend_server``, ``server``,
-        ``spec_server``) is cached under its first stage's key, shares
-        its memory pool, so the pair replays in capture order, and reads
-        its output where it lies in that pool."""
+        The second stage of a pair (``prefill_server``,
+        ``extend_server``, ``server``, ``spec_server``) is cached under
+        its first stage's key, shares its memory pool, so the pair
+        replays in capture order, and reads its output where it lies in
+        that pool."""
         if not self.graphs:
             return fn(x)
         lead = _FIRST_STAGE.get(name, name)

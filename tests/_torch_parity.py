@@ -1,21 +1,32 @@
 """Shared helpers of the ``test_torch_*`` parity tests: arrays and trees
 cross from the JAX package to the PyTorch port as NumPy (bfloat16 and
 float8 by their bit patterns, which NumPy cannot hand to torch
-directly), plus the small configs both packages run and a CPU stand-in
-for the decode session's CUDA graphs (``FakeGraph``)."""
+directly), plus the small configs both packages run, a CPU stand-in
+for the decode session's CUDA graphs (``FakeGraph``) and a dispatch mode
+that fails any read of a tensor's value on the host (``NoHostReads``).
+
+Importing this module caps torch's intra-op threads at the process's
+share of the cores: pytest-xdist's workers (``PYTEST_XDIST_WORKER_COUNT``
+in their environment) would otherwise each run one thread per core."""
 from __future__ import annotations
 
 import dataclasses
 import importlib.util
+import os
 import sys
 import types
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs.base import get_config as jax_get_config
 from repro_torch.configs.base import get_config as torch_get_config
+
+WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+THREADS = max(1, (os.cpu_count() or 1) // WORKERS)
+torch.set_num_threads(min(torch.get_num_threads(), THREADS))
 
 # NumPy dtype name -> (same-width integer view, torch dtype)
 _BIT_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
@@ -158,3 +169,38 @@ def stage_graphs(backend) -> dict:
     return {(name,) + key[1:]: g for key, entry in
             backend.__dict__.get("_stage_graphs", {}).items()
             for name, g in entry.graphs.items()}
+
+
+class NoHostReads(TorchDispatchMode):
+    """Fails an op that reads a tensor's value on the host (``int()``,
+    ``.item()``, ``bool()``, a data-dependent shape), except inside
+    ``F.one_hot``: on the CPU it checks its classes' range on the host,
+    on CUDA it leaves that to its scatter's device assert and reads
+    nothing (``exempt`` counts the ``one_hot`` calls under way)."""
+
+    def __init__(self):
+        super().__init__()
+        self.exempt = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self.exempt and func in (
+                torch.ops.aten._local_scalar_dense.default,
+                torch.ops.aten.nonzero.default):
+            raise AssertionError(f"{func} read a tensor on the host")
+        return func(*args, **(kwargs or {}))
+
+
+def no_host_reads(monkeypatch) -> NoHostReads:
+    """A ``NoHostReads`` mode with ``F.one_hot`` exempted through
+    ``monkeypatch`` (the body of the tests' ``no_host_reads`` fixtures)."""
+    mode, one_hot = NoHostReads(), torch.nn.functional.one_hot
+
+    def exempt_one_hot(*args, **kwargs):
+        mode.exempt += 1
+        try:
+            return one_hot(*args, **kwargs)
+        finally:
+            mode.exempt -= 1
+
+    monkeypatch.setattr(torch.nn.functional, "one_hot", exempt_one_hot)
+    return mode

@@ -34,7 +34,15 @@ captures per stream whatever its length. The forward family's block
 graphs: ``forward``, activations, every start, every p and the
 calibration probes bitwise the ``forward_graphs=False`` twin with equal
 launches, one capture per block shape at depth 2 and 6, MoE and SSD
-blocks in the capture, and a block that cannot be captured raising.
+blocks in the capture, and a block that cannot be captured raising. The
+ring prefill's stage pair (reduced Mamba2 and jamba, a window of 8) at
+three cuts over a series of requests at two prompt lengths, bitwise the
+``graphs=False`` twin with equal launches (``flash_attention`` and the
+tiled ``qmatmul`` inside the captures), captures on a key's second use
+only, paged, and a prefill that cannot be captured raising; the
+classifier's programs (the MNIST MLP) bitwise their eager twin, one
+capture per program and argument, the reference's segment cache keyed
+by p, and a program that cannot be captured raising.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
@@ -1731,3 +1739,236 @@ def test_forward_capture_that_cannot_succeed_raises(gen, monkeypatch):
     with pytest.raises(RuntimeError):
         backend.forward(_prompt(2, 32))
     assert backend.capture_count == 0
+
+
+def _ring_backend(arch):
+    """A ring-prefill stack on the card: Mamba2-1.3B or jamba at
+    ``.reduced()`` (bf16; jamba's layer 0 an SSD block, layer 1
+    attention with MoE), or the small LM with a window of 8."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import TransformerBackend
+    if arch == "window":
+        backend = _small_lm()
+        return dataclasses.replace(backend, cfg=dataclasses.replace(
+            backend.cfg, sliding_window=8))
+    cfg = get_config({"mamba2": "mamba2-1.3b",
+                      "jamba": "jamba-v0.1-52b"}[arch]).reduced()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), device="cuda")
+    return TransformerBackend(cfg, params, seq_len=32, decode_max_len=96)
+
+
+def _prefill_run(backend, plan, prompt, graphs, seg, n=8):
+    """One request on a fresh session: its prefill, then ``n - 1``
+    steps -> the prefill's token, its logits and both caches after it
+    (copies), the tokens, each kernel's launches, the captures and the
+    session (its stream ended)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving.decode import DecodeSession
+    sess = DecodeSession(backend, plan, max_len=96, graphs=graphs,
+                         segment=seg)
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    captured = backend.capture_count
+    tok = sess.prefill(prompt)
+    logits = sess.last_logits.clone()
+    caches = [{k: _bits(v).clone() for k, v in tree.items()}
+              for side in (sess.dev_caches or [], sess.srv_caches)
+              for tree in side]
+    tokens = [tok.cpu().numpy()]
+    for _ in range(n - 1):
+        tokens.append(sess.step(torch.from_numpy(tokens[-1]).cuda())
+                      .cpu().numpy())
+    sess.sever()
+    torch.cuda.synchronize()
+    return dict(tok=tok, logits=logits, caches=caches,
+                tokens=np.stack(tokens, 1),
+                launches={k: f.launches - before[k]
+                          for k, f in ops.KERNELS.items()},
+                captures=backend.capture_count - captured, sess=sess)
+
+
+@pytest.mark.parametrize("cut", ["p0", "half", "pL"])
+@pytest.mark.parametrize("arch", ["mamba2", "jamba", "window"])
+def test_graphed_ring_prefill_bitwise_eager(gen, arch, cut):
+    """The ring prefill's stage pair on the card (QPART's loop: a fresh
+    session per request on one backend, 8-bit plan, wire-struct device
+    segment): four requests at 24 tokens, then three at 2 (shorter than
+    the conv ring), each bitwise its ``graphs=False`` twin (the first
+    token, its logits, both caches after the prefill, the tokens) with
+    the same launches — jamba's attention runs ``flash_attention``
+    inside the server prefill graph, and at p = L the tiled ``qmatmul``
+    inside the device one; each request captures exactly the stage keys
+    it uses for the second time, so requests 3-4 of a length capture
+    nothing."""
+    import collections
+    import numpy as np
+    backend = _ring_backend(arch)
+    L = backend.num_layers
+    p = {"p0": 0, "half": L // 2, "pL": L}[cut]
+    plan = _plan(p)
+    seg = backend.split(plan) if p else None
+    uses = collections.Counter()
+    for i, s in enumerate((24,) * 4 + (2,) * 3):
+        prompt = _prompt(s=s)
+        want = _prefill_run(backend, plan, prompt, False, seg)
+        got = _prefill_run(backend, plan, prompt, True, seg)
+        assert torch.equal(got["tok"], want["tok"]), (i, s)
+        assert torch.equal(got["logits"], want["logits"]), (i, s)
+        assert all(torch.equal(a[k], b[k]) for a, b in
+                   zip(got["caches"], want["caches"]) for k in a), (i, s)
+        assert np.array_equal(got["tokens"], want["tokens"]), (i, s)
+        assert got["launches"] == want["launches"], (i, s)
+        assert want["captures"] == 0
+        assert got["captures"] == _second_uses(uses, got["sess"]), (i, s)
+        if i in (2, 3, 6):
+            assert got["captures"] == 0, (i, s)
+    if arch == "jamba":
+        assert want["launches"]["flash_attention"] > 0
+        if p == L:
+            assert want["launches"]["qmatmul"] > 0
+
+
+def test_graphed_ring_prefill_paged(gen):
+    """A paged ring session (the window's ring at p = 2): three requests
+    bitwise the eager session's tokens and pages, the third replaying
+    both prefill stages."""
+    import numpy as np
+    from repro_torch.serving.decode import DecodeSession
+    backend = _ring_backend("window")
+    plan, prompt = _plan(2), _prompt(s=24)
+    seg = backend.split(plan)
+    want = DecodeSession(backend, plan, max_len=96, graphs=False,
+                         segment=seg, paged=True, page_tokens=8)
+    want_tokens = want.generate(prompt, 8).tokens
+    for i in range(3):
+        sess = DecodeSession(backend, plan, max_len=96, segment=seg,
+                             paged=True, page_tokens=8)
+        before = backend.capture_count
+        assert np.array_equal(sess.generate(prompt, 8).tokens, want_tokens)
+        assert sess.paged_kv.held_pages == want.paged_kv.held_pages
+        if i == 2:
+            assert backend.capture_count == before
+
+
+def _mnist_backend():
+    """The paper's MNIST MLP (784-512-256-128-64-32-10, f32) on the card,
+    seeded."""
+    from repro_torch.configs.classifier import MNIST_MLP
+    from repro_torch.models.classifier import init_classifier
+    from repro_torch.serving.backends import ClassifierBackend
+    params = init_classifier(MNIST_MLP, torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    return ClassifierBackend(MNIST_MLP, params)
+
+
+def test_classifier_graphs_bitwise_eager(gen):
+    """The classifier's programs through their graphs on the card:
+    ``forward``, ``layer_activations``, ``forward_from_layer`` at every
+    start, ``run_prefix`` at every p and ``calibrate_probes``, three
+    times each, bitwise the ``forward_graphs=False`` twin; one capture
+    per (program, argument), none after; no kernel launches (plain
+    PyTorch)."""
+    import dataclasses
+    import numpy as np
+    backend = _mnist_backend()
+    graphed = dataclasses.replace(backend)
+    eager = dataclasses.replace(backend, forward_graphs=False)
+    L = backend.num_layers
+    x = np.random.default_rng(0).uniform(0, 1, (64, 28, 28)).astype(
+        np.float32)
+    acts, _ = eager.layer_activations(x)
+    calls = [lambda b: [b.forward(x)],
+             lambda b: (lambda a: [*a[0], a[1]])(b.layer_activations(x)),
+             *[lambda b, l=l: [b.forward_from_layer(acts[l], l)]
+               for l in range(L)],
+             *[lambda b, p=p: [b.run_prefix(x, p)] for p in range(1, L + 1)],
+             lambda b: list(b.calibrate_probes(x))]
+    for call in calls:
+        for _ in range(3):
+            got, n_got = _counted(lambda: call(graphed))
+            want, n_want = _counted(lambda: call(eager))
+            assert not any(n_got.values()) and not any(n_want.values())
+            for g, w in zip(got, want):
+                assert (np.array_equal(g, w) if isinstance(g, np.ndarray)
+                        else torch.equal(g, w))
+    assert graphed.capture_count == 2 * L + 3
+    assert eager.capture_count == 0
+
+
+def test_classifier_segment_cache_keyed_by_p_on_card(gen):
+    """The reference's ``test_classifier_segment_cache_keyed_by_p`` on
+    the card: after one ``forward``, three executions at p = 3 capture
+    the ``("prefix", 3)`` and ``("from_layer", 3)`` programs, bitwise
+    the eager twin's, and a fourth captures nothing; a capture that
+    cannot succeed raises."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.serving.backends import classifier as cls
+    backend = _mnist_backend()
+    eager = dataclasses.replace(backend, forward_graphs=False)
+    x = np.random.default_rng(1).uniform(0, 1, (32, 28, 28)).astype(
+        np.float32)
+    backend.forward(x)
+    n0 = backend.capture_count
+    for _ in range(3):
+        assert torch.equal(backend.execute_plan(_plan(3), x),
+                           eager.execute_plan(_plan(3), x))
+    assert backend.capture_count - n0 == 2
+    backend.execute_plan(_plan(3), x)
+    assert backend.capture_count - n0 == 2
+    flat_input = cls.flat_input
+
+    def synced(a, cfg):
+        float(a.sum())                      # a host read inside a program
+        return flat_input(a, cfg)
+
+    cls.flat_input = synced
+    try:
+        backend.run_prefix(x, 2)
+        with pytest.raises(RuntimeError):
+            backend.run_prefix(x, 2)
+    finally:
+        cls.flat_input = flat_input
+    assert backend.capture_count - n0 == 2
+
+
+def test_ring_capture_that_cannot_succeed_raises(gen, monkeypatch):
+    """A ring prefill whose server stage reads the card from the host
+    cannot be captured: the key's first use runs eagerly, its second
+    too, then the server stage's capture raises (nothing runs it
+    eagerly instead) and puts the launch counters back, so they hold
+    the eager prefill's launches; the device stage's graph stays
+    cached, the server stage's is not."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.decode import DecodeSession
+    backend, plan, prompt = _ring_backend("jamba"), _plan(1), _prompt(s=24)
+    seg = backend.split(plan)
+    twin = DecodeSession(backend, plan, max_len=96, segment=seg,
+                         graphs=False)
+    _, eager = _counted(lambda: twin.prefill(prompt))
+    hidden_logits = backend.hidden_logits
+
+    def synced(h, params=None):
+        float(h.float().sum())              # a host read inside the stage
+        return hidden_logits(h, params)
+
+    monkeypatch.setattr(backend, "hidden_logits", synced)
+    first = DecodeSession(backend, plan, max_len=96, segment=seg)
+    first.prefill(prompt)                   # the first use: eager
+    first.sever()
+    sess = DecodeSession(backend, plan, max_len=96, segment=seg)
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    with pytest.raises(RuntimeError):
+        sess.prefill(prompt)
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in ops.KERNELS.items()} == \
+        eager
+    assert eager["flash_attention"] == 1
+    cached = {name for entry in backend.__dict__["_stage_graphs"].values()
+              for name in entry.graphs}
+    assert cached == {"prefill_device"}

@@ -25,6 +25,8 @@ import repro_torch.core.cost_model as tcm
 import repro_torch.serving.engine as t_engine
 import repro_torch.serving.qpart_server as t_qs
 import repro_torch.serving.testing as t_testing
+# the parity helpers cap torch's threads at this worker's share
+import tests._torch_parity  # noqa: F401
 
 J = SimpleNamespace(E=j_engine, cm=jcm, testing=j_testing, qs=j_qs,
                     cfg=j_classifier, base=j_base)

@@ -15,7 +15,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core.quantizer import \
     quantize_params_for_serving as jax_quantize_params
@@ -28,43 +27,16 @@ from repro_torch.launch import steps as t_steps
 from repro_torch.models import transformer as TT
 from repro_torch.roofline import op_cost
 from repro_torch.tree import tree_leaves, tree_map
-from tests._torch_parity import lm_configs, lm_weights, to_torch, zoo_weights
+from tests._torch_parity import lm_configs, lm_weights
+from tests._torch_parity import no_host_reads as parity_no_host_reads
+from tests._torch_parity import to_torch, zoo_weights
 
 B, S, GEN = 2, 12, 6
 
 
-class _NoHostReads(TorchDispatchMode):
-    """Fails an op that reads a tensor's value on the host (``int()``,
-    ``.item()``, ``bool()``, a data-dependent shape), except inside
-    ``F.one_hot``: on the CPU it checks its classes' range on the host,
-    on CUDA it leaves that to its scatter's device assert and reads
-    nothing (``exempt``)."""
-
-    def __init__(self):
-        super().__init__()
-        self.exempt = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if not self.exempt and func in (
-                torch.ops.aten._local_scalar_dense.default,
-                torch.ops.aten.nonzero.default):
-            raise AssertionError(f"{func} read a tensor on the host")
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.fixture
 def no_host_reads(monkeypatch):
-    mode, one_hot = _NoHostReads(), torch.nn.functional.one_hot
-
-    def exempt_one_hot(*args, **kwargs):
-        mode.exempt += 1
-        try:
-            return one_hot(*args, **kwargs)
-        finally:
-            mode.exempt -= 1
-
-    monkeypatch.setattr(torch.nn.functional, "one_hot", exempt_one_hot)
-    return mode
+    return parity_no_host_reads(monkeypatch)
 
 
 def _dense(quant):

@@ -28,6 +28,8 @@ from repro_torch.serving.scheduler import WorkloadBalancer as TBalancer
 from repro_torch.serving.scheduler import total_latency as t_total_latency
 from repro_torch.serving.simulator import InferenceRequest as TRequest
 from repro_torch.serving.testing import stub_classifier_server as t_stub
+# the parity helpers cap torch's threads at this worker's share
+import tests._torch_parity  # noqa: F401
 
 SIDES = {"j": (jcm, JRequest, JBalancer, j_total_latency, j_stub,
                (("mnist", J_MNIST), ("cifar", J_CIFAR))),

@@ -29,6 +29,8 @@ from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch import sharding as t_shard
 from repro_torch.launch import steps as t_steps
 from test_sharding import FakeMesh
+# the parity helpers cap torch's threads at this worker's share
+import tests._torch_parity  # noqa: F401
 
 POD = t_mesh.make_production_mesh(multi_pod=True)
 MESHES = {"fake16x16": FakeMesh(), "pod2x16x16": POD}
