@@ -116,11 +116,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    plain versions, leaf by leaf; one step at B 8 x S 256 with remat off
    and on (the same bits; the flash forward launched again under
    remat); ``launch.train.main`` for TRAIN_STEPS steps (exit 0: the loss
-   improved) and its checkpoint restored bit for bit; a profile of the
-   step (wall, device-busy, idle share, peak memory, the token stream's
-   own time apart); and the request loop on the trained weights (the
-   Delta table, the plans' cut points and bits, which matmul kernels
-   the served plans launched);
+   improved) with its step and its token stream's sampler as CUDA
+   graphs (one capture each; the flash kernels counted through the
+   replays) and its checkpoint restored bit for bit; the graphed
+   launcher held to its eager twin over TWIN_STEPS steps, remat off and
+   on (metrics, params, moments and ``step`` bitwise, launches equal,
+   peak allocated and reserved memory of each); the request loop on the
+   trained weights (the Delta table, the plans' cut points and bits,
+   which matmul kernels the served plans launched); a profile of the
+   step, graphed and eager in turns (wall, device-busy, idle share,
+   peak memory, the token stream's own time apart), and the sampler's
+   ms graphed and eager in turns, its batches bitwise;
 10. the model zoo: every assigned arch at ``.reduced()`` in f32 on the
    card against the CPU's plain path (forward with its router aux,
    prefill, 4 decode steps; musicgen and qwen2-vl through ``embeds=``,
@@ -157,9 +163,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    MusicGen-medium at its registered shape (48 layers, d_model 1536,
    fed through ``embeds=``) and OLMoE-1B-7B at full width and 4 of its
    16 layers (router losses in the loss), each 20 steps at B 8 x S 256
-   (the loss falls, every gradient norm finite), one f32 loss backward
-   of its ``.reduced()`` variant against the CPU leaf by leaf, a step
-   profile (OLMoE: the MoE blocks' share of busy time), and
+   (the loss falls, every gradient norm finite) through the donated
+   step's CUDA graph, one f32 loss backward of its ``.reduced()``
+   variant against the CPU leaf by leaf, a profile of the graphed step,
+   an eager twin of its first three steps from the same seed (metrics
+   and final state bitwise, peak reserved memory beside the graph's, its
+   third step profiled; OLMoE: the MoE blocks' device ms), and
    ``launch.train.main`` on MusicGen-medium for 10 steps;
 11. the step roofline (``roofline_phase``): the launcher's decode-step
    profile at --quant 8 and 0 (eager and graphed in turns on one cache
@@ -181,7 +190,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    ``torch_quantized_lm_serving`` the flash forward, decode attention
    and the qmatmul kernel its plan picks, its f32 greedy tokens (a
    cycle task) the cycle's, ``torch_train_small_lm`` the flash forward
-   and backward, its checkpoint restored bit for bit;
+   and backward, its checkpoint restored bit for bit; each line with
+   the captures of the example's graphed steps and token streams; then
+   the MNIST MLP's SGD step graphed against ``graphs=False``, its
+   weights bitwise;
 13. the kernels at the shapes phases 10's training and 12 gave them
    (``check_path_shapes``): a ``ShapeLog`` in place of each attention
    and matmul wrapper kept every distinct signature of those runs
@@ -3377,7 +3389,7 @@ def launch_serve(torch, ops, batch: int = 4, prompt_len: int = 64,
         emit({"launch_serve": {
             "arch": cfg.name, "layers": cfg.num_layers, "quant": quant,
             "batch": batch, "prompt_len": prompt_len, "gen": gen,
-            "graphs": serve._use_graphs(None, "cuda"),
+            "graphs": serve.use_graphs(None, "cuda"),
             "captures": out["captures"],
             "quantize_s": out["quantize_s"],
             "quantize_launches": quantize_launches,
@@ -3636,18 +3648,30 @@ FLASH_BWD_KERNELS = ("dq_", "dkv_")
 
 
 def train_step_profile(torch, cfg, state: list, make_batch,
-                       remats=(False, True), steps: int = 3):
+                       remats=(False, True), steps: int = 3,
+                       modes=("graphed", "eager"), turns: int = 2):
     """Where a train step's time goes, the data apart: one batch drawn by
-    ``make_batch`` (wall ms), then ``steps`` train steps on it for each
-    of ``remats``, stepping ``state`` ([params, optimizer state]) in place
-    (a caller that keeps no other reference holds one copy of the state
-    on the card) — unprofiled wall ms, then ``profile_steps``' wall,
-    device-busy, idle share and top device consumers, the flash backward
-    kernels' ms and share of the busy time — and the peak device memory
-    of the profiled steps; on a MoE config, the MoE blocks' share of the
-    busy time (``moe_block_ms``). Returns the profiles."""
+    ``make_batch`` (wall ms), then for each of ``remats`` the step on it
+    in each of ``modes``: ``graphed`` steps ``state`` ([params, optimizer
+    state], donated) in place through ``train.graphs.DonatedStep`` (its
+    first call eager, its second the capture), ``eager`` runs the plain
+    step from the graphed state on its own trees. After a warm-up in
+    each mode, ``turns`` turns of ``steps`` unprofiled steps per mode
+    (the median of each mode's medians), then ``profile_steps``' wall,
+    device-busy, idle share and top device consumers, the flash
+    backward kernels' ms and share of the busy time, per mode; the peak
+    allocated and reserved memory of the profiled steps; on a MoE config
+    with an eager mode, the MoE blocks' share of the busy time
+    (``moe_block_ms``, which brackets eager calls). The first mode's
+    figures lead each record, the others' sit under their names. A tree
+    without ``train.graphs`` (an earlier commit's, ``--src``) runs eager
+    alone. Returns the records."""
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_loop import make_train_step
+    try:
+        from repro_torch.train.graphs import DonatedStep
+    except ImportError:
+        modes = ("eager",)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     batch = make_batch()
@@ -3657,31 +3681,97 @@ def train_step_profile(torch, cfg, state: list, make_batch,
     for remat in remats:
         step_fn = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS),
                                   remat=remat)
+        graphed = DonatedStep(step_fn) if "graphed" in modes else None
+        eager = []
 
-        def step():
-            state[0], state[1], _ = step_fn(state[0], state[1], batch)
+        def step(mode):
+            if mode == "graphed":
+                state[0], state[1], _ = graphed(state[0], state[1], batch)
+            else:
+                eager[:] = step_fn(*(eager or state), batch)[:2]
 
-        step()
-        wall = wall_ms(torch, step, steps)
-        torch.cuda.reset_peak_memory_stats()
-        prof = profile_steps(torch, step, steps, watch=FLASH_BWD_KERNELS)
-        bwd_ms = sum(prof["watched_device_ms_per_step"].values())
+        for mode in modes + (("graphed",) if graphed else ()):
+            step(mode)
+        walls = {m: [] for m in modes}
+        for _ in range(turns):
+            for m in modes:
+                walls[m].append(wall_ms(torch, lambda: step(m), steps))
+        recs = {}
+        for m in modes:
+            torch.cuda.reset_peak_memory_stats()
+            prof = profile_steps(torch, lambda: step(m), steps,
+                                 watch=FLASH_BWD_KERNELS)
+            bwd_ms = sum(prof["watched_device_ms_per_step"].values())
+            recs[m] = {
+                "flash_bwd_share_of_busy": bwd_ms / prof[
+                    "device_busy_ms_per_step"],
+                "unprofiled_wall_ms": statistics.median(
+                    w["unprofiled_wall_ms"] for w in walls[m]),
+                "unprofiled_wall_ms_min": min(
+                    w["unprofiled_wall_ms_min"] for w in walls[m]),
+                "unprofiled_wall_ms_turns": [w["unprofiled_wall_ms"]
+                                             for w in walls[m]],
+                **prof,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+        first = recs[modes[0]]
         out.append({
-            "flash_bwd_share_of_busy": bwd_ms / prof[
-                "device_busy_ms_per_step"],
             "arch": cfg.name, "layers": cfg.num_layers,
             "batch": int(batch["labels"].shape[0]),
             "seq": int(batch["labels"].shape[1]), "inputs": sorted(batch),
-            "remat": remat, "data_ms_per_batch": data_ms, **wall, **prof,
-            "peak_memory_bytes": torch.cuda.max_memory_allocated()})
-        if cfg.moe is not None:
-            ms = moe_block_ms(torch, step, steps, sum(
+            "remat": remat, "mode": modes[0], "data_ms_per_batch": data_ms,
+            **first, **{m: recs[m] for m in modes[1:]},
+            "captures": graphed.captures if graphed else 0})
+        if cfg.moe is not None and "eager" in modes:
+            ms = moe_block_ms(torch, lambda: step("eager"), steps, sum(
                 cfg.uses_moe(layer) for layer in range(cfg.num_layers)))
             out[-1]["moe_block_ms_per_step"] = ms
-            out[-1]["moe_share_of_busy"] = sum(ms.values()) / prof[
+            out[-1]["moe_share_of_busy"] = sum(ms.values()) / first[
                 "device_busy_ms_per_step"]
+        del graphed, eager
+        torch.cuda.empty_cache()
         emit({"train_step_profile": out[-1]})
     return out
+
+
+def sampler_ms(torch, vocab: int, batch: int, seq: int, reps: int = 5,
+               turns: int = 2) -> dict:
+    """The training stream's batch (B ``batch`` x ``seq`` + 1 tokens),
+    graphed and eager in turns: two ``TokenStream``s of one seed, the
+    graphed one past its warm-up and capture, ``reps`` batches a mode a
+    turn, each ended by a device synchronisation -> ms per batch
+    (medians) and whether every graphed batch equals the eager stream's
+    batch of the same step bit for bit; raises if one does not."""
+    from repro_torch.data.pipeline import TokenStream, TokenStreamConfig
+    cfg = TokenStreamConfig(vocab_size=vocab, seq_len=seq + 1,
+                            batch_size=batch, seed=SEED + 13)
+    its = {m: TokenStream(cfg, device="cuda", graphs=m == "graphed")
+           .batches() for m in ("graphed", "eager")}
+    got = {m: [next(its[m])] for m in its}
+    got["graphed"].append(next(its["graphed"]))        # the capture
+    got["eager"].append(next(its["eager"]))
+    times = {m: [] for m in its}
+    for _ in range(turns):
+        for m in its:
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[m].append(next(its[m]))
+                torch.cuda.synchronize()
+                times[m].append((time.perf_counter() - t0) * 1e3)
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(got["graphed"],
+                                                       got["eager"])
+               for k in a)
+    rec = {"batch": batch, "seq": seq + 1, "batches": len(got["eager"]),
+           "graphed_ms": statistics.median(times["graphed"]),
+           "eager_ms": statistics.median(times["eager"]),
+           "graphed_ms_min": min(times["graphed"]),
+           "eager_ms_min": min(times["eager"]), "bitwise": same}
+    emit({"sampler": rec})
+    if not same:
+        raise AssertionError("graphed token stream batches differ from the "
+                             "eager stream's")
+    return rec
 
 
 def moe_block_ms(torch, step, steps: int, blocks: int) -> dict:
@@ -3814,13 +3904,80 @@ def trained_request_loop(torch, ops, cfg, params, seq: int = 128):
     return launches
 
 
+TWIN_STEPS = 5
+
+
+def launch_twins(torch, ops) -> dict:
+    """``launch.train.main`` on smollm-135m for TWIN_STEPS steps at B 8 x
+    S 256, remat off and on, graphed (the default: the donated step and
+    the sampler as CUDA graphs) and its eager twin (``graphs=False``),
+    each alone on the card (the cache emptied and the peaks reset before
+    it): every step's metrics, the final params, both moments and
+    ``step`` bit for bit, the log lines but their seconds, the launches
+    equal; captures (step, sampler) 1 / 1 against 0 / 0; each mode's
+    wall seconds and peak allocated and reserved GB. One ``train_twin``
+    line per remat; raises on a difference. Returns the launches by
+    run."""
+    from repro_torch.launch import train as train_launch
+    from repro_torch.tree import tree_leaves
+    runs = {}
+    for remat in (False, True):
+        argv = ["--steps", str(TWIN_STEPS), "--batch", "8", "--seq",
+                "256"] + (["--remat"] if remat else [])
+        out = {}
+        for graphs in (None, False):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            stats, buf = {}, io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc, launches = counted(torch, ops, lambda: train_launch.main(
+                    argv, graphs=graphs, stats=stats))
+            out[graphs] = dict(
+                stats, rc=rc, launches=launches,
+                wall_s=time.perf_counter() - t0,
+                log=re.sub(r"\(\d+\.\ds\)", "", buf.getvalue()),
+                peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+        g, e = out[None], out[False]
+        leaves = {m: tree_leaves((r["params"], r["opt_state"]))
+                  for m, r in (("graphed", g), ("eager", e))}
+        rec = {"remat": remat, "steps": TWIN_STEPS,
+               "metrics_bitwise": g["metrics"] == e["metrics"],
+               "state_bitwise": len(leaves["graphed"]) == len(
+                   leaves["eager"]) and all(
+                   torch.equal(a, b) for a, b in zip(leaves["graphed"],
+                                                     leaves["eager"])),
+               "log_equal": g["log"] == e["log"],
+               "launches_equal": g["launches"] == e["launches"],
+               "rc": [g["rc"], e["rc"]], "loss": [m["loss"]
+                                                   for m in g["metrics"]],
+               **{f"{m}_{k}": r[k] for m, r in (("graphed", g), ("eager", e))
+                  for k in ("captures", "wall_s", "peak_allocated_gb",
+                            "peak_reserved_gb")},
+               "launches": g["launches"]}
+        emit({"train_twin": rec})
+        runs[f"train_twin_remat{int(remat)}"] = g["launches"]
+        runs[f"train_twin_remat{int(remat)}_eager"] = e["launches"]
+        del out, g, e, leaves
+        if not (rec["metrics_bitwise"] and rec["state_bitwise"]
+                and rec["log_equal"] and rec["launches_equal"]) or \
+                rec["graphed_captures"] != {"step": 1, "sampler": 1} or \
+                rec["eager_captures"] != {"step": 0, "sampler": 0}:
+            raise AssertionError(f"launch.train graphed vs eager: {rec}")
+    torch.cuda.empty_cache()
+    return runs
+
+
 def train_phase(torch, ops) -> dict:
     """Training smollm-135m at full width on the card: (i) gradients vs the
     plain versions, (ii) remat, (iii) ``launch.train.main`` for
-    TRAIN_STEPS steps at B 8 x S 256 (exit 0: the loss improved), (iv)
-    its checkpoint restored bitwise, a profile of its step, and (v) the
-    request loop on the trained weights. Returns each run's launches and
-    the step's profiles (remat off and on)."""
+    TRAIN_STEPS steps at B 8 x S 256 (exit 0: the loss improved), its
+    step and sampler each captured once, and its graphed runs held to
+    their eager twins (``launch_twins``), (iv) its checkpoint restored
+    bitwise, (v) the request loop on the trained weights, then a profile
+    of its step, graphed and eager in turns, and of its sampler. Returns
+    each run's launches and the step's profiles (remat off and on)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import train as train_launch
     from repro_torch.models import transformer as T
@@ -3839,21 +3996,33 @@ def train_phase(torch, ops) -> dict:
     shutil.rmtree(ck, ignore_errors=True)
     argv = ["--steps", str(TRAIN_STEPS), "--batch", "8", "--seq", "256",
             "--checkpoint", str(ck)]
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    stats = {}
     t0 = time.perf_counter()
-    rc, runs["train"] = counted(torch, ops, lambda: train_launch.main(argv))
+    rc, runs["train"] = counted(torch, ops, lambda: train_launch.main(
+        argv, stats=stats))
     wall = time.perf_counter() - t0
+    captures = stats["captures"]
+    del stats
     emit({"train_launch": {"argv": argv, "rc": rc, "wall_s": wall,
                            "wall_s_per_step": wall / TRAIN_STEPS,
+                           "captures": captures,
                            "peak_memory_bytes":
                                torch.cuda.max_memory_allocated(),
+                           "peak_reserved_bytes":
+                               torch.cuda.max_memory_reserved(),
                            "launches": runs["train"]}})
     L = cfg.num_layers
     if rc != 0:
         raise AssertionError("launch.train: the loss did not improve")
+    if captures != {"step": 1, "sampler": 1}:
+        raise AssertionError(f"launch.train: captures {captures}, want one "
+                             "for the step and one for the sampler")
     if (runs["train"]["flash_attention"], runs["train"][
             "flash_attention_bwd"]) != (L * TRAIN_STEPS, L * TRAIN_STEPS):
         raise AssertionError(f"launch.train: flash launches {runs['train']}")
+    runs.update(launch_twins(torch, ops))
     # (iv) the checkpoint restored into fresh templates, bit for bit
     template = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED + 7), device="cuda")
@@ -3878,11 +4047,14 @@ def train_phase(torch, ops) -> dict:
         raise AssertionError(f"checkpoint restore: bitwise {same}, meta "
                              f"{meta}, step {int(opt_state['step'])}")
     shutil.rmtree(ck)
+    runs["trained_request_loop"] = trained_request_loop(torch, ops, cfg,
+                                                        params)
+    # the profile's graphed steps move the trees they are handed
     step_profiles = train_step_profile(
         torch, cfg, [params, opt_state],
         lambda: stream_batch(torch, cfg.vocab_size, 8, 256, SEED + 11))
-    runs["trained_request_loop"] = trained_request_loop(torch, ops, cfg,
-                                                        params)
+    del params, opt_state
+    sampler_ms(torch, cfg.vocab_size, 8, 256)
     return runs, step_profiles
 
 
@@ -4366,19 +4538,19 @@ ZOO_LAUNCH_STEPS = 10
 ZOO_LR = 1e-3
 
 
-def zoo_batches(torch, cfg, batch: int, seq: int, seed: int):
+def zoo_batches(torch, cfg, batch: int, seq: int, seed: int, graphs=None):
     """Endless seeded batches of the training launcher's token stream on
-    the card; for a frontend arch (``embeds=``) the tokens become
-    embeddings through a fixed seeded table of ``stub_embeddings`` rows
-    (a codebook lookup, so the labels stay learnable), in the model's
-    activation dtype."""
+    the card (``graphs`` as the stream takes it); for a frontend arch
+    (``embeds=``) the tokens become embeddings through a fixed seeded
+    table of ``stub_embeddings`` rows (a codebook lookup, so the labels
+    stay learnable), in the model's activation dtype."""
     from repro_torch.data.pipeline import TokenStream, TokenStreamConfig
     from repro_torch.models.frontend import stub_embeddings
     from repro_torch.models.transformer import model_dtype
     stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size,
                                            seq_len=seq + 1,
                                            batch_size=batch, seed=seed),
-                         device="cuda")
+                         device="cuda", graphs=graphs)
     table = None
     if cfg.frontend != "none":
         table = stub_embeddings(torch.Generator(device="cuda").manual_seed(
@@ -4389,21 +4561,35 @@ def zoo_batches(torch, cfg, batch: int, seq: int, seed: int):
         yield b
 
 
+ZOO_TWIN_STEPS = 3     # the eager twin: plain, MoE-bracketed, profiled
+
+
 def zoo_train(torch, ops, arch: str, layers=None):
     """One zoo arch trained on the card with f32 masters and its own
     activation dtype: (i) one f32 loss backward of its ``.reduced()``
     variant against the CPU's plain versions, leaf by leaf
-    (``train_grads_check``; B 2 x S 128); (ii) ``make_train_step`` for
-    ZOO_TRAIN_STEPS steps at B 8 x S 256 (AdamW at ZOO_LR, 2 warm-up
-    steps) on ``zoo_batches`` — the mean cross-entropy of the last five
-    steps below that of the first five, every step's global gradient norm
-    finite (so every gradient is), the flash forward and backward kernels
-    launched once per attention layer per step; peak memory; (iii)
-    ``train_step_profile`` of the step (remat off; a MoE arch's blocks'
-    share of the busy time). ``layers`` cuts the depth at full width.
-    Returns (launches by run, the step's profile)."""
+    (``train_grads_check``; B 2 x S 128); (ii) ``make_train_step`` as a
+    donated CUDA graph (``DonatedStep``: step 1 eager, step 2 the
+    capture) for ZOO_TRAIN_STEPS steps at B 8 x S 256 (AdamW at ZOO_LR,
+    2 warm-up steps) on ``zoo_batches`` (its sampler graphed too) — the
+    mean cross-entropy of the last five steps below that of the first
+    five, every step's global gradient norm finite (so every gradient
+    is), the flash forward and backward kernels launched once per
+    attention layer per step, one capture of the step; peak allocated
+    and reserved memory; the state after ZOO_TWIN_STEPS steps copied to
+    the host; (iii) ``train_step_profile`` of the graphed step (remat
+    off); (iv) with the graphs gone, the eager twin: the same seeded
+    weights, ZOO_TWIN_STEPS plain steps on an eager stream of the same
+    seed — its metrics and final params, moments and ``step`` bit for
+    bit the graphed run's, its peak memory beside the graph's; its
+    second step, on a MoE arch, bracketed by ``moe_block_ms`` (the MoE
+    blocks' device ms; it brackets eager calls), its third profiled
+    (``profile_steps``: the eager step's busy ms beside the graph's).
+    ``layers`` cuts the depth at full width. Returns (launches by run,
+    the step's profile)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import transformer as T
+    from repro_torch.train.graphs import DonatedStep
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_loop import make_train_step
     from repro_torch.tree import tree_leaves
@@ -4414,30 +4600,45 @@ def zoo_train(torch, ops, arch: str, layers=None):
     red = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     runs = {f"{tag}_train_grads": train_grads_check(
         torch, ops, red, next(zoo_batches(torch, red, 2, 128, SEED + 5)))}
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        SEED), device="cuda")
-    opt_state = init_opt_state(params)
+    opt_cfg = AdamWConfig(lr=ZOO_LR, warmup_steps=2,
+                          total_steps=ZOO_TRAIN_STEPS)
+    step_fn = make_train_step(cfg, opt_cfg, remat=False)
+
+    def init():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(SEED), device="cuda")
+        return params, init_opt_state(params)
+
+    def memory() -> dict:
+        return {"peak_memory_gb": peak_gb(torch),
+                "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+
+    params, opt_state = init()
     state_gb = peak_gb(torch)
-    step_fn = make_train_step(cfg, AdamWConfig(lr=ZOO_LR,
-                                               warmup_steps=2,
-                                               total_steps=ZOO_TRAIN_STEPS),
-                              remat=False)
+    jstep = DonatedStep(step_fn)
     batches = zoo_batches(torch, cfg, 8, 256, SEED + 12)
-    losses, norms, xents = [], [], []
+    losses, norms, xents, metrics, snap = [], [], [], [], None
+    wall = 0.0
 
     def run():
-        nonlocal params, opt_state
-        for _ in range(ZOO_TRAIN_STEPS):
-            params, opt_state, m = step_fn(params, opt_state, next(batches))
+        nonlocal params, opt_state, snap, wall
+        for i in range(ZOO_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, m = jstep(params, opt_state, next(batches))
             losses.append(m["loss"].item())
             xents.append(m["xent"].item())
             norms.append(m["grad_norm"].item())
+            wall += time.perf_counter() - t0
+            if i < ZOO_TWIN_STEPS:
+                metrics.append({k: v.item() for k, v in m.items()})
+            if i == ZOO_TWIN_STEPS - 1:
+                snap = [t.to("cpu", copy=True)
+                        for t in tree_leaves((params, opt_state))]
 
-    t0 = time.perf_counter()
     _, runs[f"{tag}_train"] = counted(torch, ops, run)
-    wall = time.perf_counter() - t0
+    graphed_memory = memory()
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     xent_first, xent_last = np.mean(xents[:5]), np.mean(xents[-5:])
     L = cfg.num_layers
@@ -4453,23 +4654,66 @@ def zoo_train(torch, ops, arch: str, layers=None):
         "loss_last5": last, "xent_first5": xent_first,
         "xent_last5": xent_last, "wall_s": wall,
         "wall_s_per_step": wall / ZOO_TRAIN_STEPS,
-        "peak_memory_gb": peak_gb(torch), "launches": runs[f"{tag}_train"]}})
+        "captures": jstep.captures, **graphed_memory,
+        "launches": runs[f"{tag}_train"]}})
     # the cross-entropy, not the total: the router losses in the total
     # can fall while the model learns nothing
     if not (xent_last < xent_first and np.isfinite(losses).all()
             and np.isfinite(norms).all()):
         raise AssertionError(f"{cfg.name} training: xent {xent_first} -> "
                              f"{xent_last}, grad norms {norms}")
-    if flash != (L * ZOO_TRAIN_STEPS, L * ZOO_TRAIN_STEPS):
-        raise AssertionError(f"{cfg.name} training: flash launches {flash}")
+    if flash != (L * ZOO_TRAIN_STEPS, L * ZOO_TRAIN_STEPS) or \
+            jstep.captures != 1:
+        raise AssertionError(f"{cfg.name} training: flash launches {flash}, "
+                             f"captures {jstep.captures}")
     state = [params, opt_state]
-    del params, opt_state, batches
+    del params, opt_state, batches, jstep, run
+    torch.cuda.empty_cache()
     prof = train_step_profile(
         torch, cfg, state,
         lambda: next(zoo_batches(torch, cfg, 8, 256, SEED + 11)),
-        remats=(False,))[0]
+        remats=(False,), modes=("graphed",), turns=1)[0]
     del state
+    # (iv) the eager twin, alone on the card
+    params, opt_state = init()
+    batches = zoo_batches(torch, cfg, 8, 256, SEED + 12, graphs=False)
+    twin, twin_s = [], []
+
+    def eager():
+        nonlocal params, opt_state
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, next(batches))
+        twin.append({k: v.item() for k, v in m.items()})
+        twin_s.append(time.perf_counter() - t0)
+
+    moe = None
+    eager()
+    if cfg.moe is not None:
+        moe = moe_block_ms(torch, eager, 1, sum(
+            cfg.uses_moe(layer) for layer in range(cfg.num_layers)))
+    else:
+        eager()
+    eager_prof = profile_steps(torch, eager, 1)
+    leaves = tree_leaves((params, opt_state))
+    same = len(leaves) == len(snap) and all(
+        torch.equal(a, b.to("cuda")) for a, b in zip(leaves, snap))
+    rec = {"arch": cfg.name, "layers": L, "steps": ZOO_TWIN_STEPS,
+           "metrics_bitwise": twin == metrics, "state_bitwise": same,
+           "eager_s_per_step": twin_s,
+           "eager_profiled_step": {k: eager_prof[k] for k in (
+               "wall_ms_per_step", "device_busy_ms_per_step", "idle_share",
+               "device_events_per_step", "top_device_ms_per_step")},
+           "graphed": graphed_memory, "eager": memory()}
+    if moe is not None:
+        rec["moe_block_ms_per_step"] = moe
+        rec["moe_share_of_graphed_busy"] = sum(moe.values()) / prof[
+            "device_busy_ms_per_step"]
+    emit({"zoo_train_twin": rec})
+    del params, opt_state, batches, leaves, snap
     torch.cuda.empty_cache()
+    if not (rec["metrics_bitwise"] and same):
+        raise AssertionError(f"{cfg.name}: the graphed steps differ from "
+                             f"the eager twin's: {rec}")
     return runs, (cfg, prof)
 
 
@@ -4640,11 +4884,30 @@ EXAMPLES = ("fleet_simulation", "fault_tolerant_fleet", "quickstart",
 FLEET_EXAMPLES = ("fleet_simulation", "fault_tolerant_fleet")
 
 
+@contextlib.contextmanager
+def made(cls, out: list):
+    """Append every instance of ``cls`` made while inside to ``out``."""
+    init = cls.__init__
+
+    def record(self, *a, **k):
+        init(self, *a, **k)
+        out.append(self)
+
+    cls.__init__ = record
+    try:
+        yield out
+    finally:
+        cls.__init__ = init
+
+
 def run_example(torch, ops, name: str, device: str, prepare=None):
     """``main(["--device", device])`` of ``examples/torch_<name>.py``
     (``prepare(module)`` first, when given), its stdout captured,
     counters zeroed before and read after -> (its key numbers, stdout,
-    seconds, launches)."""
+    seconds, launches, the captures of its graphed steps and token
+    streams)."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.train.graphs import DonatedStep
     module = example(f"torch_{name}")
     if prepare is not None:
         prepare(module)
@@ -4652,13 +4915,16 @@ def run_example(torch, ops, name: str, device: str, prepare=None):
     zero_counters(torch, ops)
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), made(DonatedStep, []) as \
+                steps, made(TokenStream, []) as streams:
             out = module.main(["--device", device])
     finally:
         print(buf.getvalue(), end="", flush=True)
     torch.cuda.synchronize()
+    captures = {"steps": [s.captures for s in steps],
+                "samplers": [s.captures for s in streams]}
     return out, buf.getvalue(), time.perf_counter() - t0, read_counters(
-        torch, ops)
+        torch, ops), captures
 
 
 def keep_served(kept: dict):
@@ -4730,10 +4996,11 @@ def examples_phase(torch, ops) -> dict:
     runs = {}
     for name in EXAMPLES:
         kept = {}
-        out, text, secs, launches = run_example(
+        out, text, secs, launches, captures = run_example(
             torch, ops, name, "cuda",
             keep_served(kept) if name == "quantized_lm_serving" else None)
-        rec = {"name": f"examples/torch_{name}.py", "s": secs, **out}
+        rec = {"name": f"examples/torch_{name}.py", "s": secs,
+               "captures": captures, **out}
         if name == "quantized_lm_serving":
             rec["tokens"] = lm_example_tokens(torch, kept)
         if name in FLEET_EXAMPLES:
@@ -4754,7 +5021,35 @@ def examples_phase(torch, ops) -> dict:
         if name not in ("quantized_lm_serving", "train_small_lm") and any(
                 launches.values()):
             raise AssertionError(f"{name} launched kernels: {launches}")
+    runs["mnist_step_twin"] = mnist_step_twin(torch, ops)
     return runs
+
+
+def mnist_step_twin(torch, ops) -> dict:
+    """The MNIST MLP's SGD step (``examples/torch_mnist_mlp.py`` ``train``,
+    which the three classifier examples share) for its 400 steps,
+    graphed (the default on the card) and ``graphs=False``: the trained
+    weights bit for bit, each mode's seconds and captures, no kernel
+    launched (plain PyTorch). One ``mnist_step_twin`` line; raises on a
+    difference. Returns the graphed run's launches."""
+    from repro_torch.train.graphs import DonatedStep
+    mlp = example("torch_mnist_mlp")
+    out = {}
+    for graphs in (None, False):
+        with made(DonatedStep, []) as steps:
+            t0 = time.perf_counter()
+            (params, _), launches = counted(torch, ops, lambda: mlp.train(
+                device="cuda", graphs=graphs))
+            out[graphs] = (params, time.perf_counter() - t0,
+                           steps[0].captures, launches)
+    (pg, sg, cg, lg), (pe, se, ce, le) = out[None], out[False]
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(pg, pe) for k in a)
+    rec = {"steps": 400, "bitwise": same, "graphed_s": sg, "eager_s": se,
+           "captures": [cg, ce], "launches": lg}
+    emit({"mnist_step_twin": rec})
+    if not same or (cg, ce) != (1, 0) or any(lg.values()) or lg != le:
+        raise AssertionError(f"the MNIST step graphed vs eager: {rec}")
+    return lg
 
 
 # ---------------------------------------------------------------------------
@@ -4916,7 +5211,8 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                           "flash_attention"),
             **{run: ("flash_attention", "flash_attention_bwd")
                for run in ("train_grads", "train_remat0", "train_remat1",
-                           "train", "musicgen_train_grads", "musicgen_train",
+                           "train", "train_twin_remat0", "train_twin_remat1",
+                           "musicgen_train_grads", "musicgen_train",
                            "musicgen_launch_train", "olmoe_train_grads",
                            "olmoe_train", "example_train_small_lm")},
             "example_quantized_lm_serving": ("flash_attention",

@@ -38,6 +38,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.backends import TransformerBackend
 from repro_torch.serving.qpart_server import QPARTServer
 from repro_torch.serving.simulator import InferenceRequest
+from repro_torch.train.graphs import DonatedStep
 from repro_torch.tree import tree_leaves, tree_map
 
 SEQ = 32
@@ -60,25 +61,32 @@ def cycle_batch(rng, vocab, n):
 
 def train(params, cfg, rng, *, steps: int = 300, batch: int = 32,
           lr: float = 0.3):
-    """Step 1: plain SGD on the cycle task -> (params, final loss)."""
+    """Step 1: plain SGD on the cycle task -> (params, final loss). The
+    step runs as one CUDA graph on the card, as the reference jits it
+    (``DonatedStep``); the last step's loss is read once, after the
+    loop."""
     print("1) briefly train so quantization has something to preserve...")
     device = params["embed"].device
-    live = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
-    leaves = tree_leaves(live)
+
+    def sgd(params, toks):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        leaves = tree_leaves(live)
+        logits, _ = T.forward(live, cfg, toks[:, :-1])
+        lp = torch.log_softmax(logits, -1)
+        loss = -torch.mean(torch.gather(lp, -1, toks[:, 1:].long()[..., None]))
+        grads = iter(torch.autograd.grad(loss, leaves))
+        return tree_map(lambda t: t.detach() - lr * next(grads), live), \
+            loss.detach()
+
+    step = DonatedStep(sgd, donate=1)
     for _ in range(steps):
         start = rng.integers(0, cfg.vocab_size, size=(batch, 1))
         toks = torch.from_numpy(((start + np.arange(SEQ + 1)[None, :])
                                  % cfg.vocab_size).astype(np.int32)).to(device)
-        logits, _ = T.forward(live, cfg, toks[:, :-1])
-        lp = torch.log_softmax(logits, -1)
-        loss = -torch.mean(torch.gather(lp, -1, toks[:, 1:].long()[..., None]))
-        grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
-            for t, g in zip(leaves, grads):
-                t -= lr * g
+        params, loss = step(params, toks)
     loss = loss.item()
     print(f"   final loss {loss:.3f}")
-    return tree_map(lambda t: t.detach(), live), loss
+    return params, loss
 
 
 def serve(params, cfg, rng, *, calib: int = 128, test: int = 128) -> dict:

@@ -8,10 +8,14 @@ master weights, bf16 activations, on the card the flash attention
 kernel forward and its hand-written backward). One card holds the model
 whole, so there is no mesh: the reference's host mesh, parameter
 partition specs and ``device_put`` have no counterpart here (as in
-``repro_torch.launch.train``), and nor has its buffer donation. The
-weights start from a seeded ``torch.Generator`` and the token stream is
-the port's own (``repro_torch.data.pipeline.TokenStream``), so the
-losses are the port's own. The checkpoint goes under ``build/``.
+``repro_torch.launch.train``). The reference jits its train step with
+the parameters and the optimizer state donated, and its eval step; on
+the card each runs as a CUDA graph (``repro_torch.train.graphs
+.DonatedStep``, the train step's state updated in its own buffers), as
+does the token stream's sampler. The weights start from a seeded
+``torch.Generator`` and the token stream is the port's own
+(``repro_torch.data.pipeline.TokenStream``), so the losses are the
+port's own. The checkpoint goes under ``build/``.
 
   PYTHONPATH=src python examples/torch_train_small_lm.py [--steps 300] \\
       [--device cpu]
@@ -28,6 +32,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import TokenStream, TokenStreamConfig
 from repro_torch.models import transformer as T
 from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from repro_torch.train.graphs import DonatedStep
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_loop import make_eval_step, make_train_step
 from repro_torch.tree import tree_leaves
@@ -50,8 +55,8 @@ def train(params, cfg, batches, eval_batch, *, steps: int, opt_cfg,
     labels), an eval every 25 steps and at the last -> (params, optimizer
     state, per-step losses, eval cross-entropies by step)."""
     opt_state = init_opt_state(params)
-    step_fn = make_train_step(cfg, opt_cfg, remat=False)
-    eval_fn = make_eval_step(cfg)
+    step_fn = DonatedStep(make_train_step(cfg, opt_cfg, remat=False))
+    eval_fn = DonatedStep(make_eval_step(cfg), donate=0)
     losses, evals, t0 = [], {}, time.time()
     for i, b in enumerate(batches):
         if i >= steps:

@@ -9,7 +9,9 @@ them, so both packages see the same arrays from the same seed;
 The token stream is a seeded low-rank bigram source with learnable
 structure. It draws from a ``torch.Generator``: its tokens are not the
 reference's (tests that compare the packages feed both the same
-tokens).
+tokens). The reference compiles its whole-batch sampler once
+(``jax.jit(sample_batch)``); on the card the stream captures its
+sampler as one CUDA graph, since batch and length are fixed per stream.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import Iterator, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.serving.decode.graphs import StageGraph, use_graphs
 
 
 # ---------------------------------------------------------------------------
@@ -36,18 +40,33 @@ class TokenStreamConfig:
 
 class TokenStream:
     """Deterministic, restartable synthetic LM data: batch ``step`` is
-    drawn from a generator seeded by (``seed``, ``step``), so
-    ``batches(start_step)`` resumes the same stream."""
+    drawn from the stream's generator seeded by (``seed``, ``step``), so
+    ``batches(start_step)`` resumes the same stream.
 
-    def __init__(self, cfg: TokenStreamConfig, device="cuda"):
+    On CUDA (``graphs=None``) the first batch is drawn eagerly (the
+    warm-up), the second captures the sampler as one CUDA graph with the
+    generator registered to it (``StageGraph``) and every later batch
+    replays it: the batch's seed is set on the generator before each
+    replay, and reaches the card with the replay's RNG state, so a
+    replayed batch is bitwise the eager one. ``captures`` counts the
+    captures (at most 1; 0 on the CPU). ``graphs=False`` draws every
+    batch eagerly; ``graphs=True`` off the card raises. A batch is the
+    caller's own tensor, never the graph's buffer."""
+
+    def __init__(self, cfg: TokenStreamConfig, device="cuda", graphs=None):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.graphs = use_graphs(graphs, self.device)
         g = torch.Generator(device=self.device).manual_seed(cfg.seed)
         v, r = cfg.vocab_size, cfg.rank
         self._emb_in = torch.randn((v, r), generator=g,
                                    device=self.device) / r ** 0.5
         self._emb_out = torch.randn((r, v), generator=g,
                                     device=self.device) / r ** 0.5
+        self._gen = torch.Generator(device=self.device)
+        self._graph = None
+        self._draws = 0
+        self.captures = 0
 
     def _sample(self, g: torch.Generator) -> torch.Tensor:
         cfg = self.cfg
@@ -57,19 +76,40 @@ class TokenStream:
         for _ in range(cfg.seq_len):
             logits = (self._emb_in[tok] @ self._emb_out) * (
                 cfg.sharpness / cfg.temperature)
-            tok = torch.multinomial(torch.softmax(logits, -1), 1,
-                                    generator=g)[:, 0]
+            tok = draw(torch.softmax(logits, -1), g)
             toks.append(tok)
         return torch.stack(toks, dim=1).to(torch.int32)     # (B, S)
+
+    def _batch(self, seed: int) -> torch.Tensor:
+        """The (B, S) tokens of the batch seeded by ``seed``."""
+        g = self._gen
+        g.manual_seed(seed)
+        self._draws += 1
+        if not self.graphs or self._draws == 1:
+            return self._sample(g)
+        if self._graph is None:
+            self._graph = StageGraph(lambda: self._sample(g), (),
+                                     generators=(g,))
+            self.captures += 1
+            g.manual_seed(seed)
+        return self._graph.replay().clone()
 
     def batches(self, start_step: int = 0) -> Iterator[dict]:
         step = start_step
         while True:
-            g = torch.Generator(device=self.device).manual_seed(
-                (self.cfg.seed + 1) * 1_000_003 + step)
-            toks = self._sample(g)
+            toks = self._batch((self.cfg.seed + 1) * 1_000_003 + step)
             yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
             step += 1
+
+
+def draw(probs: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+    """One category per row of ``probs`` (..., V) -> (...) int64:
+    argmax(p / q) with q ~ Exp(1) from ``g``, the draw
+    ``torch.multinomial(probs, 1, generator=g)`` makes from the same
+    generator state, without its check of the probabilities on the host
+    (a CUDA graph cannot capture a host read)."""
+    q = torch.empty_like(probs).exponential_(1, generator=g)
+    return torch.argmax(probs / q, dim=-1)
 
 
 # ---------------------------------------------------------------------------

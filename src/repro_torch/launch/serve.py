@@ -36,21 +36,12 @@ from repro_torch.configs.base import get_config, list_configs
 from repro_torch.core.quantizer import quantize_params_for_serving
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import transformer as T
-from repro_torch.serving.decode.graphs import StageGraph
+from repro_torch.serving.decode.graphs import StageGraph, use_graphs
 
 
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _use_graphs(graphs, device) -> bool:
-    """``graphs`` resolved for ``device``: on by default for CUDA; asked
-    for anywhere else, it raises."""
-    cuda = torch.device(device).type == "cuda"
-    if graphs and not cuda:
-        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
-    return cuda if graphs is None else bool(graphs)
 
 
 def _choose(logits, temperature: float, generator):
@@ -75,7 +66,7 @@ def generate(params, cfg, prompt, max_len: int, gen: int, *,
     ``captures`` (1 for a graphed call of ``gen`` >= 3, else 0) and
     ``last_logits`` (a copy of the last step's logits (B, 1, V))."""
     b, s = prompt.shape
-    graphs = _use_graphs(graphs, prompt.device)
+    graphs = use_graphs(graphs, prompt.device)
     prefill_step = make_prefill_step(cfg, max_len)
     serve_step = make_serve_step(cfg)
     t0 = time.perf_counter()
@@ -117,7 +108,7 @@ def run(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
     there). Returns the tokens, the prompt, both weight trees, the
     phases' seconds (``quantize_s``, ``prefill_s``, ``decode_s``,
     ``generate_s``), ``captures`` and ``last_logits``."""
-    _use_graphs(graphs, device)
+    use_graphs(graphs, device)
     g = torch.Generator(device=device).manual_seed(seed)
     weights = T.init_params(cfg, g, device=device)
     params, stats = weights, {"quantize_s": 0.0}

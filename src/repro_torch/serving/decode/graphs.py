@@ -80,6 +80,10 @@ The serving launcher's ``launch.serve.generate`` captures its whole
 serve step (embed -> blocks ``[0, L)`` -> unembed) as one
 ``StageGraph`` per call, from the caches its own prefill built, as the
 reference's launcher compiles its ``jstep`` once per call.
+The training programs capture through ``StageGraph`` too: the donated
+train step (``train.graphs.DonatedStep``) and the token stream's
+sampler (``data.pipeline.TokenStream``, its generator registered with
+the graph).
 
 A replay calls no kernel wrapper, so no launch counter moves by itself.
 A capture records each counter's change (``kernels.ops.COUNTERS``) and
@@ -97,6 +101,15 @@ from repro_torch.models import transformer as T
 _IDLE_SLOTS = 2              # idle cache slots kept per (batch, max_len, dtype)
 
 
+def use_graphs(graphs, device) -> bool:
+    """``graphs`` resolved for ``device``: on by default for CUDA; asked
+    for anywhere else, it raises."""
+    cuda = torch.device(device).type == "cuda"
+    if graphs and not cuda:
+        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+    return cuda if graphs is None else bool(graphs)
+
+
 class StageGraph:
     """One stage captured as a CUDA graph: ``fn(*inputs)`` recorded once
     on ``inputs``, tensors that stay the graph's static inputs (a replay
@@ -104,13 +117,19 @@ class StageGraph:
     stage's outputs stay in ``outputs``, overwritten by every replay; a
     replay copies all its arguments in with one ``torch._foreach_copy_``.
     ``pool`` shares another graph's memory pool; graphs that share one
-    replay in the order they were captured."""
+    replay in the order they were captured. ``generators`` (CUDA
+    ``torch.Generator``s ``fn`` draws from) are registered with the
+    graph, so a replay draws from each one's seed and offset as they
+    stand when it starts, and advances the offset as the eager draws
+    would."""
 
-    def __init__(self, fn, inputs, pool=None):
+    def __init__(self, fn, inputs, pool=None, generators=()):
         self.inputs = tuple(inputs)
         watched = list(ops.COUNTERS)
         before = [getattr(obj, attr) for obj, attr in watched]
         self.graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            self.graph.register_generator_state(g)
         self.counts = []
         try:
             with torch.cuda.graph(self.graph, pool=pool):

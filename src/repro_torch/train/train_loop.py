@@ -13,15 +13,9 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 METRICS = ("xent", "zloss", "dropped_frac")
-
-
-def _unflatten(template, leaves):
-    """The leaves of ``tree_leaves(template)`` back in its nesting."""
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), template)
 
 
 def lm_loss(params, cfg, batch, remat: bool = True):
@@ -61,7 +55,7 @@ def value_and_grad(params, cfg, batch, remat: bool = True):
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), \
-        _unflatten(params, grads)
+        tree_unflatten(params, grads)
 
 
 def make_train_step(cfg, opt_cfg: AdamWConfig, remat: bool = True,

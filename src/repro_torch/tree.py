@@ -21,3 +21,10 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """The leaves (in ``tree_leaves`` order) back in ``template``'s
+    nesting."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)

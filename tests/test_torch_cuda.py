@@ -1972,3 +1972,184 @@ def test_ring_capture_that_cannot_succeed_raises(gen, monkeypatch):
     cached = {name for entry in backend.__dict__["_stage_graphs"].values()
               for name in entry.graphs}
     assert cached == {"prefill_device"}
+
+
+# ---------------------------------------------------------------------------
+# The training programs as CUDA graphs: the donated step and the sampler
+
+def _train_case(kind, b=4, s=64):
+    """(step, params, opt state, batches) of a small bf16 train step on
+    the card: a 2-layer smollm-135m, a reduced OLMoE, a reduced MusicGen
+    fed through ``embeds=``, remat, ``accum_steps=2``."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.frontend import stub_embeddings
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    arch = {"moe": "olmoe-1b-7b", "embeds": "musicgen-medium"}.get(
+        kind, "smollm-135m")
+    cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=2)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    params = T.init_params(cfg, g, device="cuda")
+    batches = []
+    for _ in range(6):
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g,
+                             device="cuda", dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if kind == "embeds":
+            batch = {"embeds": stub_embeddings(g, cfg, b, s),
+                     "labels": batch["labels"]}
+        batches.append(batch)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                            total_steps=8),
+                           remat=kind == "remat",
+                           accum_steps=2 if kind == "accum2" else 1)
+    return step, params, init_opt_state(params), batches
+
+
+def _train_run(step, params, opt_state, batches, n):
+    """``n`` steps of ``step`` -> (each step's metrics copied, the final
+    trees, the launches by kernel)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    metrics = []
+    for batch in batches[:n]:
+        params, opt_state, m = step(params, opt_state, batch)
+        metrics.append({k: v.clone() for k, v in m.items()})
+    torch.cuda.synchronize()
+    return metrics, (params, opt_state), {
+        k: f.launches - before[k] for k, f in ops.KERNELS.items()}
+
+
+def _trees_equal(a, b):
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("kind", ["dense", "moe", "embeds", "remat",
+                                  "accum2"])
+def test_train_step_graphed_bitwise_eager(gen, kind):
+    """Four steps through ``DonatedStep`` (eager, capture + replay, two
+    replays) give the plain step's metrics, params, moments and ``step``
+    bit for bit, launch the flash kernels as often (through the replays'
+    counters), capture once, and hand back the trees they were handed
+    from the capture on."""
+    from repro_torch.train.graphs import DonatedStep
+    from repro_torch.tree import tree_map
+    step, params, opt_state, batches = _train_case(kind)
+    eager = _train_run(step, params, opt_state, batches, 4)
+    donated = DonatedStep(step)
+    start = tree_map(torch.clone, (params, opt_state))
+    graphed = _train_run(donated, *start, batches, 4)
+    assert donated.captures == 1
+    for me, mg in zip(eager[0], graphed[0]):
+        assert _trees_equal(me, mg)
+    assert _trees_equal(eager[1], graphed[1])
+    assert eager[2] == graphed[2] and eager[2]["flash_attention_bwd"] > 0
+
+
+def test_train_step_captures_once_per_key(gen):
+    """Six steps capture once; another batch shape is another key, eager
+    on its first use and captured on its second; the first key's graph
+    replays on after it."""
+    from repro_torch.train.graphs import DonatedStep
+    step, params, opt_state, batches = _train_case("dense")
+    donated = DonatedStep(step)
+    for batch in batches:
+        params, opt_state, _ = donated(params, opt_state, batch)
+    assert donated.captures == 1
+    short = {k: v[:, :32] for k, v in batches[0].items()}
+    for n in (1, 2, 3):
+        params, opt_state, _ = donated(params, opt_state, short)
+        assert donated.captures == (1 if n == 1 else 2)
+    params, opt_state, _ = donated(params, opt_state, batches[0])
+    assert donated.captures == 2 and int(opt_state["step"]) == 10
+
+
+def test_train_capture_that_cannot_succeed_raises(gen, monkeypatch):
+    """A step that reads the card from the host cannot be captured: the
+    second call raises (nothing runs it eagerly instead), the donated
+    state has not moved, and the counters hold the first call's
+    launches only."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_loop
+    from repro_torch.train.graphs import DonatedStep
+    from repro_torch.tree import tree_map
+    step, params, opt_state, batches = _train_case("dense")
+    lm_loss = train_loop.lm_loss
+
+    def synced(*args, **kwargs):
+        total, metrics = lm_loss(*args, **kwargs)
+        float(total)                        # a host read inside the step
+        return total, metrics
+
+    monkeypatch.setattr(train_loop, "lm_loss", synced)
+    donated = DonatedStep(step)
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    params, opt_state, _ = donated(params, opt_state, batches[0])
+    torch.cuda.synchronize()
+    first = {k: f.launches - before[k] for k, f in ops.KERNELS.items()}
+    kept = tree_map(torch.clone, (params, opt_state))
+    with pytest.raises(RuntimeError):
+        donated(params, opt_state, batches[1])
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in ops.KERNELS.items()} == \
+        first
+    assert _trees_equal((params, opt_state), kept)
+    assert donated.captures == 0
+
+
+def test_sampler_graphed_bitwise_eager(gen):
+    """The token stream's sampler as one CUDA graph: three batches and a
+    resume (``batches(start_step)``) bitwise the eager stream's, one
+    capture per stream, each batch the caller's own tensor."""
+    from repro_torch.data.pipeline import TokenStream, TokenStreamConfig
+    cfg = TokenStreamConfig(vocab_size=4096, seq_len=65, batch_size=4,
+                            seed=5)
+    for start in (0, 7):
+        graphed = TokenStream(cfg, device="cuda")
+        eager = TokenStream(cfg, device="cuda", graphs=False)
+        got = [b for _, b in zip(range(3), graphed.batches(start))]
+        want = [b for _, b in zip(range(3), eager.batches(start))]
+        assert all(_trees_equal(a, b) for a, b in zip(got, want))
+        assert (graphed.captures, eager.captures) == (1, 0)
+        assert not any(a["tokens"].data_ptr() == b["tokens"].data_ptr()
+                       for a in got for b in got if a is not b)
+
+
+def test_draw_is_multinomials_on_the_card(gen):
+    from repro_torch.data.pipeline import draw
+    for shape in ((1, 7), (8, 49152)):
+        for seed in (0, 123):
+            probs = torch.softmax(torch.randn(shape, generator=gen,
+                                              device="cuda") * 8, -1)
+            want = torch.multinomial(probs, 1, generator=torch.Generator(
+                device="cuda").manual_seed(seed))[:, 0]
+            got = draw(probs, torch.Generator(device="cuda").manual_seed(
+                seed))
+            assert torch.equal(got, want)
+
+
+def test_launch_train_graphed_bitwise_eager(gen):
+    """``launch.train.main`` on a reduced smollm on the card, graphed (the
+    default) and ``graphs=False``: every step's metrics and the final
+    trees bit for bit; captures 1 / 1 against 0 / 0."""
+    from repro_torch.launch import train
+    argv = ["--reduced", "--steps", "5", "--batch", "4", "--seq", "64",
+            "--log-every", "100"]
+    runs = []
+    for graphs in (None, False):
+        stats = {}
+        train.main(argv, graphs=graphs, stats=stats)
+        runs.append(stats)
+    g, e = runs
+    assert g["metrics"] == e["metrics"]
+    assert _trees_equal((g["params"], g["opt_state"]),
+                        (e["params"], e["opt_state"]))
+    assert g["captures"] == {"step": 1, "sampler": 1}
+    assert e["captures"] == {"step": 0, "sampler": 0}

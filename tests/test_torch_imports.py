@@ -1,14 +1,18 @@
-"""Guards of the port's two contracts that need no GPU:
+"""Guards of the port's contracts that need no GPU:
 
 * ``src/repro_torch``, ``chip_smoke.py`` and the port's examples
   (``examples/torch_*.py``) import neither ``jax`` nor anything of the
   JAX package ``repro`` (the card's machine has no JAX);
+* every module of ``src/repro_torch`` imports where there is no card,
+  no nvcc and no Triton (kernels are built, and CUDA-only packages
+  imported, inside the calls that launch them);
 * dispatch is by device: only a CPU tensor reaches a kernel's plain
   version. A ``meta`` tensor stands in for a device tensor — with the
   kernel loader made to fail, every entry point must raise instead of
   returning the plain result.
 """
 import ast
+import importlib
 from pathlib import Path
 
 import pytest
@@ -20,6 +24,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
 
 
 def _imported_roots(path: Path):
@@ -45,6 +53,12 @@ def test_port_imports_no_jax_and_no_reference_package(path):
     bad = [(mod, line) for mod, line in _imported_roots(path)
            if mod in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("name", PORT_MODULES)
+def test_every_port_module_imports_here(name):
+    module = importlib.import_module(name)
+    assert module.__name__ == name
 
 
 def _meta_calls():
