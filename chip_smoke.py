@@ -8,6 +8,7 @@
     python3 chip_smoke.py --profile-decode-attention [--src OTHER/src]
     python3 chip_smoke.py --profile-requests [--src OTHER/src]
     python3 chip_smoke.py --profile-forward [--src OTHER/src]
+    python3 chip_smoke.py --profile-host-mesh
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -126,7 +127,18 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    which matmul kernels the served plans launched); a profile of the
    step, graphed and eager in turns (wall, device-busy, idle share,
    peak memory, the token stream's own time apart), and the sampler's
-   ms graphed and eager in turns, its batches bitwise;
+   ms graphed and eager in turns, its batches bitwise; then the host
+   mesh (``host_mesh_phase``, ``repro_torch.launch.distributed``): the
+   launcher at one rank over NCCL, graphed with the gradient all-reduce
+   inside the captured step, bitwise the graphed twin above (metrics,
+   params, moments, ``step``), its step profiled (the all-reduce's device
+   ms) after WATCHDOG_CAPTURES captures each right after eager
+   collectives; two ranks on this card over ``gloo`` (eager), their
+   losses within MESH_LOSS_RTOL of one rank's and their parameters
+   bitwise each other's; with two cards or more, one rank per card over
+   NCCL, graphed, held the same way, each card's step wall and busy ms,
+   all-reduce ms and GB and reserved GB (with one card, a line saying
+   so);
 10. the model zoo: every assigned arch at ``.reduced()`` in f32 on the
    card against the CPU's plain path (forward with its router aux,
    prefill, 4 decode steps; musicgen and qwen2-vl through ``embeds=``,
@@ -218,7 +230,9 @@ host-int and device-position launches; ``--profile-requests`` only
 times the request series (twice, without twins); ``--profile-forward``
 only times QPART's calibration (three ``QPARTServer.calibrate`` calls on
 one backend) and four executions each of the loop's deployment and of
-p = 0 (``profile_forward``). ``--src`` imports the port
+p = 0 (``profile_forward``); ``--profile-host-mesh`` only runs the
+host mesh's part of phase 9 (its one-rank twin run first).
+``--src`` imports the port
 from another tree, so
 that an earlier commit unpacked by ``git archive`` can be profiled in
 the same call as this one.
@@ -3917,7 +3931,8 @@ def launch_twins(torch, ops) -> dict:
     equal; captures (step, sampler) 1 / 1 against 0 / 0; each mode's
     wall seconds and peak allocated and reserved GB. One ``train_twin``
     line per remat; raises on a difference. Returns the launches by
-    run."""
+    run, and the graphed run's metrics and final trees (on the host) with
+    remat off."""
     from repro_torch.launch import train as train_launch
     from repro_torch.tree import tree_leaves
     runs = {}
@@ -3932,7 +3947,7 @@ def launch_twins(torch, ops) -> dict:
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc, launches = counted(torch, ops, lambda: train_launch.main(
-                    argv, graphs=graphs, stats=stats))
+                    argv, graphs=graphs, stats=stats, world=1))
             out[graphs] = dict(
                 stats, rc=rc, launches=launches,
                 wall_s=time.perf_counter() - t0,
@@ -3957,6 +3972,8 @@ def launch_twins(torch, ops) -> dict:
                             "peak_reserved_gb")},
                "launches": g["launches"]}
         emit({"train_twin": rec})
+        if not remat:       # the host mesh's phase (a) holds its run to it
+            twin = host_twin(g)
         runs[f"train_twin_remat{int(remat)}"] = g["launches"]
         runs[f"train_twin_remat{int(remat)}_eager"] = e["launches"]
         del out, g, e, leaves
@@ -3966,7 +3983,15 @@ def launch_twins(torch, ops) -> dict:
                 rec["eager_captures"] != {"step": 0, "sampler": 0}:
             raise AssertionError(f"launch.train graphed vs eager: {rec}")
     torch.cuda.empty_cache()
-    return runs
+    return runs, twin
+
+
+def host_twin(stats) -> dict:
+    """A ``launch.train.main`` run's metrics and final trees, the trees
+    copied to the host."""
+    from repro_torch.tree import tree_map
+    return {"metrics": stats["metrics"], **tree_map(
+        lambda t: t.cpu(), {k: stats[k] for k in ("params", "opt_state")})}
 
 
 def train_phase(torch, ops) -> dict:
@@ -3977,7 +4002,8 @@ def train_phase(torch, ops) -> dict:
     their eager twins (``launch_twins``), (iv) its checkpoint restored
     bitwise, (v) the request loop on the trained weights, then a profile
     of its step, graphed and eager in turns, and of its sampler. Returns
-    each run's launches and the step's profiles (remat off and on)."""
+    each run's launches, the step's profiles (remat off and on) and the
+    twin that ``host_mesh_phase`` holds its one rank to."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import train as train_launch
     from repro_torch.models import transformer as T
@@ -4001,7 +4027,7 @@ def train_phase(torch, ops) -> dict:
     stats = {}
     t0 = time.perf_counter()
     rc, runs["train"] = counted(torch, ops, lambda: train_launch.main(
-        argv, stats=stats))
+        argv, stats=stats, world=1))
     wall = time.perf_counter() - t0
     captures = stats["captures"]
     del stats
@@ -4022,7 +4048,8 @@ def train_phase(torch, ops) -> dict:
     if (runs["train"]["flash_attention"], runs["train"][
             "flash_attention_bwd"]) != (L * TRAIN_STEPS, L * TRAIN_STEPS):
         raise AssertionError(f"launch.train: flash launches {runs['train']}")
-    runs.update(launch_twins(torch, ops))
+    twin_runs, twin = launch_twins(torch, ops)
+    runs.update(twin_runs)
     # (iv) the checkpoint restored into fresh templates, bit for bit
     template = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED + 7), device="cuda")
@@ -4055,7 +4082,215 @@ def train_phase(torch, ops) -> dict:
         lambda: stream_batch(torch, cfg.vocab_size, 8, 256, SEED + 11))
     del params, opt_state
     sampler_ms(torch, cfg.vocab_size, 8, 256)
-    return runs, step_profiles
+    return runs, step_profiles, twin
+
+
+# ---------------------------------------------------------------------------
+# Phase 9, the host mesh: the training launcher data-parallel over ranks
+
+MESH_LOSS_RTOL = 5e-3    # n ranks' losses against one rank's, bf16 activations
+WATCHDOG_CAPTURES = 50   # graphs captured each right after eager collectives
+
+
+def watchdog_captures(torch, group, n: int = WATCHDOG_CAPTURES) -> int:
+    """``n`` times: an eager all-reduce (work that ``ProcessGroupNCCL``'s
+    watchdog thread then polls), at once a CUDA graph captured with
+    eight all-reduces in it, and its replay. Each all-reduce is followed
+    by a division by the group's size, so the tensor keeps its ones;
+    raises if a capture fails or a value moves. Returns ``n``."""
+    import torch.distributed as dist
+    world = dist.get_world_size(group)
+    x = torch.ones(1 << 20, device="cuda")
+
+    def mean():
+        dist.all_reduce(x, group=group)
+        x.div_(world)
+
+    for _ in range(n):
+        mean()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(8):
+                mean()
+        graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(x, torch.ones_like(x)):
+        raise AssertionError("all-reduces captured after eager ones moved "
+                             "the values")
+    return n
+
+
+def mesh_step_profile(rank, world, group, steps: int = 5) -> dict:
+    """One rank of the host mesh, for ``launch.distributed.spawn`` (or in
+    this process at world 1): ``watchdog_captures``, then smollm-135m's
+    train step at B 8 x S 256 as ``launch.train`` runs it on ``world``
+    ranks (seeded weights broadcast from rank 0, this rank's rows of the
+    stream's batch, ``make_train_step(group=)`` through ``DonatedStep``:
+    eager, captured with its all-reduces, replayed): the unprofiled wall
+    ms and ``profile_steps``' device-busy ms per step over ``steps``
+    steps, the all-reduce's device ms (NCCL's kernels), its payload and
+    ring GB per card, the peak reserved GB."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import batch_rows
+    from repro_torch.models import transformer as T
+    from repro_torch.train.graphs import DonatedStep
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.tree import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    watchdog = watchdog_captures(torch, group)
+    cfg = get_config("smollm-135m")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 13), device="cuda")
+    distributed.broadcast_tree(params, group)
+    state = [params, init_opt_state(params)]
+    batch = stream_batch(torch, cfg.vocab_size, 8, 256, SEED + 11)
+    rows = batch_rows(make_host_mesh(world), 8, rank)
+    batch = {k: v[rows] for k, v in batch.items()}
+    step = DonatedStep(make_train_step(cfg, AdamWConfig(
+        total_steps=TRAIN_STEPS), remat=False, group=group))
+
+    def one():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    one()
+    one()                      # the eager step, then the capture
+    torch.cuda.reset_peak_memory_stats()
+    walls = wall_ms(torch, one, steps)
+    prof = profile_steps(torch, one, steps, watch=("nccl",), cpu=False)
+    payload = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(state[0])) / 1e9
+    return {"rank": rank, "world": world, "card": torch.cuda.current_device(),
+            "rows": [rows.start, rows.stop], "captures": step.captures,
+            "watchdog_captures": watchdog, **walls,
+            **{k: prof[k] for k in ("wall_ms_per_step",
+                                    "device_busy_ms_per_step", "idle_share",
+                                    "top_device_ms_per_step")},
+            "allreduce_ms_per_step": prof["watched_device_ms_per_step"][
+                "nccl"],
+            "allreduce_payload_gb": payload,
+            "allreduce_ring_gb_per_card": 2 * (world - 1) / world * payload,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+
+
+def mesh_losses(torch, stats, one: list, what: str) -> dict:
+    """A spawned run's ranks against one rank's losses ``one``: each
+    rank's losses within MESH_LOSS_RTOL of them, every rank's losses and
+    parameter digest the same; raises otherwise."""
+    ranks = stats["ranks"]
+    got = ranks[0]["losses"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, one))
+    rec = {"losses": got, "losses_one_rank": one, "max_rel_err": err,
+           "rtol": MESH_LOSS_RTOL,
+           "ranks_bitwise": all(r["digest"] == ranks[0]["digest"]
+                                and r["losses"] == got for r in ranks),
+           "launches_by_rank": [r["launches"] for r in ranks]}
+    if len(got) != len(one) or err > MESH_LOSS_RTOL or \
+            not rec["ranks_bitwise"]:
+        raise AssertionError(f"host mesh {what}: {rec}")
+    return rec
+
+
+def rank_launches(ops, rec) -> dict:
+    """Every counter (``counters``) summed over a spawned run's ranks,
+    each of which counted its own kernels' launches from 0 (the tiled
+    route is not counted there: 0)."""
+    return {k: sum(r.get(k, 0) for r in rec["launches_by_rank"])
+            for k in counters(ops)}
+
+
+def host_mesh_phase(torch, ops, twin=None) -> dict:
+    """The host mesh (``launch.distributed``) on smollm-135m at B 8 x S
+    256 for TWIN_STEPS steps, each part raising on a difference:
+    (a) ``launch.train.main`` at world 1 over NCCL, graphed, its step's
+    all-reduce inside the capture, bitwise ``twin`` (the ungrouped
+    graphed run of ``launch_twins``; run here when None): every step's
+    metrics, params, ``mu``, ``nu``, ``step``; one capture each; then
+    ``mesh_step_profile`` in this process at world 1;
+    (b) ``main`` at world 2 on this one card over ``gloo`` (CUDA tensors,
+    eager): each rank's losses within MESH_LOSS_RTOL of (a)'s, the ranks'
+    losses and parameters bitwise;
+    (c) with two cards or more, ``main`` at one rank per card over NCCL,
+    graphed, held as (b) is, then ``mesh_step_profile`` on every card
+    (step wall and busy ms, the all-reduce's ms and GB, reserved GB);
+    with one card, a line saying so. Returns the launches by run."""
+    from repro_torch.launch import distributed
+    from repro_torch.launch import train as train_launch
+    from repro_torch.tree import tree_leaves
+    argv = ["--steps", str(TWIN_STEPS), "--batch", "8", "--seq", "256"]
+    if twin is None:
+        stats = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_launch.main(argv, world=1, stats=stats)
+        twin = host_twin(stats)
+    one = [m["loss"] for m in twin["metrics"]]
+    runs = {}
+    # (a) one rank over NCCL, graphed
+    stats = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc, runs["host_mesh_nccl1"] = counted(
+            torch, ops, lambda: train_launch.main(argv, world=1,
+                                                  backend="nccl",
+                                                  stats=stats))
+    wall = time.perf_counter() - t0
+    got = tree_leaves((stats["params"], stats["opt_state"]))
+    want = tree_leaves((twin["params"], twin["opt_state"]))
+    rec = {"world": 1, "backend": "nccl", "graphs": True, "rc": rc,
+           "wall_s": wall, "metrics_bitwise": stats["metrics"] == twin[
+               "metrics"],
+           "state_bitwise": len(got) == len(want) and all(
+               torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+           "captures": stats["captures"],
+           "launches": runs["host_mesh_nccl1"]}
+    del stats, got, want
+    with distributed.process_group("cuda", 0, 1) as group:
+        rec["step"] = mesh_step_profile(0, 1, group)
+    emit({"host_mesh_nccl1": rec})
+    if not (rec["metrics_bitwise"] and rec["state_bitwise"]) or \
+            rec["captures"] != {"step": 1, "sampler": 1} or \
+            rec["step"]["captures"] != 1:
+        raise AssertionError(f"host mesh at one NCCL rank: {rec}")
+    torch.cuda.empty_cache()
+    # (b) two ranks on this card over gloo, eager
+    stats = {}
+    t0 = time.perf_counter()
+    rc = train_launch.main(argv, world=2, backend="gloo", graphs=False,
+                           stats=stats)
+    rec = {"world": 2, "backend": "gloo", "graphs": False, "rc": rc,
+           "wall_s": time.perf_counter() - t0,
+           "captures": stats["captures"],
+           **mesh_losses(torch, stats, one, "over gloo")}
+    emit({"host_mesh_gloo2": rec})
+    runs["host_mesh_gloo2"] = rank_launches(ops, rec)
+    del stats
+    torch.cuda.empty_cache()
+    # (c) one rank per card over NCCL, graphed
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"host_mesh_cards": {"count": cards, "ran": False,
+                                  "why": "one card: no NCCL ranks across "
+                                         "cards"}})
+        return runs
+    stats = {}
+    t0 = time.perf_counter()
+    rc = train_launch.main(argv, world=cards, stats=stats)
+    rec = {"world": cards, "backend": "nccl", "graphs": True, "rc": rc,
+           "wall_s": time.perf_counter() - t0,
+           "captures": stats["captures"],
+           **mesh_losses(torch, stats, one, "over NCCL")}
+    del stats
+    torch.cuda.empty_cache()
+    rec["steps"] = distributed.spawn(mesh_step_profile, cards, "cuda")
+    emit({f"host_mesh_nccl{cards}": rec})
+    runs[f"host_mesh_nccl{cards}"] = rank_launches(ops, rec)
+    if rec["captures"] != {"step": 1, "sampler": 1} or any(
+            r["captures"] != 1 for r in rec["steps"]):
+        raise AssertionError(f"host mesh over {cards} cards: {rec}")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -4738,7 +4973,7 @@ def zoo_train_phase(torch, ops):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             rc, runs["musicgen_launch_train"] = counted(
-                torch, ops, lambda: train_launch.main(argv))
+                torch, ops, lambda: train_launch.main(argv, world=1))
             emit({"zoo_train_launch": {
                 "argv": argv, "rc": rc, "wall_s": time.perf_counter() - t0,
                 "peak_memory_gb": peak_gb(torch),
@@ -5218,6 +5453,9 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
             "example_quantized_lm_serving": ("flash_attention",
                                              "decode_attention"),
             "trained_request_loop": ("decode_attention", "flash_attention"),
+            # the host mesh: one NCCL rank graphed, two gloo ranks eager
+            **{run: ("flash_attention", "flash_attention_bwd")
+               for run in ("host_mesh_nccl1", "host_mesh_gloo2")},
             # the zoo: the reduced archs in f32, OLMoE's request loop, its
             # fixed-plan session (bf16, qkernels) and launcher; Mamba2 is
             # attention-free, so only its quantized launches run kernels
@@ -5324,6 +5562,11 @@ def main(argv=None) -> int:
                     help="only build the kernels and time QPART's "
                          "calibration and execution (the forward family) "
                          "on a seeded smollm-135m")
+    ap.add_argument("--profile-host-mesh", action="store_true",
+                    help="only build the kernels and run the host mesh's "
+                         "phase: the training launcher at one NCCL rank, "
+                         "two gloo ranks on one card and, with two cards "
+                         "or more, one NCCL rank per card")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree whose repro_torch to import (with "
                          "--profile-launcher, --profile-tiled, "
@@ -5357,6 +5600,14 @@ def main(argv=None) -> int:
             launch_wall(torch, quant)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.profile_host_mesh:
+        from repro_torch.kernels import build, ops
+        print(smi, flush=True)
+        emit({"build_dir": str(build.build_all())})
+        t0 = time.perf_counter()
+        emit({"host_mesh_launches": host_mesh_phase(torch, ops)})
+        emit({"host_mesh_phase_s": time.perf_counter() - t0})
+        return 0
     if args.profile_requests or args.profile_forward:
         from repro_torch.kernels import build, ops
         print(smi, flush=True)
@@ -5499,9 +5750,13 @@ def main(argv=None) -> int:
             **graph_runs, **feature_runs,
             **launch_serve(torch, ops, graph_checks=LAUNCH_GRAPH_CHECKS)}
     t0 = time.perf_counter()
-    train_runs, train_profiles = train_phase(torch, ops)
+    train_runs, train_profiles, twin = train_phase(torch, ops)
     runs.update(train_runs)
     emit({"train_phase_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    runs.update(host_mesh_phase(torch, ops, twin))
+    del twin
+    emit({"host_mesh_phase_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     runs["zoo_reduced"] = zoo_reduced(torch, ops)
     runs.update(olmoe_phase(torch, ops))

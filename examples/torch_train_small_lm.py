@@ -5,10 +5,11 @@ with checkpointing and eval, on the PyTorch port.
 The port's twin of ``examples/train_small_lm.py``: the same model,
 optimizer, steps and printed lines, through the port's train step (f32
 master weights, bf16 activations, on the card the flash attention
-kernel forward and its hand-written backward). One card holds the model
-whole, so there is no mesh: the reference's host mesh, parameter
-partition specs and ``device_put`` have no counterpart here (as in
-``repro_torch.launch.train``). The reference jits its train step with
+kernel forward and its hand-written backward). It runs on one card: the
+reference builds its host mesh and replicated parameter specs, but jits
+its step without ``in_shardings``, so its batch is never split and every
+device computes the same step (``repro_torch.launch.train`` is the one
+that splits its batch over every local card). The reference jits its train step with
 the parameters and the optimizer state donated, and its eval step; on
 the card each runs as a CUDA graph (``repro_torch.train.graphs
 .DonatedStep``, the train step's state updated in its own buffers), as

@@ -8,11 +8,14 @@ by. Nothing here touches ``torch.distributed`` or a device.
 
 Single pod: (data=16, model=16), 256 cards; multi-pod: (pod=2, data=16,
 model=16), 512 cards, the ``pod`` axis pure data parallelism. The host
-mesh is the one card, 1 x 1.
+mesh is the local cards, (data=n, model=1), as the reference's ``(n,
+1)`` over every local device: the training launcher runs one rank per
+card on it (``launch.distributed``), the batch split over ``data`` and
+the state replicated, its gradients all-reduced inside each step.
 
 The rates are NVIDIA's data sheet for one H100 SXM (dense, without
-sparsity, at the full 700 W power limit). One card has no inter-card
-link, so the roofline counts no collective term.
+sparsity, at the full 700 W power limit). The roofline is per card and
+counts no collective term.
 """
 from __future__ import annotations
 
@@ -44,9 +47,11 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh((DATA_AXIS, MODEL_AXIS), {DATA_AXIS: 16, MODEL_AXIS: 16})
 
 
-def make_host_mesh() -> Mesh:
-    """The one card, as a 1 x 1 (data, model) mesh."""
-    return Mesh((DATA_AXIS, MODEL_AXIS), {DATA_AXIS: 1, MODEL_AXIS: 1})
+def make_host_mesh(cards: int = 1) -> Mesh:
+    """``cards`` local cards as a (data=cards, model=1) mesh; the caller
+    counts the cards (``torch.cuda.device_count()``), nothing here
+    touches a device."""
+    return Mesh((DATA_AXIS, MODEL_AXIS), {DATA_AXIS: cards, MODEL_AXIS: 1})
 
 
 def mesh_num_chips(mesh) -> int:

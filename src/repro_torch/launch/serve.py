@@ -4,10 +4,12 @@ with full-precision or int-N (QPART wire format) block weights.
   python -m repro_torch.launch.serve --arch smollm-135m --quant 4
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
-One card holds smollm-135m whole, so there is no mesh. At ``--quant 8``
-/ ``4`` the block weights are quantized on the device by the quantize /
-quantize-and-pack-int4 kernels and served through the dequantize-fused
-qmatmul / qmatmul4 kernels.
+It runs on one card: the reference's launcher replicates the weights
+over its host mesh and gives the prompt no spec, so every device serves
+the same batch (``launch.train`` is the one that splits its batch over
+the cards). At ``--quant 8`` / ``4`` the block weights are quantized on
+the device by the quantize / quantize-and-pack-int4 kernels and served
+through the dequantize-fused qmatmul / qmatmul4 kernels.
 
 The decode step is compiled once per :func:`generate` call, as the
 reference's ``jstep = jax.jit(...)`` in ``repro/launch/serve.py`` is:

@@ -26,9 +26,12 @@ over ``model``; weights follow Megatron column -> row pairs:
 mirror the parameter specs; ``fsdp`` additionally shards the largest
 unsharded dimension over ``data``.
 
-On one card (``mesh.make_host_mesh``, 1 x 1) every spec shards nothing;
-the dry run reads these specs to give the argument bytes per card of
-the production meshes (:func:`per_card_bytes`).
+The dry run reads these specs to give the argument bytes per card of
+the production meshes (:func:`per_card_bytes`). On the host mesh
+(``mesh.make_host_mesh``, data=n, model=1) the training launcher runs
+them: with ``fsdp`` off and a ``model`` axis of 1 every parameter and
+moment spec shards nothing, and :func:`batch_rows` gives each data rank
+its block of the batch as :func:`batch_pspecs` lays it out.
 """
 from __future__ import annotations
 
@@ -70,6 +73,17 @@ def batch_axis(mesh, batch: int):
     if batch % dsize or batch < dsize:
         return None
     return daxes if len(daxes) > 1 else DATA_AXIS
+
+
+def batch_rows(mesh, batch: int, index: int) -> slice:
+    """The rows of a global batch of ``batch`` that data index ``index``
+    holds under :func:`batch_axis`: the ``index``-th of equal blocks
+    (``NamedSharding``'s block layout) when the batch splits over the
+    data axes, else every row (replicated)."""
+    if batch_axis(mesh, batch) is None:
+        return slice(0, batch)
+    per = batch // _data_size(mesh)
+    return slice(index * per, (index + 1) * per)
 
 
 def _leaf_spec(keys, leaf, kv_sharded: bool) -> tuple:

@@ -4,11 +4,16 @@ reference's ``train/train_loop.py`` on the port's parameter trees.
 
 Gradients come from ``torch.autograd.grad`` over the tree's leaves; on
 the card every full-sequence attention runs the flash kernel forward
-and its hand-written backward kernel (``kernels.flash_attention``).
+and its hand-written backward kernel (``kernels.flash_attention``). On
+the host mesh (``launch.distributed``) each rank steps on its own rows
+and the step all-reduces the gradients and the loss metrics over the
+ranks before the update, as XLA does for the reference's batch sharded
+over ``data``.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
@@ -58,13 +63,36 @@ def value_and_grad(params, cfg, batch, remat: bool = True):
         tree_unflatten(params, grads)
 
 
+def mean_over(group, loss, metrics, grads):
+    """(loss, metrics, grads) with every gradient leaf and the loss and
+    :data:`METRICS` replaced by their mean over ``group``'s ranks: a
+    blocking all-reduce of each (the card's stream waits, the host does
+    not), then one division by the group's size."""
+    leaves = tree_leaves(grads)
+    stacked = torch.stack([loss] + [metrics[k] for k in METRICS])
+    for t in leaves + [stacked]:
+        dist.all_reduce(t, group=group)
+    torch._foreach_div_(leaves + [stacked], dist.get_world_size(group))
+    loss, *rest = stacked.unbind()
+    return loss, dict(zip(METRICS, rest)), grads
+
+
 def make_train_step(cfg, opt_cfg: AdamWConfig, remat: bool = True,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, group=None):
     """accum_steps > 1 runs the microbatches in turn (the global batch
     must divide), accumulating the gradients in f32 and dividing by
     ``accum_steps``. The batch is split as the reference splits it:
     (B/A, A) with A moved to the front, so microbatch ``a`` holds rows
-    ``a, a + A, a + 2A, ...``."""
+    ``a, a + A, a + 2A, ...``.
+
+    ``group``, a ``torch.distributed`` process group whose ranks each
+    hold their own rows of the global batch (the host mesh): after the
+    gradients (accumulated, when ``accum_steps`` > 1, over the rank's
+    own rows), :func:`mean_over` the group, before the update, so the
+    global norm, the clipping and the update read the reduced gradients
+    and every rank steps alike. A mean of the ranks' means is the global
+    batch's mean when every rank holds as many rows (and so, in a MoE
+    block, as many routing groups). ``None`` adds no collective."""
     def train_step(params, opt_state, batch):
         if accum_steps == 1:
             (loss, metrics), grads = value_and_grad(params, cfg, batch,
@@ -99,6 +127,8 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, remat: bool = True,
             grads = tree_map(lambda g: g / a, grads)
             loss = loss / a
             metrics = {k: v / a for k, v in metrics.items()}
+        if group is not None:
+            loss, metrics, grads = mean_over(group, loss, metrics, grads)
         params, opt_state, opt_metrics = adamw_update(
             opt_cfg, params, grads, opt_state)
         metrics = dict(metrics, loss=loss, **opt_metrics)

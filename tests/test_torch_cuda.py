@@ -42,7 +42,9 @@ tiled ``qmatmul`` inside the captures), captures on a key's second use
 only, paged, and a prefill that cannot be captured raising; the
 classifier's programs (the MNIST MLP) bitwise their eager twin, one
 capture per program and argument, the reference's segment cache keyed
-by p, and a program that cannot be captured raising.
+by p, and a program that cannot be captured raising. The host mesh's
+train step at one rank over NCCL, its all-reduces inside the captured
+graph, bitwise the ungrouped graphed step (dense and MoE).
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
@@ -1977,10 +1979,11 @@ def test_ring_capture_that_cannot_succeed_raises(gen, monkeypatch):
 # ---------------------------------------------------------------------------
 # The training programs as CUDA graphs: the donated step and the sampler
 
-def _train_case(kind, b=4, s=64):
+def _train_case(kind, b=4, s=64, group=None):
     """(step, params, opt state, batches) of a small bf16 train step on
     the card: a 2-layer smollm-135m, a reduced OLMoE, a reduced MusicGen
-    fed through ``embeds=``, remat, ``accum_steps=2``."""
+    fed through ``embeds=``, remat, ``accum_steps=2``; the step
+    all-reduces over ``group`` when one is given."""
     import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.models import transformer as T
@@ -2004,7 +2007,8 @@ def _train_case(kind, b=4, s=64):
     step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
                                             total_steps=8),
                            remat=kind == "remat",
-                           accum_steps=2 if kind == "accum2" else 1)
+                           accum_steps=2 if kind == "accum2" else 1,
+                           group=group)
     return step, params, init_opt_state(params), batches
 
 
@@ -2050,6 +2054,29 @@ def test_train_step_graphed_bitwise_eager(gen, kind):
         assert _trees_equal(me, mg)
     assert _trees_equal(eager[1], graphed[1])
     assert eager[2] == graphed[2] and eager[2]["flash_attention_bwd"] > 0
+
+
+@pytest.mark.parametrize("kind", ["dense", "moe"])
+def test_train_step_one_nccl_rank_bitwise_ungrouped(gen, kind):
+    """The host mesh's step at one rank over NCCL (``make_train_step
+    (group=)`` through ``DonatedStep``: eager, then captured with its
+    all-reduces inside, then replays) gives the ungrouped graphed step's
+    metrics, params, moments and ``step`` bit for bit, with one capture
+    and the same launches."""
+    from repro_torch.launch import distributed
+    from repro_torch.train.graphs import DonatedStep
+    step, params, opt_state, batches = _train_case(kind)
+    ungrouped = DonatedStep(step)
+    want = _train_run(ungrouped, params, opt_state, batches, 4)
+    with distributed.process_group("cuda") as group:
+        step, params, opt_state, batches = _train_case(kind, group=group)
+        grouped = DonatedStep(step)
+        got = _train_run(grouped, params, opt_state, batches, 4)
+    assert (ungrouped.captures, grouped.captures) == (1, 1)
+    for mw, mg in zip(want[0], got[0]):
+        assert _trees_equal(mw, mg)
+    assert _trees_equal(want[1], got[1])
+    assert want[2] == got[2] and got[2]["flash_attention_bwd"] > 0
 
 
 def test_train_step_captures_once_per_key(gen):
