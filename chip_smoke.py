@@ -9,6 +9,7 @@
     python3 chip_smoke.py --profile-requests [--src OTHER/src]
     python3 chip_smoke.py --profile-forward [--src OTHER/src]
     python3 chip_smoke.py --profile-host-mesh
+    python3 chip_smoke.py --profile-model-parallel
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -25,7 +26,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    bf16 leaf as well; then at OLMoE-1B-7B's shapes: qmatmul / qmatmul4
    at K = N = 2048 and M = 4 / 256, flash attention at KV 16, G 1, hd
    128 (B 16 x S 128 and B 4 x S 64), decode attention there on a ring
-   of 96, quantize on one expert period),
+   of 96, quantize on one expert period; the ring-shard variant of
+   decode attention, out and row log-sum-exp, at smollm-135m's and
+   chatglm3-6b's decode_32k shards on the pod mesh and at phase 9b's
+   chatglm3-6b shard, its shards merged against the whole ring),
    with a second call bitwise equal to the first,
    and time kernel, plain version, the closest single PyTorch library
    call (a yardstick only — the port never calls it) and the card's
@@ -83,8 +87,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    8-bit plan at p = L/2: plain, chunked prefill, speculative decode
    (2 and 4 drafts) and paged KV, and at p = L plain and 4 drafts (every
    draft accepted); each speculative run as a graphed session (its
-   prefill chunks and rounds replayed as the backend's CUDA graphs) and
-   its ``graphs=False`` twin in 3 turns, tokens/s medians and each
+   prefill chunks and rounds replayed as the backend's CUDA graphs) in 3
+   turns and its ``graphs=False`` twin in the first, tokens/s medians
+   and each
    stream's seconds split at its ``round_stream`` yields (prefill, first
    round at k, second, later rounds, tail), the graphed stream bitwise
    its twin (tokens, each round's drafts and verified tokens, both
@@ -138,7 +143,21 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    bitwise each other's; with two cards or more, one rank per card over
    NCCL, graphed, held the same way, each card's step wall and busy ms,
    all-reduce ms and GB and reserved GB (with one card, a line saying
-   so);
+   so); then (9b, ``model_parallel_phase``) the serving steps over the
+   model axis (``launch.model_parallel``): with four cards one NCCL rank
+   a card, else two ``gloo`` ranks on this card (four for chatglm3-6b),
+   each holding its shards of seeded weights (``shard_tree``) and running
+   ``launch.serve.generate`` over the axis: smollm-135m at full width, B
+   4 x 64 and 32 new tokens at --quant 0, 8 and 4 (KV heads split),
+   OLMoE-1B-7B expert-parallel with 8 new tokens, chatglm3-6b two layers
+   deep at four ranks (its 72-slot ring split on its slots: the
+   ring-shard decode attention; and its 71-slot ring, which does not
+   split, held whole by each rank: row 3 over its KV head in place),
+   each after its one-card twin, which is freed
+   first; per rank the prefill's and last step's logits against the
+   twin's (within MP_LOGIT_RTOL of its largest), the tokens' agreement,
+   the eager step's wall ms, a profiled step's busy ms and NCCL's device
+   ms, peak reserved GB and the launches per kernel;
 10. the model zoo: every assigned arch at ``.reduced()`` in f32 on the
    card against the CPU's plain path (forward with its router aux,
    prefill, 4 decode steps; musicgen and qwen2-vl through ``embeds=``,
@@ -226,12 +245,17 @@ shape (with SDPA's backward beside them and a digest of the float32
 route's output bits) and profiles smollm-135m's train step and
 ``launch.train``; ``--profile-decode-attention`` only times decode
 attention at the request loop's, the launcher's and a 2048-slot ring,
-host-int and device-position launches; ``--profile-requests`` only
+host-int and device-position launches, after a sha256 of the
+kernel's outputs over a fixed set of launches
+(``decode_attention_digest``: equal between trees, the same bits);
+``--profile-requests`` only
 times the request series (twice, without twins); ``--profile-forward``
 only times QPART's calibration (three ``QPARTServer.calibrate`` calls on
 one backend) and four executions each of the loop's deployment and of
 p = 0 (``profile_forward``); ``--profile-host-mesh`` only runs the
-host mesh's part of phase 9 (its one-rank twin run first).
+host mesh's part of phase 9 (its one-rank twin run first);
+``--profile-model-parallel`` only checks the ring-shard decode attention
+and runs phase 9b.
 ``--src`` imports the port
 from another tree, so
 that an earlier commit unpacked by ``git archive`` can be profiled in
@@ -240,7 +264,8 @@ the same call as this one.
 After the last phase every kernel must have launched in the runs of the
 paths that use it (the backward kernel in every training run, the
 zoo's and the examples' included; the attention kernels, quantize and
-qmatmul in the OLMoE runs), and the
+qmatmul in the OLMoE runs; the ring-shard decode attention in phase 9b's
+chatglm3-6b ranks), and the
 tiled qmatmul route (counted by wrapping the wrappers, ``TiledRoute``)
 in every prefill of the decode features, the quantized launchers and
 the OLMoE session. The line before the last is the ``kernels`` JSON
@@ -776,6 +801,35 @@ def f32_bwd_digest(torch) -> str:
                                    for t in grads)).hexdigest()
 
 
+def decode_attention_digest(torch) -> str:
+    """sha256 of ``decode_attention_cuda``'s output bytes over a fixed set
+    of launches (NumPy's generator seeded 23: B 2 and 4, KVp 4 and 2, Gp 4
+    and 16, hd 64 and 128, bf16 and float8 rings of 1, 96 and 2048 slots,
+    bf16 and f32 queries, positions before, at and past the wrap, each
+    from the host and from the card): equal between trees, the launch's
+    bits are unchanged."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.models.common import to_storage
+    rng = np.random.default_rng(23)
+    h = hashlib.sha256()
+    for b, kvp, gp, hd, buf, cache in (
+            (2, 4, 4, 64, 96, torch.bfloat16),
+            (4, 2, 16, 128, 2048, torch.bfloat16),
+            (2, 4, 4, 64, 2048, torch.float8_e4m3fn),
+            (4, 4, 4, 64, 1, torch.bfloat16)):
+        q = torch.from_numpy(rng.standard_normal(
+            (b, kvp, gp, hd), dtype=np.float32)).cuda()
+        kv = torch.from_numpy(rng.standard_normal(
+            (2, b, buf, kvp, hd), dtype=np.float32)).cuda()
+        ck, cv = to_storage(kv[0], cache), to_storage(kv[1], cache)
+        for qt in (q, q.to(torch.bfloat16)):
+            for pos in sorted({0, buf // 3, buf - 1, buf + 5, 7 * buf + 2}):
+                for p in (pos, torch.tensor(pos, device="cuda")):
+                    h.update(decode_attention_cuda(qt, ck, cv, p).cpu()
+                             .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def profile_train(torch):
     """smollm-135m's train step at B 8 x S 256 on seeded weights:
     ``train_step_profile`` over 20 steps, then ``launch.train.main`` for
@@ -919,7 +973,7 @@ def signature(name, args, kwargs):
         return (dt(x), tuple(codes.shape), scale.numel() > 1,
                 str(out)[6:] if out is not None else "bfloat16"), ()
     if name == "decode_attention":
-        q, ck, _, pos = args
+        q, ck, _, pos = args[:4]    # one card logs no head block (kv0)
         if not isinstance(pos, int):    # a position tensor on the card:
             import torch                # unreadable while a graph captures
             if torch.cuda.is_current_stream_capturing():
@@ -1083,6 +1137,167 @@ def check_decode_attention(torch, timer, records):
             rec[key] = row
     records["decode_attention"] = rec
     emit({"timing": "decode_attention", **records["decode_attention"]})
+
+
+def check_decode_attention_shard(torch, timer, records):
+    """The ring-shard variant of decode attention (the model-parallel rank
+    program's ring split on its slots) against its plain version, out
+    and row log-sum-exp: at smollm-135m's decode_32k shard on the pod
+    mesh (B 8, KVp 4, Gp 4, hd 64, slots [slot0, slot0 + 2048) of a
+    32,768-slot bf16 ring), chatglm3-6b's there (KVp 2, Gp 16, hd 128),
+    and the shard the phase's chatglm3-6b run gives each of its 4 ranks
+    (B 4, 18 of 72 slots); at each, shards partly live, wholly live, past
+    the position (zeros and -inf) and on a wrapped ring, the position
+    from the host and from the card, every call repeated for bitwise
+    equality; one shard of each ring merged with the others
+    (``attention.combine_shards``) against ``decode_attention_ref`` on
+    the whole ring. Out and lse are f32 on both sides, so each is held
+    within 1e-4 of its largest magnitude (at least 1), as the f32 checks
+    are; the error reported is the absolute one. Then row 3's launch over
+    a block of the KV heads of a whole ring (the ring every rank holds
+    where its slots do not split, read at ``kv0``), at chatglm3-6b's
+    rank shape at 4 ranks over a 71-slot ring (one KV head of two, 8 of
+    its 16 queries): bitwise the launch over a copy of the block, and
+    within row 3's tolerance of the plain version. Timed on the two pod
+    shards wholly live, beside SDPA's flash route with its LSE
+    (``_scaled_dot_product_flash_attention`` on K/V repeated per head:
+    the yardstick, which the port never calls)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_shard_cuda)
+    from repro_torch.models.attention import combine_shards
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rtol = 1e-4    # f32 out and lse on both sides, over their largest
+
+    def held(got, want):
+        """(max |got - want|, its limit: rtol x max(1, max |want|)), over
+        the finite entries of ``want``."""
+        live = torch.isfinite(want)
+        got, want = torch.where(live, got, 0), torch.where(live, want, 0)
+        return ((got - want).abs().max().item(),
+                rtol * max(1.0, want.abs().max().item()))
+
+    worst = 0.0
+    cases = (  # (name, B, KVp, Gp, hd, shard slots, ring, positions)
+        ("smollm_pod", 8, 4, 4, 64, 2048, 32768,
+         (100, 2047 + 2048 * 3 + 17, 32767, 32768 + 5000)),
+        ("chatglm3_pod", 8, 2, 16, 128, 2048, 32768,
+         (100, 2047 + 2048 * 3 + 17, 32767, 32768 + 5000)),
+        ("chatglm3_smoke", 4, 2, 16, 128, 18, 72, (63, 64, 70, 71)))
+    timed = {}
+    for name, b, kvp, gp, hd, n, ring, positions in cases:
+        q = torch.randn(b, kvp, gp, hd, generator=g, device="cuda").to(
+            torch.bfloat16).float()
+        kv = torch.randn(2, b, ring, kvp, hd, generator=g, device="cuda").to(
+            torch.bfloat16)
+        for slot0 in sorted({0, n, ring - n}):
+            ck = kv[0, :, slot0:slot0 + n].contiguous()
+            cv = kv[1, :, slot0:slot0 + n].contiguous()
+            timed[(name, slot0)] = (q, ck, cv, n, ring)
+            for pos in positions:
+                pos_t = torch.tensor(pos, dtype=torch.int64, device="cuda")
+                out, lse = decode_attention_shard_cuda(q, ck, cv, pos, slot0,
+                                                       ring)
+                again = decode_attention_shard_cuda(q, ck, cv, pos, slot0,
+                                                    ring)
+                on_card = decode_attention_shard_cuda(q, ck, cv, pos_t,
+                                                      slot0, ring)
+                w_out, w_lse = ref.decode_attention_shard_ref(q, ck, cv, pos,
+                                                              slot0, ring)
+                torch.cuda.synchronize()
+                live = torch.isfinite(w_lse)
+                (err_o, tol_o), (err_l, tol_l) = held(out, w_out), \
+                    held(lse, w_lse)
+                same = all(torch.equal(a, c) for a, c in zip(
+                    (out, lse), again)) and all(torch.equal(a, c) for a, c
+                                                in zip((out, lse), on_card))
+                empty_ok = bool(torch.equal(torch.isfinite(lse), live)) and \
+                    bool(torch.all(out[~live] == 0))
+                emit({"check": "decode_attention_shard", "case": name,
+                      "slot0": slot0, "pos": pos, "shard": n, "ring": ring,
+                      "live_rows": int(live.sum()),
+                      "out_max_abs_err": err_o, "out_tol": tol_o,
+                      "lse_max_abs_err": err_l, "lse_tol": tol_l,
+                      "repeat_and_device_pos_bitwise": same,
+                      "empty_rows_zero_and_minus_inf": empty_ok})
+                if not (err_o <= tol_o and err_l <= tol_l and same
+                        and empty_ok):
+                    raise AssertionError(f"decode attention shard {name} "
+                                         f"slot0={slot0} pos={pos}: out err "
+                                         f"{err_o} (tol {tol_o}), lse err "
+                                         f"{err_l} (tol {tol_l}), bitwise "
+                                         f"{same}, empty rows {empty_ok}")
+                worst = max(worst, err_o, err_l)
+        # every shard of the ring, merged, against the whole ring
+        pos = positions[1]
+        parts = [decode_attention_shard_cuda(
+            q, kv[0, :, r:r + n].contiguous(), kv[1, :, r:r + n].contiguous(),
+            pos, r, ring) for r in range(0, ring, n)]
+        merged = combine_shards(torch.stack([p[0] for p in parts]),
+                                torch.stack([p[1] for p in parts]))
+        whole = ref.decode_attention_ref(q, kv[0], kv[1], pos)
+        err, tol = held(merged, whole)
+        emit({"check": "decode_attention_shard_merge", "case": name,
+              "pos": pos, "shards": len(parts), "max_abs_err": err,
+              "tol": tol})
+        if not err <= tol:
+            raise AssertionError(f"merged shards of {name}: {err} > {tol}")
+        worst = max(worst, err)
+    # row 3 over a block of a whole ring's KV heads, read in place
+    b, kvc, gp, hd, buf = 4, 2, 8, 128, 71
+    q = torch.randn(b, 1, gp, hd, generator=g, device="cuda").to(
+        torch.bfloat16)
+    kv = torch.randn(2, b, buf, kvc, hd, generator=g, device="cuda").to(
+        torch.bfloat16)
+    for kv0 in range(kvc):
+        for pos in (40, 70, 71 + 9):
+            got = decode_attention_cuda(q, kv[0], kv[1], pos, kv0)
+            block = [t[:, :, kv0:kv0 + 1].contiguous() for t in kv]
+            copy = decode_attention_cuda(q, *block, pos)
+            want = ref.decode_attention_ref(q, *block, pos)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            same = bool(torch.equal(got, copy))
+            emit({"check": "decode_attention_head_block", "kv0": kv0,
+                  "kv_heads": kvc, "pos": pos, "buf": buf,
+                  "max_abs_err": err, "tol": 2e-2,
+                  "bitwise_the_copied_block": same})
+            if not (err <= 2e-2 and same):
+                raise AssertionError(f"decode attention at KV head {kv0} "
+                                     f"pos={pos}: err {err}, bitwise the "
+                                     f"copied block {same}")
+    flash = torch.ops.aten._scaled_dot_product_flash_attention
+    rec = {}
+    for name, key in (("smollm_pod", None), ("chatglm3_pod", "chatglm3")):
+        q, ck, cv, n, ring = timed[(name, 0)]
+        b, kvp, gp, hd = q.shape
+        pos = ring - 1                      # the shard wholly live
+        pos_t = torch.tensor(pos, dtype=torch.int64, device="cuda")
+        t = timer(lambda: decode_attention_shard_cuda(q, ck, cv, pos_t, 0,
+                                                      ring))
+        qs = q.to(torch.bfloat16).reshape(b, kvp * gp, 1, hd)
+        ks = ck.permute(0, 2, 1, 3).repeat_interleave(gp, dim=1).contiguous()
+        vs = cv.permute(0, 2, 1, 3).repeat_interleave(gp, dim=1).contiguous()
+        lib = timer(lambda: flash(qs, ks, vs, 0.0, False, False))
+        moved = nbytes(q, ck, cv) + nbytes(q) + b * kvp * gp * 4
+        bnd, by = bound_ms(moved, 4 * b * kvp * gp * n * hd)
+        what = (f"B={b} KVp={kvp} Gp={gp} hd={hd}, bf16 shard of {n} of a "
+                f"{ring}-slot ring, all live, position on the card")
+        row = dict(ms=t["ms"], ms_min=t["ms_min"],
+                   ms_over_floor=t["ms_over_floor"], bound_ms=bnd,
+                   library_ms=lib["ms"], library_ms_min=lib["ms_min"],
+                   timed=what)
+        emit({"timing": "decode_attention_shard", "timed": what, "kernel": t,
+              "library": lib, "bound_ms": bnd})
+        if key is None:
+            plain = timer(lambda: ref.decode_attention_shard_ref(
+                q, ck, cv, pos_t, 0, ring))
+            rec.update(max_abs_err=worst, plain_ms=plain["ms"], bound_by=by,
+                       **row)
+        else:
+            rec[key] = row
+    records["decode_attention_shard"] = rec
+    emit({"timing": "decode_attention_shard", **rec})
 
 
 def profile_decode_attention(torch, timer):
@@ -2840,13 +3055,15 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
     each plain and chunked, then each speculative run (drafting 2 and 4,
     paged + chunked + drafting 2, and drafting 4 at p = L, where every
     draft is accepted, beside a plain session at p = L) as a new graphed
-    session and its ``graphs=False`` twin in ``SPEC_TURNS`` turns
-    (graphed first in odd turns), counters zeroed before each, all on a
-    copy of the backend with no graph yet. Each speculative line has the
-    medians of the turns' tokens/s and the ``stream_split`` of their
-    seconds (prefill, first round at k, second, later rounds, tail). A
-    graphed run must equal its twin bit for bit (tokens, each round's
-    drafts and verified tokens, both caches) with the same launches, and
+    session in ``SPEC_TURNS`` turns and its ``graphs=False`` twin in the
+    first turn alone (after the graphed stream; an eager stream is the
+    same bits every time), counters zeroed before each, all on a copy of
+    the backend with no graph yet. Each speculative line has the medians
+    of the turns' tokens/s and the ``stream_split`` of their seconds
+    (prefill, first round at k, second, later rounds, tail; the twin's
+    from its one turn). Every graphed turn must equal the twin bit for
+    bit (tokens, each round's drafts and verified tokens, both caches)
+    with the same launches, and
     capture exactly the stage keys it uses for the second time in the
     phase (the third turn none), the round at k in its second round at k
     on the key's first stream, in its first on the second, and in none
@@ -2890,11 +3107,16 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
         spec = kw.get("draft_tokens", 0) > 0
         turns = {True: [], False: []}
         for turn in range(SPEC_TURNS if spec else 1):
-            order = (True, False) if turn % 2 == 0 else (False, True)
+            # the eager twin runs in the first turn alone (it is
+            # deterministic): every graphed turn is held to it
+            order = ((True, False) if turn == 0 else (True,)) if spec \
+                else (True,)
             done = {g: spec_run(torch, ops, make, prompt, gen, g)
-                    for g in (order if spec else (True,))}
+                    for g in order}
             for g, r in done.items():
                 turns[g].append(r)
+            if spec:
+                done[False] = turns[False][0]
             ran = done[True]["sess"].graph_keys
             at_k = [key for key in ran if key[0] == "spec_device"
                     and key[2] == kw.get("draft_tokens", 0) + 1]
@@ -2918,7 +3140,7 @@ def decode_features(torch, ops, backend, prompt, gen: int = 32,
                         "graphed" if g else "eager": {
                             "tokens_per_s": r["out"].tokens_per_s,
                             "captures": r["captures"], **r["split"]}
-                        for g, r in done.items()}}})
+                        for g, r in done.items() if g in order}}})
                 if not (all(same.values()) and done[False]["captures"] == 0
                         and done[True]["split"]["captured_in_round_at_k"]
                         == want_round):
@@ -4294,6 +4516,204 @@ def host_mesh_phase(torch, ops, twin=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9b: the serving steps over the model axis
+
+MP_LOGIT_RTOL = 5e-2   # bf16 activations: a rank's logits against the twin's,
+                       # max |error| over the twin's max |logit|
+# (name, arch, layers (None: all), --quant, batch, prompt, new tokens, world)
+MP_CASES = (("mp_smollm_q0", "smollm-135m", None, 0, 4, 64, 32, None),
+            ("mp_smollm_q8", "smollm-135m", None, 8, 4, 64, 32, None),
+            ("mp_smollm_q4", "smollm-135m", None, 4, 4, 64, 32, None),
+            ("mp_olmoe", "olmoe-1b-7b", None, 0, 4, 64, 8, None),
+            ("mp_chatglm3", "chatglm3-6b", 2, 0, 4, 64, 8, 4),
+            ("mp_chatglm3_rep", "chatglm3-6b", 2, 0, 4, 64, 7, 4))
+
+
+def mp_config(arch: str, layers):
+    import dataclasses as dc
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dc.replace(cfg, num_layers=layers)
+
+
+def mp_weights(torch, cfg, quant: int, batch: int, prompt_len: int):
+    """``launch.serve.run``'s seeded weights (int-N wire structs at
+    ``quant``) and prompt, on this process's card."""
+    from repro_torch.core.quantizer import quantize_params_for_serving
+    from repro_torch.models import transformer as T
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    params = T.init_params(cfg, g, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=g, device="cuda", dtype=torch.int32)
+    if quant:
+        params = quantize_params_for_serving(params, quant)
+    return params, prompt
+
+
+def mp_twin(torch, case) -> dict:
+    """One case on this card with no model axis: the prefill's logits,
+    a decode step's after it on the prompt's last token (the same input
+    whatever the tokens chosen), ``generate``'s tokens and its last
+    step's logits (eager, as the ranks step), on the host."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    name, arch, layers, quant, b, s, gen, _ = case
+    cfg = mp_config(arch, layers)
+    params, prompt = mp_weights(torch, cfg, quant, b, s)
+    logits, caches, _ = T.prefill(params, cfg, prompt, max_len=s + gen)
+    step, _ = T.decode_step(params, cfg, prompt[:, -1:], caches, s)
+    stats = {}
+    toks = generate(params, cfg, prompt, s + gen, gen, graphs=False,
+                    stats=stats)
+    out = {"prefill": logits.cpu(), "step": step.cpu(), "tokens": toks.cpu(),
+           "last": stats["last_logits"].cpu(),
+           "step_ms": stats["decode_s"] / (gen - 1) * 1e3}
+    del params, logits, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_rank(rank, world, group, cases):
+    """One rank of a (1, ``world``) mesh, for ``launch.distributed.spawn``:
+    per case, the launch counters zeroed, the seeded weights made
+    (quantized at ``--quant``) and cut to this rank's shards
+    (``shard_tree``; the ranks take turns, so that only one whole tree is
+    on a shared card at a time), then the rank program: its prefill and
+    a decode step on the prompt's last token after it (its blocks of both
+    logits kept), ``launch.serve.generate`` over the model axis (tokens,
+    step wall, the last step's block of logits) and ``profile_steps``
+    over 2 decode steps (NCCL's device ms), each counter and the peak
+    reserved GB read after."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import model_parallel as mp
+    from repro_torch.launch.mesh import coords, make_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.sharding import param_pspecs, shard_tree
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, world)
+    axis = mp.make_axis(mesh, rank, group)
+    nccl = dist.get_backend(group) == "nccl"
+    out = {}
+    for case in cases:
+        name, arch, layers, quant, b, s, gen, _ = case
+        cfg = mp_config(arch, layers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in ops.KERNELS.values():
+            fn.launches = 0
+        for turn in range(world):
+            if turn == rank:
+                full, prompt = mp_weights(torch, cfg, quant, b, s)
+                params = shard_tree(full, param_pspecs(cfg, full, mesh=mesh),
+                                    mesh, coords(mesh, rank))
+                del full
+                torch.cuda.empty_cache()
+            dist.barrier(group)
+        logits, caches, _ = T.prefill(params, cfg, prompt, max_len=s + gen,
+                                      axis=axis)
+        step_axis = mp.with_len(axis, s + gen)
+        step, _ = T.decode_step(params, cfg, prompt[:, -1:], caches, s,
+                                axis=step_axis)
+        stats = {}
+        toks = generate(params, cfg, prompt, s + gen, gen, graphs=False,
+                        stats=stats, axis=axis)
+        tok = toks[:, -1:]
+        prof = profile_steps(torch, lambda: T.decode_step(
+            params, cfg, tok, caches, s, axis=step_axis), 2,
+            watch=("nccl",), cpu=False)
+        torch.cuda.synchronize()
+        out[name] = {
+            "rank": rank, "card": torch.cuda.current_device(),
+            "prefill": logits.cpu(), "step": step.cpu(),
+            "tokens": toks.cpu(), "last": stats["last_logits"].cpu(),
+            "prefill_s": stats["prefill_s"],
+            "step_ms": stats["decode_s"] / (gen - 1) * 1e3,
+            "profiled_step": {k: prof[k] for k in (
+                "wall_ms_per_step", "device_busy_ms_per_step",
+                "idle_share")},
+            "nccl_device_ms_per_step":
+                prof["watched_device_ms_per_step"]["nccl"] if nccl else None,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "launches": {k: f.launches for k, f in ops.KERNELS.items()}}
+        del params, caches, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def mp_held(torch, twin: dict, ranks: list, name: str) -> dict:
+    """The ranks' runs of one case against its twin: each rank's block of
+    the prefill's logits, of the decode step on the prompt's last token
+    and of ``generate``'s last step (when every token agrees) within
+    MP_LOGIT_RTOL of the twin's largest logit there, the tokens'
+    agreement, every rank's tokens the same."""
+    recs = [r[name] for r in ranks]
+    v = recs[0]["prefill"].shape[-1]
+
+    def errs(key):
+        scale = twin[key].float().abs().max().item()
+        return [(r[key].float() - twin[key][..., i * v:(i + 1) * v].float())
+                .abs().max().item() / scale for i, r in enumerate(recs)]
+    agree = (recs[0]["tokens"] == twin["tokens"]).float().mean().item()
+    last = max(errs("last")) if agree == 1.0 else None
+    same = all(torch.equal(r["tokens"], recs[0]["tokens"]) for r in recs)
+    rec = {"prefill_rel_err_by_rank": errs("prefill"),
+           "step_rel_err_by_rank": errs("step"), "last_step_rel_err": last,
+           "rtol": MP_LOGIT_RTOL, "tokens_agree": agree,
+           "ranks_tokens_equal": same, "twin_step_ms": twin["step_ms"]}
+    worst = max(rec["prefill_rel_err_by_rank"] + rec["step_rel_err_by_rank"])
+    if worst > MP_LOGIT_RTOL or (last is not None and last >
+                                 MP_LOGIT_RTOL) or not same:
+        raise AssertionError(f"model axis {name}: {rec}")
+    return rec
+
+
+def model_parallel_phase(torch, ops) -> dict:
+    """The serving steps' rank program (``launch.model_parallel``) on the
+    card(s): with 4 cards or more one NCCL rank per card on a (1, 4) mesh,
+    else 2 ranks over ``gloo`` (chatglm3-6b's case 4) on this card, CUDA
+    tensors through the host. Each case's one-card twin runs first and is
+    freed before its ranks start (OLMoE's f32 masters are 27.7 GB);
+    ``mp_held`` holds the ranks to it. One ``model_parallel`` line per
+    case: per rank the logits' error, step wall ms (``generate``'s
+    eager steps), a profiled step's busy ms and NCCL's device ms, peak
+    reserved GB and launches per kernel. Returns the launches of each
+    case summed over its ranks."""
+    from repro_torch.launch import distributed
+    cards = torch.cuda.device_count()
+    m = 4 if cards >= 4 else 2
+    groups = collections.defaultdict(list)
+    for case in MP_CASES:
+        groups[case[-1] or m].append(case)
+    runs = {}
+    for world, cases in sorted(groups.items()):
+        twins = {c[0]: mp_twin(torch, c) for c in cases}
+        backend = "nccl" if cards >= world else "gloo"
+        t0 = time.perf_counter()
+        ranks = distributed.spawn(mp_rank, world, "cuda", cases,
+                                  backend=backend)
+        wall = time.perf_counter() - t0
+        for case in cases:
+            name = case[0]
+            recs = [r[name] for r in ranks]
+            rec = {"case": name, "arch": case[1], "layers": case[2],
+                   "quant": case[3], "batch": case[4], "prompt": case[5],
+                   "gen": case[6], "world": world, "backend": backend,
+                   "spawn_wall_s": wall,
+                   **mp_held(torch, twins[name], ranks, name),
+                   "ranks": [{k: r[k] for k in (
+                       "rank", "card", "prefill_s", "step_ms",
+                       "profiled_step", "nccl_device_ms_per_step",
+                       "peak_reserved_gb", "launches")} for r in recs]}
+            emit({"model_parallel": rec})
+            runs[name] = {k: sum(r["launches"].get(k, 0) for r in recs)
+                          for k in counters(ops)}
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: the model zoo
 
 def zoo_reduced(torch, ops, b: int = 2, s: int = 16, steps: int = 4):
@@ -5397,6 +5817,9 @@ SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
                         "src/repro/kernels/qmatmul.py:118"),
            "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:127"),
+           "decode_attention_shard": (
+               "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention.py:127"),
            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:98"),
            "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -5413,7 +5836,12 @@ SOURCES = {"qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
 PORT_ONLY = {"flash_attention_bwd": (
     "port-only: the gradient of flash_attention, which the reference "
     "leaves to XLA's autodiff of _blocked_causal_attention (it has no "
-    "backward kernel)")}
+    "backward kernel)"),
+             "decode_attention_shard": (
+    "port-only variant of decode_attention (the same kernel): a "
+    "shard of a ring split on its slots over the model axis, with the row "
+    "log-sum-exp; the reference's GSPMD partitions decode_attention's "
+    "ring instead")}
 
 # kernels whose design changed after their first port, and in which PR
 REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13",
@@ -5473,7 +5901,19 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
                            "qmatmul_tiled"),
             # the windowed ring: quantized device blocks at 4608 rows
             "window_ring": ("qmatmul_tiled", "decode_attention"),
-            "mamba2_launch_q4": ("quantize_pack4", "dequantize")}
+            "mamba2_launch_q4": ("quantize_pack4", "dequantize"),
+            # the model axis (counted on its ranks): KV heads split for
+            # smollm-135m and OLMoE, chatglm3-6b's ring split on its slots
+            "mp_smollm_q0": ("flash_attention", "decode_attention"),
+            "mp_smollm_q8": ("quantize", "qmatmul", "flash_attention",
+                             "decode_attention"),
+            "mp_smollm_q4": ("quantize_pack4", "qmatmul4", "flash_attention",
+                             "decode_attention"),
+            "mp_olmoe": ("flash_attention", "decode_attention"),
+            "mp_chatglm3": ("flash_attention", "decode_attention_shard"),
+            # its 71-slot ring, which does not split: held whole, each
+            # rank's heads reading their KV head in place
+            "mp_chatglm3_rep": ("flash_attention", "decode_attention")}
 
 
 # the kernels' instantiations that ptxas reports entry by entry, by
@@ -5562,6 +6002,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and time QPART's "
                          "calibration and execution (the forward family) "
                          "on a seeded smollm-135m")
+    ap.add_argument("--profile-model-parallel", action="store_true",
+                    help="only build the kernels, check the ring-shard "
+                         "decode attention and run the serving steps over "
+                         "the model axis (phase 9b)")
     ap.add_argument("--profile-host-mesh", action="store_true",
                     help="only build the kernels and run the host mesh's "
                          "phase: the training launcher at one NCCL rank, "
@@ -5600,6 +6044,19 @@ def main(argv=None) -> int:
             launch_wall(torch, quant)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.profile_model_parallel:
+        from repro_torch.kernels import build, ops
+        print(smi, flush=True)
+        emit({"build_dir": str(build.build_all())})
+        timer = Timer(torch)
+        one = torch.zeros(1, device="cuda")
+        timer.floor_ms = timer(lambda: one.fill_(1.0))["ms"]
+        check_decode_attention_shard(torch, timer, {})
+        del timer, one
+        t0 = time.perf_counter()
+        emit({"model_parallel_launches": model_parallel_phase(torch, ops)})
+        emit({"model_parallel_phase_s": time.perf_counter() - t0})
+        return 0
     if args.profile_host_mesh:
         from repro_torch.kernels import build, ops
         print(smi, flush=True)
@@ -5634,6 +6091,7 @@ def main(argv=None) -> int:
             profile_flash(torch, timer)
             return 0
         if args.profile_decode_attention:
+            emit({"decode_attention_sha256": decode_attention_digest(torch)})
             profile_decode_attention(torch, timer)
             return 0
         profile_tiled(torch, timer)
@@ -5715,6 +6173,7 @@ def main(argv=None) -> int:
     emit({"timer_floor": {"what": "fill_ of one float", **floor}})
     check_qmatmul(torch, timer, records)
     check_decode_attention(torch, timer, records)
+    check_decode_attention_shard(torch, timer, records)
     check_flash_attention(torch, timer, records, calib_batch, seq)
     check_flash_attention_bwd(torch, timer, records)
     check_quantize(torch, timer, records)
@@ -5757,6 +6216,9 @@ def main(argv=None) -> int:
     runs.update(host_mesh_phase(torch, ops, twin))
     del twin
     emit({"host_mesh_phase_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    runs.update(model_parallel_phase(torch, ops))
+    emit({"model_parallel_phase_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     runs["zoo_reduced"] = zoo_reduced(torch, ops)
     runs.update(olmoe_phase(torch, ops))
@@ -5822,6 +6284,8 @@ def main(argv=None) -> int:
             row["olmoe"] = {"launches": sum(r[name] for run, r in runs.items()
                                             if run.startswith("olmoe")),
                             **rec["olmoe"]}
+        if rec.get("chatglm3"):
+            row["chatglm3"] = rec["chatglm3"]
         kernels.append(row)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

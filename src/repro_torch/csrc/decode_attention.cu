@@ -55,6 +55,25 @@
 // to the sum would already change the sign of a zero). The idle CTAs are
 // the cost: on a ring of more than 512 slots a 16-CTA cluster runs with
 // at most 8 busy ranks while n_valid <= 512.
+//
+// A ring shard (the model-parallel rank program's sequence-sharded ring,
+// src/repro_torch/models/attention.py): the cache a launch is given may
+// be the slots [slot0, slot0 + buf) of a ring of `ring` slots held across
+// the model axis's ranks. Its live slots are the global live slots that
+// fall in it -- a prefix of the shard, since the live slots are a prefix
+// of the ring -- so the only change is that count: n_valid = clamp(live
+// - slot0, 0, buf). Given an `lse` buffer, the leader also writes each
+// query row's log-sum-exp of the scores it combined, natural log, f32
+// (B, KVp, Gp): max + log(sum) of its base-2 statistics, times ln 2. The
+// ranks then merge their partial outputs by these weights. A shard with
+// no live slot writes zeros and -inf. With slot0 = 0, ring = buf and no
+// lse buffer the launch computes what it computed before, bit for bit.
+//
+// A head block of a ring (the rank program's ring held whole by every
+// rank, each attending only its KV heads): the cache may hold kv_heads
+// >= KVp heads a slot, ck/cv pointing at the first of the block's KVp;
+// only the slot stride reads kv_heads. With kv_heads = KVp the launch is
+// the one above, bit for bit.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -70,6 +89,7 @@ constexpr int kMaxDimsPerLane = 8;   // head dims a lane: hd <= 256
 constexpr int kMaxSplit = 16;        // the H100's largest
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // bytes of one staged K or V row: the storage dtype's row, 16 of padding
 template <typename TC>
@@ -171,10 +191,11 @@ template <typename TQ, typename TC>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     decode_split_kernel(const TQ* __restrict__ q, const TC* __restrict__ ck,
                         const TC* __restrict__ cv, TQ* __restrict__ out,
-                        int buf, int kvp, int gp, int hd,
+                        int buf, int kvp, int kv_heads, int gp, int hd,
                         const void* __restrict__ pos_dev, int pos_is64,
                         long long pos_host, int stage_bufs,
-                        float scale_log2) {
+                        float scale_log2, int slot0, int ring,
+                        float* __restrict__ lse) {
   using V = Vec16<TC>;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -188,7 +209,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
           : (pos_is64 ? *static_cast<const long long*>(pos_dev)
                       : static_cast<long long>(
                             *static_cast<const int*>(pos_dev)));
-  const int n_valid = live_slots(pos, buf);
+  // the shard's live slots: the ring's that lie at or past slot0
+  const int n_valid = min(buf, max(0, live_slots(pos, ring) - slot0));
   // this position's ranges; ranks >= split idle, and the leader combines
   // ranks < split alone
   const Ranges rg = ranges_for(n_valid);
@@ -212,8 +234,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   const int last = min(n_valid, first + chunk);
   const int ntiles = last > first ? (last - first + kTile - 1) / kTile : 0;
   const int vecs = hd * static_cast<int>(sizeof(TC)) / 16;  // a row's
-  const size_t slot_bytes = static_cast<size_t>(kvp) * hd * sizeof(TC);
-  const size_t head_off = (static_cast<size_t>(b) * buf * kvp + h) * hd;
+  const size_t slot_bytes = static_cast<size_t>(kv_heads) * hd * sizeof(TC);
+  const size_t head_off =
+      (static_cast<size_t>(b) * buf * kv_heads + h) * hd;
   const auto* kb = reinterpret_cast<const unsigned char*>(ck + head_off);
   const auto* vb = reinterpret_cast<const unsigned char*>(cv + head_off);
 
@@ -328,6 +351,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     for (int d = 0; d < kMaxDimsPerLane; ++d)
       if (d < dpl) o[d] = fmaf(part_acc[at * hd + lane * dpl + d], w, o[d]);
   }
+  if (lse != nullptr && lane == 0)  // natural log; none live: -inf
+    lse[static_cast<size_t>(bh) * gp + g] =
+        split > 0 ? (mx + log2f(lsum)) * kLn2
+                  : __int_as_float(0xff800000);
   const float denom = fmaxf(lsum, 1e-30f);
   TQ* dst = out + q_off + static_cast<size_t>(g) * hd + lane * dpl;
 #pragma unroll
@@ -371,37 +398,45 @@ bool takes(int gp, int hd, int buf) {
 
 template <typename TQ, typename TC>
 cudaError_t launch(const void* q, const void* ck, const void* cv, void* out,
-                   int batch, int buf, int kvp, int gp, int hd,
-                   const void* pos_dev, int pos_is64, long long pos_host,
-                   float scale, cudaStream_t stream) {
-  if (!takes(gp, hd, buf)) return cudaErrorInvalidValue;
+                   int batch, int buf, int kvp, int kv_heads, int gp,
+                   int hd, const void* pos_dev, int pos_is64,
+                   long long pos_host, float scale, int slot0, int ring,
+                   float* lse, cudaStream_t stream) {
+  if (!takes(gp, hd, buf) || slot0 < 0 || ring < 1 || kv_heads < kvp)
+    return cudaErrorInvalidValue;
   const Plan p = plan_for_ring(buf, gp, hd, sizeof(TC));
   return repro::launch_cluster(
       decode_split_kernel<TQ, TC>, dim3(p.split, batch * kvp),
       dim3(32 * max(kMinWarps, gp)),  // a warp per query row
       p.smem, stream, static_cast<const TQ*>(q), static_cast<const TC*>(ck),
-      static_cast<const TC*>(cv), static_cast<TQ*>(out), buf, kvp, gp, hd,
-      pos_dev, pos_is64, pos_host, p.nbufs, scale * kLog2e);
+      static_cast<const TC*>(cv), static_cast<TQ*>(out), buf, kvp, kv_heads,
+      gp, hd, pos_dev, pos_is64, pos_host, p.nbufs, scale * kLog2e, slot0,
+      ring, lse);
 }
 
 template <typename TQ>
 cudaError_t launch_cache(int cache_dtype, const void* q, const void* ck,
                          const void* cv, void* out, int batch, int buf,
-                         int kvp, int gp, int hd, const void* pos_dev,
+                         int kvp, int kv_heads, int gp, int hd,
+                         const void* pos_dev,
                          int pos_is64, long long pos_host, float scale,
+                         int slot0, int ring, float* lse,
                          cudaStream_t stream) {
   switch (cache_dtype) {
     case repro::kF32:
-      return launch<TQ, float>(q, ck, cv, out, batch, buf, kvp, gp, hd,
-                               pos_dev, pos_is64, pos_host, scale, stream);
+      return launch<TQ, float>(q, ck, cv, out, batch, buf, kvp, kv_heads,
+                               gp, hd, pos_dev, pos_is64, pos_host, scale,
+                               slot0, ring, lse, stream);
     case repro::kBF16:
-      return launch<TQ, __nv_bfloat16>(q, ck, cv, out, batch, buf, kvp, gp,
-                                       hd, pos_dev, pos_is64, pos_host,
-                                       scale, stream);
+      return launch<TQ, __nv_bfloat16>(q, ck, cv, out, batch, buf, kvp,
+                                       kv_heads, gp, hd, pos_dev, pos_is64,
+                                       pos_host, scale, slot0, ring, lse,
+                                       stream);
     case repro::kF8E4M3:
-      return launch<TQ, __nv_fp8_e4m3>(q, ck, cv, out, batch, buf, kvp, gp,
-                                       hd, pos_dev, pos_is64, pos_host,
-                                       scale, stream);
+      return launch<TQ, __nv_fp8_e4m3>(q, ck, cv, out, batch, buf, kvp,
+                                       kv_heads, gp, hd, pos_dev, pos_is64,
+                                       pos_host, scale, slot0, ring, lse,
+                                       stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -420,28 +455,48 @@ int esize_of(int cache_dtype) {
 
 }  // namespace
 
-// q/out (B, KVp, Gp, hd) float32/bfloat16; ck/cv (B, buf, KVp, hd) in
-// cache_dtype, 16-byte aligned; Gp <= 16, hd a multiple of 32 up to 256.
+// q/out (B, KVp, Gp, hd) float32/bfloat16; ck/cv (B, buf, kv_heads, hd)
+// in cache_dtype, pointing at the first of the KVp heads read (kv_heads
+// >= KVp), 16-byte aligned; Gp <= 16, hd a multiple of 32 up to 256.
 // The absolute position: pos_dev a device pointer to one int32 (pos_is64
 // = 0) or int64 (1), read by the kernel; or pos_dev null and the value
 // in pos_host. Returns cudaError_t.
 extern "C" int decode_attention_launch(const void* q, const void* ck,
                                        const void* cv, void* out, int batch,
-                                       int buf, int kvp, int gp, int hd,
-                                       const void* pos_dev, int pos_is64,
-                                       long long pos_host, float scale,
-                                       int q_dtype, int cache_dtype,
-                                       void* stream) {
+                                       int buf, int kvp, int kv_heads,
+                                       int gp, int hd, const void* pos_dev,
+                                       int pos_is64, long long pos_host,
+                                       float scale, int q_dtype,
+                                       int cache_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (q_dtype == repro::kF32)
     return launch_cache<float>(cache_dtype, q, ck, cv, out, batch, buf, kvp,
-                               gp, hd, pos_dev, pos_is64, pos_host, scale,
-                               s);
+                               kv_heads, gp, hd, pos_dev, pos_is64, pos_host,
+                               scale, 0, buf, nullptr, s);
   if (q_dtype == repro::kBF16)
     return launch_cache<__nv_bfloat16>(cache_dtype, q, ck, cv, out, batch,
-                                       buf, kvp, gp, hd, pos_dev, pos_is64,
-                                       pos_host, scale, s);
+                                       buf, kvp, kv_heads, gp, hd, pos_dev,
+                                       pos_is64, pos_host, scale, 0, buf,
+                                       nullptr, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The ring-shard launch: q/out (B, KVp, Gp, hd) float32; ck/cv (B, buf,
+// KVp, hd) the global slots [slot0, slot0 + buf) of a ring of `ring`
+// slots, in cache_dtype; lse (B, KVp, Gp) float32, written with each
+// row's natural log-sum-exp (-inf where the shard holds no live slot).
+// The position as for decode_attention_launch. Returns cudaError_t.
+extern "C" int decode_attention_shard_launch(
+    const void* q, const void* ck, const void* cv, void* out, void* lse,
+    int batch, int buf, int kvp, int gp, int hd, int slot0, int ring,
+    const void* pos_dev, int pos_is64, long long pos_host, float scale,
+    int cache_dtype, void* stream) {
+  if (lse == nullptr || slot0 + buf > ring)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cache<float>(cache_dtype, q, ck, cv, out, batch, buf, kvp,
+                             kvp, gp, hd, pos_dev, pos_is64, pos_host, scale,
+                             slot0, ring, static_cast<float*>(lse),
+                             static_cast<cudaStream_t>(stream));
 }
 
 // CTAs per (batch row, kv head) that work at n_valid live slots.

@@ -13,13 +13,15 @@ import torch
 
 from repro_torch.kernels import quantize as qk
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  decode_attention_shard_cuda)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.qmatmul import qmatmul4_cuda, qmatmul_cuda
 
 # every kernel wrapper of the package, for launch accounting
 KERNELS = {"qmatmul": qmatmul_cuda, "qmatmul4": qmatmul4_cuda,
            "decode_attention": decode_attention_cuda,
+           "decode_attention_shard": decode_attention_shard_cuda,
            "flash_attention": fa.flash_attention_cuda,
            "flash_attention_bwd": fa.flash_attention_bwd_cuda,
            "quantize": qk.quantize_cuda,
@@ -45,13 +47,32 @@ def _plain(t) -> bool:
     return t.device.type == "cpu"
 
 
-def decode_attention(q, ck, cv, pos):
+def decode_attention(q, ck, cv, pos, kv0=None):
     """Single-token decode attention over a ring-buffer cache. q (B, KVp,
     Gp, hd); ck/cv (B, buf, KVp, hd) post-write; ``pos`` the absolute
-    position -> (B, KVp, Gp, hd)."""
+    position -> (B, KVp, Gp, hd). Given ``kv0``, ck/cv may hold more
+    heads and q reads their heads ``[kv0, kv0 + KVp)``, in place."""
     if _plain(q):
+        if kv0 is not None:
+            kvp = q.shape[1]
+            ck, cv = ck[:, :, kv0:kv0 + kvp], cv[:, :, kv0:kv0 + kvp]
         return ref.decode_attention_ref(q, ck, cv, pos)
-    return decode_attention_cuda(q.contiguous(), ck, cv, pos)
+    if kv0 is None:
+        return decode_attention_cuda(q.contiguous(), ck, cv, pos)
+    return decode_attention_cuda(q.contiguous(), ck, cv, pos, kv0=kv0)
+
+
+def decode_attention_shard(q, ck, cv, pos, slot0: int, ring: int):
+    """Decode attention over the global slots ``[slot0, slot0 + n)`` of a
+    ring of ``ring`` slots (ck/cv (B, n, KVp, hd), post-write), the query
+    taken in f32 -> (out (B, KVp, Gp, hd) f32, lse (B, KVp, Gp) f32);
+    the ranks of a sequence-sharded ring merge their shards by ``lse``
+    (``models.attention``)."""
+    q = q.float()
+    if _plain(q):
+        return ref.decode_attention_shard_ref(q, ck, cv, pos, slot0, ring)
+    return decode_attention_shard_cuda(q.contiguous(), ck, cv, pos, slot0,
+                                       ring)
 
 
 def flash_attention(q, k, v, block_q: int, block_k: int):
@@ -116,6 +137,10 @@ def qdense_operands(x, w, n_contract: int):
     if tail != k:
         raise ValueError(f"qdense: x {tuple(x.shape)} cannot contract with "
                          f"codes {tuple(codes.shape)} over {n_contract} axes")
+    # a contraction axis of size 1 (one head of a rank's shard) is one of
+    # the n_contract axes, not a batch axis
+    while x.dim() - i < n_contract and i > 0 and x.shape[i - 1] == 1:
+        i -= 1
     batch = tuple(x.shape[:i])
     x2 = x.reshape(-1, k)
     codes2 = codes.reshape(k, -1)

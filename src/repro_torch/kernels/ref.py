@@ -88,6 +88,36 @@ def decode_attention_ref(q, ck, cv, pos):
     return out.to(q.dtype)
 
 
+def decode_attention_shard_ref(q, ck, cv, pos, slot0: int, ring: int):
+    """Single-token decode attention over a SHARD of a ring-buffer KV
+    cache: ck/cv (B, n, KVp, hd) hold the global slots ``[slot0, slot0 +
+    n)`` of a ring of ``ring`` slots, after the token's write; q (B, KVp,
+    Gp, hd) and ``pos`` as :func:`decode_attention_ref` takes them. A
+    global slot is live as there (every slot once the ring has wrapped,
+    else slots 0 .. pos % ring). Scores, the softmax and PV in f32, the
+    probabilities rounded to the query dtype before PV. Returns (out
+    (B, KVp, Gp, hd) f32, lse (B, KVp, Gp) f32): the attention over the
+    shard's live slots and the natural log-sum-exp of their scaled
+    scores; a shard with no live slot gives zeros and -inf."""
+    hd = q.shape[-1]
+    n = ck.shape[1]
+    if not torch.is_tensor(pos):
+        pos = int(pos)
+    sc = torch.einsum("bkgd,bskd->bkgs", q.float(),
+                      ck.to(q.dtype).float()) * hd ** -0.5
+    idx = slot0 + torch.arange(n, device=q.device)
+    valid = (pos + 1 >= ring) | (idx <= pos % ring)
+    sc = torch.where(valid, sc, torch.full_like(sc, -torch.inf))
+    lse = torch.logsumexp(sc, dim=-1)
+    live = torch.isfinite(lse)[..., None]
+    p = torch.where(live, torch.exp(sc - torch.where(
+        live, lse[..., None], torch.zeros_like(lse[..., None]))),
+        torch.zeros_like(sc))
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype).float(),
+                       cv.to(q.dtype).float())
+    return out, lse
+
+
 def _compute_dtype(dtype):
     """float32 for the storage dtypes, float64 kept (the f64 gradcheck)."""
     return torch.promote_types(dtype, torch.float32)

@@ -65,6 +65,9 @@ def process_group(device, rank: int = 0, world: int = 1, backend=None,
                                 rank=rank, world_size=world, **kw)
         try:
             yield dist.group.WORLD
+            # every rank done before any tears its transport down (a gloo
+            # rank destroyed while a peer still sends to it can abort)
+            dist.barrier()
         finally:
             dist.destroy_process_group()
 

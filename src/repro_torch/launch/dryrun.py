@@ -1,5 +1,5 @@
 """Dry run: count every (architecture x input shape) step at full width on
-fake tensors and emit its roofline on one H100 — the port of
+fake tensors and emit its roofline per H100 — the port of
 ``repro/launch/dryrun.py``.
 
 Usage (the CPU is enough; nothing is allocated or computed):
@@ -10,8 +10,14 @@ Each combo's step (``launch.steps.build_step``) is counted by
 ``roofline.op_cost.count``, and its record — the ``Roofline`` fields,
 the argument bytes each card holds under the mesh's sharding rules and
 whether they fit the card's 80 GB — is written to ``--record-dir``.
-The roofline is one card's whatever the mesh: a mesh changes only the
-argument bytes per card.
+On a mesh whose model axis is larger than 1 (``pod``, ``multipod``) a
+prefill or decode combo counts rank 0's program: its local shards (the
+argument bytes per card are their sum, which ``sharding.per_card_bytes``
+must give too), its FLOPs and bytes, and the collectives it runs over
+the model axis, which give the record its collective term. A train
+combo, and any combo under ``--fsdp``, is still counted whole on one
+card, its mesh dividing only the argument bytes; its record's
+``t_collective`` is null and ``coll_note`` says why.
 """
 from __future__ import annotations
 
@@ -26,11 +32,12 @@ import torch
 from repro_torch.configs.base import (ASSIGNED_ARCHS, INPUT_SHAPES,
                                       ModelConfig, get_config)
 from repro_torch.launch import sharding as shard_lib
-from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
-                                     mesh_num_chips)
-from repro_torch.launch.steps import StepSpec, build_step
+from repro_torch.launch.mesh import (MODEL_AXIS, make_host_mesh,
+                                     make_production_mesh, mesh_num_chips)
+from repro_torch.launch.steps import build_step, step_specs
 from repro_torch.roofline import op_cost
 from repro_torch.roofline.analysis import analyze, model_flops_for, save_record
+from repro_torch.tree import tree_leaves
 
 RECORD_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                           "build", "dryrun")
@@ -40,23 +47,8 @@ MESHES = {"host": make_host_mesh,
           "multipod": lambda: make_production_mesh(multi_pod=True)}
 
 
-def step_in_specs(spec: StepSpec, mesh, shape, *, fsdp: bool = False):
-    """Spec tree matching ``spec.args``."""
-    cfg = spec.cfg
-    p_specs = shard_lib.param_pspecs(cfg, spec.args[0], fsdp=fsdp, mesh=mesh)
-    gb = shape.global_batch
-    if spec.kind in ("train", "prefill"):
-        batch = spec.args[-1]
-        b_specs = shard_lib.batch_pspecs(
-            mesh, gb, has_embeds="embeds" in batch,
-            has_positions="positions" in batch)
-        b_specs = {k: b_specs[k] for k in batch}
-        if spec.kind == "train":
-            return (p_specs, shard_lib.opt_pspecs(p_specs), b_specs)
-        return (p_specs, b_specs)
-    # decode: (params, token, caches, pos)
-    c_specs = shard_lib.cache_pspecs(cfg, spec.args[2], mesh, gb)
-    return (p_specs, (shard_lib.batch_axis(mesh, gb), None), c_specs, ())
+UNSPLIT = ("one card's whole step: the {what}'s program over the model "
+           "axis is not built yet (ROADMAP Queue 1)")
 
 
 class SkipCombo(Exception):
@@ -82,10 +74,26 @@ def count_step(arch: str, shape_name: str, *, mesh_name: str = "host",
     mesh = MESHES[mesh_name]()
     sd = {None: None, "bf16": torch.bfloat16,
           "f32": torch.float32}[serve_dtype]
+    m = mesh.shape[MODEL_AXIS]
+    split = m > 1 and shape.kind != "train" and not fsdp
     spec = build_step(cfg, shape, accum_steps=accum_steps, serve_dtype=sd,
-                      serve_quant=serve_quant)
-    arg_bytes = shard_lib.per_card_bytes(
-        spec.args, step_in_specs(spec, mesh, shape, fsdp=fsdp), mesh)
+                      serve_quant=serve_quant, mesh=mesh if split else None)
+    if split:
+        # rank 0's shards: their bytes, which the specs' count must match
+        arg_bytes = sum(t.numel() * t.element_size()
+                        for t in tree_leaves(spec.args))
+        by_specs = shard_lib.per_card_bytes(spec.global_args, spec.specs,
+                                            mesh)
+        if by_specs != arg_bytes:
+            raise AssertionError(f"rank 0 holds {arg_bytes} bytes, the "
+                                 f"specs give {by_specs}")
+        note = None
+    else:
+        arg_bytes = shard_lib.per_card_bytes(
+            spec.args, step_specs(spec.kind, spec.cfg, spec.args, mesh,
+                                  shape.global_batch, fsdp=fsdp), mesh)
+        note = None if m == 1 else UNSPLIT.format(
+            what="FSDP layout" if fsdp else "train step")
     t0 = time.perf_counter()
     summary = op_cost.count(spec.fn, *spec.args)
     count_s = time.perf_counter() - t0
@@ -94,13 +102,16 @@ def count_step(arch: str, shape_name: str, *, mesh_name: str = "host",
                    model_flops=model_flops_for(spec.cfg, shape),
                    arg_bytes_per_card=arg_bytes,
                    peak="f32" if spec.cfg.dtype == "float32" else "bf16",
-                   count_s=count_s)
+                   count_s=count_s, model_axis=m, coll_note=note)
     print(f"[{arch} x {shape_name} x {mesh_name}] counted in "
           f"{count_s:.1f} s: {roof.gflops:.1f} GFLOP {roof.gbytes:.1f} GB "
           f"(model {roof.model_gflops:.1f} GFLOP); args "
           f"{arg_bytes / 1e9:.2f} GB/card (fits 80 GB: {roof.fits_80gb}); "
           f"compute {roof.t_compute * 1e3:.3f} ms memory "
-          f"{roof.t_memory * 1e3:.3f} ms -> {roof.bottleneck}", flush=True)
+          f"{roof.t_memory * 1e3:.3f} ms collective "
+          + (f"{roof.t_collective * 1e3:.3f} ms ({roof.coll_gbytes:.4f} GB "
+             f"over {roof.model_link})" if roof.rank_program else "none")
+          + f" -> {roof.bottleneck}", flush=True)
     return roof
 
 
@@ -110,8 +121,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", choices=sorted(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--mesh", choices=sorted(MESHES), default="host",
-                    help="the layout that divides the argument bytes per "
-                         "card (the roofline is one card's)")
+                    help="the layout: prefill and decode count rank 0's "
+                         "program on it, train steps one card's whole "
+                         "step, its argument bytes divided")
     ap.add_argument("--fsdp", action="store_true",
                     help="ZeRO-style extra sharding over data")
     ap.add_argument("--accum", type=int, default=1,

@@ -1,0 +1,198 @@
+"""The rank's model axis: the collectives of the serving steps' rank
+program over the ``model`` axis of a (data, model) mesh — the port's
+counterpart of what GSPMD inserts into the reference's sharded programs
+(``repro/launch/dryrun.py`` compiles them under ``param_pspecs`` /
+``cache_pspecs``).
+
+A :class:`ModelAxis` holds this rank's index on the axis, the axis's
+size, and the ``torch.distributed`` subgroup of the ranks that share
+this rank's data index (:func:`make_axis`). The models take it as
+``axis=`` and, where the Megatron layout needs one, call:
+
+* :func:`all_reduce` — the sum over the axis (a row-parallel
+  projection's partial outputs, a vocab-parallel embedding's rows);
+* :func:`sum_partials` — a row-parallel product's partial outputs,
+  taken in f32 (:func:`partial_dtype`), summed over the axis and rounded
+  once to the activations' dtype, as the reference's compiled program
+  sums f32 partials;
+* :func:`all_gather` — the axis's shards concatenated in rank order;
+* :func:`all_to_all` — block ``j`` of the leading dimension sent to rank
+  ``j``, block ``i`` of the result received from rank ``i``;
+* :func:`argmax` — the index of the largest logit over a vocab-sharded
+  last dimension, ties to the lowest index as ``torch.argmax`` breaks
+  them.
+
+With no axis, or an axis of size 1, every one of them returns its input
+and launches nothing: a one-card program is today's program, bit for
+bit. ``max_len`` is the global length of the decode caches a program
+runs on: a ring whose KV heads do not divide the axis is laid out by it
+(``models.attention.ring_of``), and a step raises where a cache's slots
+are not what that layout gives (``models.attention.cache_ring``).
+
+On fake tensors (the dry run's ``FakeTensorMode``) a collective is a
+stand-in: ``roofline.op_cost.count`` swaps :func:`_collective` for one
+that records the bytes each call moves, by kind, as
+``repro/roofline/hlo_cost.py`` counts a collective (the larger of its
+operand's and its result's bytes, once per call), and returns an empty
+result of the right shape. Outside that count a fake tensor raises here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.launch.mesh import MODEL_AXIS, coords, mesh_num_chips
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """This rank's place on the model axis: ``index`` of ``size``, the
+    subgroup ``group`` (None for a fake rank, which only the dry run's
+    count runs) and the global decode-cache length ``max_len``."""
+    index: int = 0
+    size: int = 1
+    group: Any = None
+    max_len: Optional[int] = None
+
+    def __post_init__(self):
+        if not 0 <= self.index < self.size:
+            raise ValueError(f"model index {self.index} outside an axis of "
+                             f"{self.size}")
+
+
+def active(axis) -> bool:
+    """True for an axis that splits anything (size > 1)."""
+    return axis is not None and axis.size > 1
+
+
+def size(axis) -> int:
+    return 1 if axis is None else axis.size
+
+
+def index(axis) -> int:
+    return 0 if axis is None else axis.index
+
+
+def with_len(axis, max_len: int):
+    """``axis`` for a program whose decode caches hold ``max_len``
+    positions (None stays None)."""
+    if axis is None:
+        return None
+    return dataclasses.replace(axis, max_len=max_len)
+
+
+def make_axis(mesh, rank: int, group=None) -> ModelAxis:
+    """Rank ``rank``'s model axis on ``mesh``, its subgroup made from the
+    world's ranks (``torch.distributed.new_group``: every rank of the
+    world must call this, in the same order, as the rule is for
+    subgroups). With one data index the subgroup is ``group`` itself (the
+    world, when None); an axis of size 1 has none."""
+    import torch.distributed as dist
+    m = mesh.shape[MODEL_AXIS]
+    mi = coords(mesh, rank)[MODEL_AXIS]
+    if m == 1:
+        return ModelAxis(0, 1, None)
+    n = mesh_num_chips(mesh)
+    if n == m:
+        return ModelAxis(mi, m, group if group is not None
+                         else dist.group.WORLD)
+    mine = None
+    for first in range(0, n, m):      # one subgroup per data index
+        sub = dist.new_group(list(range(first, first + m)))
+        if first <= rank < first + m:
+            mine = sub
+    return ModelAxis(mi, m, mine)
+
+
+def _is_fake(x) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(x, FakeTensor)
+
+
+def _collective(kind: str, x, axis: ModelAxis, dim: int = 0):
+    """One collective over ``axis`` on a real tensor: ``"all-reduce"``
+    (sum), ``"all-gather"`` (concatenated along ``dim`` in rank order) or
+    ``"all-to-all"`` (over the leading dimension, one block a rank)."""
+    import torch.distributed as dist
+    if _is_fake(x):
+        raise TypeError(f"a fake tensor reached the {kind} outside the dry "
+                        f"run's count (roofline.op_cost.count)")
+    if axis.group is None:
+        raise ValueError(f"{kind} over a model axis of {axis.size} with no "
+                         f"process group")
+    x = x.contiguous()
+    if kind == "all-reduce":
+        dist.all_reduce(x, group=axis.group)
+        return x
+    if kind == "all-to-all":
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=axis.group)
+        return out
+    parts = [torch.empty_like(x) for _ in range(axis.size)]
+    dist.all_gather(parts, x, group=axis.group)
+    return torch.cat(parts, dim=dim)
+
+
+def all_reduce(x, axis):
+    """The sum of ``x`` over the axis (``x`` itself, summed in place when
+    contiguous); ``x`` unchanged without one."""
+    if not active(axis):
+        return x
+    return _collective("all-reduce", x, axis)
+
+
+def partial_dtype(axis, dtype):
+    """The dtype a row-parallel product's output is taken in: f32 over
+    an axis that splits it (its partial sums are summed in f32 and
+    rounded once, by :func:`sum_partials`), else ``dtype``, the one-card
+    product's."""
+    return torch.float32 if active(axis) else dtype
+
+
+def sum_partials(y, axis, dtype):
+    """A row-parallel product's outputs ``y`` (in :func:`partial_dtype`)
+    summed over the axis, then rounded to ``dtype``; ``y`` unchanged
+    without one."""
+    if not active(axis):
+        return y
+    return all_reduce(y, axis).to(dtype)
+
+
+def all_gather(x, axis, dim: int = 0):
+    """The axis's ``x`` concatenated along ``dim``, rank 0's first;
+    ``x`` unchanged without one."""
+    if not active(axis):
+        return x
+    return _collective("all-gather", x, axis, dim % x.dim())
+
+
+def all_to_all(x, axis):
+    """``x`` (m, ...) whose block ``j`` is bound for rank ``j`` -> (m,
+    ...) whose block ``i`` came from rank ``i``; ``x`` unchanged without
+    an axis."""
+    if not active(axis):
+        return x
+    if x.shape[0] != axis.size:
+        raise ValueError(f"all-to-all of {tuple(x.shape)} over a model axis "
+                         f"of {axis.size}")
+    return _collective("all-to-all", x, axis)
+
+
+def argmax(logits, axis):
+    """``torch.argmax`` over the last dimension of logits sharded over
+    the axis by contiguous blocks in rank order (the unembedding's vocab
+    columns): each rank's largest logit and its global index are
+    gathered, and the first rank holding the largest wins, so a tie
+    goes to the lowest index. Returns int64 indices of ``logits``'s
+    leading shape."""
+    if not active(axis):
+        return torch.argmax(logits, -1)
+    local = torch.argmax(logits, -1, keepdim=True)
+    value = torch.gather(logits, -1, local)
+    local = local + axis.index * logits.shape[-1]
+    values = all_gather(value, axis, -1)
+    indices = all_gather(local, axis, -1)
+    best = torch.argmax(values, -1, keepdim=True)
+    return torch.gather(indices, -1, best)[..., 0]

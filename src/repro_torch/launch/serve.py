@@ -26,6 +26,15 @@ fresh ``jax.jit`` traces once per call. Token choice (argmax, or
 softmax and ``torch.multinomial`` with the caller's generator) stays
 outside the graph, as in the reference. There is no fallback: a capture
 that fails raises.
+
+:func:`generate` also runs one rank's program over a model axis
+(``axis=``, ``launch.model_parallel``): ``params`` are the rank's shards
+(``launch.sharding.shard_tree``), the steps run on them with their
+collectives, and each token is chosen from the rank's block of vocab
+columns by the distributed argmax (or, sampled, from the logits
+gathered over the axis); every rank returns the same tokens. The rank
+program steps eagerly: its CUDA graphs are not built yet. ``main``
+serves on one card.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import torch
 
 from repro_torch.configs.base import get_config, list_configs
 from repro_torch.core.quantizer import quantize_params_for_serving
+from repro_torch.launch import model_parallel as mp
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import transformer as T
 from repro_torch.serving.decode.graphs import StageGraph, use_graphs
@@ -46,18 +56,20 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _choose(logits, temperature: float, generator):
-    """The next token (B, 1) int32 from a step's logits (B, 1, V)."""
+def _choose(logits, temperature: float, generator, axis=None):
+    """The next token (B, 1) int32 from a step's logits (B, 1, V), or
+    from a rank's block of them over a model ``axis``."""
     if temperature > 0.0:
+        logits = mp.all_gather(logits, axis, -1)
         probs = torch.softmax(logits[:, 0].float() / temperature, -1)
         return torch.multinomial(probs, 1, generator=generator).to(
             torch.int32)
-    return torch.argmax(logits[:, 0:1], -1).to(torch.int32)
+    return mp.argmax(logits[:, 0:1], axis).to(torch.int32)
 
 
 def generate(params, cfg, prompt, max_len: int, gen: int, *,
              temperature: float = 0.0, generator=None, stats=None,
-             graphs=None):
+             graphs=None, axis=None):
     """Greedy (or, at ``temperature`` > 0, sampled with ``generator``)
     generation: prefill then ``gen - 1`` decode steps -> (B, gen) int32.
     ``graphs`` (default: on for a CUDA prompt) replays the decode step
@@ -66,14 +78,22 @@ def generate(params, cfg, prompt, max_len: int, gen: int, *,
     the CPU raises. ``stats``, when a dict, receives ``prefill_s`` and
     ``decode_s`` (wall seconds, each ended by a device synchronisation),
     ``captures`` (1 for a graphed call of ``gen`` >= 3, else 0) and
-    ``last_logits`` (a copy of the last step's logits (B, 1, V))."""
+    ``last_logits`` (a copy of the last step's logits (B, 1, V); over a
+    model ``axis``, the rank's block of them). Over an axis whose size
+    is larger than 1 the steps run eagerly (``graphs=True`` raises); the
+    ranks must all call it."""
     b, s = prompt.shape
+    if mp.active(axis):
+        if graphs:
+            raise ValueError("the model-parallel rank program runs eagerly: "
+                             "its CUDA graphs are not built yet")
+        graphs = False
     graphs = use_graphs(graphs, prompt.device)
-    prefill_step = make_prefill_step(cfg, max_len)
-    serve_step = make_serve_step(cfg)
+    prefill_step = make_prefill_step(cfg, max_len, axis)
+    serve_step = make_serve_step(cfg, mp.with_len(axis, max_len))
     t0 = time.perf_counter()
     logits, caches = prefill_step(params, {"tokens": prompt})
-    tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+    tok = mp.argmax(logits[:, -1:], axis).to(torch.int32)
     if stats is not None:
         _sync(prompt.device)
         t1 = time.perf_counter()
@@ -91,7 +111,7 @@ def generate(params, cfg, prompt, max_len: int, gen: int, *,
                     lambda t: serve_step(params, t, caches, pos)[0],
                     (tok.clone(),))
             logits = graph.replay(tok)
-        tok = _choose(logits, temperature, generator)
+        tok = _choose(logits, temperature, generator, axis)
         out.append(tok)
     toks = torch.cat(out, dim=1)
     if stats is not None:

@@ -27,7 +27,10 @@ mirror the parameter specs; ``fsdp`` additionally shards the largest
 unsharded dimension over ``data``.
 
 The dry run reads these specs to give the argument bytes per card of
-the production meshes (:func:`per_card_bytes`). On the host mesh
+the production meshes (:func:`per_card_bytes`), and the serving steps'
+rank program holds what they lay out: :func:`shard_tree` carries a full
+tree over to one rank's shards, :func:`local_shape` gives a shard's
+shape. On the host mesh
 (``mesh.make_host_mesh``, data=n, model=1) the training launcher runs
 them: with ``fsdp`` off and a ``model`` axis of 1 every parameter and
 moment spec shards nothing, and :func:`batch_rows` gives each data rank
@@ -37,6 +40,8 @@ from __future__ import annotations
 
 import math
 from typing import Any
+
+import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantizer import QUANTIZABLE
@@ -269,3 +274,60 @@ def per_card_bytes(tree, specs, mesh) -> int:
             dims[i] = -(-dims[i] // _shards(entry, mesh))
         total += math.prod(dims) * leaf.element_size()
     return total
+
+
+def _shard_of(entry, mesh, where) -> tuple:
+    """(shards, this rank's shard index) of a spec entry: the named axes'
+    sizes multiplied, the rank's indices on them read in order
+    (row-major, as ``NamedSharding`` numbers the blocks)."""
+    if entry is None:
+        return 1, 0
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + where[a]
+    return _shards(entry, mesh), idx
+
+
+def local_shape(leaf, spec, mesh) -> tuple:
+    """The shape of one card's shard of ``leaf`` under ``spec``: each
+    dimension divided by the sizes of the axes its entry names. A
+    dimension that does not divide raises (the rank program holds equal
+    shards; :func:`per_card_bytes` rounds such a dimension up)."""
+    dims = list(leaf.shape)
+    for i, entry in enumerate(spec):
+        n = _shards(entry, mesh)
+        if dims[i] % n:
+            raise ValueError(f"dimension {i} of {tuple(leaf.shape)} does not "
+                             f"split over {entry} ({n} shards)")
+        dims[i] //= n
+    return tuple(dims)
+
+
+def shard_tree(tree, specs, mesh, where):
+    """The weight carry-over: a full tree (NumPy arrays or tensors) in,
+    the shards of the rank at ``where`` (``mesh.coords``) out, each a
+    contiguous copy (an unsplit leaf may come back as itself).
+
+    An int4 ``codes_packed`` leaf holds code columns 2j and 2j + 1 in
+    byte j (``models/transformer.py``'s unpacking), so a contiguous block
+    of bytes is a contiguous block of columns: the packed dimension must
+    divide, which :func:`local_shape` asserts. A quantized leaf's
+    ``scale`` and ``mu`` replicate, as the reference lays them out
+    (per-column ones too); the rank slices its columns out of them where
+    it uses them (``transformer._dequant_block``)."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh, where)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_tree(v, s, mesh, where)
+                          for v, s in zip(tree, specs, strict=True))
+    local_shape(tree, specs, mesh)                # every split divides
+    index = []
+    for dim, entry in zip(tree.shape, specs):
+        n, i = _shard_of(entry, mesh, where)
+        index.append(slice(i * (dim // n), (i + 1) * (dim // n)))
+    part = tree[tuple(index)]
+    if isinstance(part, np.ndarray):
+        return np.ascontiguousarray(part)
+    return part.contiguous()

@@ -15,6 +15,13 @@ nothing allocated. A fake CPU tensor dispatches as ``cpu``
 (``kernels.ops``), as the reference's dry run lowers on forced CPU
 devices; ``roofline.op_cost.count`` costs the kernel entry points
 themselves. All the fakes of one step share one mode.
+
+Given a mesh whose ``model`` axis is larger than 1, :func:`build_step`
+builds one rank's program of a prefill or decode step: the step runs on
+the rank's model axis (``launch.model_parallel``, its collectives the
+dry run's stand-ins) and its fake arguments have the rank's local shapes
+under ``param_pspecs`` / ``cache_pspecs`` / ``batch_pspecs``
+(``launch.sharding.local_shape``).
 """
 from __future__ import annotations
 
@@ -27,6 +34,9 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import InputShape, ModelConfig, for_shape
 from repro_torch.core.quantizer import quantize_params_for_serving
+from repro_torch.launch import model_parallel as mp
+from repro_torch.launch import sharding as shard_lib
+from repro_torch.launch.mesh import MODEL_AXIS
 from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_loop import make_train_step as _make_train_step
@@ -39,19 +49,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
                             accum_steps=accum_steps)
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
+def make_prefill_step(cfg: ModelConfig, max_len: int, axis=None) -> Callable:
+    """The prefill step; over a model ``axis``, one rank's program."""
     def prefill_step(params, batch):
         logits, caches, _ = T.prefill(
             params, cfg, batch.get("tokens"), embeds=batch.get("embeds"),
-            positions=batch.get("positions"), max_len=max_len)
+            positions=batch.get("positions"), max_len=max_len, axis=axis)
         return logits, caches
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable:
+def make_serve_step(cfg: ModelConfig, axis=None) -> Callable:
+    """One decode step; over a model ``axis`` (its ``max_len`` the
+    caches' length), one rank's program."""
     def serve_step(params, token, caches, pos):
-        return T.decode_step(params, cfg, token, caches, pos)
+        return T.decode_step(params, cfg, token, caches, pos, axis=axis)
 
     return serve_step
 
@@ -111,23 +124,82 @@ def batch_specs(cfg: ModelConfig, shape: InputShape, mode=None) -> dict:
 class StepSpec:
     """Everything the dry run needs for one (arch x shape): the step
     callable, its example arguments (fake tensors of one mode) and the
-    config it was built for."""
+    config it was built for; for one rank's program, also the whole
+    arguments it holds shards of (``global_args``) and their spec trees
+    (``specs``)."""
     kind: str
     fn: Callable
     args: tuple
     cfg: ModelConfig
+    global_args: tuple | None = None
+    specs: tuple | None = None
+
+
+def step_specs(kind: str, cfg: ModelConfig, args: tuple, mesh,
+               global_batch: int, *, fsdp: bool = False) -> tuple:
+    """The spec trees of a step's arguments on ``mesh`` (as the
+    reference's ``dryrun.step_in_shardings``): params, then the batch
+    (prefill; train adds the optimizer state before it), or the token,
+    caches and position (decode)."""
+    p_specs = shard_lib.param_pspecs(cfg, args[0], fsdp=fsdp, mesh=mesh)
+    if kind in ("train", "prefill"):
+        batch = args[-1]
+        b_specs = shard_lib.batch_pspecs(
+            mesh, global_batch, has_embeds="embeds" in batch,
+            has_positions="positions" in batch)
+        b_specs = {k: b_specs[k] for k in batch}
+        if kind == "train":
+            return (p_specs, shard_lib.opt_pspecs(p_specs), b_specs)
+        return (p_specs, b_specs)
+    c_specs = shard_lib.cache_pspecs(cfg, args[2], mesh, global_batch)
+    return (p_specs, (shard_lib.batch_axis(mesh, global_batch), None),
+            c_specs, ())
+
+
+def _local_fakes(tree, specs, mesh, mode):
+    """A fresh fake tensor of each leaf's local shape (same dtype)."""
+    if isinstance(tree, dict):
+        return {k: _local_fakes(v, specs[k], mesh, mode)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_local_fakes(v, s, mesh, mode)
+                          for v, s in zip(tree, specs, strict=True))
+    with mode:
+        return torch.empty(shard_lib.local_shape(tree, specs, mesh),
+                           dtype=tree.dtype)
 
 
 def build_step(cfg: ModelConfig, shape: InputShape,
                opt_cfg: AdamWConfig | None = None,
                accum_steps: int = 1, serve_dtype=None,
-               serve_quant: int = 0) -> StepSpec:
+               serve_quant: int = 0, mesh=None, coords=None) -> StepSpec:
     """The step of ``shape``'s kind and its fake arguments. A decode
     step's position is a fake 0-d int32 tensor of the step's mode, as the
     reference's traced scalar and the launcher's compile-once step take
     it (``op_cost.count`` costs it as the last slot of a full ``seq_len``
-    cache)."""
-    cfg = for_shape(cfg, shape)
+    cache). With a ``mesh`` whose model axis is larger than 1, a prefill
+    or decode step is the program of the rank at ``coords``
+    (``mesh.coords``; rank 0 when None) on local fake shards (module
+    docstring); a train step stays one card's whole step."""
+    spec = _build_step(for_shape(cfg, shape), shape, opt_cfg, accum_steps,
+                       serve_dtype, serve_quant)
+    if mesh is None or mesh.shape[MODEL_AXIS] == 1 or spec.kind == "train":
+        return spec
+    from repro_torch.launch.mesh import coords as coords_of
+    where = coords if coords is not None else coords_of(mesh, 0)
+    specs = step_specs(spec.kind, spec.cfg, spec.args, mesh,
+                       shape.global_batch)
+    mode = fake_mode_of(spec.args[0])
+    local = _local_fakes(spec.args, specs, mesh, mode)
+    axis = mp.ModelAxis(where[MODEL_AXIS], mesh.shape[MODEL_AXIS], None,
+                        shape.seq_len)
+    fn = make_prefill_step(spec.cfg, shape.seq_len, axis) \
+        if spec.kind == "prefill" else make_serve_step(spec.cfg, axis)
+    return StepSpec(spec.kind, fn, local, spec.cfg, global_args=spec.args,
+                    specs=specs)
+
+
+def _build_step(cfg, shape, opt_cfg, accum_steps, serve_dtype, serve_quant):
     mode = FakeTensorMode()
 
     def serving_params():

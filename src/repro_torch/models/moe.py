@@ -9,6 +9,13 @@ past an expert's capacity are dropped (the residual path carries them).
 Plain PyTorch on both devices: the reference computes dispatch, the
 expert MLPs and combine in plain ``jnp`` outside any Pallas kernel, so
 on the card they are cuBLAS batched matmuls and elementwise kernels.
+
+Expert-parallel over a model axis (``axis=``, ``launch.model_parallel``):
+a rank holds a contiguous block of E / m experts. The router and the
+routing stay replicated, so every rank drops the same tokens; each rank
+takes its experts' slice of ``dispatch`` / ``combine``, and the ranks'
+partial outputs, in f32, are summed over the axis and rounded once. The
+aux losses are the replicated routing's, unchanged.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import model_parallel as mp
 from repro_torch.models.common import dense_init, silu
 
 DEFAULT_GROUP_SIZE = 128
@@ -92,7 +100,8 @@ def _route(logits, top_k: int, capacity: int):
     return dispatch, combine, aux
 
 
-def moe_apply(params, cfg, x, group_size: int = DEFAULT_GROUP_SIZE):
+def moe_apply(params, cfg, x, group_size: int = DEFAULT_GROUP_SIZE,
+              axis=None):
     """x (B, S, D) -> (out, aux)."""
     m = cfg.moe
     b, s, d = x.shape
@@ -103,6 +112,10 @@ def moe_apply(params, cfg, x, group_size: int = DEFAULT_GROUP_SIZE):
     logits = xg @ params["w_router"].to(dt)                      # (G,GS,E)
     cap = capacity_for(gs, m.num_experts, m.top_k, m.capacity_factor)
     dispatch, combine, aux = _route(logits, m.top_k, cap)
+    if mp.active(axis):                  # this rank's block of experts
+        e = params["w_up"].shape[0]
+        mine = slice(axis.index * e, (axis.index + 1) * e)
+        dispatch, combine = dispatch[:, :, mine], combine[:, :, mine]
 
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), xg)
     if cfg.mlp == "swiglu":
@@ -114,5 +127,8 @@ def moe_apply(params, cfg, x, group_size: int = DEFAULT_GROUP_SIZE):
         h = F.gelu(torch.einsum("egcd,edf->egcf", expert_in,
                                 params["w_up"].to(dt)), approximate="tanh")
     expert_out = torch.einsum("egcf,efd->egcd", h, params["w_down"].to(dt))
-    out = torch.einsum("egcd,gsec->gsd", expert_out, combine.to(dt))
-    return out.reshape(b, s, d), aux
+    combine = combine.to(dt)
+    if mp.active(axis):                  # the partial sums in f32
+        expert_out, combine = expert_out.float(), combine.float()
+    out = torch.einsum("egcd,gsec->gsd", expert_out, combine)
+    return mp.sum_partials(out.reshape(b, s, d), axis, dt), aux

@@ -16,12 +16,24 @@ computes the mixer in plain ``jnp`` outside any Pallas kernel.
 ``ssm_prefill`` and ``ssm_decode`` write the carried state and the conv
 ring into the ``cache`` they are given IN PLACE (the decoder stack
 passes a layer's slice of its stacked cache tree) and return it.
+
+Over a model axis (``axis=``, ``launch.model_parallel``) a rank holds a
+block of whole heads: its columns of ``w_z`` / ``w_x`` / ``conv_wx`` /
+``conv_bx`` / ``gate_norm`` and rows of ``w_out``, and the SSM state of
+its heads. ``w_B``, ``w_C``, their convs and the per-head ``w_dt`` /
+``dt_bias`` / ``A_log`` / ``D`` replicate; the rank slices its heads out
+of the per-head ones. The gated norm's mean over d_inner is the axis's
+sum of squares over the global d_inner, ``w_out`` is row-parallel
+(its f32 partial sums summed over the axis), and the conv ring
+replicates: each rank holds all of it, the new x channels gathered from
+the ranks before each write.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import model_parallel as mp
 from repro_torch.models.common import dense_init, silu, to_storage
 
 
@@ -65,6 +77,22 @@ def ssm_init(cfg, generator: torch.Generator, device="cuda", lead=()):
     }
 
 
+def _local(params, cfg, axis):
+    """The rank's view of the mixer's params: the per-head replicated
+    leaves (``w_dt``'s columns, ``dt_bias``, ``A_log``, ``D``) cut to
+    its heads; the params themselves without an axis."""
+    if not mp.active(axis):
+        return params
+    nh = cfg.ssm.num_heads(cfg.d_model)
+    if nh % axis.size:
+        raise ValueError(f"{nh} SSM heads do not split over a model axis "
+                         f"of {axis.size}")
+    h = nh // axis.size
+    mine = slice(axis.index * h, (axis.index + 1) * h)
+    return {**params, "w_dt": params["w_dt"][..., mine],
+            **{k: params[k][mine] for k in ("dt_bias", "A_log", "D")}}
+
+
 def _project_in(params, x):
     """x (..., D) -> (z, xr, Br, Cr, dt_raw) pre-conv projections."""
     dt = x.dtype
@@ -80,12 +108,23 @@ def _causal_conv(seq, w, b):
     return silu(out + b)
 
 
-def _gated_out(params, y, z, x_dtype):
+def _gated_out(params, y, z, x_dtype, axis=None, d_inner=None):
+    """The gated RMS norm over d_inner and the output projection; over a
+    model axis the mean square is the axis's sum of squares over the
+    global ``d_inner``, and the projection's partial sums, in f32, are
+    summed and rounded once."""
     dt = y.dtype
     g = y * silu(z)
-    var = torch.mean(torch.square(g.float()), dim=-1, keepdim=True)
+    if mp.active(axis):
+        var = mp.all_reduce(torch.sum(torch.square(g.float()), dim=-1,
+                                      keepdim=True), axis) / d_inner
+    else:
+        var = torch.mean(torch.square(g.float()), dim=-1, keepdim=True)
     g = (g.float() * torch.rsqrt(var + 1e-6) * params["gate_norm"]).to(dt)
-    return (g @ params["w_out"].to(dt)).to(x_dtype)
+    if not mp.active(axis):
+        return (g @ params["w_out"].to(dt)).to(x_dtype)
+    part = g.float() @ params["w_out"].to(dt).float()   # f32 partial sums
+    return mp.sum_partials(part, axis, x_dtype)
 
 
 def _softplus(x):
@@ -93,23 +132,25 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def ssm_forward(params, cfg, x):
+def ssm_forward(params, cfg, x, axis=None):
     """x (B, S, D) -> (B, S, D). S is right-padded to the chunk multiple."""
-    out, _ = _ssm_forward_with_state(params, cfg, x)
+    out, _ = _ssm_forward_with_state(params, cfg, x, axis)
     return out
 
 
-def _ssm_forward_with_state(params, cfg, x):
+def _ssm_forward_with_state(params, cfg, x, axis=None):
     """Chunked SSD scan -> (out (B, S, D), final carried state (B, H, N,
-    P) f32)."""
+    P) f32; over a model axis, the rank's heads)."""
     s_cfg = cfg.ssm
+    params = _local(params, cfg, axis)
     orig_len = x.shape[1]
     q = min(s_cfg.chunk, orig_len)
     if orig_len % q:                         # causal: right-pad then trim
         x = F.pad(x, (0, 0, 0, q - orig_len % q))
     b, slen, _ = x.shape
-    di = s_cfg.d_inner(cfg.d_model)
-    nh = s_cfg.num_heads(cfg.d_model)
+    m = mp.size(axis)
+    di = s_cfg.d_inner(cfg.d_model) // m
+    nh = s_cfg.num_heads(cfg.d_model) // m
     n, p = s_cfg.d_state, s_cfg.head_dim
     dev = x.device
 
@@ -157,11 +198,11 @@ def _ssm_forward_with_state(params, cfg, x):
     y = torch.cat(ys, dim=1)
     y = y + params["D"][None, None, :, None] * xs.float()
     y = y.reshape(b, slen, di).to(x.dtype)
-    out = _gated_out(params, y, z, x.dtype)
+    out = _gated_out(params, y, z, x.dtype, axis, s_cfg.d_inner(cfg.d_model))
     return out[:, :orig_len], h
 
 
-def ssm_prefill(params, cfg, x, cache):
+def ssm_prefill(params, cfg, x, cache, axis=None):
     """Forward + populate the decode cache in place: the final state and
     the conv ring's last ``W - 1`` PRE-conv channel values of [x, B, C].
     Returns (out, cache).
@@ -176,25 +217,33 @@ def ssm_prefill(params, cfg, x, cache):
     of a 2-token prompt is [0, x0, x1], not [x1, x1, x1], and the next
     decode step disagrees with a full forward over the same tokens. It
     reaches every ring prefill of an SSM layer under S < W - 1 (decode
-    sessions, the launcher's prefill); ROADMAP Queue 3 keeps it open."""
-    out, state = _ssm_forward_with_state(params, cfg, x)
+    sessions, the launcher's prefill); ROADMAP Queue 3 keeps it open.
+    Over a model axis the ring's x channels of those rows are gathered
+    from the ranks (the ring replicates)."""
+    out, state = _ssm_forward_with_state(params, cfg, x, axis)
     _, xr, br, cr, _ = _project_in(params, x)
     ring = cache["conv"]
     s = x.shape[1]
-    tail = torch.cat([xr, br, cr], dim=-1)[:, s - ring.shape[1]:s]
+    rows = slice(s - ring.shape[1], s)
+    if mp.active(axis):        # the x channels of those rows, gathered
+        tail = torch.cat([mp.all_gather(xr[:, rows], axis, -1), br[:, rows],
+                          cr[:, rows]], dim=-1)
+    else:
+        tail = torch.cat([xr, br, cr], dim=-1)[:, rows]
     ring[:] = to_storage(tail, ring.dtype)
     cache["state"].copy_(state)
     return out, cache
 
 
 def init_ssm_cache(cfg, batch: int, dtype=torch.float32, device="cuda",
-                   lead=()):
+                   lead=(), axis=None):
     """One layer's decode cache (``lead`` prepends stacking axes): the
     carried state, f32 whatever ``dtype``, and the conv ring in
-    ``dtype``."""
+    ``dtype``; over a model axis the state of the rank's heads and the
+    whole ring."""
     s = cfg.ssm
     di = s.d_inner(cfg.d_model)
-    nh = s.num_heads(cfg.d_model)
+    nh = s.num_heads(cfg.d_model) // mp.size(axis)
     conv_ch = di + 2 * s.d_state
     return {
         "state": torch.zeros(lead + (batch, nh, s.d_state, s.head_dim),
@@ -204,26 +253,31 @@ def init_ssm_cache(cfg, batch: int, dtype=torch.float32, device="cuda",
     }
 
 
-def ssm_decode(params, cfg, x, cache):
+def ssm_decode(params, cfg, x, cache, axis=None):
     """One-token recurrence. x (B, 1, D) -> (out (B, 1, D), cache), the
     state and conv ring updated in place."""
     s_cfg = cfg.ssm
+    params = _local(params, cfg, axis)
     b = x.shape[0]
-    di = s_cfg.d_inner(cfg.d_model)
-    nh = s_cfg.num_heads(cfg.d_model)
+    m = mp.size(axis)
+    di = s_cfg.d_inner(cfg.d_model)            # the ring's x channels
+    nh = s_cfg.num_heads(cfg.d_model) // m
     n, p = s_cfg.d_state, s_cfg.head_dim
+    dl = di // m                               # the rank's x channels
+    x0 = mp.index(axis) * dl
 
     z, xr, br, cr, dt_raw = _project_in(params, x[:, 0, :])
     # causal conv over the ring of the last (W - 1) inputs + the current
     ring = cache["conv"]
-    cur = to_storage(torch.cat([xr, br, cr], dim=-1)[:, None, :], ring.dtype)
+    cur = to_storage(torch.cat([mp.all_gather(xr, axis, -1), br, cr],
+                               dim=-1)[:, None, :], ring.dtype)
     hist = torch.cat([ring, cur], dim=1)
 
     def conv1(seq, w, b_):
         out = torch.einsum("bwc,wc->bc", seq.float(), w.float()) + b_
         return silu(out)
 
-    xh = conv1(hist[..., :di], params["conv_wx"], params["conv_bx"])
+    xh = conv1(hist[..., x0:x0 + dl], params["conv_wx"], params["conv_bx"])
     bvec = conv1(hist[..., di:di + n], params["conv_wB"], params["conv_bB"])
     cvec = conv1(hist[..., di + n:], params["conv_wC"], params["conv_bC"])
     xh = xh.reshape(b, nh, p)
@@ -235,8 +289,8 @@ def ssm_decode(params, cfg, x, cache):
     state = decay[..., None, None] * cache["state"] + upd
     y = torch.einsum("bn,bhnp->bhp", cvec, state)
     y = y + params["D"][None, :, None] * xh
-    y = y.reshape(b, 1, di).to(x.dtype)
-    out = _gated_out(params, y, z[:, None, :], x.dtype)
+    y = y.reshape(b, 1, dl).to(x.dtype)
+    out = _gated_out(params, y, z[:, None, :], x.dtype, axis, di)
     ring.copy_(hist[:, 1:])
     cache["state"].copy_(state)
     return out, cache

@@ -20,6 +20,16 @@ The whole-model ``forward`` / ``prefill`` / ``decode_step`` (what the
 serving launcher calls) run the same blocks over ``[0, L)`` between the
 embedding (token ids, or a frontend's precomputed ``embeds``) and the
 unembedding, and sum the MoE router losses over the blocks.
+
+The serving paths (``prefill``, ``decode_step``, ``segment_forward``,
+``segment_prefill``, ``segment_decode_step`` and the blocks under them)
+take ``axis=``, a rank's model axis (``launch.model_parallel``): the
+params and caches are then that rank's shards as ``launch.sharding``
+lays them out, every mixer and feed-forward block sums its row-parallel
+output over the axis, the embedding is vocab-parallel (a masked gather
+of the rank's rows, summed over the axis) and the logits are the rank's
+block of vocab columns. With no axis, or one of size 1, they compute
+what they computed before, bit for bit.
 """
 from __future__ import annotations
 
@@ -31,12 +41,15 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import model_parallel as mp
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.attention import (NEG_INF, DEFAULT_BLOCK_K,
-                                          DEFAULT_BLOCK_Q, _out_proj,
-                                          _project_qkv, _windowed_attention,
+                                          DEFAULT_BLOCK_Q, _attention_kv,
+                                          _out_proj, _project_qkv,
+                                          _windowed_attention,
                                           attention_decode, attention_forward,
-                                          attn_init, init_kv_cache)
+                                          attn_init, init_kv_cache,
+                                          cache_ring)
 from repro_torch.models.common import (as_bits, embed_init, norm_apply,
                                        norm_init, to_storage)
 from repro_torch.models.mlp import mlp_apply, mlp_init
@@ -149,14 +162,17 @@ def block_at(params, cfg: ModelConfig, layer: int):
 # Caches
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", axis=None):
     """Per-period-position stacked caches (leading axis = periods): a KV
     ring for an attention position, the carried state and conv ring for
-    an SSM one."""
+    an SSM one; over a model axis, the rank's shapes of
+    ``cache_pspecs``."""
     lead = (num_periods(cfg),)
-    return [init_kv_cache(cfg, batch, max_len, dtype, device, lead=lead)
+    return [init_kv_cache(cfg, batch, max_len, dtype, device, lead=lead,
+                          axis=axis)
             if cfg.block_kind(pos) == ATTN
-            else init_ssm_cache(cfg, batch, dtype, device, lead=lead)
+            else init_ssm_cache(cfg, batch, dtype, device, lead=lead,
+                                axis=axis)
             for pos in range(period_len(cfg))]
 
 
@@ -178,10 +194,31 @@ KERNEL_ROUTED = {"attn": ("wq", "wk", "wv", "wo"),
                  "mlp": ("w_gate", "w_up", "w_down")}
 
 
-def _dequant_block(bp, cfg):
+def _local_meta(node, axis):
+    """A wire struct's ``scale`` / ``mu`` over its rank's columns: the
+    reference replicates them whole, so a per-column grid of a leaf split
+    on its columns holds ``size`` times the rank's columns and the rank
+    takes its block."""
+    cols = node["codes"].shape[-1] if "codes" in node \
+        else 2 * node["codes_packed"].shape[-1]
+    out = dict(node)
+    for k in ("scale", "mu"):
+        n = node[k].shape[-1]
+        if n not in (1, cols):
+            if n != cols * axis.size:
+                raise ValueError(f"wire struct {k} of {n} columns over "
+                                 f"{cols} local code columns")
+            out[k] = node[k][..., axis.index * cols:
+                             (axis.index + 1) * cols]
+    return out
+
+
+def _dequant_block(bp, cfg, axis=None):
     """Block weights may arrive as int8/int4 wire structs {codes |
     codes_packed, scale, mu}. Structs under ``KERNEL_ROUTED`` stay packed
-    for the qmatmul kernels; any other struct dequantizes here."""
+    for the qmatmul kernels; any other struct dequantizes here. Over a
+    model axis they are the rank's shards, whose per-column grids are
+    first cut to the rank's columns (``_local_meta``)."""
     dt = model_dtype(cfg)
 
     def dequant(node):
@@ -196,6 +233,8 @@ def _dequant_block(bp, cfg):
     def walk(node, parent=None):
         if isinstance(node, dict):
             if ops.is_wire_struct(node) and "scale" in node:
+                if mp.active(axis):
+                    node = _local_meta(node, axis)
                 return node if parent == "routed" else dequant(node)
             return {k: walk(v, "routed" if parent in KERNEL_ROUTED
                             and k in KERNEL_ROUTED[parent] else k)
@@ -205,37 +244,40 @@ def _dequant_block(bp, cfg):
     return walk(bp)
 
 
-def _feed_forward(bp, cfg, x):
+def _feed_forward(bp, cfg, x, axis=None):
     """The block's second half on the residual ``x``: MoE, dense MLP or
     nothing. Returns (x, router aux dict or None)."""
     if "moe" in bp:
         out, aux = moe_apply(bp["moe"], cfg,
-                             norm_apply(cfg.norm, bp["norm2"], x))
+                             norm_apply(cfg.norm, bp["norm2"], x),
+                             axis=axis)
         return x + out, aux
     if "mlp" in bp:
         return x + mlp_apply(bp["mlp"], cfg,
-                             norm_apply(cfg.norm, bp["norm2"], x)), None
+                             norm_apply(cfg.norm, bp["norm2"], x),
+                             axis=axis), None
     return x, None
 
 
 def _block_apply(bp, cfg, pos, x, positions, *, cache=None,
-                 decode_pos=None):
+                 decode_pos=None, axis=None):
     """One block. Returns (x, aux, cache): ``aux`` the router losses of
     a MoE block (else None); ``cache``, when given (decode), updated in
     place."""
-    bp = _dequant_block(bp, cfg)
+    bp = _dequant_block(bp, cfg, axis)
     h = norm_apply(cfg.norm, bp["norm1"], x)
     if cfg.block_kind(pos) == ATTN:
         if cache is not None:
             mixed, cache = attention_decode(bp["attn"], cfg, h, cache,
-                                            decode_pos)
+                                            decode_pos, axis=axis)
         else:
-            mixed = attention_forward(bp["attn"], cfg, h, positions)
+            mixed = attention_forward(bp["attn"], cfg, h, positions,
+                                      axis=axis)
     elif cache is not None:
-        mixed, cache = ssm_decode(bp["ssm"], cfg, h, cache)
+        mixed, cache = ssm_decode(bp["ssm"], cfg, h, cache, axis=axis)
     else:
-        mixed = ssm_forward(bp["ssm"], cfg, h)
-    x, aux = _feed_forward(bp, cfg, x + mixed)
+        mixed = ssm_forward(bp["ssm"], cfg, h, axis=axis)
+    x, aux = _feed_forward(bp, cfg, x + mixed, axis)
     return x, aux, cache
 
 
@@ -255,19 +297,35 @@ def _acc_aux(acc, aux):
     return {k: acc[k] + aux[k] for k in acc}
 
 
-def _embed(params, cfg, tokens=None, embeds=None):
+def _embed(params, cfg, tokens=None, embeds=None, axis=None):
+    """Token rows of ``embed`` (or a frontend's ``embeds``) in the model
+    dtype. Vocab-parallel over a model axis: the rank gathers the rows it
+    holds, zeros the others, and the ranks' rows are summed in the table's
+    dtype (one of them is not zero), then cast."""
     if embeds is not None:
         return embeds.to(model_dtype(cfg))
-    return params["embed"][tokens.long()].to(model_dtype(cfg))
+    if not mp.active(axis):
+        return params["embed"][tokens.long()].to(model_dtype(cfg))
+    rows = params["embed"].shape[0]
+    local = tokens.long() - axis.index * rows
+    mine = (local >= 0) & (local < rows)
+    x = params["embed"][local.clamp(0, rows - 1)]
+    return mp.all_reduce(torch.where(mine[..., None], x, 0),
+                         axis).to(model_dtype(cfg))
 
 
-def _unembed(params, cfg, x):
+def _unembed(params, cfg, x, axis=None):
+    """Final norm and logits (..., V_pad), padded vocab columns masked;
+    over a model axis the rank's block of vocab columns (``lm_head``'s,
+    or the tied head's: ``embed``'s rows, transposed)."""
     x = norm_apply(cfg.norm, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
     vp = cfg.padded_vocab()
     if vp != cfg.vocab_size:                  # mask padded vocab columns
-        col = torch.arange(vp, device=x.device)
+        n = logits.shape[-1]
+        first = mp.index(axis) * n
+        col = torch.arange(first, first + n, device=x.device)
         logits = torch.where(col < cfg.vocab_size, logits, -1e30)
     return logits
 
@@ -281,7 +339,7 @@ apply_block = _block_apply
 # Segment forward (partitioned execution)
 
 def segment_forward(params, cfg: ModelConfig, h, start: int, stop: int, *,
-                    positions=None, collect: bool = False):
+                    positions=None, collect: bool = False, axis=None):
     """Apply blocks ``[start, stop)`` to hidden state ``h`` (B, S, D).
 
     ``collect=True`` additionally returns the activation ENTERING every
@@ -297,7 +355,7 @@ def segment_forward(params, cfg: ModelConfig, h, start: int, stop: int, *,
             acts.append(h)
         if start <= layer < stop:
             bp, pos = block_at(params, cfg, layer)
-            h, _, _ = _block_apply(bp, cfg, pos, h, positions)
+            h, _, _ = _block_apply(bp, cfg, pos, h, positions, axis=axis)
     if collect:
         return h, torch.stack(acts)
     return h
@@ -313,19 +371,44 @@ def segment_logits(params, cfg: ModelConfig, h, start: int, stop: int, *,
 # ---------------------------------------------------------------------------
 # Segment prefill / extend / decode (cut-point-partitioned KV cache)
 
-def _attn_prefill_with_cache(ap, cfg, h, positions, cache):
+def _fill_ring_shard(cache, kr, v, first: int, ring: int) -> None:
+    """The prompt's ring write on a ring split on its slots: this rank's
+    shard (global slots ``[first, first + n)`` of ``ring``) gets exactly
+    the slots the whole ring's write would give it."""
+    s, n = kr.shape[1], cache["k"].shape[1]
+    take = min(s, ring)
+    for name, t in (("k", kr), ("v", v)):
+        w = to_storage(t[:, s - take:], cache[name].dtype)
+        if take == ring:
+            # global slot j of the rolled ring holds row (j - shift) % ring
+            rows = (torch.arange(n, device=w.device) + first
+                    - (s - take) % ring) % ring
+            as_bits(cache[name])[:] = as_bits(w).index_select(1, rows)
+        else:
+            held = min(max(take - first, 0), n)
+            if held:
+                cache[name][:, :held] = w[:, first:first + held]
+
+
+def _attn_prefill_with_cache(ap, cfg, h, positions, cache, axis=None):
     """Full-context attention over ``h`` that also writes the last
-    min(s, buf) keys/values into the ring ``cache`` (in place)."""
+    min(s, buf) keys/values into the ring ``cache`` (in place; over a
+    model axis, the rank's part of it)."""
     s = h.shape[1]
-    q, k, v = _project_qkv(ap, cfg, h)
+    q, k, v = _project_qkv(ap, cfg, h, axis)
     qr = rope_lib.apply_rope(cfg.rope, q, positions, cfg.rope_theta)
     kr = rope_lib.apply_rope(cfg.rope, k, positions, cfg.rope_theta)
+    ka, va = _attention_kv(cfg, axis, kr, v)
     bq, bk = min(DEFAULT_BLOCK_Q, s), min(DEFAULT_BLOCK_K, s)
     if cfg.sliding_window is not None and s > cfg.sliding_window:
-        out = _windowed_attention(qr, kr, v, cfg.sliding_window, bq)
+        out = _windowed_attention(qr, ka, va, cfg.sliding_window, bq)
     else:
-        out = ops.flash_attention(qr, kr, v, bq, bk)
-    out = _out_proj(ap, cfg, out, h.dtype)
+        out = ops.flash_attention(qr, ka, va, bq, bk)
+    out = _out_proj(ap, cfg, out, h.dtype, axis)
+    if cache_ring(cfg, axis, cache) == "seq":
+        n = cache["k"].shape[1]
+        _fill_ring_shard(cache, kr, v, n * axis.index, n * axis.size)
+        return out, cache
     buf = cache["k"].shape[1]
     take = min(s, buf)
     for name, t in (("k", kr), ("v", v)):
@@ -341,37 +424,39 @@ def _attn_prefill_with_cache(ap, cfg, h, positions, cache):
 
 
 def _prefill_blocks(params, cfg: ModelConfig, h, caches, start: int,
-                    stop: int, positions):
+                    stop: int, positions, axis=None):
     """Blocks ``[start, stop)`` over the prompt ``h``, filling their
     cache slices in place -> (h_out, caches, summed router aux or
     None)."""
     aux = None
     for layer in range(start, stop):
         bp, pos = block_at(params, cfg, layer)
-        bp = _dequant_block(bp, cfg)
+        bp = _dequant_block(bp, cfg, axis)
         hh = norm_apply(cfg.norm, bp["norm1"], h)
         cache = _cache_at(caches, cfg, layer)
         if cfg.block_kind(pos) == ATTN:
             mixed, _ = _attn_prefill_with_cache(bp["attn"], cfg, hh,
-                                                positions, cache)
+                                                positions, cache, axis)
         else:
-            mixed, _ = ssm_prefill(bp["ssm"], cfg, hh, cache)
-        h, a = _feed_forward(bp, cfg, h + mixed)
+            mixed, _ = ssm_prefill(bp["ssm"], cfg, hh, cache, axis=axis)
+        h, a = _feed_forward(bp, cfg, h + mixed, axis)
         aux = _acc_aux(aux, a)
     return h, caches, aux
 
 
 def segment_prefill(params, cfg: ModelConfig, h, caches, start: int,
-                    stop: int, *, positions=None):
+                    stop: int, *, positions=None, axis=None):
     """Blocks ``[start, stop)`` over the prompt ``h`` (B, S, D), filling
     their slices of the stacked ``caches`` (an ``init_cache`` tree) in
     place: K/V rings, SSM states and conv rings. Returns ``(h_out,
-    caches)``; router aux losses are dropped, as in the reference."""
+    caches)``; router aux losses are dropped, as in the reference. Over
+    a model axis whose rings split on their slots, ``axis.max_len``
+    must be the caches' length."""
     b, s, _ = h.shape
     if positions is None:
         positions = rope_lib.text_positions(b, s, device=h.device)
     h, caches, _ = _prefill_blocks(params, cfg, h, caches, start, stop,
-                                   positions)
+                                   positions, axis)
     return h, caches
 
 
@@ -441,17 +526,18 @@ def segment_extend(params, cfg: ModelConfig, h, caches, pos0,
 
 
 def segment_decode_step(params, cfg: ModelConfig, x, caches, pos,
-                        start: int, stop: int):
+                        start: int, stop: int, axis=None):
     """One decode step over blocks ``[start, stop)``: ``x`` (B, 1, D) the
     hidden state entering block ``start``, ``pos`` the token's absolute
     position, a host int or a 0-d integer tensor on x's device
     (``attention_decode``). Updates the caches in place; returns
-    ``(x_out, caches)``."""
+    ``(x_out, caches)``. Over a model axis whose rings split on their
+    slots, ``axis.max_len`` must be the caches' length."""
     for layer in range(start, stop):
         bp, p = block_at(params, cfg, layer)
         x, _, _ = _block_apply(bp, cfg, p, x, None,
                                cache=_cache_at(caches, cfg, layer),
-                               decode_pos=pos)
+                               decode_pos=pos, axis=axis)
     return x, caches
 
 
@@ -520,28 +606,36 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
 
 
 def prefill(params, cfg: ModelConfig, tokens=None, *, embeds=None,
-            positions=None, max_len: int, cache_dtype=torch.bfloat16):
+            positions=None, max_len: int, cache_dtype=torch.bfloat16,
+            axis=None):
     """Forward over the prompt (``tokens`` (B, S) or ``embeds`` (B, S,
     D)) that also builds fresh ``max_len``-slot decode caches ->
-    (logits (B, S, V), caches, aux)."""
-    h = _embed(params, cfg, tokens, embeds)
+    (logits (B, S, V), caches, aux). Over a model axis: the rank's
+    shards of the params in, its shards of the caches and its block of
+    vocab columns out."""
+    axis = mp.with_len(axis, max_len)
+    h = _embed(params, cfg, tokens, embeds, axis)
     b, s, _ = h.shape
     if positions is None:
         positions = rope_lib.text_positions(b, s, device=h.device)
-    caches = init_cache(cfg, b, max_len, cache_dtype, device=h.device)
+    caches = init_cache(cfg, b, max_len, cache_dtype, device=h.device,
+                        axis=axis)
     h, caches, aux = _prefill_blocks(params, cfg, h, caches, 0,
-                                     cfg.num_layers, positions)
-    return _unembed(params, cfg, h), caches, aux or _zero_aux(h.device)
+                                     cfg.num_layers, positions, axis)
+    return _unembed(params, cfg, h, axis=axis), caches, \
+        aux or _zero_aux(h.device)
 
 
-def decode_step(params, cfg: ModelConfig, token, caches, pos):
+def decode_step(params, cfg: ModelConfig, token, caches, pos, axis=None):
     """token (B, 1) ids, or a frontend's embedding (B, 1, D), at
     absolute position ``pos`` -> (logits (B, 1, V), caches), the caches
     updated in place. ``pos`` is a host int or a 0-d int32 / int64
     tensor on the token's device, never read on the host (the serving
-    launcher's compile-once step fills one and replays a CUDA graph)."""
-    x = _embed(params, cfg, token) if token.dim() == 2 \
+    launcher's compile-once step fills one and replays a CUDA graph).
+    Over a model axis, as :func:`prefill`; ``axis.max_len`` must be the
+    caches' length where their rings split on their slots."""
+    x = _embed(params, cfg, token, axis=axis) if token.dim() == 2 \
         else token.to(model_dtype(cfg))
     x, caches = segment_decode_step(params, cfg, x, caches, pos, 0,
-                                    cfg.num_layers)
-    return _unembed(params, cfg, x), caches
+                                    cfg.num_layers, axis)
+    return _unembed(params, cfg, x, axis=axis), caches

@@ -1,14 +1,24 @@
 """The roofline of one step on one H100, from the counts of
 ``roofline.op_cost`` (no card needed):
 
-  compute term = counted FLOPs / the card's peak FLOP/s
-  memory term  = counted bytes / the card's HBM bytes/s
+  compute term    = counted FLOPs / the card's peak FLOP/s
+  memory term     = counted bytes / the card's HBM bytes/s
+  collective term = each axis's collective bytes / that axis's link
 
-The rates are ``launch.mesh``'s data-sheet figures, so both terms are
+The rates are ``launch.mesh``'s data-sheet figures, so the terms are
 lower bounds, not measurements. The FLOPs are matmul-class and the bytes
-unfused (``op_cost``), and each record says so. One card has no
-inter-card link: no collective term is counted (``t_collective`` is
-None). The step is costed whole on one card; a production mesh changes
+unfused (``op_cost``), and each record says so.
+
+A prefill or decode step on a mesh whose model axis is larger than 1 is
+counted as one rank's program (``launch.steps.build_step``, rank 0): its
+FLOPs, bytes and the collective bytes it moves over the model axis
+(``coll_gbytes``, by kind in ``coll_breakdown``) are one card's. The
+collective term puts the model axis's bytes on NVLink where that axis
+fits in one node (``mesh.NODE_CARDS``), on the node's network links
+where it does not, and bytes over the data or pod axes on the network
+links (the serving steps move none). A one-card program, a train step
+and an FSDP layout are counted whole on one card with no collective
+term (``t_collective`` None; ``coll_note`` says why); their mesh changes
 only the argument bytes each card holds (``launch.sharding``).
 """
 from __future__ import annotations
@@ -17,9 +27,10 @@ import dataclasses
 import glob
 import json
 import os
-from typing import Optional
+from typing import Dict, Optional
 
-from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16,
+from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, NIC_BW, NODE_CARDS,
+                                     NVLINK_BW, PEAK_FLOPS_BF16,
                                      PEAK_FLOPS_F32)
 
 PEAKS = {"bf16": PEAK_FLOPS_BF16, "f32": PEAK_FLOPS_F32}
@@ -40,6 +51,19 @@ class Roofline:
     count_s: Optional[float] = None        # host seconds of the count
     flops_kind: str = "matmul"
     bytes_kind: str = "unfused"
+    # a rank's program: its collective GB (by kind) over the model axis
+    coll_gbytes: Optional[float] = None
+    coll_breakdown: Optional[Dict[str, float]] = None
+    model_axis: int = 1                   # cards on the model axis
+    coll_note: Optional[str] = None       # why there is no collective term
+
+    @property
+    def rank_program(self) -> bool:
+        return self.coll_gbytes is not None
+
+    @property
+    def model_link(self) -> str:
+        return "nvlink" if self.model_axis <= NODE_CARDS else "nic"
 
     @property
     def t_compute(self) -> float:
@@ -50,18 +74,31 @@ class Roofline:
         return self.gbytes * 1e9 / HBM_BW
 
     @property
-    def t_collective(self) -> None:
-        return None                   # one card: not counted
+    def t_collective(self) -> Optional[float]:
+        """The model axis's collective bytes over its link (the serving
+        steps' collectives are all on the model axis); None where none
+        was counted."""
+        if self.coll_gbytes is None:
+            return None
+        bw = NVLINK_BW if self.model_link == "nvlink" else NIC_BW
+        return self.coll_gbytes * 1e9 / bw
 
     @property
     def bottleneck(self) -> str:
-        return "compute" if self.t_compute >= self.t_memory else "memory"
+        terms = {"compute": self.t_compute, "memory": self.t_memory}
+        if self.t_collective is not None:
+            terms["collective"] = self.t_collective
+        return max(terms, key=terms.get)
 
     @property
     def useful_flop_frac(self) -> Optional[float]:
+        """The model's FLOPs over the counted ones, a rank's program's
+        taken as its card's share of the step (times the mesh's
+        cards)."""
         if self.model_gflops is None or self.gflops == 0:
             return None
-        return self.model_gflops / self.gflops
+        cards = self.chips if self.rank_program else 1
+        return self.model_gflops / (self.gflops * cards)
 
     @property
     def fits_80gb(self) -> Optional[bool]:
@@ -74,20 +111,30 @@ class Roofline:
         d.update(t_compute=self.t_compute, t_memory=self.t_memory,
                  t_collective=self.t_collective, bottleneck=self.bottleneck,
                  useful_flop_frac=self.useful_flop_frac,
-                 fits_80gb=self.fits_80gb)
+                 fits_80gb=self.fits_80gb, rank_program=self.rank_program,
+                 model_link=self.model_link if self.rank_program else None)
         return d
 
 
 def analyze(summary, *, arch: str, shape: str, mesh_name: str = "host",
             chips: int = 1, model_flops: Optional[float] = None,
             arg_bytes_per_card: Optional[float] = None, peak: str = "bf16",
-            count_s: Optional[float] = None) -> Roofline:
-    """A :class:`Roofline` from an ``op_cost.CostSummary``."""
+            count_s: Optional[float] = None, model_axis: int = 1,
+            coll_note: Optional[str] = None) -> Roofline:
+    """A :class:`Roofline` from an ``op_cost.CostSummary``: a rank's
+    program on a model axis of ``model_axis`` > 1 cards gets the
+    collective term from ``summary.collectives``; otherwise there is
+    none (``coll_note``, when given, says why)."""
+    coll = None
+    if model_axis > 1 and coll_note is None:
+        coll = {k: v / 1e9 for k, v in sorted(summary.collectives.items())}
     return Roofline(
         arch=arch, shape=shape, mesh=mesh_name, chips=chips,
         gflops=summary.flops / 1e9, gbytes=summary.bytes / 1e9, peak=peak,
         model_gflops=(model_flops / 1e9) if model_flops else None,
-        arg_bytes_per_card=arg_bytes_per_card, count_s=count_s)
+        arg_bytes_per_card=arg_bytes_per_card, count_s=count_s,
+        coll_gbytes=sum(coll.values()) if coll is not None else None,
+        coll_breakdown=coll, model_axis=model_axis, coll_note=coll_note)
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,15 @@ stand-in reads the whole ring, as the kernel's grid is sized for it. A
 fake position has no value to address a slot with, and counted as it
 runs, an ``index_copy_`` would book the whole ring read and written.
 
-One card has no inter-card link, so no collective is counted.
+A rank's program over a model axis (``launch.steps.build_step`` with a
+mesh) calls ``launch.model_parallel``'s collectives; while :func:`count`
+runs, its ``_collective`` is a stand-in too. Each call records, under its
+kind (``all-reduce``, ``all-gather``, ``all-to-all``), the bytes it
+moves as ``repro/roofline/hlo_cost.py`` counts a collective — the larger
+of its operand's and its result's, once per call, so a layer's
+collective counts once per layer — into ``CostSummary.collectives``, and
+its operand and result bytes into ``bytes`` as any op's. A one-card program
+calls none: its ``collectives`` stay empty.
 """
 from __future__ import annotations
 
@@ -60,6 +68,7 @@ from torch.utils._pytree import tree_leaves as _pytree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.kernels import ops
+from repro_torch.launch import model_parallel
 from repro_torch.models import attention
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_leaves
@@ -75,8 +84,9 @@ _NO_TRAFFIC = {_aten.empty.memory_format, _aten.empty_like.default,
 class CostSummary:
     """What :func:`count` counted: ``flops`` (matmul-class),
     ``bytes`` (unfused) and their split by op (a stand-in's bytes under
-    its kernel's name), ``collectives`` (always empty: one card) and the
-    stand-ins' calls by kernel."""
+    its kernel's name), ``collectives`` (bytes moved by kind over the
+    model axis; empty for a one-card program) and the stand-ins' calls
+    by kernel."""
     flops: float = 0.0
     bytes: float = 0.0
     collectives: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -107,6 +117,7 @@ class _Counter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.bytes = collections.Counter()        # by op
+        self.collectives = collections.Counter()  # moved bytes, by kind
         self.kernel_flops = 0
         self.calls = collections.Counter()
         self.paused = False
@@ -141,6 +152,18 @@ class _Counter(TorchDispatchMode):
         self.kernel_flops += flops
         self.bytes[name] += _nbytes(inputs) + _nbytes(out)
         self.calls[name] += 1
+        return out
+
+    def collective(self, kind: str, x, make_out):
+        """One collective of ``kind`` on ``x``: its result made with the
+        byte count paused, the moved bytes (the larger of operand and
+        result) recorded under ``kind``, operand and result bytes under
+        ``bytes``."""
+        with self.pause():
+            out = make_out()
+        moved, io = max(_nbytes(x), _nbytes(out)), _nbytes(x) + _nbytes(out)
+        self.collectives[kind] += moved
+        self.bytes[kind] += io
         return out
 
 
@@ -200,17 +223,33 @@ def _stand_ins(counter: _Counter) -> dict:
         _require_fake("flash_attention", q, k, v)
         return _FlashStandIn.apply(q, k, v, block_q, block_k, counter)
 
-    def decode_attention(q, ck, cv, pos):
+    def decode_attention(q, ck, cv, pos, kv0=None):
         _require_fake("decode_attention", q, ck, cv, pos)
         b, kvp, gp, hd = q.shape
         # a position on the device is never read: the kernel's grid is
-        # sized for the whole ring
+        # sized for the whole ring; given kv0, it reads KVp of the heads
         n_valid = ck.shape[1] if torch.is_tensor(pos) else \
             min(int(pos) + 1, ck.shape[1])
-        live = (ck[:, :n_valid], cv[:, :n_valid])
+        heads = slice(kv0 or 0, (kv0 or 0) + kvp)
+        live = (ck[:, :n_valid, heads], cv[:, :n_valid, heads])
         return counter.kernel("decode_attention",
                               4 * b * kvp * gp * n_valid * hd, (q, *live),
                               lambda: torch.empty_like(q))
+
+    def decode_attention_shard(q, ck, cv, pos, slot0, ring):
+        _require_fake("decode_attention_shard", q, ck, cv, pos)
+        b, kvp, gp, hd = q.shape
+        n = ck.shape[1]
+        # the shard's live slots; a device position: the whole shard
+        n_valid = n if torch.is_tensor(pos) else \
+            min(max((ring if int(pos) + 1 >= ring else int(pos) % ring + 1)
+                    - slot0, 0), n)
+        live = (ck[:, :n_valid], cv[:, :n_valid])
+        return counter.kernel(
+            "decode_attention_shard", 4 * b * kvp * gp * n_valid * hd,
+            (q, *live),
+            lambda: (torch.empty(q.shape, dtype=torch.float32),
+                     torch.empty((b, kvp, gp), dtype=torch.float32)))
 
     def qdense(x, w, n_contract=1, out_dtype=None):
         _require_fake("qdense", x, w)
@@ -250,7 +289,9 @@ def _stand_ins(counter: _Counter) -> dict:
                                                   dtype=out_dtype))
 
     return {"flash_attention": flash_attention,
-            "decode_attention": decode_attention, "qdense": qdense,
+            "decode_attention": decode_attention,
+            "decode_attention_shard": decode_attention_shard,
+            "qdense": qdense,
             "quantize_tensor": quantize_tensor,
             "quantize_pack4": quantize_pack4,
             "dequantize_tensor": dequantize_tensor}
@@ -260,6 +301,7 @@ def _host_positions() -> dict:
     """``models.attention``'s position bookkeeping, a device position run
     as the host int 0 (the module docstring says why)."""
     rows, write = attention._decode_rows, attention._write_ring
+    shard = attention._write_ring_shard
 
     def host(pos):
         return 0 if torch.is_tensor(pos) else pos
@@ -267,7 +309,24 @@ def _host_positions() -> dict:
     return {"_decode_rows": lambda pos, b, device: rows(host(pos), b,
                                                         device),
             "_write_ring": lambda cache, k, v, pos: write(cache, k, v,
-                                                          host(pos))}
+                                                          host(pos)),
+            "_write_ring_shard": lambda cache, k, v, pos, first, ring: shard(
+                cache, k, v, host(pos), first, ring)}
+
+
+def _collective_stand_in(counter: _Counter) -> dict:
+    """``model_parallel._collective``'s stand-in: an empty result of the
+    collective's shape, its bytes recorded (``_Counter.collective``)."""
+
+    def collective(kind, x, axis, dim=0):
+        _require_fake(kind, x)
+        shape = list(x.shape)
+        if kind == "all-gather":
+            shape[dim] *= axis.size
+        return counter.collective(kind, x, lambda: torch.empty(
+            shape, dtype=x.dtype))
+
+    return {"_collective": collective}
 
 
 @contextlib.contextmanager
@@ -293,12 +352,15 @@ def count(fn, *args, **kwargs) -> CostSummary:
     counter = _Counter()
     flop_counter = FlopCounterMode(display=False)
     with _swapped(ops, _stand_ins(counter)), \
-            _swapped(attention, _host_positions()), mode, flop_counter, \
-            counter:
+            _swapped(attention, _host_positions()), \
+            _swapped(model_parallel, _collective_stand_in(counter)), mode, \
+            flop_counter, counter:
         fn(*args, **kwargs)
     return CostSummary(
         flops=float(flop_counter.get_total_flops() + counter.kernel_flops),
-        bytes=float(counter.bytes.total()), kernel_calls=dict(counter.calls),
+        bytes=float(counter.bytes.total()),
+        collectives={k: float(v) for k, v in counter.collectives.items()},
+        kernel_calls=dict(counter.calls),
         bytes_by_op={k: float(v) for k, v in counter.bytes.items()})
 
 

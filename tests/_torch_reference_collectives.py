@@ -1,0 +1,43 @@
+"""The reference's decode step of 2-layer configs lowered and compiled on
+a (data 1, model 4) mesh of forced CPU devices, its collective bytes by
+kind read by ``repro.roofline.hlo_cost.analyze_text``. Run in a process
+of its own (the device count is fixed at JAX's first import):
+
+  XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+      python tests/_torch_reference_collectives.py ARCH SEQ BATCH [...]
+
+prints one JSON object, {arch: {kind: bytes}}."""
+import dataclasses
+import json
+import sys
+
+import jax
+import numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from repro.configs.base import InputShape, get_config
+from repro.launch.dryrun import step_in_shardings
+from repro.launch.steps import build_step
+from repro.roofline.hlo_cost import analyze_text
+
+
+def collectives(arch: str, seq: int, batch: int) -> dict:
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    shape = InputShape("decode_small", seq, batch, "decode")
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 4),
+                ("data", "model"))
+    spec = build_step(cfg, shape)
+    shardings = jax.tree.map(lambda s: NamedSharding(mesh, s),
+                             step_in_shardings(spec, mesh, shape),
+                             is_leaf=lambda x: isinstance(x, P))
+    with mesh:
+        compiled = jax.jit(spec.fn, in_shardings=shardings).lower(
+            *spec.args).compile()
+    return analyze_text(compiled.as_text()).collectives
+
+
+if __name__ == "__main__":
+    args = sys.argv[1:]
+    out = {args[i]: collectives(args[i], int(args[i + 1]), int(args[i + 2]))
+           for i in range(0, len(args), 3)}
+    print(json.dumps(out))

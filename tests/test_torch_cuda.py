@@ -1602,9 +1602,9 @@ def test_launcher_capture_that_cannot_succeed_raises(gen, monkeypatch):
     cfg, params, prompt = _launcher(8)
     unembed = T._unembed
 
-    def synced(params, cfg, x):
+    def synced(params, cfg, x, **kw):
         float(x.float().sum())              # a host read inside the step
-        return unembed(params, cfg, x)
+        return unembed(params, cfg, x, **kw)
 
     monkeypatch.setattr(T, "_unembed", synced)
     counts = []
@@ -2180,3 +2180,112 @@ def test_launch_train_graphed_bitwise_eager(gen):
                         (e["params"], e["opt_state"]))
     assert g["captures"] == {"step": 1, "sampler": 1}
     assert e["captures"] == {"step": 0, "sampler": 0}
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16,
+                                   torch.float8_e4m3fn])
+@pytest.mark.parametrize("n,ring", [(1, 4), (16, 64), (48, 96),
+                                    (512, 2048)])
+def test_decode_attention_shard(gen, cache, n, ring):
+    """The ring-shard launch over every shard of a ring, at positions
+    before, at and past its wrap: out and row log-sum-exp within the
+    tolerances of ``test_decode_attention_edges`` of the plain version, a
+    shard past the position zeros and -inf exactly, one launch a call,
+    the same bits on a second call and with the position on the card;
+    with slot0 = 0 and the ring its own, the out of
+    ``decode_attention_cuda`` on the same f32 query, bit for bit."""
+    from repro_torch.kernels.decode_attention import \
+        decode_attention_shard_cuda
+    q = torch.randn(2, 2, 3, 64, generator=gen, device="cuda")
+    kv = torch.randn(2, 2, ring, 2, 64, generator=gen, device="cuda").to(
+        cache)
+    tol = 1e-4 if cache == torch.float32 else 2e-2
+    for pos in (0, n // 2, ring - 1, ring + n // 3, 5 * ring + 1):
+        pos_t = torch.tensor(pos, dtype=torch.int64, device="cuda")
+        for slot0 in range(0, ring, n):
+            ck = kv[0, :, slot0:slot0 + n].contiguous()
+            cv = kv[1, :, slot0:slot0 + n].contiguous()
+            before = decode_attention_shard_cuda.launches
+            out, lse = decode_attention_shard_cuda(q, ck, cv, pos, slot0,
+                                                   ring)
+            assert decode_attention_shard_cuda.launches == before + 1
+            w_out, w_lse = ref.decode_attention_shard_ref(q, ck, cv, pos,
+                                                          slot0, ring)
+            live = torch.isfinite(w_lse)
+            assert torch.equal(torch.isfinite(lse), live)
+            assert _err(out, w_out) <= tol, (pos, slot0)
+            if live.any():
+                assert _err(lse[live], w_lse[live]) <= tol, (pos, slot0)
+            assert torch.all(out[~live] == 0)
+            for again in (decode_attention_shard_cuda(q, ck, cv, pos, slot0,
+                                                      ring),
+                          decode_attention_shard_cuda(q, ck, cv, pos_t,
+                                                      slot0, ring)):
+                assert torch.equal(again[0], out) and \
+                    torch.equal(again[1], lse)
+        whole = decode_attention_shard_cuda(q, kv[0], kv[1], pos, 0, ring)[0]
+        assert torch.equal(whole, decode_attention_cuda(q, kv[0], kv[1], pos))
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float8_e4m3fn])
+def test_decode_attention_head_block(gen, cache):
+    """Row 3's launch over the KV heads ``[kv0, kv0 + KVp)`` of a ring
+    holding more (the ring every rank holds where its slots do not
+    split), read in place: the launch over a copy of those heads, bit
+    for bit, before and past the wrap; a block past the ring's heads
+    raises."""
+    q = torch.randn(2, 1, 4, 64, generator=gen, device="cuda")
+    kv = torch.randn(2, 2, 40, 3, 64, generator=gen, device="cuda").to(
+        cache)
+    for kv0 in range(3):
+        block = [t[:, :, kv0:kv0 + 1].contiguous() for t in kv]
+        for pos in (5, 39, 47):
+            got = decode_attention_cuda(q, kv[0], kv[1], pos, kv0)
+            assert torch.equal(got, decode_attention_cuda(q, *block, pos))
+    with pytest.raises(ValueError, match="KV head"):
+        decode_attention_cuda(q, kv[0], kv[1], 3, 3)
+
+
+def test_model_axis_on_one_card_matches_cpu(gen):
+    """The serving steps' rank program at two ``gloo`` ranks on this card
+    (the kernels on each rank's shards; the ring-shard launch for the
+    one-KV-head config, row 3 over its KV head of the whole ring at an
+    odd ring) against the one-card program on the CPU, same
+    weights: the prefill's and every decode step's gathered logits within
+    1e-3 of the largest, the greedy tokens equal, the ranks bitwise."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import distributed
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    import _torch_model_parallel_ranks as ranks
+    base = get_config("smollm-135m")
+    cfgs = {"kv": dataclasses.replace(
+                base, num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
+                head_dim=64, d_ff=768, vocab_size=250, tp_pad=16,
+                dtype="float32"),
+            "seq": dataclasses.replace(
+                base, num_layers=2, d_model=256, num_heads=4, num_kv_heads=1,
+                head_dim=64, d_ff=256, vocab_size=256, tp_pad=1,
+                dtype="float32"),
+            "moe": dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
+                                       dtype="float32")}
+    rng = np.random.default_rng(0)
+    cases = {}
+    for name, cfg in cfgs.items():
+        tree = tree_map(lambda t: t.numpy(), T.init_params(
+            cfg, torch.Generator().manual_seed(1), device="cpu"))
+        cases[name] = (cfg, tree, 0, rng.integers(
+            0, cfg.vocab_size, (2, 12)).astype(np.int32), 22, 6)
+    cases["rep"] = cases["seq"][:4] + (21, 6)
+    two = distributed.spawn(ranks.run_cases, 2, "cuda", cases, "cuda",
+                            backend="gloo")
+    one = ranks.run_cases(0, 1, None, cases)
+    for name in cases:
+        got, want = two[0][name], one[name]
+        for g, w in zip([got["prefill"], *got["steps"]],
+                        [want["prefill"], *want["steps"]]):
+            assert np.abs(g - w).max() <= 1e-3 * np.abs(w).max(), name
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        np.testing.assert_array_equal(two[1][name]["tokens"], got["tokens"])
+        np.testing.assert_array_equal(two[1][name]["prefill"], got["prefill"])

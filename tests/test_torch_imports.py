@@ -77,6 +77,8 @@ def _meta_calls():
     qm = torch.empty(1, 16, **m)
     return {"decode_attention": lambda: ops.decode_attention(q, cache, cache,
                                                              5),
+            "decode_attention_shard": lambda: ops.decode_attention_shard(
+                q, cache, cache, 5, 32, 64),
             "flash_attention": lambda: ops.flash_attention(fq, fk, fk, 16,
                                                            16),
             "flash_attention_bwd": lambda: ops.KERNELS["flash_attention_bwd"](

@@ -7,8 +7,9 @@ OLMoE); ``model_flops_for`` equals the reference's on all 40 (arch x
 shape) combos; the H100 profiles follow the reference's formulas;
 ``layer_costs`` feeds ``set_layer_cost_overrides``; the count of the
 smollm-8m forward sits within a stated margin of the reference's HLO
-count; a stand-in refuses a real tensor; and the dry run writes one
-record per combo."""
+count; a stand-in refuses a real tensor; the collective term of a
+rank's program; and the dry run writes one record per combo, a pod
+decode's with rank 0's collective term, a host one's with none."""
 import dataclasses
 import json
 
@@ -180,6 +181,7 @@ def test_stand_ins_refuse_real_tensors():
          "scale": torch.ones(1, 1), "mu": torch.zeros(1, 1)}
     calls = {"flash_attention": (q, k, k, 8, 8),
              "decode_attention": (q[:, 0], k, k, 3),
+             "decode_attention_shard": (q[:, 0], k, k, 3, 8, 16),
              "qdense": (x, w),
              "quantize_tensor": (x, 0.5, 0.0),
              "quantize_pack4": (x, 0.5, 0.0),
@@ -229,6 +231,25 @@ def test_roofline_terms():
     assert (d["flops_kind"], d["bytes_kind"]) == ("matmul", "unfused")
     f32 = dataclasses.replace(roof, peak="f32")
     assert f32.t_compute == pytest.approx(989 / 67)
+    # a rank's program: its model axis's bytes over NVLink within a node,
+    # over the network links beyond one
+    summary = op_cost.CostSummary(flops=989e12, bytes=6.7e12, collectives={
+        "all-reduce": 900e9, "all-gather": 450e9})
+    node = analysis.analyze(summary, arch="a", shape="s", chips=8,
+                            model_axis=8)
+    assert node.coll_gbytes == pytest.approx(1350.0)
+    assert node.coll_breakdown == {"all-gather": 450.0, "all-reduce": 900.0}
+    assert node.t_collective == pytest.approx(3.0)
+    assert node.bottleneck == "collective" and node.model_link == "nvlink"
+    assert node.useful_flop_frac is None and node.rank_program
+    pod = analysis.analyze(summary, arch="a", shape="s", chips=256,
+                           model_axis=16, model_flops=989e12 * 128)
+    assert pod.t_collective == pytest.approx(27.0) and pod.model_link == "nic"
+    assert pod.useful_flop_frac == pytest.approx(0.5)
+    unsplit = analysis.analyze(summary, arch="a", shape="s", chips=256,
+                               model_axis=16, coll_note="train")
+    assert unsplit.t_collective is None and not unsplit.rank_program
+    assert unsplit.to_dict()["coll_note"] == "train"
 
 
 def test_layer_costs_feed_the_backend_overrides():
@@ -291,6 +312,19 @@ def test_dryrun_writes_a_record_per_combo(tmp_path):
         ("host", 1, "pod", 256)
     assert host["fits_80gb"] is False                # a 130 GB KV cache
     assert pod["arg_bytes_per_card"] < host["arg_bytes_per_card"] / 16
+    # the pod's decode is rank 0's program: its shards' bytes, its
+    # collectives over the model axis (16 cards: beyond one node)
+    spec = steps.build_step(t_get_config("smollm-135m"),
+                            INPUT_SHAPES["decode_32k"], serve_quant=8,
+                            mesh=mesh.make_production_mesh())
+    assert pod["arg_bytes_per_card"] == sum(
+        t.numel() * t.element_size() for t in tree_leaves(spec.args))
+    assert pod["t_collective"] > 0 and pod["rank_program"]
+    assert pod["model_link"] == "nic" and pod["coll_note"] is None
+    assert set(pod["coll_breakdown"]) == {"all-reduce", "all-gather",
+                                          "all-to-all"}
+    assert host["t_collective"] is None and host["coll_gbytes"] is None
+    assert pod["gflops"] < host["gflops"] / 16
     assert host["model_gflops"] == pytest.approx(analysis.model_flops_for(
         t_get_config("smollm-135m"), INPUT_SHAPES["decode_32k"]) / 1e9)
     assert host["t_memory"] > host["t_compute"] and host["count_s"] > 0
