@@ -28,7 +28,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    128 (B 16 x S 128 and B 4 x S 64), decode attention there on a ring
    of 96, quantize on one expert period; the ring-shard variant of
    decode attention, out and row log-sum-exp, at smollm-135m's and
-   chatglm3-6b's decode_32k shards on the pod mesh and at phase 9b's
+   chatglm3-6b's decode_32k shards on the pod mesh (chatglm3-6b's in bf16
+   and float8: the tensor-core shard kernel) and at phase 9b's
    chatglm3-6b shard, its shards merged against the whole ring),
    with a second call bitwise equal to the first,
    and time kernel, plain version, the closest single PyTorch library
@@ -39,9 +40,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    median over its floor (an empty launch); the tiled qmatmul route is
    timed on the MLP up- and down-projections at M = 32, 128 and 256. The
    build's ptxas report of the redesigned kernels (registers, spills, a
-   spill fails the run), their dynamic shared memory and the SASS HMMA
-   counts of the tensor-core kernels (flash forward and backward, tiled
-   qmatmul; one without HMMA fails the run) print first;
+   spill fails the run), their dynamic shared memory, the ring-shard
+   launch's resident CTAs per SM and clusters, before (CUDA cores) and
+   after (tensor cores), and the SASS HMMA counts of the tensor-core
+   kernels (flash forward and backward, tiled qmatmul, the ring-shard
+   decode attention; one without HMMA fails the run) print first;
 4. the request loop on smollm-135m at its registered shape (30 layers,
    d_model 576, 9/3 heads padded to 4 x 4 by tp_pad=16, d_ff 1536, vocab
    49152, bf16) with seeded random weights: register -> calibrate ->
@@ -1146,26 +1149,32 @@ def check_decode_attention_shard(torch, timer, records):
     mesh (B 8, KVp 4, Gp 4, hd 64, slots [slot0, slot0 + 2048) of a
     32,768-slot bf16 ring), chatglm3-6b's there (KVp 2, Gp 16, hd 128),
     and the shard the phase's chatglm3-6b run gives each of its 4 ranks
-    (B 4, 18 of 72 slots); at each, shards partly live, wholly live, past
+    (B 4, 18 of 72 slots), and chatglm3-6b's pod shard again in float8
+    (the tensor-core route's other cache dtype); at each, shards partly
+    live, wholly live, past
     the position (zeros and -inf) and on a wrapped ring, the position
     from the host and from the card, every call repeated for bitwise
     equality; one shard of each ring merged with the others
     (``attention.combine_shards``) against ``decode_attention_ref`` on
     the whole ring. Out and lse are f32 on both sides, so each is held
     within 1e-4 of its largest magnitude (at least 1), as the f32 checks
-    are; the error reported is the absolute one. Then row 3's launch over
+    are (the tensor-core route's hi/lo products keep the f32 query and
+    probabilities to ~2^-17); the error reported is the absolute one.
+    Then row 3's launch over
     a block of the KV heads of a whole ring (the ring every rank holds
     where its slots do not split, read at ``kv0``), at chatglm3-6b's
     rank shape at 4 ranks over a 71-slot ring (one KV head of two, 8 of
     its 16 queries): bitwise the launch over a copy of the block, and
     within row 3's tolerance of the plain version. Timed on the two pod
-    shards wholly live, beside SDPA's flash route with its LSE
+    shards wholly live (chatglm3-6b's in bf16 and float8), beside SDPA's
+    flash route with its LSE
     (``_scaled_dot_product_flash_attention`` on K/V repeated per head:
     the yardstick, which the port never calls)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_shard_cuda)
     from repro_torch.models.attention import combine_shards
+    from repro_torch.models.common import to_storage
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rtol = 1e-4    # f32 out and lse on both sides, over their largest
 
@@ -1178,18 +1187,21 @@ def check_decode_attention_shard(torch, timer, records):
                 rtol * max(1.0, want.abs().max().item()))
 
     worst = 0.0
-    cases = (  # (name, B, KVp, Gp, hd, shard slots, ring, positions)
+    bf16, f8 = torch.bfloat16, torch.float8_e4m3fn
+    cases = (  # (name, B, KVp, Gp, hd, shard slots, ring, positions, cache)
         ("smollm_pod", 8, 4, 4, 64, 2048, 32768,
-         (100, 2047 + 2048 * 3 + 17, 32767, 32768 + 5000)),
+         (100, 2047 + 2048 * 3 + 17, 32767, 32768 + 5000), bf16),
         ("chatglm3_pod", 8, 2, 16, 128, 2048, 32768,
-         (100, 2047 + 2048 * 3 + 17, 32767, 32768 + 5000)),
-        ("chatglm3_smoke", 4, 2, 16, 128, 18, 72, (63, 64, 70, 71)))
+         (100, 2047 + 2048 * 3 + 17, 32767, 32768 + 5000), bf16),
+        ("chatglm3_smoke", 4, 2, 16, 128, 18, 72, (63, 64, 70, 71), bf16),
+        ("chatglm3_pod_f8", 8, 2, 16, 128, 2048, 32768,
+         (100, 2047 + 2048 * 3 + 17, 32767, 32768 + 5000), f8))
     timed = {}
-    for name, b, kvp, gp, hd, n, ring, positions in cases:
+    for name, b, kvp, gp, hd, n, ring, positions, cache in cases:
         q = torch.randn(b, kvp, gp, hd, generator=g, device="cuda").to(
             torch.bfloat16).float()
-        kv = torch.randn(2, b, ring, kvp, hd, generator=g, device="cuda").to(
-            torch.bfloat16)
+        kv = to_storage(torch.randn(2, b, ring, kvp, hd, generator=g,
+                                    device="cuda"), cache)
         for slot0 in sorted({0, n, ring - n}):
             ck = kv[0, :, slot0:slot0 + n].contiguous()
             cv = kv[1, :, slot0:slot0 + n].contiguous()
@@ -1214,6 +1226,7 @@ def check_decode_attention_shard(torch, timer, records):
                 empty_ok = bool(torch.equal(torch.isfinite(lse), live)) and \
                     bool(torch.all(out[~live] == 0))
                 emit({"check": "decode_attention_shard", "case": name,
+                      "cache": str(cache)[6:],
                       "slot0": slot0, "pos": pos, "shard": n, "ring": ring,
                       "live_rows": int(live.sum()),
                       "out_max_abs_err": err_o, "out_tol": tol_o,
@@ -1268,7 +1281,8 @@ def check_decode_attention_shard(torch, timer, records):
                                      f"copied block {same}")
     flash = torch.ops.aten._scaled_dot_product_flash_attention
     rec = {}
-    for name, key in (("smollm_pod", None), ("chatglm3_pod", "chatglm3")):
+    for name, key in (("smollm_pod", None), ("chatglm3_pod", "chatglm3"),
+                      ("chatglm3_pod_f8", "chatglm3_f8")):
         q, ck, cv, n, ring = timed[(name, 0)]
         b, kvp, gp, hd = q.shape
         pos = ring - 1                      # the shard wholly live
@@ -1276,13 +1290,14 @@ def check_decode_attention_shard(torch, timer, records):
         t = timer(lambda: decode_attention_shard_cuda(q, ck, cv, pos_t, 0,
                                                       ring))
         qs = q.to(torch.bfloat16).reshape(b, kvp * gp, 1, hd)
-        ks = ck.permute(0, 2, 1, 3).repeat_interleave(gp, dim=1).contiguous()
-        vs = cv.permute(0, 2, 1, 3).repeat_interleave(gp, dim=1).contiguous()
+        ks, vs = (c.to(torch.bfloat16).permute(0, 2, 1, 3).repeat_interleave(
+            gp, dim=1).contiguous() for c in (ck, cv))
         lib = timer(lambda: flash(qs, ks, vs, 0.0, False, False))
         moved = nbytes(q, ck, cv) + nbytes(q) + b * kvp * gp * 4
         bnd, by = bound_ms(moved, 4 * b * kvp * gp * n * hd)
-        what = (f"B={b} KVp={kvp} Gp={gp} hd={hd}, bf16 shard of {n} of a "
-                f"{ring}-slot ring, all live, position on the card")
+        what = (f"B={b} KVp={kvp} Gp={gp} hd={hd}, {str(ck.dtype)[6:]} "
+                f"shard of {n} of a {ring}-slot ring, all live, position "
+                f"on the card")
         row = dict(ms=t["ms"], ms_min=t["ms_min"],
                    ms_over_floor=t["ms_over_floor"], bound_ms=bnd,
                    library_ms=lib["ms"], library_ms_min=lib["ms_min"],
@@ -1331,6 +1346,37 @@ def profile_decode_attention(torch, timer):
                 rec["device_pos"] = timer(
                     lambda: decode_attention_cuda(q, ck, cv, pos_t))
             emit({"decode_attention_profile": rec})
+
+
+SHARD_PROFILES = (  # (name, B, KVp, Gp, hd, shard slots, cache, live)
+    ("smollm_pod", 8, 4, 4, 64, 2048, "bfloat16", (2048, 301)),
+    ("chatglm3_pod", 8, 2, 16, 128, 2048, "bfloat16", (2048, 301)),
+    ("chatglm3_pod_f8", 8, 2, 16, 128, 2048, "float8_e4m3fn", (2048,)))
+
+
+def profile_decode_attention_shard(torch, timer):
+    """The ring-shard decode attention's device ms (``Timer``) at
+    smollm-135m's and chatglm3-6b's decode_32k pod shards (slots [0,
+    2048) of a 32,768-slot ring, the position on the card), wholly live
+    and with 301 live slots, chatglm3-6b's also in float8. One
+    ``decode_attention_shard_profile`` line each; with ``--src`` an
+    earlier tree's kernel, to compare in turns."""
+    from repro_torch.kernels.decode_attention import \
+        decode_attention_shard_cuda
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    ring = 32768
+    for name, b, kvp, gp, hd, n, cache, live in SHARD_PROFILES:
+        dt = getattr(torch, cache)
+        q = torch.randn(b, kvp, gp, hd, generator=g, device="cuda").to(
+            torch.bfloat16).float()
+        ck, cv = (torch.randn(b, n, kvp, hd, generator=g, device="cuda").to(
+            dt) for _ in range(2))
+        for k in live:
+            pos_t = torch.tensor(k - 1, dtype=torch.int64, device="cuda")
+            emit({"decode_attention_shard_profile": {
+                "case": name, "cache": cache, "live": k,
+                "device_pos": timer(lambda: decode_attention_shard_cuda(
+                    q, ck, cv, pos_t, 0, ring))}})
 
 
 def check_flash_attention(torch, timer, records, calib_batch, seq):
@@ -5838,10 +5884,11 @@ PORT_ONLY = {"flash_attention_bwd": (
     "leaves to XLA's autodiff of _blocked_causal_attention (it has no "
     "backward kernel)"),
              "decode_attention_shard": (
-    "port-only variant of decode_attention (the same kernel): a "
-    "shard of a ring split on its slots over the model axis, with the row "
-    "log-sum-exp; the reference's GSPMD partitions decode_attention's "
-    "ring instead")}
+    "port-only variant of decode_attention: a shard of a ring split on "
+    "its slots over the model axis, with the row log-sum-exp (bf16 and "
+    "float8 shards on the tensor cores, decode_shard_tc_kernel; f32 "
+    "shards on decode_attention's kernel); the reference's GSPMD "
+    "partitions decode_attention's ring instead")}
 
 # kernels whose design changed after their first port, and in which PR
 REDESIGNED = {"qmatmul4": "PR 13", "flash_attention": "PR 13",
@@ -5920,15 +5967,36 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
 # source (qmm_skinny and qmm_tc: the int8 and the int4 instantiations)
 REDESIGNED_ENTRIES = {"flash_attention": ("flash_attn_tc_kernel",),
                       "qmatmul": ("qmm_skinny", "qmm_tc"),
-                      "decode_attention": ("decode_split_kernel",),
+                      "decode_attention": ("decode_split_kernel",
+                                           "decode_shard_tc_kernel"),
                       "flash_attention_bwd": ("dq_tc_kernel",
                                               "dkv_tc_kernel")}
 
 # the tensor-core kernels, by source: each must hold HMMA in its SASS
 TENSOR_CORE_ENTRIES = (("flash_attention", "flash_attn_tc_kernel"),
                        ("qmatmul", "qmm_tc"),
+                       ("decode_attention", "decode_shard_tc_kernel"),
                        ("flash_attention_bwd", "dq_tc_kernel"),
                        ("flash_attention_bwd", "dkv_tc_kernel"))
+
+
+def shard_occupancy(torch, build) -> dict:
+    """Resident CTAs per SM and clusters resident on the card at once of
+    the ring-shard launch at the pod shards (2048 slots; smollm-135m's
+    Gp 4, hd 64 and chatglm3-6b's Gp 16, hd 128), by the CUDA runtime's
+    occupancy calculators: ``split`` the CUDA-core kernel the shard ran
+    before (``decode_split_kernel``), ``tc`` the tensor-core one."""
+    occ = build.launcher("decode_attention",
+                         "decode_attention_shard_occupancy", "iiiiii")
+    out = {}
+    for name, gp, hd in (("smollm_pod", 4, 64), ("chatglm3_pod", 16, 128)):
+        for cache in ("bfloat16", "float8_e4m3fn"):
+            code = build.DTYPE_CODES[getattr(torch, cache)]
+            out[f"{name} {cache}"] = {
+                route: {"ctas_per_sm": occ(r, 2048, gp, hd, code, 0),
+                        "active_clusters": occ(r, 2048, gp, hd, code, 1)}
+                for r, route in enumerate(("split", "tc"))}
+    return out
 
 
 def ptxas_entries(out_dir, wanted):
@@ -5992,7 +6060,8 @@ def main(argv=None) -> int:
                     help="only build the kernels and time decode "
                          "attention at the request loop's, the launcher's "
                          "and a 2048-slot ring, host-int and device "
-                         "position")
+                         "position, then its ring-shard variant at the "
+                         "pod shards of smollm-135m and chatglm3-6b")
     ap.add_argument("--profile-requests", action="store_true",
                     help="only build the kernels and time the request "
                          "series (phase 7's QPART request loop, one "
@@ -6014,7 +6083,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree whose repro_torch to import (with "
                          "--profile-launcher, --profile-tiled, "
-                         "--profile-flash, --profile-decode-attention, "
+                         "--profile-flash, --profile-decode-attention "
+                         "(the ring-shard timings too), "
                          "--profile-requests or --profile-forward: an "
                          "earlier commit's src/, "
                          "unpacked by git archive)")
@@ -6093,6 +6163,7 @@ def main(argv=None) -> int:
         if args.profile_decode_attention:
             emit({"decode_attention_sha256": decode_attention_digest(torch)})
             profile_decode_attention(torch, timer)
+            profile_decode_attention_shard(torch, timer)
             return 0
         profile_tiled(torch, timer)
         del timer
@@ -6139,6 +6210,8 @@ def main(argv=None) -> int:
                               "i")
     da_grid = build.launcher("decode_attention", "decode_attention_grid",
                              "i")
+    sh_smem = build.launcher("decode_attention",
+                             "decode_attention_shard_smem", "iiii")
     emit({"dynamic_smem_bytes": {
         **{f"flash_attn_tc_kernel hd={hd}": tc_smem(hd) for hd in (64, 128)},
         **{f"{name} hd={hd}": bwd_smem(hd, which)
@@ -6152,7 +6225,14 @@ def main(argv=None) -> int:
            da_smem(n, 4, 64, build.DTYPE_CODES[d])
            for n in (96, 256, 2048)
            for dt, d in (("bf16", torch.bfloat16),
+                         ("f8e4m3", torch.float8_e4m3fn))},
+        **{f"decode_shard_tc_kernel shard={n} Gp={gp} hd={hd} {dt}":
+           sh_smem(n, gp, hd, build.DTYPE_CODES[d])
+           for n, gp, hd in ((2048, 4, 64), (2048, 16, 128), (18, 16, 128))
+           for dt, d in (("bf16", torch.bfloat16),
                          ("f8e4m3", torch.float8_e4m3fn))}}})
+    emit({"decode_attention_shard_occupancy": shard_occupancy(torch,
+                                                              build)})
     emit({"qmm_tc_k_slices": {
         f"{w} K={k} N={n}": qtc_split(k, n) for w, (k, n) in (
             ("wq", (576, 1024)), ("wk", (576, 256)), ("wo", (1024, 576)),
@@ -6284,8 +6364,9 @@ def main(argv=None) -> int:
             row["olmoe"] = {"launches": sum(r[name] for run, r in runs.items()
                                             if run.startswith("olmoe")),
                             **rec["olmoe"]}
-        if rec.get("chatglm3"):
-            row["chatglm3"] = rec["chatglm3"]
+        for key in ("chatglm3", "chatglm3_f8"):
+            if rec.get(key):
+                row[key] = rec[key]
         kernels.append(row)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

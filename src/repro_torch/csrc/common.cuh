@@ -33,14 +33,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);  // round to nearest even, as torch's cast
 }
 
+// A refused call's error, returned to the caller and cleared from the
+// runtime's last-error state: left there, the next launch's
+// cudaGetLastError() check would report it again for a launch that ran.
+inline cudaError_t refused(cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
 // Kernels that need more than the 48 KB of static shared memory have to
 // opt in before launch; the call is cheap and idempotent.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  return refused(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
 }
 
 // The largest thread-block cluster every Hopper part runs (the H100
@@ -56,8 +64,8 @@ inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid,
                                   cudaStream_t stream, Args... args) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err == cudaSuccess && static_cast<int>(grid.x) > kPortableCluster)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = refused(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -72,7 +80,7 @@ inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return refused(err);
   return cudaGetLastError();
 }
 

@@ -10,11 +10,18 @@ and a CUDA graph replays it. CUDA tensors only; the plain version is
 ``kernels.ref.decode_attention_ref`` and ``kernels.ops.decode_attention``
 picks by device. ``decode_attention_cuda.launches`` counts launches.
 
-:func:`decode_attention_shard_cuda` launches the same kernel over a
-shard of a ring (the model-parallel rank program's sequence-sharded
-ring, ``models.attention``): the global slots ``[slot0, slot0 + n)`` of
-a ring of ``ring`` slots, returning the f32 output and each row's f32
-log-sum-exp, by which the ranks merge their shards. Its plain version is
+:func:`decode_attention_shard_cuda` runs over a shard of a ring (the
+model-parallel rank program's sequence-sharded ring,
+``models.attention``): the global slots ``[slot0, slot0 + n)`` of a ring
+of ``ring`` slots, returning the f32 output and each row's f32
+log-sum-exp, by which the ranks merge their shards. Its route follows
+the cache's dtype: bf16 and float8_e4m3fn shards run
+``decode_shard_tc_kernel`` on the tensor cores (the query group as the
+MMA's 16 rows, the f32 query and probabilities as bf16 hi/lo pairs, each
+CTA's partial combined over the cluster column by column); f32 shards
+keep the CUDA-core kernel of :func:`decode_attention_cuda`, since one
+bf16 product cannot form an f32 K's scores exactly and no path on the
+card shards an f32 ring. Its plain version is
 ``kernels.ref.decode_attention_shard_ref``; it counts its own launches.
 """
 from __future__ import annotations

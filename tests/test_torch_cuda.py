@@ -10,7 +10,11 @@ the tiled route; the tiled tensor-core route (M > 16, bf16 x) at every
 projection shape of smollm-135m and ragged ones, unaligned codes and x,
 and each output row the same bits at every M; decode attention's cluster
 split over every change of
-its CTA count up to a 4096-slot ring, wrapped and not; the flash
+its CTA count up to a 4096-slot ring, wrapped and not; its ring-shard
+variant over every shard of four rings (bf16 and float8 shards on the
+tensor cores at Gp 1, 4, 7, 16 and hd 64, 128, 256; f32 shards on the
+CUDA-core kernel), the position from the host and from the card, and
+captured in a CUDA graph; the flash
 backward kernel (with the forward's row log-sum-exp) over ragged S,
 both head dims, both dtypes and three GQA groupings, zero gradients on
 masked keys and zeroed heads, and autograd through the kernel pair.
@@ -2182,22 +2186,47 @@ def test_launch_train_graphed_bitwise_eager(gen):
     assert e["captures"] == {"step": 0, "sampler": 0}
 
 
-@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16,
-                                   torch.float8_e4m3fn])
+def _row3_takes(ring, gp, hd, cache):
+    """Whether row 3's kernel launches over a ring of ``ring`` slots at Gp,
+    hd: its leader holds every rank's (Gp, hd) partial in shared memory,
+    which at Gp 16, hd 256 over 2048 slots passes the card's limit (the
+    tensor-core shard kernel keeps one partial a CTA and takes it)."""
+    from repro_torch.kernels import build
+    smem = build.launcher("decode_attention", "decode_attention_smem",
+                          "iiii")(ring, gp, hd, build.DTYPE_CODES[cache])
+    limit = getattr(torch.cuda.get_device_properties(0),
+                    "shared_memory_per_block_optin", 232448)
+    return 0 <= smem <= limit
+
+
+# (cache, Gp, hd): every cache dtype at the first shape; bf16 and float8
+# shards (the tensor-core route) at every query group and three head dims
+SHARD_HEADS = [(c, 3, 64) for c in (torch.float32, torch.bfloat16,
+                                     torch.float8_e4m3fn)] + \
+    [(c, gp, hd) for c in (torch.bfloat16, torch.float8_e4m3fn)
+     for gp in (1, 4, 7, 16) for hd in (64, 128, 256)]
+
+
+@pytest.mark.parametrize("cache,gp,hd", SHARD_HEADS,
+                         ids=[f"{str(c)[6:]}-gp{gp}-hd{hd}"
+                              for c, gp, hd in SHARD_HEADS])
 @pytest.mark.parametrize("n,ring", [(1, 4), (16, 64), (48, 96),
                                     (512, 2048)])
-def test_decode_attention_shard(gen, cache, n, ring):
+def test_decode_attention_shard(gen, cache, gp, hd, n, ring):
     """The ring-shard launch over every shard of a ring, at positions
-    before, at and past its wrap: out and row log-sum-exp within the
+    before, at and past its wrap (shards partly live, wholly live, past
+    the position, on a wrapped ring): out and row log-sum-exp within the
     tolerances of ``test_decode_attention_edges`` of the plain version, a
     shard past the position zeros and -inf exactly, one launch a call,
-    the same bits on a second call and with the position on the card;
-    with slot0 = 0 and the ring its own, the out of
-    ``decode_attention_cuda`` on the same f32 query, bit for bit."""
+    the same bits on a second call and with the position on the card.
+    With slot0 = 0 and the ring its own: for f32 caches (row 3's kernel)
+    the out of ``decode_attention_cuda`` on the same f32 query, bit for
+    bit; for bf16 and float8 caches (the tensor-core kernel) within the
+    same tolerance of it."""
     from repro_torch.kernels.decode_attention import \
         decode_attention_shard_cuda
-    q = torch.randn(2, 2, 3, 64, generator=gen, device="cuda")
-    kv = torch.randn(2, 2, ring, 2, 64, generator=gen, device="cuda").to(
+    q = torch.randn(2, 2, gp, hd, generator=gen, device="cuda")
+    kv = torch.randn(2, 2, ring, 2, hd, generator=gen, device="cuda").to(
         cache)
     tol = 1e-4 if cache == torch.float32 else 2e-2
     for pos in (0, n // 2, ring - 1, ring + n // 3, 5 * ring + 1):
@@ -2224,7 +2253,71 @@ def test_decode_attention_shard(gen, cache, n, ring):
                 assert torch.equal(again[0], out) and \
                     torch.equal(again[1], lse)
         whole = decode_attention_shard_cuda(q, kv[0], kv[1], pos, 0, ring)[0]
-        assert torch.equal(whole, decode_attention_cuda(q, kv[0], kv[1], pos))
+        if not _row3_takes(ring, gp, hd, cache):
+            with pytest.raises(RuntimeError, match="cudaError_t"):
+                decode_attention_cuda(q, kv[0], kv[1], pos)
+            continue
+        row3 = decode_attention_cuda(q, kv[0], kv[1], pos)
+        if cache == torch.float32:
+            assert torch.equal(whole, row3)
+        else:
+            assert _err(whole, row3) <= tol, pos
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float8_e4m3fn])
+def test_decode_attention_shard_graph_replay(gen, cache):
+    """The tensor-core shard launch captured in a CUDA graph with its
+    position on the card (chatglm3-6b's head shape, KVp 2, Gp 16, hd 128,
+    a 64-slot shard at slot 64 of a 256-slot ring), replayed at positions
+    where the shard is partly live, past the ring's wrap and not yet
+    live: out and lse bit for bit the eager launch's at each; a replay
+    launches no kernel through the wrapper, so the counter stays."""
+    from repro_torch.kernels.decode_attention import \
+        decode_attention_shard_cuda
+    ring, n, slot0 = 256, 64, 64
+    q = torch.randn(2, 2, 16, 128, generator=gen, device="cuda")
+    ck, cv = (torch.randn(2, n, 2, 128, generator=gen, device="cuda").to(
+        cache) for _ in range(2))
+    pos_t = torch.zeros((), dtype=torch.int64, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm-up off the capture
+        decode_attention_shard_cuda(q, ck, cv, pos_t, slot0, ring)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, lse = decode_attention_shard_cuda(q, ck, cv, pos_t, slot0, ring)
+    launches = decode_attention_shard_cuda.launches
+    for pos in (100, 3 * ring + 10, 30):
+        pos_t.fill_(pos)
+        graph.replay()
+        want_out, want_lse = decode_attention_shard_cuda(q, ck, cv, pos,
+                                                         slot0, ring)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want_out) and torch.equal(lse, want_lse), pos
+        assert torch.isfinite(lse).all() == (pos >= slot0), pos
+    assert decode_attention_shard_cuda.launches == launches + 3
+
+
+def test_refused_launch_leaves_no_error(gen):
+    """A launch the card refuses (row 3's kernel at Gp 16, hd 256 over a
+    2048-slot ring: its partials pass the shared-memory limit) raises,
+    and the next launches, of that kernel and of another, run: the
+    refusal is not reported again by their error checks."""
+    from repro_torch.kernels.decode_attention import \
+        decode_attention_shard_cuda
+    q = torch.randn(1, 1, 16, 256, generator=gen, device="cuda")
+    kv = torch.randn(2, 1, 2048, 1, 256, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    assert not _row3_takes(2048, 16, 256, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        decode_attention_cuda(q, kv[0], kv[1], 100)
+    out, _ = decode_attention_shard_cuda(q, kv[0], kv[1], 100, 0, 2048)
+    small = decode_attention_cuda(
+        *(t.contiguous() for t in (q[..., :64], kv[0, :, :64, :, :64],
+                                   kv[1, :, :64, :, :64])), 30)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(small).all()
 
 
 @pytest.mark.parametrize("cache", [torch.bfloat16, torch.float8_e4m3fn])

@@ -140,6 +140,70 @@ class TestDecodeAttention:
                                    rtol=TOL_BF16)
 
 
+class TestDecodeAttentionShard:
+    """The ring-shard decode attention's plain version
+    (``decode_attention_shard_ref``, the yardstick the card holds the
+    tensor-core shard kernel to) at chatglm3-6b's head shape (KVp 2, Gp
+    16, hd 128), B 2, over a 64-slot ring in four 16-slot shards: the
+    shards' outputs merged by their log-sum-exp
+    (``models.attention.combine_shards``) against the reference's
+    decode attention over the whole ring, before, at and after the wrap,
+    on bf16 and float8 caches with an f32 query. Both sides compute in
+    the query's f32 and differ only in sum order and the merge's
+    reweighting, so TOL_F32; the merged lse is held to a float64
+    log-sum-exp of the ring's live scores to the same tolerance."""
+
+    B, KVP, GP, HD, RING, SHARD = 2, 2, 16, 128, 64, 16
+
+    def _inputs(self, cache_dtype):
+        rng = _rng(11)
+        q = rng.standard_normal((self.B, self.KVP, self.GP, self.HD))
+        kv = rng.standard_normal((2, self.B, self.RING, self.KVP, self.HD))
+        ck = jnp.asarray(kv[0], jnp.float32).astype(cache_dtype)
+        cv = jnp.asarray(kv[1], jnp.float32).astype(cache_dtype)
+        return jnp.asarray(q, jnp.float32), ck, cv
+
+    def _merged(self, q, ck, cv, pos):
+        from repro_torch.models.attention import combine_shards
+        tq, tk, tv = to_torch(q), to_torch(ck), to_torch(cv)
+        parts = [ref.decode_attention_shard_ref(
+            tq, tk[:, s:s + self.SHARD].contiguous(),
+            tv[:, s:s + self.SHARD].contiguous(), pos, s, self.RING)
+            for s in range(0, self.RING, self.SHARD)]
+        lses = torch.stack([p[1] for p in parts])
+        out = combine_shards(torch.stack([p[0] for p in parts]), lses)
+        return to_numpy(out), to_numpy(torch.logsumexp(lses, dim=0))
+
+    @pytest.mark.parametrize("cache_dtype", [jnp.bfloat16, jnp.float8_e4m3fn],
+                             ids=["bf16", "float8"])
+    @pytest.mark.parametrize("pos", [5, 16, 40, 63, 85, 199])
+    def test_merged_shards_match_reference(self, cache_dtype, pos):
+        q, ck, cv = self._inputs(cache_dtype)
+        got, lse = self._merged(q, ck, cv, pos)
+        want = np.asarray(jref.decode_attention_ref(q, ck, cv, pos))
+        np.testing.assert_allclose(got, want, atol=TOL_F32, rtol=TOL_F32)
+        k64 = np.asarray(ck.astype(jnp.float32), np.float64)
+        sc = np.einsum("bkgd,bskd->bkgs", np.asarray(q, np.float64), k64) \
+            * self.HD ** -0.5
+        live = (pos + 1 >= self.RING) | (np.arange(self.RING) <= pos % self.RING)
+        sc = np.where(live, sc, -np.inf)
+        top = sc.max(-1)
+        want_lse = top + np.log(np.exp(sc - top[..., None]).sum(-1))
+        np.testing.assert_allclose(lse, want_lse, atol=TOL_F32, rtol=TOL_F32)
+
+    @pytest.mark.parametrize("cache_dtype", [jnp.bfloat16, jnp.float8_e4m3fn],
+                             ids=["bf16", "float8"])
+    def test_merged_shards_match_pallas(self, cache_dtype):
+        """The interpret-mode Pallas kernel on the wrapped ring, two cache
+        blocks."""
+        q, ck, cv = self._inputs(cache_dtype)
+        got, _ = self._merged(q, ck, cv, 85)
+        pallas = np.asarray(decode_attention_pallas(q, ck, cv, 85,
+                                                    block_k=32,
+                                                    interpret=True))
+        np.testing.assert_allclose(got, pallas, atol=TOL_F32, rtol=TOL_F32)
+
+
 class TestFlashAttention:
     """Causal GQA attention: the port's blocked plain version == the
     reference's blocked version and its interpret-mode flash kernel."""
