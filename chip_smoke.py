@@ -10,6 +10,7 @@
     python3 chip_smoke.py --profile-forward [--src OTHER/src]
     python3 chip_smoke.py --profile-host-mesh
     python3 chip_smoke.py --profile-model-parallel
+    python3 chip_smoke.py --profile-model-parallel-train
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -137,21 +138,21 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    peak memory, the token stream's own time apart), and the sampler's
    ms graphed and eager in turns, its batches bitwise; then the host
    mesh (``host_mesh_phase``, ``repro_torch.launch.distributed``): the
-   launcher at one rank over NCCL, graphed with the gradient all-reduce
-   inside the captured step, bitwise the graphed twin above (metrics,
-   params, moments, ``step``), its step profiled (the all-reduce's device
-   ms) after WATCHDOG_CAPTURES captures each right after eager
-   collectives; two ranks on this card over ``gloo`` (eager), their
-   losses within MESH_LOSS_RTOL of one rank's and their parameters
-   bitwise each other's; with two cards or more, one rank per card over
-   NCCL, graphed, held the same way, each card's step wall and busy ms,
-   all-reduce ms and GB and reserved GB (with one card, a line saying
-   so); then (9b, ``model_parallel_phase``) the serving steps over the
-   model axis (``launch.model_parallel``): with four cards one NCCL rank
-   a card, else two ``gloo`` ranks on this card (four for chatglm3-6b),
+   launcher at one rank over NCCL, graphed (a data axis of one: no
+   collective in the step), bitwise the graphed twin above (metrics,
+   params, moments, ``step``), its step profiled after WATCHDOG_CAPTURES
+   captures each right after eager collectives; two ranks on this card
+   over ``gloo`` (eager), their losses within MESH_LOSS_RTOL of one
+   rank's and their parameters bitwise each other's; with two cards or
+   more, one rank per card over NCCL, graphed, held the same way, each
+   card's step wall and busy ms, all-reduce ms and GB and reserved GB
+   (with one card, a line saying so); then (9b,
+   ``model_parallel_phase``) the serving steps over the model axis
+   (``launch.model_parallel``): with four cards one NCCL rank a card,
+   else two ``gloo`` ranks on this card (four for chatglm3-6b),
    each holding its shards of seeded weights (``shard_tree``) and running
    ``launch.serve.generate`` over the axis: smollm-135m at full width, B
-   4 x 64 and 32 new tokens at --quant 0, 8 and 4 (KV heads split),
+   4 x 64 and 16 new tokens at --quant 0, 8 and 4 (KV heads split),
    OLMoE-1B-7B expert-parallel with 8 new tokens, chatglm3-6b two layers
    deep at four ranks (its 72-slot ring split on its slots: the
    ring-shard decode attention; and its 71-slot ring, which does not
@@ -160,7 +161,31 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    first; per rank the prefill's and last step's logits against the
    twin's (within MP_LOGIT_RTOL of its largest), the tokens' agreement,
    the eager step's wall ms, a profiled step's busy ms and NCCL's device
-   ms, peak reserved GB and the launches per kernel;
+   ms, peak reserved GB and the launches per kernel (smollm-135m's
+   cases generate 16 tokens since phase 9c came); then (9c,
+   ``model_parallel_train_phase``) the train step over the model axis
+   (``make_train_step(axis=, group=)``: Megatron's boundary operators
+   in autograd, the vocab-parallel loss, the sharded global norm), f32
+   masters and bf16 activations at B 8 x S 256, MP_TRAIN_STEPS eager
+   steps, each case after its one-card twin, which is freed first:
+   smollm-135m whole (KV heads split, its tied head over the vocab),
+   chatglm3-6b two layers deep at four ranks (its replicated KV heads
+   sliced: rows 4 and 4b at hd 128 over one KV head), OLMoE-1B-7B at 4 of
+   16 layers expert-parallel; with four cards one NCCL rank a card at
+   (1, 4), smollm-135m at (2, 2) and OLMoE-1B-7B whole (its twin the
+   step-0 loss of ``make_eval_step``: 83 GB of state does not fit one
+   card), else ``gloo`` ranks on this card at (1, 2) (chatglm3-6b at
+   (1, 4)) and a line saying no four-card case ran; per rank each step's
+   loss (within MESH_LOSS_RTOL) and ``grad_norm`` (MP_TRAIN_NORM_RTOL)
+   against the twin's, each leaf's step-0 gradient against its shard of
+   the twin's (relative L2 within MP_TRAIN_GRAD_RTOL; chatglm3-6b again
+   in f32 activations, within MP_TRAIN_F32_GRAD_TOL of each shard's
+   largest), each leaf's update against the twin's (reported), the
+   replicated leaves' sha256 and the metrics bitwise across ranks, the
+   launches (rows 4 and 4b on every rank), step wall ms, a profiled
+   step's busy ms and NCCL's device ms, peak reserved GB, the spawn's
+   seconds; then rows 4 and 4b at every signature the ranks launched
+   against their plain versions (``check`` lines, ``"shape": "path"``);
 10. the model zoo: every assigned arch at ``.reduced()`` in f32 on the
    card against the CPU's plain path (forward with its router aux,
    prefill, 4 decode steps; musicgen and qwen2-vl through ``embeds=``,
@@ -258,7 +283,8 @@ one backend) and four executions each of the loop's deployment and of
 p = 0 (``profile_forward``); ``--profile-host-mesh`` only runs the
 host mesh's part of phase 9 (its one-rank twin run first);
 ``--profile-model-parallel`` only checks the ring-shard decode attention
-and runs phase 9b.
+and runs phase 9b; ``--profile-model-parallel-train`` only runs phase
+9c.
 ``--src`` imports the port
 from another tree, so
 that an earlier commit unpacked by ``git archive`` can be profiled in
@@ -268,7 +294,8 @@ After the last phase every kernel must have launched in the runs of the
 paths that use it (the backward kernel in every training run, the
 zoo's and the examples' included; the attention kernels, quantize and
 qmatmul in the OLMoE runs; the ring-shard decode attention in phase 9b's
-chatglm3-6b ranks), and the
+chatglm3-6b ranks; the flash forward and backward on every rank of
+phase 9c), and the
 tiled qmatmul route (counted by wrapping the wrappers, ``TiledRoute``)
 in every prefill of the decode features, the quantized launchers and
 the OLMoE session. The line before the last is the ``kernels`` JSON
@@ -4394,7 +4421,8 @@ def mesh_step_profile(rank, world, group, steps: int = 5) -> dict:
     train step at B 8 x S 256 as ``launch.train`` runs it on ``world``
     ranks (seeded weights broadcast from rank 0, this rank's rows of the
     stream's batch, ``make_train_step(group=)`` through ``DonatedStep``:
-    eager, captured with its all-reduces, replayed): the unprofiled wall
+    eager, captured with its all-reduces (none at world 1), replayed):
+    the unprofiled wall
     ms and ``profile_steps``' device-busy ms per step over ``steps``
     steps, the all-reduce's device ms (NCCL's kernels), its payload and
     ring GB per card, the peak reserved GB."""
@@ -4473,8 +4501,8 @@ def rank_launches(ops, rec) -> dict:
 def host_mesh_phase(torch, ops, twin=None) -> dict:
     """The host mesh (``launch.distributed``) on smollm-135m at B 8 x S
     256 for TWIN_STEPS steps, each part raising on a difference:
-    (a) ``launch.train.main`` at world 1 over NCCL, graphed, its step's
-    all-reduce inside the capture, bitwise ``twin`` (the ungrouped
+    (a) ``launch.train.main`` at world 1 over NCCL, graphed (a data axis
+    of one adds no all-reduce), bitwise ``twin`` (the ungrouped
     graphed run of ``launch_twins``; run here when None): every step's
     metrics, params, ``mu``, ``nu``, ``step``; one capture each; then
     ``mesh_step_profile`` in this process at world 1;
@@ -4567,9 +4595,9 @@ def host_mesh_phase(torch, ops, twin=None) -> dict:
 MP_LOGIT_RTOL = 5e-2   # bf16 activations: a rank's logits against the twin's,
                        # max |error| over the twin's max |logit|
 # (name, arch, layers (None: all), --quant, batch, prompt, new tokens, world)
-MP_CASES = (("mp_smollm_q0", "smollm-135m", None, 0, 4, 64, 32, None),
-            ("mp_smollm_q8", "smollm-135m", None, 8, 4, 64, 32, None),
-            ("mp_smollm_q4", "smollm-135m", None, 4, 4, 64, 32, None),
+MP_CASES = (("mp_smollm_q0", "smollm-135m", None, 0, 4, 64, 16, None),
+            ("mp_smollm_q8", "smollm-135m", None, 8, 4, 64, 16, None),
+            ("mp_smollm_q4", "smollm-135m", None, 4, 4, 64, 16, None),
             ("mp_olmoe", "olmoe-1b-7b", None, 0, 4, 64, 8, None),
             ("mp_chatglm3", "chatglm3-6b", 2, 0, 4, 64, 8, 4),
             ("mp_chatglm3_rep", "chatglm3-6b", 2, 0, 4, 64, 7, 4))
@@ -4745,6 +4773,7 @@ def model_parallel_phase(torch, ops) -> dict:
             name = case[0]
             recs = [r[name] for r in ranks]
             rec = {"case": name, "arch": case[1], "layers": case[2],
+                   "activations": case[7],
                    "quant": case[3], "batch": case[4], "prompt": case[5],
                    "gen": case[6], "world": world, "backend": backend,
                    "spawn_wall_s": wall,
@@ -4756,6 +4785,448 @@ def model_parallel_phase(torch, ops) -> dict:
             emit({"model_parallel": rec})
             runs[name] = {k: sum(r["launches"].get(k, 0) for r in recs)
                           for k in counters(ops)}
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 9c: the train step over the model axis
+
+MP_TRAIN_STEPS = 3      # eager steps of every case, its twin's too
+MP_TRAIN_NORM_RTOL = 2e-2   # a rank's grad_norm against the twin's: bf16
+                            # cotangents summed over the ranks in other
+                            # places than one card rounds them (4 x 2^-8)
+MP_TRAIN_GRAD_RTOL = 2e-1   # bf16: each leaf's step-0 gradient on a rank
+                            # against its shard of the twin's, L2 of the
+                            # error over the twin's L2 (on the card 0.017
+                            # on smollm-135m, 0.072-0.080 on OLMoE's
+                            # expert stacks, where a rounding moves a token
+                            # between near-tied experts). A replicated
+                            # leaf's gradient counted m times misses by
+                            # m - 1 >= 1, one missing the other ranks'
+                            # terms by (m - 1) / m >= 0.5
+MP_TRAIN_F32_GRAD_TOL = 1e-4    # f32 activations: max |error| over the
+                                # shard's max |gradient|, the CPU test's
+                                # LEAF_TOL (sums in other orders)
+MP_TRAIN_GRAD_FLOOR = 1e-2  # the update's error is also read over the
+                            # entries whose step-0 gradient is at least
+                            # this share of its leaf's largest: Adam's
+                            # first steps move each entry by ~lr whatever
+                            # its size, so below it rounding noise decides
+                            # the update's sign
+# (name, arch, layers (None: all), data, model (None: the phase's m),
+#  four cards only, twin: "train" its steps, or "eval" the step-0 loss,
+#  activations: "bf16" (the config's) or "f32")
+MP_TRAIN_CASES = (
+    ("mpt_smollm", "smollm-135m", None, 1, None, False, "train", "bf16"),
+    ("mpt_chatglm3", "chatglm3-6b", 2, 1, 4, False, "train", "bf16"),
+    ("mpt_chatglm3_f32", "chatglm3-6b", 2, 1, 4, False, "train", "f32"),
+    ("mpt_olmoe", "olmoe-1b-7b", 4, 1, None, False, "train", "bf16"),
+    ("mpt_smollm_dp", "smollm-135m", None, 2, 2, True, "train", "bf16"),
+    ("mpt_olmoe_whole", "olmoe-1b-7b", None, 1, 4, True, "eval", "bf16"))
+MP_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
+
+
+def mpt_config(case):
+    """A phase-9c case's config: ``mp_config`` at its depth, in f32
+    activations for an "f32" case."""
+    cfg = mp_config(case[1], case[2])
+    return dataclasses.replace(cfg, dtype="float32") if case[7] == "f32" \
+        else cfg
+
+
+def mpt_weights(torch, cfg):
+    """Seeded f32 masters of ``cfg`` on this process's card, the same on
+    every rank and in the twin."""
+    from repro_torch.models import transformer as T
+    return T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 31), device="cuda")
+
+
+def leaf_paths(tree, path: str = "") -> list:
+    """Each leaf's path ("/layers/attn/bk") in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items()
+                for q in leaf_paths(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree)
+                for q in leaf_paths(v, f"{path}[{i}]")]
+    return [path]
+
+
+def mpt_twin(torch, case, path: str) -> dict:
+    """One case on this card with no axis: ``make_train_step`` for
+    MP_TRAIN_STEPS eager steps on the whole batch (B 8 x S 256, f32
+    masters, the case's activations), each step's metrics and wall ms,
+    and the step-0 gradient (``step_grads``) and the update (final minus
+    initial) of every leaf, in the case's activations' dtype, saved to
+    ``path`` for the ranks to cut by ``shard_tree``; or, for an "eval" twin, the step-0 metrics of
+    ``make_eval_step``. Freed before it returns."""
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import (make_eval_step,
+                                              make_train_step, step_grads)
+    from repro_torch.tree import tree_map
+    kind = case[6]
+    cfg = mpt_config(case)
+    params = mpt_weights(torch, cfg)
+    batch = stream_batch(torch, cfg.vocab_size, 8, 256, SEED + 11)
+    torch.cuda.reset_peak_memory_stats()
+    if kind == "eval":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = make_eval_step(cfg)(params, batch)
+        out = {"metrics": [{k: float(v) for k, v in m.items()}],
+               "eval_ms": (time.perf_counter() - t0) * 1e3}
+    else:
+        # a bf16 case's trees kept in bf16: 2^-9 of each entry, far under
+        # MP_TRAIN_GRAD_RTOL, at half the bytes through the file
+        keep = torch.float32 if case[7] == "f32" else torch.bfloat16
+        _, grads = step_grads(params, cfg, batch, remat=False)
+        grads = tree_map(lambda t: t.to(keep).cpu(), grads)
+        torch.cuda.empty_cache()
+        p0 = params
+        step = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS),
+                               remat=False)
+        state = init_opt_state(params)
+        metrics, walls = [], []
+        for _ in range(MP_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        t0 = time.perf_counter()
+        torch.save({"grad": grads, "update": tree_map(
+            lambda a, b: (a - b).to(keep).cpu(), params, p0)}, path)
+        out = {"metrics": metrics, "step_ms": walls[1:],
+               "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+               "save_s": time.perf_counter() - t0}
+        del p0, state, grads
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def mpt_leaf_errors(names, grads, params, inits, want_grads,
+                    want_updates) -> dict:
+    """A rank's leaves against their shards of the twin's, one leaf at a
+    time on the card: the step-0 gradient's max |error| over the twin's
+    max |gradient| (``grad_err``, which ``mpt_held`` holds) and its L2
+    error over the twin's L2; the update's (final minus initial) L2
+    error over the twin's, over every entry and over the entries whose
+    twin gradient is at least MP_TRAIN_GRAD_FLOOR of the leaf's largest,
+    with the share of entries below that. Returns the worst leaf of each
+    figure, the medians, the three leaves of the largest ``grad_err`` and
+    the worst update's leaf in full."""
+    def rel_l2(d, w):
+        return d.norm().item() / max(w.norm().item(), 1e-30)
+    rows = []
+    for name, g, p, a, wg, wu in zip(names, grads, params, inits,
+                                     want_grads, want_updates,
+                                     strict=True):
+        dev = p.device
+        g, wg, wu = g.to(dev), wg.to(dev).float(), wu.to(dev).float()
+        top = wg.abs().max().item()
+        du = (p - a.to(dev)) - wu
+        big = wg.abs() >= MP_TRAIN_GRAD_FLOOR * top
+        rows.append({"leaf": name,
+                     "grad_err": (g - wg).abs().max().item()
+                     / max(top, 1e-30),
+                     "grad_rel_l2": rel_l2(g - wg, wg),
+                     "update_rel_l2": rel_l2(du, wu),
+                     "update_rel_l2_large_grad": rel_l2(du[big], wu[big]),
+                     "small_grad_share": 1 - big.float().mean().item()})
+    worst = {k: max(rows, key=lambda r: r[k]) for k in (
+        "grad_err", "grad_rel_l2", "update_rel_l2",
+        "update_rel_l2_large_grad")}
+    top = sorted(rows, key=lambda r: -r["grad_err"])[:3]
+    return {"grad_err_max": worst["grad_err"]["grad_err"],
+            "grad_err_leaf": worst["grad_err"]["leaf"],
+            "grad_err_top": [[r["leaf"], r["grad_err"], r["grad_rel_l2"]]
+                             for r in top],
+            "grad_rel_l2_max": worst["grad_rel_l2"]["grad_rel_l2"],
+            "grad_rel_l2_leaf": worst["grad_rel_l2"]["leaf"],
+            "grad_rel_l2_median": statistics.median(
+                r["grad_rel_l2"] for r in rows),
+            "update_rel_l2_median": statistics.median(
+                r["update_rel_l2"] for r in rows),
+            "update_worst_leaf": worst["update_rel_l2"],
+            "update_rel_l2_large_grad_max": worst[
+                "update_rel_l2_large_grad"]["update_rel_l2_large_grad"],
+            "update_rel_l2_large_grad_leaf": worst[
+                "update_rel_l2_large_grad"]["leaf"]}
+
+
+def mpt_rank(rank, world, group, cases, paths):
+    """One rank of a (data, ``world`` / data) mesh, for
+    ``launch.distributed.spawn``: per case the seeded weights cut to this
+    rank's shards (ranks sharing one card take turns, so that one whole
+    tree is on it at a time), its rows of the twin's batch, its model and
+    data axes, then MP_TRAIN_STEPS eager steps of ``make_train_step(axis=,
+    group=)`` with every launch counter zeroed before them and read after
+    (``ShapeLog`` keeping the flash kernels' signatures); each step's
+    metrics and wall ms; for a "train" twin, against its shard of the
+    twin's (``paths``; a replicated leaf's whole), each leaf's step-0
+    gradient (``step_grads`` before the steps, held by ``mpt_held``) and
+    its update (final minus initial, reported: ``mpt_leaf_errors``); a
+    sha256 of the leaves no model axis splits; then one more step
+    profiled (NCCL's device ms), and the peak reserved GB. Returns
+    {"cases": ..., "shapes": the flash kernels' signatures}."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import distributed
+    from repro_torch.launch import model_parallel as mp
+    from repro_torch.launch.mesh import coords, make_mesh
+    from repro_torch.launch.sharding import (batch_rows, model_sharded,
+                                             param_pspecs, shard_tree)
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step, step_grads
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log_shapes(ops)
+    for name in MP_TRAIN_KERNELS:
+        SHAPES[name].on = True
+    nccl = dist.get_backend(group) == "nccl"
+    out = {}
+    for case in cases:
+        name, data, kind = case[0], case[3], case[6]
+        cfg = mpt_config(case)
+        mesh = make_mesh(data, world // data)
+        axis = mp.make_axis(mesh, rank, group)
+        data_axis = mp.make_data_axis(mesh, rank, group)
+        where = coords(mesh, rank)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for turn in range(1 if nccl else world):
+            if nccl or turn == rank:
+                full = mpt_weights(torch, cfg)
+                params = shard_tree(full, param_pspecs(cfg, full, mesh=mesh),
+                                    mesh, where)
+                del full
+                torch.cuda.empty_cache()
+            if not nccl:
+                dist.barrier(group)
+        flags = tree_leaves(model_sharded(cfg, params, world // data))
+        batch = stream_batch(torch, cfg.vocab_size, 8, 256, SEED + 11)
+        rows = batch_rows(mesh, 8, where["data"])
+        batch = {k: v[rows] for k, v in batch.items()}
+        step = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS),
+                               remat=False, group=data_axis, axis=axis)
+        # the initial shards and step-0 gradients on the host: OLMoE's
+        # (4 layers) two ranks fill the card with their training state
+        p0 = grads = None
+        if kind == "train":
+            _, grads = step_grads(params, cfg, batch, remat=False,
+                                  group=data_axis, axis=axis)
+            grads = tree_map(lambda t: t.cpu(), grads)
+            p0 = tree_map(lambda t: t.cpu(), params)
+            torch.cuda.empty_cache()
+        state = [params, init_opt_state(params)]
+
+        def one():
+            state[0], state[1], m = step(state[0], state[1], batch)
+            return m
+
+        zero_counters(torch, ops)
+        metrics, walls = [], []
+        for _ in range(MP_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = one()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = read_counters(torch, ops)
+        rec = {"rank": rank, "card": torch.cuda.current_device(),
+               "where": where, "rows": [rows.start, rows.stop],
+               "metrics": metrics, "step_ms": walls[1:],
+               "replicated_sha256": distributed.digest(
+                   [t for t, f in zip(tree_leaves(state[0]), flags)
+                    if not f]),
+               "launches": launches}
+        if kind == "train":
+            t0 = time.perf_counter()
+            twin = torch.load(paths[name], mmap=True, weights_only=True)
+            specs = param_pspecs(cfg, twin["grad"], mesh=mesh)
+            rec.update(mpt_leaf_errors(
+                leaf_paths(state[0]), tree_leaves(grads),
+                tree_leaves(state[0]), tree_leaves(p0),
+                tree_leaves(shard_tree(twin["grad"], specs, mesh, where)),
+                tree_leaves(shard_tree(twin["update"], specs, mesh,
+                                       where))),
+                compare_s=time.perf_counter() - t0)
+            del twin, p0, grads
+        prof = profile_steps(torch, one, 1, watch=("nccl",), cpu=False)
+        rec.update(profiled_step={k: prof[k] for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step", "idle_share")},
+            nccl_device_ms_per_step=prof["watched_device_ms_per_step"][
+                "nccl"] if nccl else None,
+            peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+        out[name] = rec
+        del state, params, batch, step
+        torch.cuda.empty_cache()
+    return {"cases": out, "shapes": {n: SHAPES[n].seen
+                                     for n in MP_TRAIN_KERNELS}}
+
+
+def mpt_held(twin: dict, recs: list, case) -> dict:
+    """The ranks' runs of one case against its twin: each step's loss
+    within MESH_LOSS_RTOL and grad_norm within MP_TRAIN_NORM_RTOL of the
+    twin's (an "eval" twin: the step-0 xent, zloss and dropped_frac); each
+    leaf's step-0 gradient against its shard of the twin's
+    (``mpt_leaf_errors``): its relative L2 error within
+    MP_TRAIN_GRAD_RTOL in bf16, its max error within MP_TRAIN_F32_GRAD_TOL
+    of the shard's largest in f32; the ranks' metrics and replicated
+    leaves bitwise each other's; both flash kernels launched by every
+    rank. Raises on a miss."""
+    name, kind, f32 = case[0], case[6], case[7] == "f32"
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+    first = recs[0]["metrics"]
+    if kind == "eval":
+        keys = ("xent", "zloss", "dropped_frac")
+        loss_err = max(rel(first[0][k], twin["metrics"][0][k]) for k in keys
+                       if twin["metrics"][0][k])
+        norm_err = None
+    else:
+        loss_err = max(rel(a["loss"], b["loss"])
+                       for a, b in zip(first, twin["metrics"]))
+        norm_err = max(rel(a["grad_norm"], b["grad_norm"])
+                       for a, b in zip(first, twin["metrics"]))
+    held, tol = ("grad_err_max", MP_TRAIN_F32_GRAD_TOL) if f32 else \
+        ("grad_rel_l2_max", MP_TRAIN_GRAD_RTOL)
+    rec = {"losses": [m["loss"] for m in first],
+           "twin_losses": [m.get("loss") for m in twin["metrics"]],
+           "loss_rel_err": loss_err, "loss_rtol": MESH_LOSS_RTOL,
+           "grad_norms": [m["grad_norm"] for m in first],
+           "twin_grad_norms": [m.get("grad_norm") for m in twin["metrics"]],
+           "grad_norm_rel_err": norm_err, "grad_norm_rtol": MP_TRAIN_NORM_RTOL,
+           "grad_held": held, "grad_tol": tol,
+           "grad_rel_l2_max_by_rank": [r.get("grad_rel_l2_max")
+                                       for r in recs],
+           "grad_rel_l2_leaf_by_rank": [r.get("grad_rel_l2_leaf")
+                                        for r in recs],
+           "grad_err_by_rank": [r.get("grad_err_max") for r in recs],
+           "grad_err_top_by_rank": [r.get("grad_err_top") for r in recs],
+           "update_worst_leaf_by_rank": [r.get("update_worst_leaf")
+                                         for r in recs],
+           "update_rel_l2_large_grad_max_by_rank": [
+               r.get("update_rel_l2_large_grad_max") for r in recs],
+           "ranks_metrics_bitwise": all(r["metrics"] == first for r in recs),
+           "ranks_replicated_bitwise": len({r["replicated_sha256"]
+                                            for r in recs}) == 1,
+           "twin_step_ms": twin.get("step_ms"),
+           "twin_peak_reserved_gb": twin.get("peak_reserved_gb"),
+           "twin_wall_s": twin.get("twin_wall_s"),
+           "twin_save_s": twin.get("save_s")}
+    missed = [(r["rank"], k) for r in recs for k in MP_TRAIN_KERNELS
+              if not r["launches"][k]]
+    if loss_err > MESH_LOSS_RTOL or (norm_err or 0) > MP_TRAIN_NORM_RTOL \
+            or (kind == "train" and any(r[held] > tol for r in recs)) \
+            or not rec["ranks_metrics_bitwise"] \
+            or not rec["ranks_replicated_bitwise"] or missed:
+        raise AssertionError(f"model-parallel train {name}: {rec}, kernels "
+                             f"not launched {missed}")
+    return rec
+
+
+@contextlib.contextmanager
+def alloc_conf(value: str):
+    """``PYTORCH_CUDA_ALLOC_CONF`` set to ``value`` for the processes
+    spawned inside (this process's allocator is already made): the
+    gloo ranks that share one card allocate without fragmenting it."""
+    import os
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+
+
+def model_parallel_train_phase(torch, ops) -> dict:
+    """The train step's rank program (``make_train_step(axis=, group=)``)
+    on the card(s): with 4 cards or more one NCCL rank per card, smollm-
+    135m and OLMoE-1B-7B (4 of 16 layers) at (1, 4), chatglm3-6b (2 of 28
+    layers) at (1, 4) in bf16 and in f32 activations, smollm-135m at (2,
+    2) and OLMoE-1B-7B whole at (1, 4); with fewer, ``gloo`` ranks on
+    this card: smollm-135m and OLMoE at (1, 2), chatglm3-6b's two at (1,
+    4), and a line saying no four-card case ran. Each
+    case's twin (``mpt_twin``) runs first and is freed; ``mpt_held``
+    holds the ranks to it. One ``model_parallel_train`` line per case
+    (per rank: step metrics and wall ms, the leaves' gradient and update
+    errors, the profiled step's busy ms and NCCL's device ms, peak
+    reserved GB, launches);
+    then the flash kernels at every signature the ranks launched
+    (``check_path_shapes``). Returns the launches of each case summed over
+    its ranks."""
+    import tempfile
+    from repro_torch.launch import distributed
+    cards = torch.cuda.device_count()
+    four = cards >= 4
+    groups = collections.defaultdict(list)
+    for case in MP_TRAIN_CASES:
+        if case[5] and not four:
+            continue
+        groups[case[3] * (case[4] or (4 if four else 2))].append(case)
+    if not four:
+        emit({"model_parallel_train_cards": {
+            "count": cards, "four_card_cases_ran": False,
+            "why": "fewer than four cards: gloo ranks on this card stand in "
+                   "for them; smollm-135m at (2, 2) and OLMoE-1B-7B whole "
+                   "need four"}})
+    runs, seen = {}, {}
+    for world, cases in sorted(groups.items()):
+        backend = "nccl" if cards >= world else "gloo"
+        with tempfile.TemporaryDirectory(prefix="mp_train_") as tmp, \
+                alloc_conf("expandable_segments:True"):
+            paths, twins, made = {}, {}, {}
+            for c in cases:       # one twin for cases of one model and kind
+                key = (c[1], c[2], c[6], c[7])
+                if key not in made:
+                    path = str(Path(tmp) / f"{c[0]}.pt")
+                    t0 = time.perf_counter()
+                    twin = mpt_twin(torch, c, path)
+                    twin["twin_wall_s"] = time.perf_counter() - t0
+                    made[key] = (twin, path)
+                twins[c[0]], paths[c[0]] = made[key]
+            t0 = time.perf_counter()
+            ranks = distributed.spawn(mpt_rank, world, "cuda", cases, paths,
+                                      backend=backend)
+            wall = time.perf_counter() - t0
+        for r in ranks:
+            for name, sigs in r["shapes"].items():
+                for sig, pos in sigs.items():
+                    seen.setdefault(name, {}).setdefault(sig, set()).update(
+                        pos)
+        for case in cases:
+            name, data = case[0], case[3]
+            recs = [r["cases"][name] for r in ranks]
+            rec = {"case": name, "arch": case[1], "layers": case[2],
+                   "activations": case[7],
+                   "mesh": [data, world // data], "batch": 8, "seq": 256,
+                   "steps": MP_TRAIN_STEPS, "backend": backend,
+                   "gloo_on_one_card": backend == "gloo",
+                   "twin": case[6], "spawn_wall_s": wall,
+                   **mpt_held(twins[name], recs, case),
+                   "ranks": [{k: r[k] for k in (
+                       "rank", "card", "where", "rows", "step_ms",
+                       "profiled_step", "nccl_device_ms_per_step",
+                       "peak_reserved_gb", "launches",
+                       "grad_rel_l2_median", "update_rel_l2_median",
+                       "update_rel_l2_large_grad_leaf", "compare_s")
+                       if k in r}
+                       for r in recs]}
+            emit({"model_parallel_train": rec})
+            runs[name] = {k: sum(r["launches"].get(k, 0) for r in recs)
+                          for k in counters(ops)}
+    emit({"model_parallel_train_path_checks": check_path_shapes(
+        torch, ops, seen)})
     return runs
 
 
@@ -5767,9 +6238,10 @@ def held(what: dict, err: float, tol: float, same: bool) -> None:
                              f"call differs ({same})")
 
 
-def check_path_shapes(torch, ops) -> dict:
+def check_path_shapes(torch, ops, seen=None) -> dict:
     """Every signature the ``ShapeLog``s kept (``SHAPES``: the zoo's
-    training and the examples) replayed on seeded card tensors of its
+    training and the examples; or ``seen``, {kernel: {signature:
+    positions}}, phase 9c's ranks') replayed on seeded card tensors of its
     shapes and dtypes: the kernel's wrapper against its plain version
     with the tolerances of phase 3 and the GPU tests, a second call
     bitwise the first. qmatmul / qmatmul4 on a weight of N(0, 1/K)
@@ -5790,10 +6262,12 @@ def check_path_shapes(torch, ops) -> dict:
     randn = lambda shape, dt: torch.randn(  # noqa: E731
         shape, generator=g, device="cuda").to(dtype(dt))
     counts = {}
-    for name, log in SHAPES.items():
-        counts[name] = len(log.seen)
+    logs = {name: log.seen for name, log in SHAPES.items()} if seen is None \
+        else seen
+    for name, sigs in logs.items():
+        counts[name] = len(sigs)
         fn = ops.KERNELS[name]
-        for sig, positions in sorted(log.seen.items(), key=str):
+        for sig, positions in sorted(sigs.items(), key=str):
             if name in ("qmatmul", "qmatmul4"):
                 (xs, xdt), cshape, per_col, out = sig
                 packed = name == "qmatmul4"
@@ -5853,7 +6327,8 @@ def check_path_shapes(torch, ops) -> dict:
                 held_flash_bwd(torch, randn(qs, dt), randn(ks, dt),
                                randn(ks, dt), randn(qs, dt), shape="path")
         torch.cuda.synchronize()
-    emit({"path_shape_checks": counts})
+    if seen is None:
+        emit({"path_shape_checks": counts})
     return counts
 
 
@@ -5960,7 +6435,12 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
             "mp_chatglm3": ("flash_attention", "decode_attention_shard"),
             # its 71-slot ring, which does not split: held whole, each
             # rank's heads reading their KV head in place
-            "mp_chatglm3_rep": ("flash_attention", "decode_attention")}
+            "mp_chatglm3_rep": ("flash_attention", "decode_attention"),
+            # the train step over the model axis (counted on its ranks;
+            # the four-card cases hold every rank to both kernels)
+            **{run: MP_TRAIN_KERNELS
+               for run in ("mpt_smollm", "mpt_chatglm3", "mpt_chatglm3_f32",
+                           "mpt_olmoe")}}
 
 
 # the kernels' instantiations that ptxas reports entry by entry, by
@@ -6075,6 +6555,9 @@ def main(argv=None) -> int:
                     help="only build the kernels, check the ring-shard "
                          "decode attention and run the serving steps over "
                          "the model axis (phase 9b)")
+    ap.add_argument("--profile-model-parallel-train", action="store_true",
+                    help="only build the kernels and run the train step "
+                         "over the model axis (phase 9c)")
     ap.add_argument("--profile-host-mesh", action="store_true",
                     help="only build the kernels and run the host mesh's "
                          "phase: the training launcher at one NCCL rank, "
@@ -6126,6 +6609,16 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         emit({"model_parallel_launches": model_parallel_phase(torch, ops)})
         emit({"model_parallel_phase_s": time.perf_counter() - t0})
+        return 0
+    if args.profile_model_parallel_train:
+        from repro_torch.kernels import build, ops
+        print(smi, flush=True)
+        emit({"build_dir": str(build.build_all())})
+        log_shapes(ops)
+        t0 = time.perf_counter()
+        emit({"model_parallel_train_launches": model_parallel_train_phase(
+            torch, ops)})
+        emit({"model_parallel_train_phase_s": time.perf_counter() - t0})
         return 0
     if args.profile_host_mesh:
         from repro_torch.kernels import build, ops
@@ -6299,6 +6792,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     runs.update(model_parallel_phase(torch, ops))
     emit({"model_parallel_phase_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    runs.update(model_parallel_train_phase(torch, ops))
+    emit({"model_parallel_train_phase_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     runs["zoo_reduced"] = zoo_reduced(torch, ops)
     runs.update(olmoe_phase(torch, ops))

@@ -10,14 +10,15 @@ Each combo's step (``launch.steps.build_step``) is counted by
 ``roofline.op_cost.count``, and its record — the ``Roofline`` fields,
 the argument bytes each card holds under the mesh's sharding rules and
 whether they fit the card's 80 GB — is written to ``--record-dir``.
-On a mesh whose model axis is larger than 1 (``pod``, ``multipod``) a
-prefill or decode combo counts rank 0's program: its local shards (the
-argument bytes per card are their sum, which ``sharding.per_card_bytes``
-must give too), its FLOPs and bytes, and the collectives it runs over
-the model axis, which give the record its collective term. A train
-combo, and any combo under ``--fsdp``, is still counted whole on one
-card, its mesh dividing only the argument bytes; its record's
-``t_collective`` is null and ``coll_note`` says why.
+On a mesh whose model axis is larger than 1 (``pod``, ``multipod``)
+every combo counts rank 0's program: its local shards (the argument
+bytes per card are their sum, which ``sharding.per_card_bytes`` must
+give too), its FLOPs and bytes, and the collectives it runs — over the
+model axis, and for a train step its gradient mean over the data axes —
+which give the record its collective term, each axis's bytes on its
+link. A combo under ``--fsdp`` is still counted whole on one card, its
+mesh dividing only the argument bytes; its record's ``t_collective`` is
+null and ``coll_note`` says why.
 """
 from __future__ import annotations
 
@@ -47,8 +48,8 @@ MESHES = {"host": make_host_mesh,
           "multipod": lambda: make_production_mesh(multi_pod=True)}
 
 
-UNSPLIT = ("one card's whole step: the {what}'s program over the model "
-           "axis is not built yet (ROADMAP Queue 1)")
+UNSPLIT = ("one card's whole step: the FSDP layout's program over the "
+           "mesh is not built yet (ROADMAP Queue 1 item 2)")
 
 
 class SkipCombo(Exception):
@@ -75,7 +76,7 @@ def count_step(arch: str, shape_name: str, *, mesh_name: str = "host",
     sd = {None: None, "bf16": torch.bfloat16,
           "f32": torch.float32}[serve_dtype]
     m = mesh.shape[MODEL_AXIS]
-    split = m > 1 and shape.kind != "train" and not fsdp
+    split = m > 1 and not fsdp
     spec = build_step(cfg, shape, accum_steps=accum_steps, serve_dtype=sd,
                       serve_quant=serve_quant, mesh=mesh if split else None)
     if split:
@@ -92,8 +93,7 @@ def count_step(arch: str, shape_name: str, *, mesh_name: str = "host",
         arg_bytes = shard_lib.per_card_bytes(
             spec.args, step_specs(spec.kind, spec.cfg, spec.args, mesh,
                                   shape.global_batch, fsdp=fsdp), mesh)
-        note = None if m == 1 else UNSPLIT.format(
-            what="FSDP layout" if fsdp else "train step")
+        note = None if m == 1 else UNSPLIT
     t0 = time.perf_counter()
     summary = op_cost.count(spec.fn, *spec.args)
     count_s = time.perf_counter() - t0
@@ -109,8 +109,10 @@ def count_step(arch: str, shape_name: str, *, mesh_name: str = "host",
           f"{arg_bytes / 1e9:.2f} GB/card (fits 80 GB: {roof.fits_80gb}); "
           f"compute {roof.t_compute * 1e3:.3f} ms memory "
           f"{roof.t_memory * 1e3:.3f} ms collective "
-          + (f"{roof.t_collective * 1e3:.3f} ms ({roof.coll_gbytes:.4f} GB "
-             f"over {roof.model_link})" if roof.rank_program else "none")
+          + (f"{roof.t_collective * 1e3:.3f} ms (" + ", ".join(
+              f"{a} {gb:.4f} GB over {roof.link(a)}" for a, gb in
+              roof.coll_by_axis.items())
+             + ")" if roof.rank_program else "none")
           + f" -> {roof.bottleneck}", flush=True)
     return roof
 
@@ -121,9 +123,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", choices=sorted(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--mesh", choices=sorted(MESHES), default="host",
-                    help="the layout: prefill and decode count rank 0's "
-                         "program on it, train steps one card's whole "
-                         "step, its argument bytes divided")
+                    help="the layout: every step counts rank 0's "
+                         "program on it (under --fsdp, one card's whole "
+                         "step, its argument bytes divided)")
     ap.add_argument("--fsdp", action="store_true",
                     help="ZeRO-style extra sharding over data")
     ap.add_argument("--accum", type=int, default=1,

@@ -1,20 +1,28 @@
-"""The rank's model axis: the collectives of the serving steps' rank
-program over the ``model`` axis of a (data, model) mesh — the port's
-counterpart of what GSPMD inserts into the reference's sharded programs
+"""The rank's model axis: the collectives of a rank's program over the
+``model`` axis of a (data, model) mesh — the port's counterpart of what
+GSPMD inserts into the reference's sharded programs
 (``repro/launch/dryrun.py`` compiles them under ``param_pspecs`` /
-``cache_pspecs``).
+``cache_pspecs`` / ``opt_pspecs``).
 
 A :class:`ModelAxis` holds this rank's index on the axis, the axis's
-size, and the ``torch.distributed`` subgroup of the ranks that share
-this rank's data index (:func:`make_axis`). The models take it as
-``axis=`` and, where the Megatron layout needs one, call:
+size, the ``torch.distributed`` subgroup of the ranks that share this
+rank's data index (:func:`make_axis`) and the axis's ``name``. The
+models take it as ``axis=`` and, where the Megatron layout needs one,
+call:
 
-* :func:`all_reduce` — the sum over the axis (a row-parallel
-  projection's partial outputs, a vocab-parallel embedding's rows);
+* :func:`to_ranks` — replicated -> rank-specific (Megatron's f): the
+  identity, or the rank's slice, forward; backward, the sum over the
+  axis of the ranks' cotangents (an all-reduce of the cotangent, zero
+  outside the slice), so a replicated tensor's cotangent is the whole
+  one on every rank;
+* :func:`from_ranks` — rank-specific -> replicated (Megatron's g): the
+  sum over the axis forward, the identity backward;
 * :func:`sum_partials` — a row-parallel product's partial outputs,
-  taken in f32 (:func:`partial_dtype`), summed over the axis and rounded
-  once to the activations' dtype, as the reference's compiled program
-  sums f32 partials;
+  taken in f32 (:func:`partial_dtype`), summed by :func:`from_ranks`
+  and rounded once to the activations' dtype, as the reference's
+  compiled program sums f32 partials;
+* :func:`all_reduce` — the sum over the axis, outside autograd (the
+  sharded gradient norm, the data axis's gradient mean);
 * :func:`all_gather` — the axis's shards concatenated in rank order;
 * :func:`all_to_all` — block ``j`` of the leading dimension sent to rank
   ``j``, block ``i`` of the result received from rank ``i``;
@@ -22,16 +30,22 @@ this rank's data index (:func:`make_axis`). The models take it as
   last dimension, ties to the lowest index as ``torch.argmax`` breaks
   them.
 
+The train step's data axis is an axis too (:func:`make_data_axis`,
+``name="data"``): the ranks that share this rank's model index, over
+which the gradients are averaged.
+
 With no axis, or an axis of size 1, every one of them returns its input
-and launches nothing: a one-card program is today's program, bit for
-bit. ``max_len`` is the global length of the decode caches a program
-runs on: a ring whose KV heads do not divide the axis is laid out by it
+and launches nothing (nor adds an autograd node): a one-card program is
+today's program, bit for bit, forward and backward. ``max_len`` is the
+global length of the decode caches a program runs on: a ring whose KV
+heads do not divide the axis is laid out by it
 (``models.attention.ring_of``), and a step raises where a cache's slots
 are not what that layout gives (``models.attention.cache_ring``).
 
-On fake tensors (the dry run's ``FakeTensorMode``) a collective is a
-stand-in: ``roofline.op_cost.count`` swaps :func:`_collective` for one
-that records the bytes each call moves, by kind, as
+Every collective, the backward's included, goes through
+:func:`_collective`. On fake tensors (the dry run's ``FakeTensorMode``)
+it is a stand-in: ``roofline.op_cost.count`` swaps it for one that
+records the bytes each call moves, by kind and by axis, as
 ``repro/roofline/hlo_cost.py`` counts a collective (the larger of its
 operand's and its result's bytes, once per call), and returns an empty
 result of the right shape. Outside that count a fake tensor raises here.
@@ -43,18 +57,22 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.launch.mesh import MODEL_AXIS, coords, mesh_num_chips
+from repro_torch.launch.mesh import (DATA_AXIS, MODEL_AXIS, coords,
+                                     mesh_num_chips)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
-    """This rank's place on the model axis: ``index`` of ``size``, the
-    subgroup ``group`` (None for a fake rank, which only the dry run's
-    count runs) and the global decode-cache length ``max_len``."""
+    """This rank's place on an axis of the mesh: ``index`` of ``size``,
+    the subgroup ``group`` (None for a fake rank, which only the dry
+    run's count runs), the global decode-cache length ``max_len`` and
+    the axis's ``name`` (``model``, or ``data`` for the train step's
+    gradient mean)."""
     index: int = 0
     size: int = 1
     group: Any = None
     max_len: Optional[int] = None
+    name: str = MODEL_AXIS
 
     def __post_init__(self):
         if not 0 <= self.index < self.size:
@@ -106,6 +124,51 @@ def make_axis(mesh, rank: int, group=None) -> ModelAxis:
     return ModelAxis(mi, m, mine)
 
 
+def data_index(mesh, where) -> tuple:
+    """(index, size) of the rank at ``where`` (``mesh.coords``) over the
+    mesh's data axes (``pod`` and ``data``, every axis but ``model``)
+    taken as one, ``pod`` the outer."""
+    index, size = 0, 1
+    for a in mesh.axis_names:
+        if a != MODEL_AXIS:
+            index, size = index * mesh.shape[a] + where[a], \
+                size * mesh.shape[a]
+    return index, size
+
+
+def make_data_axis(mesh, rank: int, group=None):
+    """Rank ``rank``'s data axis on ``mesh``: the ranks that share its
+    model index (:func:`data_index`), over which the train step averages
+    its gradients (``name="data"``); None with one data index. Its
+    subgroup is ``group`` (the world, when None) where the model axis is
+    1, else one of the subgroups made here, one per model index (every
+    rank of the world calls this after :func:`make_axis`, in the same
+    order)."""
+    import torch.distributed as dist
+    m = mesh.shape[MODEL_AXIS]
+    n = mesh_num_chips(mesh)
+    di, d = data_index(mesh, coords(mesh, rank))
+    if d == 1:
+        return None
+    if m == 1:
+        return ModelAxis(di, d, group if group is not None
+                         else dist.group.WORLD, name=DATA_AXIS)
+    mine = None
+    for mi in range(m):                  # one subgroup per model index
+        sub = dist.new_group(list(range(mi, n, m)))
+        if rank % m == mi:
+            mine = sub
+    return ModelAxis(di, d, mine, name=DATA_AXIS)
+
+
+def group_axis(group) -> ModelAxis:
+    """A process group's ranks as one data axis (the host mesh's, whose
+    every rank is a data index)."""
+    import torch.distributed as dist
+    return ModelAxis(dist.get_rank(group), dist.get_world_size(group),
+                     group, name=DATA_AXIS)
+
+
 def _is_fake(x) -> bool:
     from torch._subclasses.fake_tensor import FakeTensor
     return isinstance(x, FakeTensor)
@@ -137,10 +200,85 @@ def _collective(kind: str, x, axis: ModelAxis, dim: int = 0):
 
 def all_reduce(x, axis):
     """The sum of ``x`` over the axis (``x`` itself, summed in place when
-    contiguous); ``x`` unchanged without one."""
+    contiguous); ``x`` unchanged without one. Autograd does not see it:
+    a differentiated program sums with :func:`from_ranks`."""
     if not active(axis):
         return x
     return _collective("all-reduce", x, axis)
+
+
+class _FromRanks(torch.autograd.Function):
+    """The sum over the axis forward (in place where ``x`` is
+    contiguous), the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        out = _collective("all-reduce", x, axis)
+        if out is x:
+            ctx.mark_dirty(x)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ToRanks(torch.autograd.Function):
+    """The identity, or the slice ``[start, start + length)`` of ``dim``,
+    forward; backward the cotangent, zero outside the slice, summed over
+    the axis."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, start, length):
+        ctx.axis, ctx.dim, ctx.start, ctx.shape = axis, dim, start, x.shape
+        return x if dim is None else x.narrow(dim, start, length)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.dim is None:
+            # a fresh buffer: the engine may hand ``g`` to another node too
+            full = g.clone(memory_format=torch.contiguous_format)
+        else:
+            full = g.new_zeros(ctx.shape)
+            full.narrow(ctx.dim, ctx.start, g.shape[ctx.dim]).copy_(g)
+        return _collective("all-reduce", full, ctx.axis), None, None, None, \
+            None
+
+
+def _tracked(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def from_ranks(x, axis):
+    """Rank-specific -> replicated: the sum of ``x`` over the axis, whose
+    backward is the identity (each rank's cotangent is the replicated
+    sum's); ``x`` unchanged without an axis. Outside autograd (no
+    gradient wanted) it is :func:`all_reduce`."""
+    if not active(axis):
+        return x
+    if not _tracked(x):
+        return _collective("all-reduce", x, axis)
+    return _FromRanks.apply(x, axis)
+
+
+def to_ranks(x, axis, dim=None, start: int = 0, length: int = 0):
+    """Replicated -> rank-specific: ``x`` itself, or with ``dim`` its
+    slice ``[start, start + length)`` there, whose backward sums the
+    ranks' cotangents over the axis (zero outside each rank's slice; the
+    slices may overlap), so the replicated ``x`` gets its whole cotangent
+    on every rank. ``x`` unchanged without an axis."""
+    if not active(axis):
+        return x
+    if not _tracked(x):
+        return x if dim is None else x.narrow(dim, start, length)
+    return _ToRanks.apply(x, axis, dim, start, length)
+
+
+def rank_block(x, axis, dim: int, n: int):
+    """:func:`to_ranks` of the rank's ``n`` entries of ``dim``, block
+    ``axis.index`` (the rank's experts, heads or KV heads of a replicated
+    tensor)."""
+    return to_ranks(x, axis, dim, index(axis) * n, n)
 
 
 def partial_dtype(axis, dtype):
@@ -157,7 +295,7 @@ def sum_partials(y, axis, dtype):
     without one."""
     if not active(axis):
         return y
-    return all_reduce(y, axis).to(dtype)
+    return from_ranks(y, axis).to(dtype)
 
 
 def all_gather(x, axis, dim: int = 0):

@@ -196,6 +196,18 @@ def param_pspecs(cfg: ModelConfig, params_shape, *, fsdp: bool = False,
     return _map_with_path(rule, params_shape)
 
 
+def model_sharded(cfg: ModelConfig, params_shape, model: int) -> Any:
+    """A tree of bools of ``params_shape``'s nesting: True where
+    :func:`param_pspecs` splits the leaf over a model axis of ``model``
+    cards (the train step's norm sums those over the axis and counts the
+    others once)."""
+    from repro_torch.launch.mesh import make_mesh
+    specs = param_pspecs(cfg, params_shape, mesh=make_mesh(1, model))
+    return _map_with_path(lambda _, spec: any(
+        MODEL_AXIS in (e if isinstance(e, tuple) else (e,)) for e in spec),
+        specs)
+
+
 def opt_pspecs(param_specs) -> Any:
     """mu / nu mirror the params; the step counter is replicated."""
     return {"mu": param_specs, "nu": param_specs, "step": ()}

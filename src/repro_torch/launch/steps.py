@@ -17,11 +17,12 @@ devices; ``roofline.op_cost.count`` costs the kernel entry points
 themselves. All the fakes of one step share one mode.
 
 Given a mesh whose ``model`` axis is larger than 1, :func:`build_step`
-builds one rank's program of a prefill or decode step: the step runs on
-the rank's model axis (``launch.model_parallel``, its collectives the
-dry run's stand-ins) and its fake arguments have the rank's local shapes
-under ``param_pspecs`` / ``cache_pspecs`` / ``batch_pspecs``
-(``launch.sharding.local_shape``).
+builds one rank's program of the step: it runs on the rank's model axis
+(``launch.model_parallel``, its collectives the dry run's stand-ins) and
+its fake arguments have the rank's local shapes under ``param_pspecs`` /
+``opt_pspecs`` / ``cache_pspecs`` / ``batch_pspecs``
+(``launch.sharding.local_shape``). A train step also averages its
+gradients over the rank's data axis, where the batch splits over it.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from repro_torch.configs.base import InputShape, ModelConfig, for_shape
 from repro_torch.core.quantizer import quantize_params_for_serving
 from repro_torch.launch import model_parallel as mp
 from repro_torch.launch import sharding as shard_lib
-from repro_torch.launch.mesh import MODEL_AXIS
+from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS
 from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_loop import make_train_step as _make_train_step
@@ -44,9 +45,12 @@ from repro_torch.tree import tree_leaves, tree_map
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
-                    remat: bool = True, accum_steps: int = 1) -> Callable:
+                    remat: bool = True, accum_steps: int = 1, axis=None,
+                    group=None) -> Callable:
+    """The train step; over a model ``axis`` (and its data ``group``),
+    one rank's program."""
     return _make_train_step(cfg, opt_cfg or AdamWConfig(), remat=remat,
-                            accum_steps=accum_steps)
+                            accum_steps=accum_steps, group=group, axis=axis)
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int, axis=None) -> Callable:
@@ -180,10 +184,11 @@ def build_step(cfg: ModelConfig, shape: InputShape,
     cache). With a ``mesh`` whose model axis is larger than 1, a prefill
     or decode step is the program of the rank at ``coords``
     (``mesh.coords``; rank 0 when None) on local fake shards (module
-    docstring); a train step stays one card's whole step."""
+    docstring), a train step with its data axis's gradient mean where
+    the batch splits over the data axes."""
     spec = _build_step(for_shape(cfg, shape), shape, opt_cfg, accum_steps,
                        serve_dtype, serve_quant)
-    if mesh is None or mesh.shape[MODEL_AXIS] == 1 or spec.kind == "train":
+    if mesh is None or mesh.shape[MODEL_AXIS] == 1:
         return spec
     from repro_torch.launch.mesh import coords as coords_of
     where = coords if coords is not None else coords_of(mesh, 0)
@@ -193,10 +198,28 @@ def build_step(cfg: ModelConfig, shape: InputShape,
     local = _local_fakes(spec.args, specs, mesh, mode)
     axis = mp.ModelAxis(where[MODEL_AXIS], mesh.shape[MODEL_AXIS], None,
                         shape.seq_len)
-    fn = make_prefill_step(spec.cfg, shape.seq_len, axis) \
-        if spec.kind == "prefill" else make_serve_step(spec.cfg, axis)
+    if spec.kind == "train":
+        fn = make_train_step(spec.cfg, opt_cfg, accum_steps=accum_steps,
+                             axis=axis, group=_data_axis(
+                                 mesh, where, shape.global_batch))
+    elif spec.kind == "prefill":
+        fn = make_prefill_step(spec.cfg, shape.seq_len, axis)
+    else:
+        fn = make_serve_step(spec.cfg, axis)
     return StepSpec(spec.kind, fn, local, spec.cfg, global_args=spec.args,
                     specs=specs)
+
+
+def _data_axis(mesh, where, global_batch: int):
+    """The fake data axis of the rank at ``where`` (``mp.data_index``),
+    over which a train step averages its gradients; None where the batch
+    does not split over the data axes (each replica then computes the
+    same gradients, and the reference's program reduces none)."""
+    if shard_lib.batch_axis(mesh, global_batch) is None:
+        return None
+    index, size = mp.data_index(mesh, where)
+    return mp.ModelAxis(index, size, None, name=DATA_AXIS) if size > 1 \
+        else None
 
 
 def _build_step(cfg, shape, opt_cfg, accum_steps, serve_dtype, serve_quant):

@@ -157,20 +157,26 @@ def _qkv_proj(x, w):
 def _project_qkv(params, cfg, x, axis=None):
     """x (B,S,D) -> q (B,S,KVp,Gp,hd), k/v (B,S,KVp,hd); over a model
     axis q the rank's heads (:func:`head_layout`), k/v its KV heads or
-    all of them (replicated)."""
+    all of them (replicated). The replicated ``x`` enters the rank's own
+    products through ``mp.to_ranks`` (the ranks' cotangents summed), the
+    replicated products of replicated ``wk`` / ``wv`` directly; the
+    replicated norm scales meet rank-specific heads through it too."""
     dt = x.dtype
     _, kvp, _, gp = head_layout(cfg, axis)
+    split_kv = kv_sharded(cfg, axis)
     b, s, _ = x.shape
-    q = _qkv_proj(x, params["wq"])
-    k = _qkv_proj(x, params["wk"])
-    v = _qkv_proj(x, params["wv"])
+    xr = mp.to_ranks(x, axis)
+    q = _qkv_proj(xr, params["wq"])
+    k = _qkv_proj(xr if split_kv else x, params["wk"])
+    v = _qkv_proj(xr if split_kv else x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
     if cfg.qk_norm:
-        q = headnorm(params["q_norm"], q)
-        k = headnorm(params["k_norm"], k)
+        q = headnorm(mp.to_ranks(params["q_norm"], axis), q)
+        k = headnorm(mp.to_ranks(params["k_norm"], axis) if split_kv
+                     else params["k_norm"], k)
     return q.reshape(b, s, kvp, gp, q.shape[-1]), k, v
 
 
@@ -197,11 +203,13 @@ def _out_proj(params, cfg, out, dtype, axis=None):
 def _attention_kv(cfg, axis, k, v):
     """The KV heads the rank's query heads read: k/v themselves where
     they are the rank's own, else its heads' slice of the replicated
-    ones."""
+    ones (``mp.to_ranks``: ranks that share a KV head both add to its
+    cotangent, and every rank gets the whole one)."""
     if kv_sharded(cfg, axis):
         return k, v
     kv0, nkv, _, _ = head_layout(cfg, axis)
-    return k[:, :, kv0:kv0 + nkv], v[:, :, kv0:kv0 + nkv]
+    return (mp.to_ranks(k, axis, 2, kv0, nkv),
+            mp.to_ranks(v, axis, 2, kv0, nkv))
 
 
 # ---------------------------------------------------------------------------

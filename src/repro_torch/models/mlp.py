@@ -2,8 +2,9 @@
 
 Over a model axis (``axis=``, ``launch.model_parallel``) a rank holds
 column blocks of ``w_gate`` / ``w_up`` and the matching row block of
-``w_down`` (Megatron's column -> row pair): its output is a partial sum,
-taken in f32, summed over the axis and rounded once."""
+``w_down`` (Megatron's column -> row pair): the input enters through
+``mp.to_ranks`` and the output is a partial sum, taken in f32, summed
+over the axis (``mp.sum_partials``) and rounded once."""
 from __future__ import annotations
 
 import torch
@@ -38,6 +39,7 @@ def _ff(x, w, out_dtype=None):
 
 
 def mlp_apply(params, cfg, x, axis=None):
+    x = mp.to_ranks(x, axis)
     if cfg.mlp == "swiglu":
         h = silu(_ff(x, params["w_gate"])) * _ff(x, params["w_up"])
     else:

@@ -13,9 +13,12 @@ on the card they are cuBLAS batched matmuls and elementwise kernels.
 Expert-parallel over a model axis (``axis=``, ``launch.model_parallel``):
 a rank holds a contiguous block of E / m experts. The router and the
 routing stay replicated, so every rank drops the same tokens; each rank
-takes its experts' slice of ``dispatch`` / ``combine``, and the ranks'
-partial outputs, in f32, are summed over the axis and rounded once. The
-aux losses are the replicated routing's, unchanged.
+takes its experts' slice of ``dispatch`` / ``combine`` and of the
+tokens' input (``mp.to_ranks``: in the backward the ranks' cotangents of
+the gates and the tokens are summed, the router's own read of the tokens
+not), and the ranks' partial outputs, in f32, are summed over the axis
+and rounded once. The aux losses are the replicated routing's, counted
+once.
 """
 from __future__ import annotations
 
@@ -114,10 +117,12 @@ def moe_apply(params, cfg, x, group_size: int = DEFAULT_GROUP_SIZE,
     dispatch, combine, aux = _route(logits, m.top_k, cap)
     if mp.active(axis):                  # this rank's block of experts
         e = params["w_up"].shape[0]
-        mine = slice(axis.index * e, (axis.index + 1) * e)
-        dispatch, combine = dispatch[:, :, mine], combine[:, :, mine]
+        dispatch = mp.rank_block(dispatch, axis, 2, e)
+        combine = mp.rank_block(combine, axis, 2, e)
 
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), xg)
+    # the experts' input only: the router read xg whole on every rank
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dt),
+                             mp.to_ranks(xg, axis))
     if cfg.mlp == "swiglu":
         h = silu(torch.einsum("egcd,edf->egcf", expert_in,
                               params["w_gate"].to(dt)))

@@ -26,7 +26,10 @@ of the per-head ones. The gated norm's mean over d_inner is the axis's
 sum of squares over the global d_inner, ``w_out`` is row-parallel
 (its f32 partial sums summed over the axis), and the conv ring
 replicates: each rank holds all of it, the new x channels gathered from
-the ranks before each write.
+the ranks before each write. Every replicated tensor the rank's heads
+read — ``x`` into the rank's products, the post-conv B and C, the
+per-head slices, the summed mean square — crosses ``mp.to_ranks``, so
+its cotangent is the ranks' sum.
 """
 from __future__ import annotations
 
@@ -88,15 +91,18 @@ def _local(params, cfg, axis):
         raise ValueError(f"{nh} SSM heads do not split over a model axis "
                          f"of {axis.size}")
     h = nh // axis.size
-    mine = slice(axis.index * h, (axis.index + 1) * h)
-    return {**params, "w_dt": params["w_dt"][..., mine],
-            **{k: params[k][mine] for k in ("dt_bias", "A_log", "D")}}
+    return {**params, "w_dt": mp.rank_block(params["w_dt"], axis, -1, h),
+            **{k: mp.rank_block(params[k], axis, 0, h)
+               for k in ("dt_bias", "A_log", "D")}}
 
 
-def _project_in(params, x):
-    """x (..., D) -> (z, xr, Br, Cr, dt_raw) pre-conv projections."""
+def _project_in(params, x, axis=None):
+    """x (..., D) -> (z, xr, Br, Cr, dt_raw) pre-conv projections: the
+    rank's own products (z, x, dt over its heads) take ``x`` through
+    ``mp.to_ranks``, the replicated B and C take it directly."""
     dt = x.dtype
-    return tuple(x @ params[k].to(dt)
+    xr = mp.to_ranks(x, axis)
+    return tuple((x if k in ("w_B", "w_C") else xr) @ params[k].to(dt)
                  for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
 
 
@@ -116,8 +122,11 @@ def _gated_out(params, y, z, x_dtype, axis=None, d_inner=None):
     dt = y.dtype
     g = y * silu(z)
     if mp.active(axis):
-        var = mp.all_reduce(torch.sum(torch.square(g.float()), dim=-1,
-                                      keepdim=True), axis) / d_inner
+        # summed over the ranks, then read by each rank's channels: the
+        # backward sums the ranks' cotangents of the mean square
+        var = mp.to_ranks(mp.from_ranks(torch.sum(
+            torch.square(g.float()), dim=-1, keepdim=True), axis),
+            axis) / d_inner
     else:
         var = torch.mean(torch.square(g.float()), dim=-1, keepdim=True)
     g = (g.float() * torch.rsqrt(var + 1e-6) * params["gate_norm"]).to(dt)
@@ -154,13 +163,14 @@ def _ssm_forward_with_state(params, cfg, x, axis=None):
     n, p = s_cfg.d_state, s_cfg.head_dim
     dev = x.device
 
-    z, xr, br, cr, dt_raw = _project_in(params, x)
+    z, xr, br, cr, dt_raw = _project_in(params, x, axis)
     xc = _causal_conv(xr, params["conv_wx"].to(x.dtype),
                       params["conv_bx"].to(x.dtype))
-    bmat = _causal_conv(br, params["conv_wB"].to(x.dtype),
-                        params["conv_bB"].to(x.dtype))
-    cmat = _causal_conv(cr, params["conv_wC"].to(x.dtype),
-                        params["conv_bC"].to(x.dtype))
+    # the replicated B and C, read by the rank's heads
+    bmat = mp.to_ranks(_causal_conv(br, params["conv_wB"].to(x.dtype),
+                                    params["conv_bB"].to(x.dtype)), axis)
+    cmat = mp.to_ranks(_causal_conv(cr, params["conv_wC"].to(x.dtype),
+                                    params["conv_bC"].to(x.dtype)), axis)
     xs = xc.reshape(b, slen, nh, p)
     dt = _softplus(dt_raw.float() + params["dt_bias"])          # (B,S,H)
     a = -torch.exp(params["A_log"])                             # (H,)

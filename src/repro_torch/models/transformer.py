@@ -23,13 +23,17 @@ unembedding, and sum the MoE router losses over the blocks.
 
 The serving paths (``prefill``, ``decode_step``, ``segment_forward``,
 ``segment_prefill``, ``segment_decode_step`` and the blocks under them)
-take ``axis=``, a rank's model axis (``launch.model_parallel``): the
-params and caches are then that rank's shards as ``launch.sharding``
-lays them out, every mixer and feed-forward block sums its row-parallel
-output over the axis, the embedding is vocab-parallel (a masked gather
-of the rank's rows, summed over the axis) and the logits are the rank's
-block of vocab columns. With no axis, or one of size 1, they compute
-what they computed before, bit for bit.
+and the trainer's ``forward`` take ``axis=``, a rank's model axis
+(``launch.model_parallel``): the params and caches are then that rank's
+shards as ``launch.sharding`` lays them out, every mixer and
+feed-forward block sums its row-parallel output over the axis, the
+embedding is vocab-parallel (a masked gather of the rank's rows, summed
+over the axis) and the logits are the rank's block of vocab columns.
+Each crossing from replicated to rank-specific tensors is
+``mp.to_ranks`` and each sum over the ranks ``mp.from_ranks``, so the
+backward gives every replicated tensor its whole cotangent on every
+rank. With no axis, or one of size 1, they compute what they computed
+before, bit for bit.
 """
 from __future__ import annotations
 
@@ -310,7 +314,7 @@ def _embed(params, cfg, tokens=None, embeds=None, axis=None):
     local = tokens.long() - axis.index * rows
     mine = (local >= 0) & (local < rows)
     x = params["embed"][local.clamp(0, rows - 1)]
-    return mp.all_reduce(torch.where(mine[..., None], x, 0),
+    return mp.from_ranks(torch.where(mine[..., None], x, 0),
                          axis).to(model_dtype(cfg))
 
 
@@ -318,7 +322,7 @@ def _unembed(params, cfg, x, axis=None):
     """Final norm and logits (..., V_pad), padded vocab columns masked;
     over a model axis the rank's block of vocab columns (``lm_head``'s,
     or the tied head's: ``embed``'s rows, transposed)."""
-    x = norm_apply(cfg.norm, params["final_norm"], x)
+    x = mp.to_ranks(norm_apply(cfg.norm, params["final_norm"], x), axis)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
     vp = cfg.padded_vocab()
@@ -573,14 +577,18 @@ def segment_verify(params, cfg: ModelConfig, xs, caches, pos0,
 # Whole model (the serving launcher's and the trainer's entry points)
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
-            positions=None, remat: bool = False):
+            positions=None, remat: bool = False, axis=None):
     """tokens (B, S), or a frontend's ``embeds`` (B, S, D) -> (logits
     (B, S, V), aux: the router losses summed over the blocks).
     ``remat`` checkpoints each period, as the reference's
     ``jax.checkpoint`` over its scan body: the backward pass runs the
     period's forward again (its flash attention kernel included)
-    instead of keeping its activations."""
-    h = _embed(params, cfg, tokens, embeds)
+    instead of keeping its activations. Over a model ``axis``, one
+    rank's program on its shards, its block of vocab columns out, and
+    differentiable: the boundaries are ``mp.to_ranks`` /
+    ``mp.from_ranks``, and remat recomputes a period's collectives
+    inside the backward, in the same order on every rank."""
+    h = _embed(params, cfg, tokens, embeds, axis)
     if positions is None:
         positions = rope_lib.text_positions(h.shape[0], h.shape[1],
                                             device=h.device)
@@ -590,7 +598,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
         acc = None
         for pos in range(plen):
             bp, _ = block_at(params, cfg, per * plen + pos)
-            h, a, _ = _block_apply(bp, cfg, pos, h, positions)
+            h, a, _ = _block_apply(bp, cfg, pos, h, positions, axis=axis)
             acc = _acc_aux(acc, a)
         return h, acc
 
@@ -602,7 +610,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
         else:
             h, a = period_fn(h, per)
         aux = _acc_aux(aux, a)
-    return _unembed(params, cfg, h), aux or _zero_aux(h.device)
+    return _unembed(params, cfg, h, axis=axis), aux or _zero_aux(h.device)
 
 
 def prefill(params, cfg: ModelConfig, tokens=None, *, embeds=None,

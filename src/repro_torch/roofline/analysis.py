@@ -9,17 +9,18 @@ The rates are ``launch.mesh``'s data-sheet figures, so the terms are
 lower bounds, not measurements. The FLOPs are matmul-class and the bytes
 unfused (``op_cost``), and each record says so.
 
-A prefill or decode step on a mesh whose model axis is larger than 1 is
-counted as one rank's program (``launch.steps.build_step``, rank 0): its
-FLOPs, bytes and the collective bytes it moves over the model axis
-(``coll_gbytes``, by kind in ``coll_breakdown``) are one card's. The
-collective term puts the model axis's bytes on NVLink where that axis
-fits in one node (``mesh.NODE_CARDS``), on the node's network links
-where it does not, and bytes over the data or pod axes on the network
-links (the serving steps move none). A one-card program, a train step
-and an FSDP layout are counted whole on one card with no collective
-term (``t_collective`` None; ``coll_note`` says why); their mesh changes
-only the argument bytes each card holds (``launch.sharding``).
+A step on a mesh whose model axis is larger than 1 is counted as one
+rank's program (``launch.steps.build_step``, rank 0): its FLOPs, bytes
+and the collective bytes it moves (``coll_gbytes``, by kind in
+``coll_breakdown``, by axis in ``coll_by_axis``) are one card's. The
+collective term puts each axis's bytes on its link: the model axis's on
+NVLink where that axis fits in one node (``mesh.NODE_CARDS``), on the
+node's network links where it does not; the data axes' (a train step's
+gradient mean over ``pod`` and ``data``) on the network links. A
+one-card program and an FSDP layout are counted whole on one card with
+no collective term (``t_collective`` None; ``coll_note`` says why);
+their mesh changes only the argument bytes each card holds
+(``launch.sharding``).
 """
 from __future__ import annotations
 
@@ -29,11 +30,12 @@ import json
 import os
 from typing import Dict, Optional
 
-from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, NIC_BW, NODE_CARDS,
-                                     NVLINK_BW, PEAK_FLOPS_BF16,
+from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, MODEL_AXIS, NIC_BW,
+                                     NODE_CARDS, NVLINK_BW, PEAK_FLOPS_BF16,
                                      PEAK_FLOPS_F32)
 
 PEAKS = {"bf16": PEAK_FLOPS_BF16, "f32": PEAK_FLOPS_F32}
+LINK_BW = {"nvlink": NVLINK_BW, "nic": NIC_BW}
 
 
 @dataclasses.dataclass
@@ -51,11 +53,12 @@ class Roofline:
     count_s: Optional[float] = None        # host seconds of the count
     flops_kind: str = "matmul"
     bytes_kind: str = "unfused"
-    # a rank's program: its collective GB (by kind) over the model axis
+    # a rank's program: its collective GB, by kind and by axis
     coll_gbytes: Optional[float] = None
     coll_breakdown: Optional[Dict[str, float]] = None
     model_axis: int = 1                   # cards on the model axis
     coll_note: Optional[str] = None       # why there is no collective term
+    coll_by_axis: Optional[Dict[str, float]] = None
 
     @property
     def rank_program(self) -> bool:
@@ -73,15 +76,29 @@ class Roofline:
     def t_memory(self) -> float:
         return self.gbytes * 1e9 / HBM_BW
 
+    def link(self, axis: str) -> str:
+        """The link an axis's collectives run over: the model axis's
+        NVLink within a node (else the network), the data axes' the
+        network."""
+        return self.model_link if axis == MODEL_AXIS else "nic"
+
     @property
-    def t_collective(self) -> Optional[float]:
-        """The model axis's collective bytes over its link (the serving
-        steps' collectives are all on the model axis); None where none
+    def t_collective_by_axis(self) -> Optional[Dict[str, float]]:
+        """Each axis's collective bytes over its link; None where none
         was counted."""
         if self.coll_gbytes is None:
             return None
-        bw = NVLINK_BW if self.model_link == "nvlink" else NIC_BW
-        return self.coll_gbytes * 1e9 / bw
+        return {a: gb * 1e9 / LINK_BW[self.link(a)]
+                for a, gb in self.coll_by_axis.items()}
+
+    @property
+    def t_collective(self) -> Optional[float]:
+        """The sum of :attr:`t_collective_by_axis` (the axes' links run
+        one after another: a lower bound on none of them overlapping the
+        others, not on their overlap with compute); None where no
+        collective was counted."""
+        by_axis = self.t_collective_by_axis
+        return None if by_axis is None else sum(by_axis.values())
 
     @property
     def bottleneck(self) -> str:
@@ -109,7 +126,11 @@ class Roofline:
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
         d.update(t_compute=self.t_compute, t_memory=self.t_memory,
-                 t_collective=self.t_collective, bottleneck=self.bottleneck,
+                 t_collective=self.t_collective,
+                 t_collective_by_axis=self.t_collective_by_axis,
+                 coll_links=None if self.coll_gbytes is None else {
+                     a: self.link(a) for a in self.t_collective_by_axis},
+                 bottleneck=self.bottleneck,
                  useful_flop_frac=self.useful_flop_frac,
                  fits_80gb=self.fits_80gb, rank_program=self.rank_program,
                  model_link=self.model_link if self.rank_program else None)
@@ -123,18 +144,22 @@ def analyze(summary, *, arch: str, shape: str, mesh_name: str = "host",
             coll_note: Optional[str] = None) -> Roofline:
     """A :class:`Roofline` from an ``op_cost.CostSummary``: a rank's
     program on a model axis of ``model_axis`` > 1 cards gets the
-    collective term from ``summary.collectives``; otherwise there is
-    none (``coll_note``, when given, says why)."""
-    coll = None
+    collective term from ``summary.collectives`` (by kind) and
+    ``summary.collectives_by_axis``; otherwise there is none
+    (``coll_note``, when given, says why)."""
+    coll = by_axis = None
     if model_axis > 1 and coll_note is None:
         coll = {k: v / 1e9 for k, v in sorted(summary.collectives.items())}
+        by_axis = {k: v / 1e9 for k, v in
+                   sorted(summary.collectives_by_axis.items())}
     return Roofline(
         arch=arch, shape=shape, mesh=mesh_name, chips=chips,
         gflops=summary.flops / 1e9, gbytes=summary.bytes / 1e9, peak=peak,
         model_gflops=(model_flops / 1e9) if model_flops else None,
         arg_bytes_per_card=arg_bytes_per_card, count_s=count_s,
         coll_gbytes=sum(coll.values()) if coll is not None else None,
-        coll_breakdown=coll, model_axis=model_axis, coll_note=coll_note)
+        coll_breakdown=coll, model_axis=model_axis, coll_note=coll_note,
+        coll_by_axis=by_axis)
 
 
 # ---------------------------------------------------------------------------

@@ -43,14 +43,16 @@ fake position has no value to address a slot with, and counted as it
 runs, an ``index_copy_`` would book the whole ring read and written.
 
 A rank's program over a model axis (``launch.steps.build_step`` with a
-mesh) calls ``launch.model_parallel``'s collectives; while :func:`count`
-runs, its ``_collective`` is a stand-in too. Each call records, under its
-kind (``all-reduce``, ``all-gather``, ``all-to-all``), the bytes it
-moves as ``repro/roofline/hlo_cost.py`` counts a collective — the larger
-of its operand's and its result's, once per call, so a layer's
-collective counts once per layer — into ``CostSummary.collectives``, and
-its operand and result bytes into ``bytes`` as any op's. A one-card program
-calls none: its ``collectives`` stay empty.
+mesh) calls ``launch.model_parallel``'s collectives, its backward's
+included; while :func:`count` runs, its ``_collective`` is a stand-in
+too. Each call records, under its kind (``all-reduce``, ``all-gather``,
+``all-to-all``), the bytes it moves as ``repro/roofline/hlo_cost.py``
+counts a collective — the larger of its operand's and its result's, once
+per call, so a layer's collective counts once per layer — into
+``CostSummary.collectives``, the same bytes under the axis it runs over
+(``model``, or ``data`` for a train step's gradient mean) into
+``collectives_by_axis``, and its operand and result bytes into ``bytes``
+as any op's. A one-card program calls none: both stay empty.
 """
 from __future__ import annotations
 
@@ -84,12 +86,14 @@ _NO_TRAFFIC = {_aten.empty.memory_format, _aten.empty_like.default,
 class CostSummary:
     """What :func:`count` counted: ``flops`` (matmul-class),
     ``bytes`` (unfused) and their split by op (a stand-in's bytes under
-    its kernel's name), ``collectives`` (bytes moved by kind over the
-    model axis; empty for a one-card program) and the stand-ins' calls
-    by kernel."""
+    its kernel's name), ``collectives`` (bytes moved by kind; empty for a
+    one-card program) and the same bytes by axis
+    (``collectives_by_axis``), and the stand-ins' calls by kernel."""
     flops: float = 0.0
     bytes: float = 0.0
     collectives: Dict[str, float] = dataclasses.field(default_factory=dict)
+    collectives_by_axis: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
     kernel_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     bytes_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
 
@@ -118,6 +122,7 @@ class _Counter(TorchDispatchMode):
         super().__init__()
         self.bytes = collections.Counter()        # by op
         self.collectives = collections.Counter()  # moved bytes, by kind
+        self.by_axis = collections.Counter()      # the same, by axis
         self.kernel_flops = 0
         self.calls = collections.Counter()
         self.paused = False
@@ -154,15 +159,16 @@ class _Counter(TorchDispatchMode):
         self.calls[name] += 1
         return out
 
-    def collective(self, kind: str, x, make_out):
-        """One collective of ``kind`` on ``x``: its result made with the
-        byte count paused, the moved bytes (the larger of operand and
-        result) recorded under ``kind``, operand and result bytes under
-        ``bytes``."""
+    def collective(self, kind: str, x, make_out, axis: str):
+        """One collective of ``kind`` on ``x`` over ``axis``: its result
+        made with the byte count paused, the moved bytes (the larger of
+        operand and result) recorded under ``kind`` and under ``axis``,
+        operand and result bytes under ``bytes``."""
         with self.pause():
             out = make_out()
         moved, io = max(_nbytes(x), _nbytes(out)), _nbytes(x) + _nbytes(out)
         self.collectives[kind] += moved
+        self.by_axis[axis] += moved
         self.bytes[kind] += io
         return out
 
@@ -324,7 +330,7 @@ def _collective_stand_in(counter: _Counter) -> dict:
         if kind == "all-gather":
             shape[dim] *= axis.size
         return counter.collective(kind, x, lambda: torch.empty(
-            shape, dtype=x.dtype))
+            shape, dtype=x.dtype), axis.name)
 
     return {"_collective": collective}
 
@@ -360,6 +366,7 @@ def count(fn, *args, **kwargs) -> CostSummary:
         flops=float(flop_counter.get_total_flops() + counter.kernel_flops),
         bytes=float(counter.bytes.total()),
         collectives={k: float(v) for k, v in counter.collectives.items()},
+        collectives_by_axis={k: float(v) for k, v in counter.by_axis.items()},
         kernel_calls=dict(counter.calls),
         bytes_by_op={k: float(v) for k, v in counter.bytes.items()})
 

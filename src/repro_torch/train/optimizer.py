@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from repro_torch.launch import model_parallel as mp
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -50,15 +51,37 @@ def init_opt_state(params):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree):
+def global_norm(tree, axis=None, sharded=None):
+    """The norm of every leaf of ``tree`` together. Over a model
+    ``axis`` (``launch.model_parallel``) ``tree`` holds a rank's shards
+    and ``sharded`` (a tree of bools of the same nesting) says which
+    leaves the axis splits: their squares are summed over the axis, the
+    replicated leaves' counted once, so every rank gets the same norm."""
     leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in leaves))
+    if not mp.active(axis):
+        return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                              for t in leaves))
+    squares = [torch.sum(torch.square(t.float())) for t in leaves]
+    flags = tree_leaves(sharded)
+    if len(flags) != len(squares):
+        raise ValueError(f"{len(flags)} sharding flags for {len(squares)} "
+                         f"leaves")
+    split = torch.stack([q for q, f in zip(squares, flags) if f]).sum()
+    whole = [q for q, f in zip(squares, flags) if not f]
+    total = mp.all_reduce(split, axis)
+    if whole:
+        total = total + torch.stack(whole).sum()
+    return torch.sqrt(total)
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state):
-    """Returns (new_params, new_state, metrics)."""
+def adamw_update(cfg: AdamWConfig, params, grads, state, axis=None,
+                 sharded=None):
+    """Returns (new_params, new_state, metrics). Over a model ``axis``
+    the trees are a rank's shards: the update is elementwise on them
+    (weight decay on leaves of two dimensions or more, as on one card),
+    the clipping norm :func:`global_norm`'s over the axis."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, axis, sharded)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     grads = tree_map(lambda g: g * scale, grads)

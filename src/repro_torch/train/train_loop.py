@@ -9,12 +9,21 @@ the host mesh (``launch.distributed``) each rank steps on its own rows
 and the step all-reduces the gradients and the loss metrics over the
 ranks before the update, as XLA does for the reference's batch sharded
 over ``data``.
+
+Over a (data, model) mesh the step is one rank's program, as the
+reference's dry run compiles it under ``param_pspecs`` / ``opt_pspecs``
+/ ``batch_pspecs``: the forward and backward run on the rank's shards
+over its model axis (``axis=``; ``models.transformer.forward``), the
+loss is vocab-parallel (:func:`lm_loss`), the gradients are averaged
+over the rank's data axis (``group=``, the ranks that share its model
+index), the clipping norm sums the sharded leaves' squares over the
+model axis (``optimizer.global_norm``) and AdamW updates the shards.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
+from repro_torch.launch import model_parallel as mp
 from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
@@ -23,20 +32,44 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 METRICS = ("xent", "zloss", "dropped_frac")
 
 
-def lm_loss(params, cfg, batch, remat: bool = True):
+def _log_partition(logits, labels, axis=None):
+    """(logz, the label's logit) per row of f32 ``logits`` (..., V); over
+    a model ``axis`` the rank's block of vocab columns (``_unembed``'s
+    layout): the largest logit gathered over the axis (a constant of the
+    gradient), the exponentials' sum and the label's logit, from the rank
+    that holds it, summed over the axis (``mp.from_ranks``)."""
+    if not mp.active(axis):
+        logz = torch.logsumexp(logits, dim=-1)
+        return logz, torch.gather(logits, -1, labels[..., None])[..., 0]
+    v = logits.shape[-1]
+    top = mp.all_gather(logits.detach().amax(-1, keepdim=True), axis,
+                        -1).amax(-1)
+    sumexp = mp.from_ranks(torch.sum(torch.exp(logits - top[..., None]),
+                                     dim=-1), axis)
+    local = labels - axis.index * v
+    mine = (local >= 0) & (local < v)
+    gold = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    return torch.log(sumexp) + top, \
+        mp.from_ranks(torch.where(mine, gold, 0.0), axis)
+
+
+def lm_loss(params, cfg, batch, remat: bool = True, axis=None):
     """batch: {tokens (B, S) | embeds (B, S, D), labels (B, S)[,
     positions]} -> (total, metrics); ``embeds`` is the frontend-stub path
     (audio / VLM backbones), ``positions`` carries M-RoPE triples when
     present. Logits in f32; mean logsumexp cross-entropy plus a 1e-4
     z-loss on the log-partition, and on a MoE config the router's
-    load-balance loss (``aux_loss_weight``) and its z-loss (1e-3)."""
+    load-balance loss (``aux_loss_weight``) and its z-loss (1e-3). Over a
+    model ``axis``, the cross-entropy over the rank's vocab block
+    (:func:`_log_partition`); the total and the metrics are the same on
+    every rank."""
     logits, aux = T.forward(params, cfg, batch.get("tokens"),
                             embeds=batch.get("embeds"),
-                            positions=batch.get("positions"), remat=remat)
+                            positions=batch.get("positions"), remat=remat,
+                            axis=axis)
     logits = logits.float()
     labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    logz, gold = _log_partition(logits, labels, axis)
     xent = torch.mean(logz - gold)
     zloss = 1e-4 * torch.mean(torch.square(logz))
     total = xent + zloss
@@ -48,13 +81,15 @@ def lm_loss(params, cfg, batch, remat: bool = True):
     return total, metrics
 
 
-def value_and_grad(params, cfg, batch, remat: bool = True):
+def value_and_grad(params, cfg, batch, remat: bool = True, axis=None):
     """((loss, metrics), grads) of :func:`lm_loss` with respect to every
     leaf of ``params``; the grads are a tree of the same nesting. A leaf
     the loss does not read (the token embedding of an ``embeds`` batch)
-    gets a zero gradient, as JAX gives it."""
+    gets a zero gradient, as JAX gives it. Over a model ``axis``,
+    ``params`` are the rank's shards and so are the grads (a replicated
+    leaf's, the whole gradient on every rank)."""
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss, metrics = lm_loss(live, cfg, batch, remat)
+    loss, metrics = lm_loss(live, cfg, batch, remat, axis)
     leaves = tree_leaves(live)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
@@ -65,82 +100,115 @@ def value_and_grad(params, cfg, batch, remat: bool = True):
 
 def mean_over(group, loss, metrics, grads):
     """(loss, metrics, grads) with every gradient leaf and the loss and
-    :data:`METRICS` replaced by their mean over ``group``'s ranks: a
-    blocking all-reduce of each (the card's stream waits, the host does
-    not), then one division by the group's size."""
+    :data:`METRICS` replaced by their mean over the data axis ``group``
+    (``mp.make_data_axis``): a blocking all-reduce of each through
+    ``mp.all_reduce``, which the dry run counts (the card's stream waits,
+    the host does not), then one division by the axis's size."""
     leaves = tree_leaves(grads)
     stacked = torch.stack([loss] + [metrics[k] for k in METRICS])
-    for t in leaves + [stacked]:
-        dist.all_reduce(t, group=group)
-    torch._foreach_div_(leaves + [stacked], dist.get_world_size(group))
-    loss, *rest = stacked.unbind()
-    return loss, dict(zip(METRICS, rest)), grads
+    out = [mp.all_reduce(t, group) for t in leaves + [stacked]]
+    torch._foreach_div_(out, group.size)
+    loss, *rest = out[-1].unbind()
+    return loss, dict(zip(METRICS, rest)), tree_unflatten(grads, out[:-1])
+
+
+def step_grads(params, cfg, batch, remat: bool = True,
+               accum_steps: int = 1, group=None, axis=None):
+    """((loss, metrics), grads) as :func:`make_train_step`'s step takes
+    them before its update: over ``accum_steps`` microbatches, averaged
+    over the data axis ``group`` where given, on a model ``axis``'s
+    shards."""
+    # with no axis, value_and_grad's four-argument call of one card
+    # (tests/test_torch_train.py's microbatch spy takes no more)
+    on_axis = () if axis is None else (axis,)
+    if accum_steps == 1:
+        (loss, metrics), grads = value_and_grad(params, cfg, batch, remat,
+                                                *on_axis)
+    else:
+        a = accum_steps
+
+        def split(t):
+            t = t.reshape((t.shape[0] // a, a) + tuple(t.shape[1:]))
+            return t.transpose(0, 1)
+
+        micro = {k: split(v) for k, v in batch.items() if k != "positions"}
+        # positions (3, B, S) carry the batch on axis 1
+        if "positions" in batch:
+            pos = batch["positions"]
+            pos = pos.reshape(3, pos.shape[1] // a, a, pos.shape[-1])
+            micro["positions"] = pos.permute(2, 0, 1, 3)
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), params)
+        device = tree_leaves(params)[0].device
+        loss = torch.zeros((), dtype=torch.float32, device=device)
+        metrics = {k: torch.zeros((), dtype=torch.float32, device=device)
+                   for k in METRICS}
+        for i in range(a):
+            mb = {k: v[i] for k, v in micro.items()}
+            (l_i, m_i), g_i = value_and_grad(params, cfg, mb, remat,
+                                             *on_axis)
+            grads = tree_map(lambda acc, g: acc + g.float(), grads, g_i)
+            loss = loss + l_i
+            metrics = {k: metrics[k] + m_i[k] for k in METRICS}
+        grads = tree_map(lambda g: g / a, grads)
+        loss = loss / a
+        metrics = {k: v / a for k, v in metrics.items()}
+    if group is not None:
+        loss, metrics, grads = mean_over(group, loss, metrics, grads)
+    return (loss, metrics), grads
 
 
 def make_train_step(cfg, opt_cfg: AdamWConfig, remat: bool = True,
-                    accum_steps: int = 1, group=None):
+                    accum_steps: int = 1, group=None, axis=None):
     """accum_steps > 1 runs the microbatches in turn (the global batch
     must divide), accumulating the gradients in f32 and dividing by
     ``accum_steps``. The batch is split as the reference splits it:
     (B/A, A) with A moved to the front, so microbatch ``a`` holds rows
     ``a, a + A, a + 2A, ...``.
 
-    ``group``, a ``torch.distributed`` process group whose ranks each
-    hold their own rows of the global batch (the host mesh): after the
-    gradients (accumulated, when ``accum_steps`` > 1, over the rank's
-    own rows), :func:`mean_over` the group, before the update, so the
+    ``group``, a data axis (``mp.make_data_axis``) whose ranks each hold
+    their own rows of the global batch (the host mesh's, or a (data,
+    model) mesh's ranks of one model index), or a process group, taken
+    as the data axis of its ranks (``mp.group_axis``): after the gradients
+    (accumulated, when ``accum_steps`` > 1, over the rank's own rows),
+    :func:`mean_over` the axis, before the update, so the
     global norm, the clipping and the update read the reduced gradients
     and every rank steps alike. A mean of the ranks' means is the global
     batch's mean when every rank holds as many rows (and so, in a MoE
-    block, as many routing groups). ``None`` adds no collective."""
+    block, as many routing groups). ``None`` adds no collective.
+
+    ``axis``, a rank's model axis (``launch.model_parallel``): the step
+    is that rank's program on its shards of the params, the optimizer
+    state and the batch rows of its data index (module docstring). The
+    leaves the axis
+    splits are read from ``launch.sharding.param_pspecs`` at the first
+    call. An axis of size 1 is no axis, bit for bit."""
+    sharded = []
+    if group is not None and not isinstance(group, mp.ModelAxis):
+        group = mp.group_axis(group)
+
     def train_step(params, opt_state, batch):
-        if accum_steps == 1:
-            (loss, metrics), grads = value_and_grad(params, cfg, batch,
-                                                    remat)
-        else:
-            a = accum_steps
-
-            def split(t):
-                t = t.reshape((t.shape[0] // a, a) + tuple(t.shape[1:]))
-                return t.transpose(0, 1)
-
-            micro = {k: split(v) for k, v in batch.items()
-                     if k != "positions"}
-            # positions (3, B, S) carry the batch on axis 1
-            if "positions" in batch:
-                pos = batch["positions"]
-                pos = pos.reshape(3, pos.shape[1] // a, a, pos.shape[-1])
-                micro["positions"] = pos.permute(2, 0, 1, 3)
-            grads = tree_map(lambda p: torch.zeros(p.shape,
-                                                   dtype=torch.float32,
-                                                   device=p.device), params)
-            device = tree_leaves(params)[0].device
-            loss = torch.zeros((), dtype=torch.float32, device=device)
-            metrics = {k: torch.zeros((), dtype=torch.float32,
-                                      device=device) for k in METRICS}
-            for i in range(a):
-                mb = {k: v[i] for k, v in micro.items()}
-                (l_i, m_i), g_i = value_and_grad(params, cfg, mb, remat)
-                grads = tree_map(lambda acc, g: acc + g.float(), grads, g_i)
-                loss = loss + l_i
-                metrics = {k: metrics[k] + m_i[k] for k in METRICS}
-            grads = tree_map(lambda g: g / a, grads)
-            loss = loss / a
-            metrics = {k: v / a for k, v in metrics.items()}
-        if group is not None:
-            loss, metrics, grads = mean_over(group, loss, metrics, grads)
+        if mp.active(axis) and not sharded:
+            from repro_torch.launch.sharding import model_sharded
+            sharded.append(model_sharded(cfg, params, axis.size))
+        (loss, metrics), grads = step_grads(params, cfg, batch, remat,
+                                            accum_steps, group, axis)
         params, opt_state, opt_metrics = adamw_update(
-            opt_cfg, params, grads, opt_state)
+            opt_cfg, params, grads, opt_state, axis,
+            sharded[0] if sharded else None)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return params, opt_state, metrics
 
+    train_step.axis = axis
     return train_step
 
 
-def make_eval_step(cfg):
+def make_eval_step(cfg, axis=None):
+    """The loss metrics of a batch, no gradient; over a model ``axis``,
+    one rank's program on its shards."""
     def eval_step(params, batch):
         with torch.no_grad():
-            _, metrics = lm_loss(params, cfg, batch, remat=False)
+            _, metrics = lm_loss(params, cfg, batch, remat=False, axis=axis)
         return metrics
 
     return eval_step

@@ -1,12 +1,14 @@
-"""The reference's decode step of 2-layer configs lowered and compiled on
-a (data 1, model 4) mesh of forced CPU devices, its collective bytes by
-kind read by ``repro.roofline.hlo_cost.analyze_text``. Run in a process
-of its own (the device count is fixed at JAX's first import):
+"""The reference's decode and train steps of 2-layer configs lowered and
+compiled on a (data 1, model 4) mesh of forced CPU devices, their
+collective bytes by kind read by ``repro.roofline.hlo_cost.analyze_text``.
+Run in a process of its own (the device count is fixed at JAX's first
+import):
 
   XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
-      python tests/_torch_reference_collectives.py ARCH SEQ BATCH [...]
+      python tests/_torch_reference_collectives.py KIND ARCH SEQ BATCH [...]
 
-prints one JSON object, {arch: {kind: bytes}}."""
+(KIND ``decode`` or ``train``) prints one JSON object, {kind: {arch:
+{collective kind: bytes}}}."""
 import dataclasses
 import json
 import sys
@@ -21,9 +23,9 @@ from repro.launch.steps import build_step
 from repro.roofline.hlo_cost import analyze_text
 
 
-def collectives(arch: str, seq: int, batch: int) -> dict:
+def collectives(kind: str, arch: str, seq: int, batch: int) -> dict:
     cfg = dataclasses.replace(get_config(arch), num_layers=2)
-    shape = InputShape("decode_small", seq, batch, "decode")
+    shape = InputShape(f"{kind}_small", seq, batch, kind)
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 4),
                 ("data", "model"))
     spec = build_step(cfg, shape)
@@ -38,6 +40,9 @@ def collectives(arch: str, seq: int, batch: int) -> dict:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    out = {args[i]: collectives(args[i], int(args[i + 1]), int(args[i + 2]))
-           for i in range(0, len(args), 3)}
+    out = {}
+    for i in range(0, len(args), 4):
+        kind, arch, seq, batch = args[i:i + 4]
+        out.setdefault(kind, {})[arch] = collectives(kind, arch, int(seq),
+                                                     int(batch))
     print(json.dumps(out))

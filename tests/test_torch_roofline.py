@@ -234,7 +234,8 @@ def test_roofline_terms():
     # a rank's program: its model axis's bytes over NVLink within a node,
     # over the network links beyond one
     summary = op_cost.CostSummary(flops=989e12, bytes=6.7e12, collectives={
-        "all-reduce": 900e9, "all-gather": 450e9})
+        "all-reduce": 900e9, "all-gather": 450e9},
+        collectives_by_axis={"model": 1350e9})
     node = analysis.analyze(summary, arch="a", shape="s", chips=8,
                             model_axis=8)
     assert node.coll_gbytes == pytest.approx(1350.0)
@@ -250,6 +251,29 @@ def test_roofline_terms():
                                model_axis=16, coll_note="train")
     assert unsplit.t_collective is None and not unsplit.rank_program
     assert unsplit.to_dict()["coll_note"] == "train"
+
+
+def test_collective_term_by_axis():
+    """Each axis's bytes on its link: the model axis's over NVLink within
+    a node and the network beyond one, the data axes' over the network
+    always; ``t_collective`` is their sum, and the record names each
+    axis's link."""
+    summary = op_cost.CostSummary(
+        flops=0.0, bytes=0.0, collectives={"all-reduce": 500e9},
+        collectives_by_axis={"model": 450e9, "data": 50e9})
+    node = analysis.analyze(summary, arch="a", shape="s", chips=16,
+                            model_axis=8)
+    assert node.coll_by_axis == {"data": 50.0, "model": 450.0}
+    assert node.t_collective_by_axis == pytest.approx({"model": 1.0,
+                                                       "data": 1.0})
+    assert node.t_collective == pytest.approx(2.0)
+    assert node.to_dict()["coll_links"] == {"data": "nic", "model": "nvlink"}
+    pod = analysis.analyze(summary, arch="a", shape="s", chips=256,
+                           model_axis=16)
+    assert pod.t_collective_by_axis == pytest.approx({"model": 9.0,
+                                                      "data": 1.0})
+    assert pod.to_dict()["coll_links"] == {"data": "nic", "model": "nic"}
+    assert pod.bottleneck == "collective"
 
 
 def test_layer_costs_feed_the_backend_overrides():
