@@ -11,6 +11,7 @@
     python3 chip_smoke.py --profile-host-mesh
     python3 chip_smoke.py --profile-model-parallel
     python3 chip_smoke.py --profile-model-parallel-train
+    python3 chip_smoke.py --profile-fsdp
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -167,11 +168,13 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (``make_train_step(axis=, group=)``: Megatron's boundary operators
    in autograd, the vocab-parallel loss, the sharded global norm), f32
    masters and bf16 activations at B 8 x S 256, MP_TRAIN_STEPS eager
-   steps, each case after its one-card twin, which is freed first:
+   steps (the last profiled), each case after its one-card twin, which
+   is freed first:
    smollm-135m whole (KV heads split, its tied head over the vocab),
    chatglm3-6b two layers deep at four ranks (its replicated KV heads
-   sliced: rows 4 and 4b at hd 128 over one KV head), OLMoE-1B-7B at 4 of
-   16 layers expert-parallel; with four cards one NCCL rank a card at
+   sliced: rows 4 and 4b at hd 128 over one KV head), OLMoE-1B-7B at 2 of
+   16 layers expert-parallel (the twin phase 9d's one-card OLMoE shares);
+   with four cards one NCCL rank a card at
    (1, 4), smollm-135m at (2, 2) and OLMoE-1B-7B whole (its twin the
    step-0 loss of ``make_eval_step``: 83 GB of state does not fit one
    card), else ``gloo`` ranks on this card at (1, 2) (chatglm3-6b at
@@ -186,6 +189,22 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    step's busy ms and NCCL's device ms, peak reserved GB, the spawn's
    seconds; then rows 4 and 4b at every signature the ranks launched
    against their plain versions (``check`` lines, ``"shape": "path"``);
+   phase 9d (``fsdp_phase``; in the same spawns as 9c, cases of one
+   world size together) the FSDP layout (``make_train_step(fsdp=)``,
+   ``launch.model_parallel.Fsdp``): each rank holds its shards of
+   ``param_pspecs(fsdp=True)`` and of the AdamW moments, each leaf
+   gathered over the data axis where read and its gradient
+   reduce-scattered back, remat on (but for the one-card (2, 1)), the
+   update in place; on one card ``gloo`` ranks:
+   smollm-135m at (2, 1) and (2, 2), OLMoE-1B-7B at 2 of 16 layers at
+   (2, 1), and smollm-135m's prefill and 8 decode tokens at (2, 1)
+   (``fsdp_serve``: each data rank's rows of the logits against phase
+   9b's twin, within MP_LOGIT_RTOL); on four cards one NCCL rank a card:
+   OLMoE-1B-7B whole at (4, 1) and (2, 2) (its twin the step-0 loss of
+   ``make_eval_step``), smollm-135m at (2, 2) and (4, 1); held as phase
+   9c's cases, the data-replicated leaves' sha256 per model index, each
+   rank's all-gather and reduce-scatter GB a step
+   (``CollectiveBytes``), its peak allocated and reserved GB;
 10. the model zoo: every assigned arch at ``.reduced()`` in f32 on the
    card against the CPU's plain path (forward with its router aux,
    prefill, 4 decode steps; musicgen and qwen2-vl through ``embeds=``,
@@ -284,7 +303,7 @@ p = 0 (``profile_forward``); ``--profile-host-mesh`` only runs the
 host mesh's part of phase 9 (its one-rank twin run first);
 ``--profile-model-parallel`` only checks the ring-shard decode attention
 and runs phase 9b; ``--profile-model-parallel-train`` only runs phase
-9c.
+9c; ``--profile-fsdp`` only runs phase 9d.
 ``--src`` imports the port
 from another tree, so
 that an earlier commit unpacked by ``git archive`` can be profiled in
@@ -295,7 +314,7 @@ paths that use it (the backward kernel in every training run, the
 zoo's and the examples' included; the attention kernels, quantize and
 qmatmul in the OLMoE runs; the ring-shard decode attention in phase 9b's
 chatglm3-6b ranks; the flash forward and backward on every rank of
-phase 9c), and the
+phases 9c and 9d), and the
 tiled qmatmul route (counted by wrapping the wrappers, ``TiledRoute``)
 in every prefill of the decode features, the quantized launchers and
 the OLMoE session. The line before the last is the ``kernels`` JSON
@@ -4814,16 +4833,71 @@ MP_TRAIN_GRAD_FLOOR = 1e-2  # the update's error is also read over the
                             # its size, so below it rounding noise decides
                             # the update's sign
 # (name, arch, layers (None: all), data, model (None: the phase's m),
-#  four cards only, twin: "train" its steps, or "eval" the step-0 loss,
-#  activations: "bf16" (the config's) or "f32")
+#  cards: "any", "4" (four cards only) or "1" (fewer than four only),
+#  twin: "train" its steps, "eval" the step-0 loss, or "serve" (phase 9b's
+#  twin: a prefill and decode steps), activations: "bf16" (the config's)
+#  or "f32", fsdp: the FSDP layout (phase 9d) or the model axis alone)
 MP_TRAIN_CASES = (
-    ("mpt_smollm", "smollm-135m", None, 1, None, False, "train", "bf16"),
-    ("mpt_chatglm3", "chatglm3-6b", 2, 1, 4, False, "train", "bf16"),
-    ("mpt_chatglm3_f32", "chatglm3-6b", 2, 1, 4, False, "train", "f32"),
-    ("mpt_olmoe", "olmoe-1b-7b", 4, 1, None, False, "train", "bf16"),
-    ("mpt_smollm_dp", "smollm-135m", None, 2, 2, True, "train", "bf16"),
-    ("mpt_olmoe_whole", "olmoe-1b-7b", None, 1, 4, True, "eval", "bf16"))
+    ("mpt_smollm", "smollm-135m", None, 1, None, "any", "train", "bf16",
+     False),
+    ("mpt_chatglm3", "chatglm3-6b", 2, 1, 4, "any", "train", "bf16", False),
+    ("mpt_chatglm3_f32", "chatglm3-6b", 2, 1, 4, "any", "train", "f32",
+     False),
+    ("mpt_olmoe", "olmoe-1b-7b", 2, 1, None, "any", "train", "bf16", False),
+    ("mpt_smollm_dp", "smollm-135m", None, 2, 2, "4", "train", "bf16",
+     False),
+    ("mpt_olmoe_whole", "olmoe-1b-7b", None, 1, 4, "4", "eval", "bf16",
+     False))
+# Phase 9d: the FSDP layout, every leaf also split over the data axis
+FSDP_CASES = (
+    ("fsdp_smollm", "smollm-135m", None, 2, 1, "1", "train", "bf16", True),
+    ("fsdp_smollm_2x2", "smollm-135m", None, 2, 2, "any", "train", "bf16",
+     True),
+    ("fsdp_olmoe", "olmoe-1b-7b", 2, 2, 1, "1", "train", "bf16", True),
+    ("fsdp_smollm_serve", "smollm-135m", None, 2, 1, "1", "serve", "bf16",
+     True),
+    ("fsdp_olmoe_whole", "olmoe-1b-7b", None, 4, 1, "4", "eval", "bf16",
+     True),
+    ("fsdp_olmoe_2x2", "olmoe-1b-7b", None, 2, 2, "4", "eval", "bf16", True),
+    ("fsdp_smollm_4", "smollm-135m", None, 4, 1, "4", "train", "bf16", True))
+# the serving case's batch, prompt and new tokens: each of its decode
+# steps gathers smollm-135m's 0.72 GB through the host on one card's gloo
+# ranks (about 1 s a step on one H100)
+FSDP_SERVE = (4, 64, 8)
+# layout cases that keep each gathered block for the backward (no remat):
+# the one-card (2, 1) cases, whose gathers cross the host a third less so
+# (the one-card (2, 2) and the four-card cases keep remat)
+FSDP_NO_REMAT = ("fsdp_smollm", "fsdp_olmoe")
 MP_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
+
+
+def runs_on(case, four: bool) -> bool:
+    """Whether a phase-9c / 9d case runs with (``four``) or without four
+    cards."""
+    return case[5] == "any" or case[5] == ("4" if four else "1")
+
+
+def serve_case(case) -> tuple:
+    """A phase-9d serving case as phase 9b's case tuple (``mp_twin``)."""
+    b, s, gen = FSDP_SERVE
+    return (case[0], case[1], case[2], 0, b, s, gen, None)
+
+
+class CollectiveBytes:
+    """``model_parallel._collective`` wrapped: while ``on``, each call's
+    bytes (the larger of its operand's and its result's, as the dry run
+    counts a collective) added up by kind and axis."""
+
+    def __init__(self, mp):
+        self.inner, self.on = mp._collective, False
+        self.bytes = collections.Counter()
+        mp._collective = self
+
+    def __call__(self, kind, x, axis, dim=0):
+        out = self.inner(kind, x, axis, dim)
+        if self.on:
+            self.bytes[f"{kind} {axis.name}"] += max(nbytes(x), nbytes(out))
+        return out
 
 
 def mpt_config(case):
@@ -4961,25 +5035,38 @@ def mpt_rank(rank, world, group, cases, paths):
     """One rank of a (data, ``world`` / data) mesh, for
     ``launch.distributed.spawn``: per case the seeded weights cut to this
     rank's shards (ranks sharing one card take turns, so that one whole
-    tree is on it at a time), its rows of the twin's batch, its model and
-    data axes, then MP_TRAIN_STEPS eager steps of ``make_train_step(axis=,
-    group=)`` with every launch counter zeroed before them and read after
-    (``ShapeLog`` keeping the flash kernels' signatures); each step's
-    metrics and wall ms; for a "train" twin, against its shard of the
-    twin's (``paths``; a replicated leaf's whole), each leaf's step-0
-    gradient (``step_grads`` before the steps, held by ``mpt_held``) and
-    its update (final minus initial, reported: ``mpt_leaf_errors``); a
-    sha256 of the leaves no model axis splits; then one more step
-    profiled (NCCL's device ms), and the peak reserved GB. Returns
-    {"cases": ..., "shapes": the flash kernels' signatures}."""
+    tree is on it at a time) — of ``param_pspecs``, or under the FSDP
+    layout (phase 9d) of ``param_pspecs(fsdp=True)``, each leaf then
+    gathered over the data axis where read (``mp.Fsdp``) and the steps
+    checkpointed (remat: the backward gathers each block again) — its
+    rows of the twin's batch, its model and data axes, then
+    MP_TRAIN_STEPS eager steps of ``make_train_step(axis=, group=,
+    fsdp=)`` with every launch counter zeroed before them and read after
+    (``ShapeLog`` keeping the flash kernels' signatures), the bytes of
+    the second step's collectives by kind and axis (``CollectiveBytes``);
+    each step's metrics and wall ms; for a "train" twin, against its
+    shard of the twin's (``paths``; a replicated leaf's whole), each
+    leaf's step-0 gradient (``step_grads`` before the steps, held by
+    ``mpt_held``) and its update (final minus initial, reported:
+    ``mpt_leaf_errors``); a sha256 of the leaves no model axis splits
+    (under the layout, of those it leaves whole over the data axis);
+    the last step profiled (NCCL's device ms), and the peak allocated
+    and reserved GB; under the layout the steps update in place and, on
+    NCCL ranks, an eval forward's peak over the shards follows
+    (``fsdp_eval_peak``). A
+    "serve" case runs ``mpt_serve``. Returns {"cases": ..., "shapes":
+    the flash kernels' signatures}."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import ops
     from repro_torch.launch import distributed
     from repro_torch.launch import model_parallel as mp
-    from repro_torch.launch.mesh import coords, make_mesh
-    from repro_torch.launch.sharding import (batch_rows, model_sharded,
-                                             param_pspecs, shard_tree)
+    from repro_torch.launch.mesh import (DATA_AXIS, MODEL_AXIS, coords,
+                                         make_mesh)
+    from repro_torch.launch.sharding import (batch_rows, fsdp_dims,
+                                             param_pspecs, shard_tree,
+                                             split_axes)
+    from repro_torch.models import transformer as T
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_loop import make_train_step, step_grads
     from repro_torch.tree import tree_leaves, tree_map
@@ -4987,38 +5074,61 @@ def mpt_rank(rank, world, group, cases, paths):
     log_shapes(ops)
     for name in MP_TRAIN_KERNELS:
         SHAPES[name].on = True
+    moved = CollectiveBytes(mp)
     nccl = dist.get_backend(group) == "nccl"
     out = {}
     for case in cases:
-        name, data, kind = case[0], case[3], case[6]
+        name, data, kind, fsdp = case[0], case[3], case[6], case[8]
         cfg = mpt_config(case)
         mesh = make_mesh(data, world // data)
         axis = mp.make_axis(mesh, rank, group)
         data_axis = mp.make_data_axis(mesh, rank, group)
         where = coords(mesh, rank)
+        layout = mp.Fsdp(data_axis, fsdp_dims(cfg, T.param_shapes(cfg),
+                                              mesh)) if fsdp else None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for turn in range(1 if nccl else world):
             if nccl or turn == rank:
-                full = mpt_weights(torch, cfg)
-                params = shard_tree(full, param_pspecs(cfg, full, mesh=mesh),
-                                    mesh, where)
+                if kind == "serve":
+                    full, prompt = mp_weights(torch, cfg, 0, *FSDP_SERVE[:2])
+                else:
+                    full = mpt_weights(torch, cfg)
+                params = shard_tree(full, param_pspecs(
+                    cfg, full, fsdp=fsdp, mesh=mesh), mesh, where)
                 del full
                 torch.cuda.empty_cache()
             if not nccl:
                 dist.barrier(group)
-        flags = tree_leaves(model_sharded(cfg, params, world // data))
+        if kind == "serve":
+            out[name] = mpt_serve(torch, ops, cfg, params, prompt, mesh,
+                                  where, axis, layout, moved, nccl, rank)
+            del params, prompt
+            torch.cuda.empty_cache()
+            continue
+        # the leaves every rank holds whole (9c: no model axis splits
+        # them), or under the layout those whole over the data axis, the
+        # same on the ranks of one model index
+        flags = [(DATA_AXIS if fsdp else MODEL_AXIS) not in f
+                 for f in tree_leaves(split_axes(
+                     cfg, params, world // data,
+                     layout.dims if fsdp else None))]
         batch = stream_batch(torch, cfg.vocab_size, 8, 256, SEED + 11)
         rows = batch_rows(mesh, 8, where["data"])
         batch = {k: v[rows] for k, v in batch.items()}
+        # the layout's program as ZeRO-3 runs it: remat (each block
+        # gathered again in the backward; FSDP_NO_REMAT's keep it) and the
+        # update in place
+        remat = fsdp and name not in FSDP_NO_REMAT
         step = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS),
-                               remat=False, group=data_axis, axis=axis)
+                               remat=remat, group=data_axis, axis=axis,
+                               fsdp=layout, in_place=fsdp)
         # the initial shards and step-0 gradients on the host: OLMoE's
-        # (4 layers) two ranks fill the card with their training state
+        # (2 layers) two ranks fill the card with their training state
         p0 = grads = None
         if kind == "train":
-            _, grads = step_grads(params, cfg, batch, remat=False,
-                                  group=data_axis, axis=axis)
+            _, grads = step_grads(params, cfg, batch, remat=remat,
+                                  group=data_axis, axis=axis, fsdp=layout)
             grads = tree_map(lambda t: t.cpu(), grads)
             p0 = tree_map(lambda t: t.cpu(), params)
             torch.cuda.empty_cache()
@@ -5030,25 +5140,40 @@ def mpt_rank(rank, world, group, cases, paths):
 
         zero_counters(torch, ops)
         metrics, walls = [], []
-        for _ in range(MP_TRAIN_STEPS):
+        for i in range(MP_TRAIN_STEPS - 1):
+            moved.on = i == 1
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = one()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
             metrics.append({k: float(v) for k, v in m.items()})
+        moved.on = False
+        # the last step profiled (NCCL's device ms)
+        prof = profile_steps(torch, lambda: metrics.append(
+            {k: float(v) for k, v in one().items()}), 1, watch=("nccl",),
+            cpu=False)
         launches = read_counters(torch, ops)
         rec = {"rank": rank, "card": torch.cuda.current_device(),
                "where": where, "rows": [rows.start, rows.stop],
                "metrics": metrics, "step_ms": walls[1:],
+               "profiled_step": {k: prof[k] for k in (
+                   "wall_ms_per_step", "device_busy_ms_per_step",
+                   "idle_share")},
+               "nccl_device_ms_per_step": prof[
+                   "watched_device_ms_per_step"]["nccl"] if nccl else None,
+               "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
                "replicated_sha256": distributed.digest(
-                   [t for t, f in zip(tree_leaves(state[0]), flags)
-                    if not f]),
+                   [t for t, f in zip(tree_leaves(state[0]), flags) if f]),
+               "collective_gb_per_step": {k: v / 1e9 for k, v in
+                                          sorted(moved.bytes.items())},
                "launches": launches}
+        moved.bytes.clear()
         if kind == "train":
             t0 = time.perf_counter()
             twin = torch.load(paths[name], mmap=True, weights_only=True)
-            specs = param_pspecs(cfg, twin["grad"], mesh=mesh)
+            specs = param_pspecs(cfg, twin["grad"], fsdp=fsdp, mesh=mesh)
             rec.update(mpt_leaf_errors(
                 leaf_paths(state[0]), tree_leaves(grads),
                 tree_leaves(state[0]), tree_leaves(p0),
@@ -5057,17 +5182,94 @@ def mpt_rank(rank, world, group, cases, paths):
                                        where))),
                 compare_s=time.perf_counter() - t0)
             del twin, p0, grads
-        prof = profile_steps(torch, one, 1, watch=("nccl",), cpu=False)
-        rec.update(profiled_step={k: prof[k] for k in (
-            "wall_ms_per_step", "device_busy_ms_per_step", "idle_share")},
-            nccl_device_ms_per_step=prof["watched_device_ms_per_step"][
-                "nccl"] if nccl else None,
-            peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+        # the layout's memory check, on NCCL ranks (one a card): on one
+        # card's gloo ranks a forward costs seconds of gathers via the host
+        if fsdp and nccl:
+            rec.update(fsdp_eval_peak(torch, cfg, state[0], batch, axis,
+                                      layout))
         out[name] = rec
         del state, params, batch, step
         torch.cuda.empty_cache()
     return {"cases": out, "shapes": {n: SHAPES[n].seen
                                      for n in MP_TRAIN_KERNELS}}
+
+
+def fsdp_eval_peak(torch, cfg, params, batch, axis, layout) -> dict:
+    """What one forward of the FSDP layout holds beyond the rank's
+    shards: ``make_eval_step``'s peak allocated GB over the GB allocated
+    before it, beside the largest block's leaves gathered whole (f32) and
+    the whole model's. A forward that gathers one block at a time holds
+    about one block's weights (and their bf16 casts) beyond its shards;
+    one that kept what it gathered would hold the model."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_loop import make_eval_step
+    from repro_torch.tree import tree_leaves
+    shapes = T.param_shapes(cfg)
+    per = T.num_periods(cfg)
+    block = max(sum(t.numel() * t.element_size() for t in tree_leaves(b))
+                for b in shapes["blocks"]) / per
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    make_eval_step(cfg, axis, layout)(params, batch)
+    torch.cuda.synchronize()
+    return {"eval_peak_over_shards_gb": (torch.cuda.max_memory_allocated()
+                                         - before) / 1e9,
+            "largest_block_gb": block / 1e9,
+            "model_gb": sum(t.numel() * t.element_size()
+                            for t in tree_leaves(shapes)) / 1e9}
+
+
+def mpt_serve(torch, ops, cfg, params, prompt, mesh, where, axis, layout,
+              moved, nccl, rank) -> dict:
+    """Phase 9d's serving case on one rank: its rows of the prompt
+    through the prefill, a decode step on the prompt's last token after
+    it and ``launch.serve.generate``, each leaf gathered over the data
+    axis where read, the launch counters zeroed before and read after and
+    the bytes of the collectives the decode step ran; then 2 decode steps
+    profiled (NCCL's device ms) and the peak allocated and reserved GB."""
+    from repro_torch.launch import model_parallel as mp
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.sharding import batch_rows
+    from repro_torch.models import transformer as T
+    b, s, gen = FSDP_SERVE
+    rows = batch_rows(mesh, b, where["data"])
+    prompt = prompt[rows]
+    zero_counters(torch, ops)
+    logits, caches, _ = T.prefill(params, cfg, prompt, max_len=s + gen,
+                                  axis=axis, fsdp=layout)
+    step_axis = mp.with_len(axis, s + gen)
+    moved.on = True
+    step, _ = T.decode_step(params, cfg, prompt[:, -1:], caches, s,
+                            axis=step_axis, fsdp=layout)
+    moved.on = False
+    stats = {}
+    toks = generate(params, cfg, prompt, s + gen, gen, graphs=False,
+                    stats=stats, axis=axis, fsdp=layout)
+    launches = read_counters(torch, ops)
+    tok = toks[:, -1:]
+    prof = profile_steps(torch, lambda: T.decode_step(
+        params, cfg, tok, caches, s, axis=step_axis, fsdp=layout), 2,
+        watch=("nccl",), cpu=False)
+    rec = {"rank": rank, "card": torch.cuda.current_device(),
+           "where": where, "rows": [rows.start, rows.stop],
+           "prefill": logits.cpu(), "step": step.cpu(), "tokens": toks.cpu(),
+           "last": stats["last_logits"].cpu(),
+           "prefill_s": stats["prefill_s"],
+           "step_ms": stats["decode_s"] / (gen - 1) * 1e3,
+           "collective_gb_per_step": {k: v / 1e9 for k, v in
+                                      sorted(moved.bytes.items())},
+           "profiled_step": {k: prof[k] for k in (
+               "wall_ms_per_step", "device_busy_ms_per_step",
+               "idle_share")},
+           "nccl_device_ms_per_step":
+               prof["watched_device_ms_per_step"]["nccl"] if nccl else None,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "launches": launches}
+    moved.bytes.clear()
+    del caches, logits
+    return rec
 
 
 def mpt_held(twin: dict, recs: list, case) -> dict:
@@ -5078,8 +5280,9 @@ def mpt_held(twin: dict, recs: list, case) -> dict:
     (``mpt_leaf_errors``): its relative L2 error within
     MP_TRAIN_GRAD_RTOL in bf16, its max error within MP_TRAIN_F32_GRAD_TOL
     of the shard's largest in f32; the ranks' metrics and replicated
-    leaves bitwise each other's; both flash kernels launched by every
-    rank. Raises on a miss."""
+    leaves bitwise each other's (under the FSDP layout, the leaves whole
+    over the data axis, on the ranks of one model index); both flash
+    kernels launched by every rank. Raises on a miss."""
     name, kind, f32 = case[0], case[6], case[7] == "f32"
 
     def rel(a, b):
@@ -5115,8 +5318,10 @@ def mpt_held(twin: dict, recs: list, case) -> dict:
            "update_rel_l2_large_grad_max_by_rank": [
                r.get("update_rel_l2_large_grad_max") for r in recs],
            "ranks_metrics_bitwise": all(r["metrics"] == first for r in recs),
-           "ranks_replicated_bitwise": len({r["replicated_sha256"]
-                                            for r in recs}) == 1,
+           "ranks_replicated_bitwise": all(
+               len({r["replicated_sha256"] for r in recs
+                    if not case[8] or r["where"]["model"] == m}) == 1
+               for m in {r["where"]["model"] for r in recs}),
            "twin_step_ms": twin.get("step_ms"),
            "twin_peak_reserved_gb": twin.get("peak_reserved_gb"),
            "twin_wall_s": twin.get("twin_wall_s"),
@@ -5129,6 +5334,36 @@ def mpt_held(twin: dict, recs: list, case) -> dict:
             or not rec["ranks_replicated_bitwise"] or missed:
         raise AssertionError(f"model-parallel train {name}: {rec}, kernels "
                              f"not launched {missed}")
+    return rec
+
+
+def fsdp_serve_held(twin: dict, recs: list, name: str) -> dict:
+    """Phase 9d's serving ranks against their twin, as ``mp_held`` holds
+    phase 9b's: each rank's rows of the prefill's logits, of the decode
+    step on the prompt's last token and of ``generate``'s last step (when
+    every token agrees) within MP_LOGIT_RTOL of the twin's largest logit
+    there, and the tokens' agreement; every kernel the twin's path runs
+    (flash forward, decode attention) launched by every rank."""
+    def errs(key):
+        scale = twin[key].float().abs().max().item()
+        return [(r[key].float() - twin[key][slice(*r["rows"])].float())
+                .abs().max().item() / scale for r in recs]
+    agree = min((r["tokens"] == twin["tokens"][slice(*r["rows"])])
+                .float().mean().item() for r in recs)
+    last = max(errs("last")) if agree == 1.0 else None
+    rec = {"prefill_rel_err_by_rank": errs("prefill"),
+           "step_rel_err_by_rank": errs("step"), "last_step_rel_err": last,
+           "rtol": MP_LOGIT_RTOL, "tokens_agree": agree,
+           "rows_by_rank": [r["rows"] for r in recs],
+           "twin_step_ms": twin["step_ms"]}
+    worst = max(rec["prefill_rel_err_by_rank"] + rec["step_rel_err_by_rank"])
+    missed = [(r["rank"], k) for r in recs
+              for k in ("flash_attention", "decode_attention")
+              if not r["launches"][k]]
+    if worst > MP_LOGIT_RTOL or (last is not None and last >
+                                 MP_LOGIT_RTOL) or missed:
+        raise AssertionError(f"fsdp serving {name}: {rec}, kernels not "
+                             f"launched {missed}")
     return rec
 
 
@@ -5149,85 +5384,115 @@ def alloc_conf(value: str):
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
 
 
-def model_parallel_train_phase(torch, ops) -> dict:
+def mpt_emit(case, twin: dict, recs: list, world: int, backend: str,
+             wall: float) -> None:
+    """A phase-9c / 9d case's line: its ranks' records (``mpt_rank``)
+    held to its twin (``mpt_held``; a serving case's ``fsdp_serve_held``)
+    beside the case, its mesh and the spawn's seconds."""
+    name, data = case[0], case[3]
+    rec = {"case": name, "arch": case[1], "layers": case[2],
+           "activations": case[7], "fsdp": case[8],
+           "mesh": [data, world // data], "steps": MP_TRAIN_STEPS,
+           "backend": backend, "gloo_on_one_card": backend == "gloo",
+           "twin": case[6], "spawn_wall_s": wall}
+    keys = ("rank", "card", "where", "rows", "step_ms", "profiled_step",
+            "nccl_device_ms_per_step", "collective_gb_per_step",
+            "peak_allocated_gb", "peak_reserved_gb", "launches",
+            "eval_peak_over_shards_gb", "largest_block_gb", "model_gb")
+    if case[6] == "serve":
+        b, s, gen = FSDP_SERVE
+        rec.update(batch=b, prompt=s, gen=gen,
+                   **fsdp_serve_held(twin, recs, name),
+                   ranks=[{k: r[k] for k in keys + ("prefill_s",) if k in r}
+                          for r in recs])
+        emit({"fsdp_serve": rec})
+        return
+    rec.update(batch=8, seq=256, remat=case[8] and name not in FSDP_NO_REMAT,
+               **mpt_held(twin, recs, case),
+               ranks=[{k: r[k] for k in keys + (
+                   "grad_rel_l2_median", "update_rel_l2_median",
+                   "update_rel_l2_large_grad_leaf", "compare_s") if k in r}
+                   for r in recs])
+    emit({"fsdp_train" if case[8] else "model_parallel_train": rec})
+
+
+def model_parallel_train_phase(torch, ops, cases=MP_TRAIN_CASES) -> dict:
     """The train step's rank program (``make_train_step(axis=, group=)``)
     on the card(s): with 4 cards or more one NCCL rank per card, smollm-
-    135m and OLMoE-1B-7B (4 of 16 layers) at (1, 4), chatglm3-6b (2 of 28
+    135m and OLMoE-1B-7B (2 of 16 layers) at (1, 4), chatglm3-6b (2 of 28
     layers) at (1, 4) in bf16 and in f32 activations, smollm-135m at (2,
     2) and OLMoE-1B-7B whole at (1, 4); with fewer, ``gloo`` ranks on
     this card: smollm-135m and OLMoE at (1, 2), chatglm3-6b's two at (1,
-    4), and a line saying no four-card case ran. Each
-    case's twin (``mpt_twin``) runs first and is freed; ``mpt_held``
-    holds the ranks to it. One ``model_parallel_train`` line per case
-    (per rank: step metrics and wall ms, the leaves' gradient and update
-    errors, the profiled step's busy ms and NCCL's device ms, peak
-    reserved GB, launches);
-    then the flash kernels at every signature the ranks launched
-    (``check_path_shapes``). Returns the launches of each case summed over
-    its ranks."""
+    4), and a line saying no four-card case ran. With ``FSDP_CASES``
+    among ``cases`` (phase 9d, ``fsdp_phase``) also the FSDP layout
+    (``make_train_step(fsdp=)``): on one card smollm-135m at (2, 1) and
+    (2, 2), OLMoE-1B-7B at 2 of 16 layers at (2, 1) and smollm-135m's
+    prefill and 8 decode tokens at (2, 1); on four, OLMoE-1B-7B whole at
+    (4, 1) and (2, 2) and smollm-135m at (2, 2) and (4, 1). Cases of one
+    world size share one spawn and one twin per model and kind. Each
+    case's twin (``mpt_twin``; a serving case's ``mp_twin``) runs first
+    and is freed; ``mpt_held`` (``fsdp_serve_held``) holds the ranks to
+    it. One ``model_parallel_train`` line per case of phase 9c,
+    ``fsdp_train`` / ``fsdp_serve`` of 9d (per rank: step metrics and
+    wall ms, the leaves' gradient and update errors, the collectives' GB
+    a step by kind and axis, the profiled step's busy ms and NCCL's
+    device ms, peak allocated and reserved GB, launches); then the
+    flash kernels at every signature the ranks launched
+    (``check_path_shapes``). Returns the launches of each case summed
+    over its ranks."""
     import tempfile
     from repro_torch.launch import distributed
     cards = torch.cuda.device_count()
     four = cards >= 4
     groups = collections.defaultdict(list)
-    for case in MP_TRAIN_CASES:
-        if case[5] and not four:
-            continue
-        groups[case[3] * (case[4] or (4 if four else 2))].append(case)
+    for case in cases:
+        if runs_on(case, four):
+            groups[case[3] * (case[4] or (4 if four else 2))].append(case)
     if not four:
         emit({"model_parallel_train_cards": {
             "count": cards, "four_card_cases_ran": False,
             "why": "fewer than four cards: gloo ranks on this card stand in "
                    "for them; smollm-135m at (2, 2) and OLMoE-1B-7B whole "
+                   "(and, under the FSDP layout, at (4, 1) and (2, 2)) "
                    "need four"}})
-    runs, seen = {}, {}
-    for world, cases in sorted(groups.items()):
-        backend = "nccl" if cards >= world else "gloo"
-        with tempfile.TemporaryDirectory(prefix="mp_train_") as tmp, \
-                alloc_conf("expandable_segments:True"):
-            paths, twins, made = {}, {}, {}
-            for c in cases:       # one twin for cases of one model and kind
-                key = (c[1], c[2], c[6], c[7])
+    runs, seen, made = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="mp_train_") as tmp:
+        for world, group in sorted(groups.items()):
+            backend = "nccl" if cards >= world else "gloo"
+            keys = [(c[1], c[2], c[6], c[7]) for c in group]
+            for c, key in zip(group, keys):   # one twin a model and kind
                 if key not in made:
                     path = str(Path(tmp) / f"{c[0]}.pt")
                     t0 = time.perf_counter()
-                    twin = mpt_twin(torch, c, path)
+                    twin = mp_twin(torch, serve_case(c)) \
+                        if c[6] == "serve" else mpt_twin(torch, c, path)
                     twin["twin_wall_s"] = time.perf_counter() - t0
                     made[key] = (twin, path)
-                twins[c[0]], paths[c[0]] = made[key]
+            paths = {c[0]: made[key][1] for c, key in zip(group, keys)}
             t0 = time.perf_counter()
-            ranks = distributed.spawn(mpt_rank, world, "cuda", cases, paths,
-                                      backend=backend)
+            with alloc_conf("expandable_segments:True"):
+                ranks = distributed.spawn(mpt_rank, world, "cuda", group,
+                                          paths, backend=backend)
             wall = time.perf_counter() - t0
-        for r in ranks:
-            for name, sigs in r["shapes"].items():
-                for sig, pos in sigs.items():
-                    seen.setdefault(name, {}).setdefault(sig, set()).update(
-                        pos)
-        for case in cases:
-            name, data = case[0], case[3]
-            recs = [r["cases"][name] for r in ranks]
-            rec = {"case": name, "arch": case[1], "layers": case[2],
-                   "activations": case[7],
-                   "mesh": [data, world // data], "batch": 8, "seq": 256,
-                   "steps": MP_TRAIN_STEPS, "backend": backend,
-                   "gloo_on_one_card": backend == "gloo",
-                   "twin": case[6], "spawn_wall_s": wall,
-                   **mpt_held(twins[name], recs, case),
-                   "ranks": [{k: r[k] for k in (
-                       "rank", "card", "where", "rows", "step_ms",
-                       "profiled_step", "nccl_device_ms_per_step",
-                       "peak_reserved_gb", "launches",
-                       "grad_rel_l2_median", "update_rel_l2_median",
-                       "update_rel_l2_large_grad_leaf", "compare_s")
-                       if k in r}
-                       for r in recs]}
-            emit({"model_parallel_train": rec})
-            runs[name] = {k: sum(r["launches"].get(k, 0) for r in recs)
-                          for k in counters(ops)}
+            for r in ranks:
+                for name, sigs in r["shapes"].items():
+                    for sig, pos in sigs.items():
+                        seen.setdefault(name, {}).setdefault(
+                            sig, set()).update(pos)
+            for case, key in zip(group, keys):
+                recs = [r["cases"][case[0]] for r in ranks]
+                mpt_emit(case, made[key][0], recs, world, backend, wall)
+                runs[case[0]] = {k: sum(r["launches"].get(k, 0)
+                                        for r in recs) for k in counters(ops)}
     emit({"model_parallel_train_path_checks": check_path_shapes(
         torch, ops, seen)})
     return runs
+
+
+def fsdp_phase(torch, ops) -> dict:
+    """Phase 9d alone: ``model_parallel_train_phase`` over
+    ``FSDP_CASES``."""
+    return model_parallel_train_phase(torch, ops, FSDP_CASES)
 
 
 # ---------------------------------------------------------------------------
@@ -6440,7 +6705,13 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
             # the four-card cases hold every rank to both kernels)
             **{run: MP_TRAIN_KERNELS
                for run in ("mpt_smollm", "mpt_chatglm3", "mpt_chatglm3_f32",
-                           "mpt_olmoe")}}
+                           "mpt_olmoe")},
+            # the FSDP layout (counted on its ranks; the serving case's
+            # prefill and decode; the four-card cases hold every rank to
+            # both kernels)
+            **{run: MP_TRAIN_KERNELS
+               for run in ("fsdp_smollm", "fsdp_smollm_2x2", "fsdp_olmoe")},
+            "fsdp_smollm_serve": ("flash_attention", "decode_attention")}
 
 
 # the kernels' instantiations that ptxas reports entry by entry, by
@@ -6558,6 +6829,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-model-parallel-train", action="store_true",
                     help="only build the kernels and run the train step "
                          "over the model axis (phase 9c)")
+    ap.add_argument("--profile-fsdp", action="store_true",
+                    help="only build the kernels and run the FSDP layout's "
+                         "train, prefill and decode steps (phase 9d)")
     ap.add_argument("--profile-host-mesh", action="store_true",
                     help="only build the kernels and run the host mesh's "
                          "phase: the training launcher at one NCCL rank, "
@@ -6619,6 +6893,15 @@ def main(argv=None) -> int:
         emit({"model_parallel_train_launches": model_parallel_train_phase(
             torch, ops)})
         emit({"model_parallel_train_phase_s": time.perf_counter() - t0})
+        return 0
+    if args.profile_fsdp:
+        from repro_torch.kernels import build, ops
+        print(smi, flush=True)
+        emit({"build_dir": str(build.build_all())})
+        log_shapes(ops)
+        t0 = time.perf_counter()
+        emit({"fsdp_launches": fsdp_phase(torch, ops)})
+        emit({"fsdp_phase_s": time.perf_counter() - t0})
         return 0
     if args.profile_host_mesh:
         from repro_torch.kernels import build, ops
@@ -6793,8 +7076,10 @@ def main(argv=None) -> int:
     runs.update(model_parallel_phase(torch, ops))
     emit({"model_parallel_phase_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    runs.update(model_parallel_train_phase(torch, ops))
-    emit({"model_parallel_train_phase_s": time.perf_counter() - t0})
+    runs.update(model_parallel_train_phase(torch, ops,
+                                           MP_TRAIN_CASES + FSDP_CASES))
+    emit({"model_parallel_train_phase_s": time.perf_counter() - t0,
+          "phases": "9c and 9d"})
     t0 = time.perf_counter()
     runs["zoo_reduced"] = zoo_reduced(torch, ops)
     runs.update(olmoe_phase(torch, ops))
@@ -6829,8 +7114,11 @@ def main(argv=None) -> int:
     check_path_shapes(torch, ops)
     emit({"path_shape_checks_s": time.perf_counter() - t0})
 
+    # phase 9d's one-card cases do not run on four cards
+    elsewhere = {c[0] for c in FSDP_CASES
+                 if not runs_on(c, torch.cuda.device_count() >= 4)}
     missing = [f"{k} in {run}" for run, names in EXPECTED.items()
-               for k in names if runs[run][k] == 0]
+               if run not in elsewhere for k in names if runs[run][k] == 0]
     launches = {k: sum(r[k] for r in runs.values())
                 for k in counters(ops)}
     missing += [k for k, n in launches.items() if n == 0]

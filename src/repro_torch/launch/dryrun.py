@@ -10,15 +10,16 @@ Each combo's step (``launch.steps.build_step``) is counted by
 ``roofline.op_cost.count``, and its record — the ``Roofline`` fields,
 the argument bytes each card holds under the mesh's sharding rules and
 whether they fit the card's 80 GB — is written to ``--record-dir``.
-On a mesh whose model axis is larger than 1 (``pod``, ``multipod``)
-every combo counts rank 0's program: its local shards (the argument
-bytes per card are their sum, which ``sharding.per_card_bytes`` must
-give too), its FLOPs and bytes, and the collectives it runs — over the
-model axis, and for a train step its gradient mean over the data axes —
-which give the record its collective term, each axis's bytes on its
-link. A combo under ``--fsdp`` is still counted whole on one card, its
-mesh dividing only the argument bytes; its record's ``t_collective`` is
-null and ``coll_note`` says why.
+On a mesh whose model axis is larger than 1 (``pod``, ``multipod``),
+and under ``--fsdp`` on any mesh of more than one data index, every
+combo counts rank 0's program: its local shards (the argument bytes per
+card are their sum, which ``sharding.per_card_bytes`` must give too),
+its FLOPs and bytes, and the collectives it runs — over the model axis;
+for a train step its gradient mean over the data axes; under ``--fsdp``
+each leaf's all-gather over the data axes where it is read and its
+gradient's reduce-scatter — which give the record its collective term,
+each axis's bytes on its link. On the host mesh of one card a combo is
+one card's whole step, with no collective term.
 """
 from __future__ import annotations
 
@@ -48,10 +49,6 @@ MESHES = {"host": make_host_mesh,
           "multipod": lambda: make_production_mesh(multi_pod=True)}
 
 
-UNSPLIT = ("one card's whole step: the FSDP layout's program over the "
-           "mesh is not built yet (ROADMAP Queue 1 item 2)")
-
-
 class SkipCombo(Exception):
     pass
 
@@ -76,10 +73,9 @@ def count_step(arch: str, shape_name: str, *, mesh_name: str = "host",
     sd = {None: None, "bf16": torch.bfloat16,
           "f32": torch.float32}[serve_dtype]
     m = mesh.shape[MODEL_AXIS]
-    split = m > 1 and not fsdp
     spec = build_step(cfg, shape, accum_steps=accum_steps, serve_dtype=sd,
-                      serve_quant=serve_quant, mesh=mesh if split else None)
-    if split:
+                      serve_quant=serve_quant, mesh=mesh, fsdp=fsdp)
+    if spec.specs is not None:
         # rank 0's shards: their bytes, which the specs' count must match
         arg_bytes = sum(t.numel() * t.element_size()
                         for t in tree_leaves(spec.args))
@@ -88,12 +84,10 @@ def count_step(arch: str, shape_name: str, *, mesh_name: str = "host",
         if by_specs != arg_bytes:
             raise AssertionError(f"rank 0 holds {arg_bytes} bytes, the "
                                  f"specs give {by_specs}")
-        note = None
     else:
         arg_bytes = shard_lib.per_card_bytes(
             spec.args, step_specs(spec.kind, spec.cfg, spec.args, mesh,
                                   shape.global_batch, fsdp=fsdp), mesh)
-        note = None if m == 1 else UNSPLIT
     t0 = time.perf_counter()
     summary = op_cost.count(spec.fn, *spec.args)
     count_s = time.perf_counter() - t0
@@ -102,7 +96,7 @@ def count_step(arch: str, shape_name: str, *, mesh_name: str = "host",
                    model_flops=model_flops_for(spec.cfg, shape),
                    arg_bytes_per_card=arg_bytes,
                    peak="f32" if spec.cfg.dtype == "float32" else "bf16",
-                   count_s=count_s, model_axis=m, coll_note=note)
+                   count_s=count_s, model_axis=m)
     print(f"[{arch} x {shape_name} x {mesh_name}] counted in "
           f"{count_s:.1f} s: {roof.gflops:.1f} GFLOP {roof.gbytes:.1f} GB "
           f"(model {roof.model_gflops:.1f} GFLOP); args "
@@ -124,10 +118,11 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--mesh", choices=sorted(MESHES), default="host",
                     help="the layout: every step counts rank 0's "
-                         "program on it (under --fsdp, one card's whole "
-                         "step, its argument bytes divided)")
+                         "program on it")
     ap.add_argument("--fsdp", action="store_true",
-                    help="ZeRO-style extra sharding over data")
+                    help="ZeRO-style extra sharding over data: each leaf "
+                         "gathered where read, its gradient "
+                         "reduce-scattered")
     ap.add_argument("--accum", type=int, default=1,
                     help="gradient-accumulation microbatch steps")
     ap.add_argument("--serve-dtype", choices=["bf16", "f32"], default=None,

@@ -34,6 +34,16 @@ The train step's data axis is an axis too (:func:`make_data_axis`,
 ``name="data"``): the ranks that share this rank's model index, over
 which the gradients are averaged.
 
+Under the FSDP layout (``launch.sharding.param_pspecs(fsdp=True)``, the
+reference's ZeRO-3 flavour) each leaf may also be split over that data
+axis. An :class:`Fsdp` holds the axis and each leaf's split dimension
+(``launch.sharding.fsdp_dims``), and the models read a split leaf
+through :func:`gather`: one all-gather over the data axis forward; its
+backward one reduce-scatter (sum) of the cotangent back to the rank's
+shard where the batch is split over the data axis (the train step
+divides by the axis's size once, for the mean), or the rank's slice of
+it where every replica holds the same batch and so the same cotangent.
+
 With no axis, or an axis of size 1, every one of them returns its input
 and launches nothing (nor adds an autograd node): a one-card program is
 today's program, bit for bit, forward and backward. ``max_len`` is the
@@ -59,6 +69,7 @@ import torch
 
 from repro_torch.launch.mesh import (DATA_AXIS, MODEL_AXIS, coords,
                                      mesh_num_chips)
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,8 +187,10 @@ def _is_fake(x) -> bool:
 
 def _collective(kind: str, x, axis: ModelAxis, dim: int = 0):
     """One collective over ``axis`` on a real tensor: ``"all-reduce"``
-    (sum), ``"all-gather"`` (concatenated along ``dim`` in rank order) or
-    ``"all-to-all"`` (over the leading dimension, one block a rank)."""
+    (sum), ``"all-gather"`` (concatenated along ``dim`` in rank order),
+    ``"reduce-scatter"`` (the sum over the axis, of which the rank keeps
+    its block of ``dim``, block ``i`` on rank ``i``) or ``"all-to-all"``
+    (over the leading dimension, one block a rank)."""
     import torch.distributed as dist
     if _is_fake(x):
         raise TypeError(f"a fake tensor reached the {kind} outside the dry "
@@ -193,6 +206,12 @@ def _collective(kind: str, x, axis: ModelAxis, dim: int = 0):
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=axis.group)
         return out
+    if kind == "reduce-scatter":
+        blocks = x.movedim(dim, 0).contiguous()
+        out = blocks.new_empty((blocks.shape[0] // axis.size,)
+                               + blocks.shape[1:])
+        dist.reduce_scatter_tensor(out, blocks, group=axis.group)
+        return out.movedim(0, dim)
     parts = [torch.empty_like(x) for _ in range(axis.size)]
     dist.all_gather(parts, x, group=axis.group)
     return torch.cat(parts, dim=dim)
@@ -296,6 +315,65 @@ def sum_partials(y, axis, dtype):
     if not active(axis):
         return y
     return from_ranks(y, axis).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Fsdp:
+    """A rank's FSDP layout: the data ``axis`` its leaves are split over
+    (:func:`make_data_axis`), ``dims`` a tree of the params' nesting with
+    each leaf's split dimension of the stacked leaf, or None where the
+    leaf is whole on every data index (``launch.sharding.fsdp_dims``),
+    and ``sums``: True where the batch is split over the data axis, so
+    that the ranks' cotangents differ and the gathers' backward sums
+    them; False where every replica holds the same batch."""
+    axis: Optional[ModelAxis]
+    dims: Any
+    sums: bool = True
+
+
+def fsdp_active(fsdp) -> bool:
+    """True for a layout whose data axis splits anything."""
+    return fsdp is not None and active(fsdp.axis)
+
+
+class _Gather(torch.autograd.Function):
+    """The all-gather over the axis along ``dim`` forward; backward the
+    cotangent reduce-scattered (summed, the rank's block kept), or only
+    the rank's block of it where ``sums`` is False."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, sums):
+        ctx.axis, ctx.dim, ctx.sums = axis, dim, sums
+        return _collective("all-gather", x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim = ctx.axis, ctx.dim
+        if ctx.sums:
+            return _collective("reduce-scatter", g, axis, dim), None, \
+                None, None
+        n = g.shape[dim] // axis.size
+        return g.narrow(dim, axis.index * n, n), None, None, None
+
+
+def gather(x, fsdp, dim):
+    """A leaf split over ``fsdp``'s data axis along ``dim`` (None: not
+    split), whole: the axis's shards concatenated in rank order, whose
+    backward gives the rank its shard's cotangent (:class:`Fsdp`'s
+    ``sums``). ``x`` unchanged without an active layout or a split."""
+    if dim is None or not fsdp_active(fsdp):
+        return x
+    if not _tracked(x):
+        return _collective("all-gather", x, fsdp.axis, dim)
+    return _Gather.apply(x, fsdp.axis, dim, fsdp.sums)
+
+
+def gather_tree(tree, dims, fsdp):
+    """:func:`gather` over a subtree, each leaf along its dimension in
+    the ``dims`` subtree."""
+    if not fsdp_active(fsdp):
+        return tree
+    return tree_map(lambda t, d: gather(t, fsdp, d), tree, dims)
 
 
 def all_gather(x, axis, dim: int = 0):

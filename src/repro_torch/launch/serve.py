@@ -32,9 +32,11 @@ that fails raises.
 (``launch.sharding.shard_tree``), the steps run on them with their
 collectives, and each token is chosen from the rank's block of vocab
 columns by the distributed argmax (or, sampled, from the logits
-gathered over the axis); every rank returns the same tokens. The rank
-program steps eagerly: its CUDA graphs are not built yet. ``main``
-serves on one card.
+gathered over the axis); every rank returns the same tokens. Under the
+FSDP layout (``fsdp=``, ``launch.model_parallel.Fsdp``) the params are
+also split over the data axis and gathered where read, and ``prompt``
+is the rank's rows of the batch. The rank program steps eagerly: its
+CUDA graphs are not built yet. ``main`` serves on one card.
 """
 from __future__ import annotations
 
@@ -69,7 +71,7 @@ def _choose(logits, temperature: float, generator, axis=None):
 
 def generate(params, cfg, prompt, max_len: int, gen: int, *,
              temperature: float = 0.0, generator=None, stats=None,
-             graphs=None, axis=None):
+             graphs=None, axis=None, fsdp=None):
     """Greedy (or, at ``temperature`` > 0, sampled with ``generator``)
     generation: prefill then ``gen - 1`` decode steps -> (B, gen) int32.
     ``graphs`` (default: on for a CUDA prompt) replays the decode step
@@ -80,17 +82,18 @@ def generate(params, cfg, prompt, max_len: int, gen: int, *,
     ``captures`` (1 for a graphed call of ``gen`` >= 3, else 0) and
     ``last_logits`` (a copy of the last step's logits (B, 1, V); over a
     model ``axis``, the rank's block of them). Over an axis whose size
-    is larger than 1 the steps run eagerly (``graphs=True`` raises); the
-    ranks must all call it."""
+    is larger than 1, or an FSDP layout ``fsdp`` over a data axis larger
+    than 1, the steps run eagerly (``graphs=True`` raises); the ranks
+    must all call it."""
     b, s = prompt.shape
-    if mp.active(axis):
+    if mp.active(axis) or mp.fsdp_active(fsdp):
         if graphs:
-            raise ValueError("the model-parallel rank program runs eagerly: "
-                             "its CUDA graphs are not built yet")
+            raise ValueError("the rank program (model axis or FSDP) runs "
+                             "eagerly: its CUDA graphs are not built yet")
         graphs = False
     graphs = use_graphs(graphs, prompt.device)
-    prefill_step = make_prefill_step(cfg, max_len, axis)
-    serve_step = make_serve_step(cfg, mp.with_len(axis, max_len))
+    prefill_step = make_prefill_step(cfg, max_len, axis, fsdp)
+    serve_step = make_serve_step(cfg, mp.with_len(axis, max_len), fsdp)
     t0 = time.perf_counter()
     logits, caches = prefill_step(params, {"tokens": prompt})
     tok = mp.argmax(logits[:, -1:], axis).to(torch.int32)

@@ -34,7 +34,10 @@ shape. On the host mesh
 (``mesh.make_host_mesh``, data=n, model=1) the training launcher runs
 them: with ``fsdp`` off and a ``model`` axis of 1 every parameter and
 moment spec shards nothing, and :func:`batch_rows` gives each data rank
-its block of the batch as :func:`batch_pspecs` lays it out.
+its block of the batch as :func:`batch_pspecs` lays it out. Under
+``fsdp`` the rank program (``launch.model_parallel.Fsdp``) reads each
+leaf's data-axis split from :func:`fsdp_dims`, and the train step's
+gradient norm which axes split each leaf from :func:`split_axes`.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ import numpy as np
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantizer import QUANTIZABLE
 from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS
+from repro_torch.tree import tree_map
 
 
 def _map_with_path(fn, tree, keys=()):
@@ -204,8 +208,46 @@ def model_sharded(cfg: ModelConfig, params_shape, model: int) -> Any:
     from repro_torch.launch.mesh import make_mesh
     specs = param_pspecs(cfg, params_shape, mesh=make_mesh(1, model))
     return _map_with_path(lambda _, spec: any(
-        MODEL_AXIS in (e if isinstance(e, tuple) else (e,)) for e in spec),
-        specs)
+        MODEL_AXIS in _names(e) for e in spec), specs)
+
+
+def _names(entry) -> tuple:
+    """The axis names of one spec entry."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def fsdp_dims(cfg: ModelConfig, params_shape, mesh) -> Any:
+    """A tree of ``params_shape``'s nesting (the whole tree's shapes):
+    the dimension of each leaf that ``param_pspecs(fsdp=True)`` splits
+    over the data axes (``pod`` and ``data`` as one) on ``mesh``, or None
+    where it leaves the leaf whole over them."""
+    daxes = set(data_axes(mesh))
+
+    def dim(_, spec):
+        hits = [i for i, e in enumerate(spec) if daxes & set(_names(e))]
+        return hits[0] if hits else None
+
+    return _map_with_path(dim, param_pspecs(cfg, params_shape, fsdp=True,
+                                            mesh=mesh))
+
+
+def split_axes(cfg: ModelConfig, params_shape, model: int,
+               dims=None) -> Any:
+    """A tree of ``params_shape``'s nesting: for each leaf the frozenset
+    of the axes that split it, ``model`` where :func:`param_pspecs` splits
+    it over a model axis of ``model`` cards (local shapes will do: the
+    model rules read names, not sizes) and ``data`` where ``dims`` (a
+    :func:`fsdp_dims` tree) gives it a dimension. The train step's
+    gradient norm sums each leaf's squares over exactly these axes
+    (``optimizer.global_norm``)."""
+    model_flags = model_sharded(cfg, params_shape, model)
+    if dims is None:
+        dims = tree_map(lambda _: None, model_flags)
+    return tree_map(lambda f, d: frozenset(
+        ((MODEL_AXIS,) if f else ()) + (() if d is None else (DATA_AXIS,))),
+        model_flags, dims)
 
 
 def opt_pspecs(param_specs) -> Any:

@@ -23,6 +23,11 @@ its fake arguments have the rank's local shapes under ``param_pspecs`` /
 ``opt_pspecs`` / ``cache_pspecs`` / ``batch_pspecs``
 (``launch.sharding.local_shape``). A train step also averages its
 gradients over the rank's data axis, where the batch splits over it.
+With ``fsdp``, on any mesh whose data axes hold more than one index
+(the host mesh's (n, 1) included), it builds rank 0's program of the
+FSDP layout: its fakes the shards of ``step_specs(fsdp=True)``, each
+leaf gathered over the data axis where the step reads it
+(``model_parallel.Fsdp``).
 """
 from __future__ import annotations
 
@@ -46,29 +51,36 @@ from repro_torch.tree import tree_leaves, tree_map
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
                     remat: bool = True, accum_steps: int = 1, axis=None,
-                    group=None) -> Callable:
+                    group=None, fsdp=None) -> Callable:
     """The train step; over a model ``axis`` (and its data ``group``),
-    one rank's program."""
+    or an FSDP layout ``fsdp``, one rank's program."""
     return _make_train_step(cfg, opt_cfg or AdamWConfig(), remat=remat,
-                            accum_steps=accum_steps, group=group, axis=axis)
+                            accum_steps=accum_steps, group=group, axis=axis,
+                            fsdp=fsdp)
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int, axis=None) -> Callable:
-    """The prefill step; over a model ``axis``, one rank's program."""
+def make_prefill_step(cfg: ModelConfig, max_len: int, axis=None,
+                      fsdp=None) -> Callable:
+    """The prefill step; over a model ``axis``, or with the leaves
+    gathered over an FSDP layout's data axis (``fsdp``), one rank's
+    program."""
     def prefill_step(params, batch):
         logits, caches, _ = T.prefill(
             params, cfg, batch.get("tokens"), embeds=batch.get("embeds"),
-            positions=batch.get("positions"), max_len=max_len, axis=axis)
+            positions=batch.get("positions"), max_len=max_len, axis=axis,
+            fsdp=fsdp)
         return logits, caches
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, axis=None) -> Callable:
+def make_serve_step(cfg: ModelConfig, axis=None, fsdp=None) -> Callable:
     """One decode step; over a model ``axis`` (its ``max_len`` the
-    caches' length), one rank's program."""
+    caches' length), or with the leaves gathered over an FSDP layout's
+    data axis (``fsdp``), one rank's program."""
     def serve_step(params, token, caches, pos):
-        return T.decode_step(params, cfg, token, caches, pos, axis=axis)
+        return T.decode_step(params, cfg, token, caches, pos, axis=axis,
+                             fsdp=fsdp)
 
     return serve_step
 
@@ -176,7 +188,8 @@ def _local_fakes(tree, specs, mesh, mode):
 def build_step(cfg: ModelConfig, shape: InputShape,
                opt_cfg: AdamWConfig | None = None,
                accum_steps: int = 1, serve_dtype=None,
-               serve_quant: int = 0, mesh=None, coords=None) -> StepSpec:
+               serve_quant: int = 0, mesh=None, coords=None,
+               fsdp: bool = False) -> StepSpec:
     """The step of ``shape``'s kind and its fake arguments. A decode
     step's position is a fake 0-d int32 tensor of the step's mode, as the
     reference's traced scalar and the launcher's compile-once step take
@@ -185,27 +198,35 @@ def build_step(cfg: ModelConfig, shape: InputShape,
     or decode step is the program of the rank at ``coords``
     (``mesh.coords``; rank 0 when None) on local fake shards (module
     docstring), a train step with its data axis's gradient mean where
-    the batch splits over the data axes."""
+    the batch splits over the data axes. With ``fsdp`` and a mesh whose
+    data axes hold more than one index, the program of the FSDP layout
+    (module docstring), on any model axis."""
     spec = _build_step(for_shape(cfg, shape), shape, opt_cfg, accum_steps,
                        serve_dtype, serve_quant)
-    if mesh is None or mesh.shape[MODEL_AXIS] == 1:
+    if mesh is None:
         return spec
     from repro_torch.launch.mesh import coords as coords_of
     where = coords if coords is not None else coords_of(mesh, 0)
+    index, size = mp.data_index(mesh, where)
+    if mesh.shape[MODEL_AXIS] == 1 and not (fsdp and size > 1):
+        return spec
     specs = step_specs(spec.kind, spec.cfg, spec.args, mesh,
-                       shape.global_batch)
+                       shape.global_batch, fsdp=fsdp)
     mode = fake_mode_of(spec.args[0])
     local = _local_fakes(spec.args, specs, mesh, mode)
     axis = mp.ModelAxis(where[MODEL_AXIS], mesh.shape[MODEL_AXIS], None,
                         shape.seq_len)
+    group = _data_axis(mesh, where, shape.global_batch)
+    layout = mp.Fsdp(mp.ModelAxis(index, size, None, name=DATA_AXIS),
+                     shard_lib.fsdp_dims(spec.cfg, spec.args[0], mesh),
+                     sums=group is not None) if fsdp else None
     if spec.kind == "train":
         fn = make_train_step(spec.cfg, opt_cfg, accum_steps=accum_steps,
-                             axis=axis, group=_data_axis(
-                                 mesh, where, shape.global_batch))
+                             axis=axis, group=group, fsdp=layout)
     elif spec.kind == "prefill":
-        fn = make_prefill_step(spec.cfg, shape.seq_len, axis)
+        fn = make_prefill_step(spec.cfg, shape.seq_len, axis, layout)
     else:
-        fn = make_serve_step(spec.cfg, axis)
+        fn = make_serve_step(spec.cfg, axis, layout)
     return StepSpec(spec.kind, fn, local, spec.cfg, global_args=spec.args,
                     specs=specs)
 

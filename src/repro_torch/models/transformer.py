@@ -34,9 +34,25 @@ Each crossing from replicated to rank-specific tensors is
 backward gives every replicated tensor its whole cotangent on every
 rank. With no axis, or one of size 1, they compute what they computed
 before, bit for bit.
+
+``forward``, ``prefill`` and ``decode_step`` (and ``block_at`` and the
+segment functions under the last two) also take ``fsdp=``, a rank's
+FSDP layout (``launch.model_parallel.Fsdp``): the params are then also
+split over the data axis as ``launch.sharding.param_pspecs(fsdp=True)``
+lays them out, and each leaf is gathered whole over that axis where the
+model reads it — a block's leaves in :func:`block_at`, after the period
+select, so one block's weights are whole at a time (under remat the
+checkpointed forward gathers them again in the backward); ``embed``,
+``lm_head`` and ``final_norm`` in the embedding and the unembedding (a
+tied head at both, whose two gradients autograd sums); a block leaf the
+layout splits on its period axis whole, once per call
+(:func:`_whole_periods`). The gathers' backward gives each rank its
+shard's gradient (``mp.gather``). A layout over a data axis of size 1
+gathers nothing, bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -150,16 +166,54 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     return params
 
 
-def block_at(params, cfg: ModelConfig, layer: int):
+def block_at(params, cfg: ModelConfig, layer: int, fsdp=None):
     """(block param tree, period position) of global block ``layer``:
     the period slice of the stacked tree, or, for a layer below
     ``len(params["segment_blocks"])``, that list's own tree (a
-    quantized device segment, ``TransformerBackend.stacked_for``)."""
+    quantized device segment, ``TransformerBackend.stacked_for``).
+    Under an FSDP layout (``mp.Fsdp``) each leaf split over the data
+    axis is gathered whole after the period select (a leaf split on its
+    period axis, whole before it)."""
     per, pos = divmod(layer, period_len(cfg))
     seg = params.get("segment_blocks", ())
     if layer < len(seg):
+        if mp.fsdp_active(fsdp):
+            raise ValueError("a quantized device segment has no FSDP layout")
         return seg[layer], pos
-    return tree_map(lambda t: t[per], params["blocks"][pos]), pos
+    if not mp.fsdp_active(fsdp):
+        return tree_map(lambda t: t[per], params["blocks"][pos]), pos
+
+    def take(t, d):
+        if d == 0:
+            return mp.gather(t, fsdp, 0)[per]
+        return mp.gather(t[per], fsdp, None if d is None else d - 1)
+
+    return tree_map(take, params["blocks"][pos],
+                    fsdp.dims["blocks"][pos]), pos
+
+
+def _whole_periods(params, fsdp):
+    """(params, fsdp) with every block leaf that ``fsdp`` splits on its
+    period axis gathered whole, and its split dropped from the layout:
+    gathered once for a call that reads it at every period."""
+    if not mp.fsdp_active(fsdp):
+        return params, fsdp
+    dims = fsdp.dims["blocks"]
+    if 0 not in tree_leaves(dims):
+        return params, fsdp
+    blocks = tree_map(lambda t, d: mp.gather(t, fsdp, 0) if d == 0 else t,
+                      params["blocks"], dims)
+    dims = tree_map(lambda d: None if d == 0 else d, dims)
+    return dict(params, blocks=blocks), dataclasses.replace(
+        fsdp, dims=dict(fsdp.dims, blocks=dims))
+
+
+def _top(params, name: str, fsdp):
+    """The top-level leaf (or norm dict) ``name`` of ``params``, gathered
+    whole over an FSDP layout's data axis where split."""
+    if not mp.fsdp_active(fsdp):
+        return params[name]
+    return mp.gather_tree(params[name], fsdp.dims[name], fsdp)
 
 
 # ---------------------------------------------------------------------------
@@ -301,29 +355,34 @@ def _acc_aux(acc, aux):
     return {k: acc[k] + aux[k] for k in acc}
 
 
-def _embed(params, cfg, tokens=None, embeds=None, axis=None):
+def _embed(params, cfg, tokens=None, embeds=None, axis=None, fsdp=None):
     """Token rows of ``embed`` (or a frontend's ``embeds``) in the model
     dtype. Vocab-parallel over a model axis: the rank gathers the rows it
     holds, zeros the others, and the ranks' rows are summed in the table's
-    dtype (one of them is not zero), then cast."""
+    dtype (one of them is not zero), then cast. Under an FSDP layout the
+    table is gathered over the data axis first."""
     if embeds is not None:
         return embeds.to(model_dtype(cfg))
+    table = _top(params, "embed", fsdp)
     if not mp.active(axis):
-        return params["embed"][tokens.long()].to(model_dtype(cfg))
-    rows = params["embed"].shape[0]
+        return table[tokens.long()].to(model_dtype(cfg))
+    rows = table.shape[0]
     local = tokens.long() - axis.index * rows
     mine = (local >= 0) & (local < rows)
-    x = params["embed"][local.clamp(0, rows - 1)]
+    x = table[local.clamp(0, rows - 1)]
     return mp.from_ranks(torch.where(mine[..., None], x, 0),
                          axis).to(model_dtype(cfg))
 
 
-def _unembed(params, cfg, x, axis=None):
+def _unembed(params, cfg, x, axis=None, fsdp=None):
     """Final norm and logits (..., V_pad), padded vocab columns masked;
     over a model axis the rank's block of vocab columns (``lm_head``'s,
-    or the tied head's: ``embed``'s rows, transposed)."""
-    x = mp.to_ranks(norm_apply(cfg.norm, params["final_norm"], x), axis)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    or the tied head's: ``embed``'s rows, transposed); under an FSDP
+    layout the norm and the head gathered over the data axis first."""
+    x = mp.to_ranks(norm_apply(cfg.norm, _top(params, "final_norm", fsdp),
+                               x), axis)
+    head = _top(params, "embed", fsdp).T if cfg.tie_embeddings \
+        else _top(params, "lm_head", fsdp)
     logits = x @ head.to(x.dtype)
     vp = cfg.padded_vocab()
     if vp != cfg.vocab_size:                  # mask padded vocab columns
@@ -428,13 +487,13 @@ def _attn_prefill_with_cache(ap, cfg, h, positions, cache, axis=None):
 
 
 def _prefill_blocks(params, cfg: ModelConfig, h, caches, start: int,
-                    stop: int, positions, axis=None):
+                    stop: int, positions, axis=None, fsdp=None):
     """Blocks ``[start, stop)`` over the prompt ``h``, filling their
     cache slices in place -> (h_out, caches, summed router aux or
     None)."""
     aux = None
     for layer in range(start, stop):
-        bp, pos = block_at(params, cfg, layer)
+        bp, pos = block_at(params, cfg, layer, fsdp)
         bp = _dequant_block(bp, cfg, axis)
         hh = norm_apply(cfg.norm, bp["norm1"], h)
         cache = _cache_at(caches, cfg, layer)
@@ -530,7 +589,7 @@ def segment_extend(params, cfg: ModelConfig, h, caches, pos0,
 
 
 def segment_decode_step(params, cfg: ModelConfig, x, caches, pos,
-                        start: int, stop: int, axis=None):
+                        start: int, stop: int, axis=None, fsdp=None):
     """One decode step over blocks ``[start, stop)``: ``x`` (B, 1, D) the
     hidden state entering block ``start``, ``pos`` the token's absolute
     position, a host int or a 0-d integer tensor on x's device
@@ -538,7 +597,7 @@ def segment_decode_step(params, cfg: ModelConfig, x, caches, pos,
     ``(x_out, caches)``. Over a model axis whose rings split on their
     slots, ``axis.max_len`` must be the caches' length."""
     for layer in range(start, stop):
-        bp, p = block_at(params, cfg, layer)
+        bp, p = block_at(params, cfg, layer, fsdp)
         x, _, _ = _block_apply(bp, cfg, p, x, None,
                                cache=_cache_at(caches, cfg, layer),
                                decode_pos=pos, axis=axis)
@@ -577,7 +636,7 @@ def segment_verify(params, cfg: ModelConfig, xs, caches, pos0,
 # Whole model (the serving launcher's and the trainer's entry points)
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
-            positions=None, remat: bool = False, axis=None):
+            positions=None, remat: bool = False, axis=None, fsdp=None):
     """tokens (B, S), or a frontend's ``embeds`` (B, S, D) -> (logits
     (B, S, V), aux: the router losses summed over the blocks).
     ``remat`` checkpoints each period, as the reference's
@@ -587,8 +646,11 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     rank's program on its shards, its block of vocab columns out, and
     differentiable: the boundaries are ``mp.to_ranks`` /
     ``mp.from_ranks``, and remat recomputes a period's collectives
-    inside the backward, in the same order on every rank."""
-    h = _embed(params, cfg, tokens, embeds, axis)
+    inside the backward, in the same order on every rank. Under an FSDP
+    layout (``fsdp``) each block's leaves are gathered where it runs, so
+    remat gathers them again in the backward."""
+    params, fsdp = _whole_periods(params, fsdp)
+    h = _embed(params, cfg, tokens, embeds, axis, fsdp)
     if positions is None:
         positions = rope_lib.text_positions(h.shape[0], h.shape[1],
                                             device=h.device)
@@ -597,7 +659,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     def period_fn(h, per):
         acc = None
         for pos in range(plen):
-            bp, _ = block_at(params, cfg, per * plen + pos)
+            bp, _ = block_at(params, cfg, per * plen + pos, fsdp)
             h, a, _ = _block_apply(bp, cfg, pos, h, positions, axis=axis)
             acc = _acc_aux(acc, a)
         return h, acc
@@ -610,40 +672,46 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
         else:
             h, a = period_fn(h, per)
         aux = _acc_aux(aux, a)
-    return _unembed(params, cfg, h, axis=axis), aux or _zero_aux(h.device)
+    return _unembed(params, cfg, h, axis=axis, fsdp=fsdp), \
+        aux or _zero_aux(h.device)
 
 
 def prefill(params, cfg: ModelConfig, tokens=None, *, embeds=None,
             positions=None, max_len: int, cache_dtype=torch.bfloat16,
-            axis=None):
+            axis=None, fsdp=None):
     """Forward over the prompt (``tokens`` (B, S) or ``embeds`` (B, S,
     D)) that also builds fresh ``max_len``-slot decode caches ->
     (logits (B, S, V), caches, aux). Over a model axis: the rank's
     shards of the params in, its shards of the caches and its block of
-    vocab columns out."""
+    vocab columns out; under an FSDP layout, the params' data-axis
+    shards gathered where read and the rank's rows of the batch."""
     axis = mp.with_len(axis, max_len)
-    h = _embed(params, cfg, tokens, embeds, axis)
+    params, fsdp = _whole_periods(params, fsdp)
+    h = _embed(params, cfg, tokens, embeds, axis, fsdp)
     b, s, _ = h.shape
     if positions is None:
         positions = rope_lib.text_positions(b, s, device=h.device)
     caches = init_cache(cfg, b, max_len, cache_dtype, device=h.device,
                         axis=axis)
     h, caches, aux = _prefill_blocks(params, cfg, h, caches, 0,
-                                     cfg.num_layers, positions, axis)
-    return _unembed(params, cfg, h, axis=axis), caches, \
+                                     cfg.num_layers, positions, axis, fsdp)
+    return _unembed(params, cfg, h, axis=axis, fsdp=fsdp), caches, \
         aux or _zero_aux(h.device)
 
 
-def decode_step(params, cfg: ModelConfig, token, caches, pos, axis=None):
+def decode_step(params, cfg: ModelConfig, token, caches, pos, axis=None,
+                fsdp=None):
     """token (B, 1) ids, or a frontend's embedding (B, 1, D), at
     absolute position ``pos`` -> (logits (B, 1, V), caches), the caches
     updated in place. ``pos`` is a host int or a 0-d int32 / int64
     tensor on the token's device, never read on the host (the serving
     launcher's compile-once step fills one and replays a CUDA graph).
     Over a model axis, as :func:`prefill`; ``axis.max_len`` must be the
-    caches' length where their rings split on their slots."""
-    x = _embed(params, cfg, token, axis=axis) if token.dim() == 2 \
-        else token.to(model_dtype(cfg))
+    caches' length where their rings split on their slots. Under an FSDP
+    layout, as :func:`prefill`."""
+    params, fsdp = _whole_periods(params, fsdp)
+    x = _embed(params, cfg, token, axis=axis, fsdp=fsdp) \
+        if token.dim() == 2 else token.to(model_dtype(cfg))
     x, caches = segment_decode_step(params, cfg, x, caches, pos, 0,
-                                    cfg.num_layers, axis)
-    return _unembed(params, cfg, x, axis=axis), caches
+                                    cfg.num_layers, axis, fsdp)
+    return _unembed(params, cfg, x, axis=axis, fsdp=fsdp), caches

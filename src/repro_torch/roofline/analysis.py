@@ -9,18 +9,18 @@ The rates are ``launch.mesh``'s data-sheet figures, so the terms are
 lower bounds, not measurements. The FLOPs are matmul-class and the bytes
 unfused (``op_cost``), and each record says so.
 
-A step on a mesh whose model axis is larger than 1 is counted as one
-rank's program (``launch.steps.build_step``, rank 0): its FLOPs, bytes
-and the collective bytes it moves (``coll_gbytes``, by kind in
+A step on a mesh whose model axis is larger than 1, or under the FSDP
+layout on a mesh of more than one data index, is counted as one rank's
+program (``launch.steps.build_step``, rank 0): its FLOPs, bytes and the
+collective bytes it moves (``coll_gbytes``, by kind in
 ``coll_breakdown``, by axis in ``coll_by_axis``) are one card's. The
 collective term puts each axis's bytes on its link: the model axis's on
 NVLink where that axis fits in one node (``mesh.NODE_CARDS``), on the
 node's network links where it does not; the data axes' (a train step's
-gradient mean over ``pod`` and ``data``) on the network links. A
-one-card program and an FSDP layout are counted whole on one card with
-no collective term (``t_collective`` None; ``coll_note`` says why);
-their mesh changes only the argument bytes each card holds
-(``launch.sharding``).
+gradient mean over ``pod`` and ``data``, the FSDP layout's all-gathers
+and reduce-scatters) on the network links. A one-card program is
+counted whole with no collective term (``t_collective`` None), its mesh
+changing only the argument bytes each card holds (``launch.sharding``).
 """
 from __future__ import annotations
 
@@ -57,7 +57,6 @@ class Roofline:
     coll_gbytes: Optional[float] = None
     coll_breakdown: Optional[Dict[str, float]] = None
     model_axis: int = 1                   # cards on the model axis
-    coll_note: Optional[str] = None       # why there is no collective term
     coll_by_axis: Optional[Dict[str, float]] = None
 
     @property
@@ -140,15 +139,16 @@ class Roofline:
 def analyze(summary, *, arch: str, shape: str, mesh_name: str = "host",
             chips: int = 1, model_flops: Optional[float] = None,
             arg_bytes_per_card: Optional[float] = None, peak: str = "bf16",
-            count_s: Optional[float] = None, model_axis: int = 1,
-            coll_note: Optional[str] = None) -> Roofline:
+            count_s: Optional[float] = None,
+            model_axis: int = 1) -> Roofline:
     """A :class:`Roofline` from an ``op_cost.CostSummary``: a rank's
-    program on a model axis of ``model_axis`` > 1 cards gets the
-    collective term from ``summary.collectives`` (by kind) and
-    ``summary.collectives_by_axis``; otherwise there is none
-    (``coll_note``, when given, says why)."""
+    program — on a model axis of ``model_axis`` > 1 cards, or any program
+    that ran collectives (the FSDP layout's over the data axes, on a
+    model axis of 1 too) — gets the collective term from
+    ``summary.collectives`` (by kind) and ``summary.collectives_by_axis``;
+    otherwise there is none."""
     coll = by_axis = None
-    if model_axis > 1 and coll_note is None:
+    if model_axis > 1 or summary.collectives:
         coll = {k: v / 1e9 for k, v in sorted(summary.collectives.items())}
         by_axis = {k: v / 1e9 for k, v in
                    sorted(summary.collectives_by_axis.items())}
@@ -158,7 +158,7 @@ def analyze(summary, *, arch: str, shape: str, mesh_name: str = "host",
         model_gflops=(model_flops / 1e9) if model_flops else None,
         arg_bytes_per_card=arg_bytes_per_card, count_s=count_s,
         coll_gbytes=sum(coll.values()) if coll is not None else None,
-        coll_breakdown=coll, model_axis=model_axis, coll_note=coll_note,
+        coll_breakdown=coll, model_axis=model_axis,
         coll_by_axis=by_axis)
 
 

@@ -329,6 +329,8 @@ def _collective_stand_in(counter: _Counter) -> dict:
         shape = list(x.shape)
         if kind == "all-gather":
             shape[dim] *= axis.size
+        elif kind == "reduce-scatter":
+            shape[dim] //= axis.size
         return counter.collective(kind, x, lambda: torch.empty(
             shape, dtype=x.dtype), axis.name)
 

@@ -42,7 +42,8 @@ counters back, every replay adds the launches the capture recorded.
 On a CPU tensor, ``graphs=None`` runs ``fn`` eagerly every call;
 ``graphs=False`` does so on CUDA (the eager twin); ``graphs=True`` off
 the card raises. There is no fallback: a capture that fails raises. A
-step over an active model axis (``make_train_step(axis=)``) is refused:
+step over an active model axis (``make_train_step(axis=)``) or an FSDP
+layout (``fsdp=``) is refused:
 the rank program runs eagerly, as ``launch.serve.generate(axis=)`` does.
 """
 from __future__ import annotations
@@ -76,10 +77,12 @@ class DonatedStep:
     ``fn``'s output as it is)."""
 
     def __init__(self, fn, donate: int = 2, graphs=None):
-        if mp.active(getattr(fn, "axis", None)):
+        if mp.active(getattr(fn, "axis", None)) or \
+                mp.fsdp_active(getattr(fn, "fsdp", None)):
             raise NotImplementedError(
-                "a model-parallel train step runs eagerly: the rank "
-                "program as CUDA graphs is ROADMAP Queue 1 item 3")
+                "a rank-program train step (model axis or FSDP) runs "
+                "eagerly: the rank program as CUDA graphs is ROADMAP "
+                "Queue 1 item 3")
         self.fn, self.donate, self.graphs = fn, donate, graphs
         self.captures = 0
         self._uses = collections.Counter()

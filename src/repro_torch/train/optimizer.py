@@ -14,7 +14,7 @@ import math
 import torch
 
 from repro_torch.launch import model_parallel as mp
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,46 +51,59 @@ def init_opt_state(params):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree, axis=None, sharded=None):
-    """The norm of every leaf of ``tree`` together. Over a model
-    ``axis`` (``launch.model_parallel``) ``tree`` holds a rank's shards
-    and ``sharded`` (a tree of bools of the same nesting) says which
-    leaves the axis splits: their squares are summed over the axis, the
-    replicated leaves' counted once, so every rank gets the same norm."""
+def global_norm(tree, axes=(), split=None):
+    """The norm of every leaf of ``tree`` together. Over the rank axes
+    ``axes`` (``launch.model_parallel`` axes, each with its ``name``:
+    the model axis, the data axis) ``tree`` holds a rank's shards and
+    ``split`` (a tree of the same nesting, ``launch.sharding.split_axes``)
+    holds, for each leaf, the frozenset of the axis names that split it:
+    each leaf's sum of squares is summed over exactly those axes (one
+    all-reduce an axis, of the partial sums of every set that names it),
+    so each element is counted once and every rank gets the same norm.
+    With no active axis, the one-card norm."""
     leaves = tree_leaves(tree)
-    if not mp.active(axis):
+    axes = [a for a in axes if mp.active(a)]
+    if not axes:
         return torch.sqrt(sum(torch.sum(torch.square(t.float()))
                               for t in leaves))
-    squares = [torch.sum(torch.square(t.float())) for t in leaves]
-    flags = tree_leaves(sharded)
-    if len(flags) != len(squares):
-        raise ValueError(f"{len(flags)} sharding flags for {len(squares)} "
+    flags = tree_leaves(split)
+    if len(flags) != len(leaves):
+        raise ValueError(f"{len(flags)} sharding flags for {len(leaves)} "
                          f"leaves")
-    split = torch.stack([q for q, f in zip(squares, flags) if f]).sum()
-    whole = [q for q, f in zip(squares, flags) if not f]
-    total = mp.all_reduce(split, axis)
-    if whole:
-        total = total + torch.stack(whole).sum()
-    return torch.sqrt(total)
+    names = {a.name for a in axes}
+    sums = {}
+    for t, f in zip(leaves, flags):
+        key = frozenset(f) & names
+        sums.setdefault(key, []).append(torch.sum(torch.square(t.float())))
+    keys = sorted(sums, key=sorted)
+    partial = {k: torch.stack(sums[k]).sum() for k in keys}
+    for a in axes:
+        mine = [k for k in keys if a.name in k]
+        if mine:
+            summed = mp.all_reduce(torch.stack([partial[k] for k in mine]),
+                                   a)
+            partial.update(zip(mine, summed.unbind()))
+    return torch.sqrt(torch.stack([partial[k] for k in keys]).sum())
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state, axis=None,
-                 sharded=None):
-    """Returns (new_params, new_state, metrics). Over a model ``axis``
+def adamw_update(cfg: AdamWConfig, params, grads, state, axes=(),
+                 split=None, in_place: bool = False):
+    """Returns (new_params, new_state, metrics). Over the rank ``axes``
     the trees are a rank's shards: the update is elementwise on them
-    (weight decay on leaves of two dimensions or more, as on one card),
-    the clipping norm :func:`global_norm`'s over the axis."""
+    (weight decay on leaves of two dimensions or more, as on one card:
+    a shard has its whole leaf's dimensions), the clipping norm
+    :func:`global_norm`'s over the axes that split each leaf
+    (``split``). Leaf by leaf: the clipped gradient, the moments and the
+    new value of one leaf before the next, so no whole tree of clipped
+    gradients is ever held. ``in_place`` writes the new params and
+    moments into the trees it was given (the same ops, so the same bits)
+    and returns those trees: the caller's old state is gone, and so is
+    the memory a second copy of it would take."""
     step = state["step"] + 1
-    gnorm = global_norm(grads, axis, sharded)
+    gnorm = global_norm(grads, axes, split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    grads = tree_map(lambda g: g * scale, grads)
-
     b1, b2 = cfg.b1, cfg.b2
-    mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
-                  state["mu"], grads)
-    nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
-                  state["nu"], grads)
     lr = cosine_lr(cfg, step)
     bc1 = 1 - torch.pow(b1, step.float())
     bc2 = 1 - torch.pow(b2, step.float())
@@ -103,6 +116,20 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, axis=None,
             delta = delta + cfg.weight_decay * p.float()
         return (p.float() - lr * delta).to(p.dtype)
 
-    new_params = tree_map(upd, params, mu, nu)
-    return new_params, {"mu": mu, "nu": nu, "step": step}, \
+    def leaf(p, g, m, v):
+        g = g * scale
+        if in_place:
+            m.mul_(b1).add_((1 - b1) * g.float())
+            v.mul_(b2).add_((1 - b2) * torch.square(g.float()))
+            return p.copy_(upd(p, m, v)), m, v
+        m = b1 * m + (1 - b1) * g.float()
+        v = b2 * v + (1 - b2) * torch.square(g.float())
+        return upd(p, m, v), m, v
+
+    new = [leaf(*x) for x in zip(
+        tree_leaves(params), tree_leaves(grads), tree_leaves(state["mu"]),
+        tree_leaves(state["nu"]), strict=True)]
+    return tree_unflatten(params, [n[0] for n in new]), \
+        {"mu": tree_unflatten(params, [n[1] for n in new]),
+         "nu": tree_unflatten(params, [n[2] for n in new]), "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

@@ -18,6 +18,15 @@ loss is vocab-parallel (:func:`lm_loss`), the gradients are averaged
 over the rank's data axis (``group=``, the ranks that share its model
 index), the clipping norm sums the sharded leaves' squares over the
 model axis (``optimizer.global_norm``) and AdamW updates the shards.
+
+Under the FSDP layout (``fsdp=``, ``launch.model_parallel.Fsdp``; the
+reference's ``param_pspecs(fsdp=True)`` / ``opt_pspecs``) the params and
+both moments are also split over the data axis: the forward gathers
+each leaf where it is read, the backward reduce-scatters its gradient
+to the rank's shard, :func:`mean_over` all-reduces only the leaves the
+layout leaves whole over the data axis (and the loss and metrics) and
+divides every leaf once, the norm sums each leaf's squares over the
+axes that split it and AdamW updates each shard where it lives.
 """
 from __future__ import annotations
 
@@ -53,7 +62,8 @@ def _log_partition(logits, labels, axis=None):
         mp.from_ranks(torch.where(mine, gold, 0.0), axis)
 
 
-def lm_loss(params, cfg, batch, remat: bool = True, axis=None):
+def lm_loss(params, cfg, batch, remat: bool = True, axis=None,
+            fsdp=None):
     """batch: {tokens (B, S) | embeds (B, S, D), labels (B, S)[,
     positions]} -> (total, metrics); ``embeds`` is the frontend-stub path
     (audio / VLM backbones), ``positions`` carries M-RoPE triples when
@@ -62,11 +72,12 @@ def lm_loss(params, cfg, batch, remat: bool = True, axis=None):
     load-balance loss (``aux_loss_weight``) and its z-loss (1e-3). Over a
     model ``axis``, the cross-entropy over the rank's vocab block
     (:func:`_log_partition`); the total and the metrics are the same on
-    every rank."""
+    every rank. Under an FSDP layout ``fsdp``, on the rank's shards and
+    rows (``T.forward``)."""
     logits, aux = T.forward(params, cfg, batch.get("tokens"),
                             embeds=batch.get("embeds"),
                             positions=batch.get("positions"), remat=remat,
-                            axis=axis)
+                            axis=axis, fsdp=fsdp)
     logits = logits.float()
     labels = batch["labels"].long()
     logz, gold = _log_partition(logits, labels, axis)
@@ -81,15 +92,18 @@ def lm_loss(params, cfg, batch, remat: bool = True, axis=None):
     return total, metrics
 
 
-def value_and_grad(params, cfg, batch, remat: bool = True, axis=None):
+def value_and_grad(params, cfg, batch, remat: bool = True, axis=None,
+                   fsdp=None):
     """((loss, metrics), grads) of :func:`lm_loss` with respect to every
     leaf of ``params``; the grads are a tree of the same nesting. A leaf
     the loss does not read (the token embedding of an ``embeds`` batch)
     gets a zero gradient, as JAX gives it. Over a model ``axis``,
     ``params`` are the rank's shards and so are the grads (a replicated
-    leaf's, the whole gradient on every rank)."""
+    leaf's, the whole gradient on every rank); under an FSDP layout a
+    data-split leaf's gradient is its shard of the sum over the data
+    axis's ranks (or, with ``fsdp.sums`` False, of the one batch)."""
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss, metrics = lm_loss(live, cfg, batch, remat, axis)
+    loss, metrics = lm_loss(live, cfg, batch, remat, axis, fsdp)
     leaves = tree_leaves(live)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
@@ -98,29 +112,35 @@ def value_and_grad(params, cfg, batch, remat: bool = True, axis=None):
         tree_unflatten(params, grads)
 
 
-def mean_over(group, loss, metrics, grads):
+def mean_over(group, loss, metrics, grads, summed=None):
     """(loss, metrics, grads) with every gradient leaf and the loss and
     :data:`METRICS` replaced by their mean over the data axis ``group``
     (``mp.make_data_axis``): a blocking all-reduce of each through
     ``mp.all_reduce``, which the dry run counts (the card's stream waits,
-    the host does not), then one division by the axis's size."""
+    the host does not), then one division by the axis's size. ``summed``
+    (bools in ``tree_leaves`` order) marks the leaves whose gradient is
+    already summed over the axis (an FSDP layout's reduce-scattered
+    shards): those are only divided."""
     leaves = tree_leaves(grads)
+    summed = summed or [False] * len(leaves)
     stacked = torch.stack([loss] + [metrics[k] for k in METRICS])
-    out = [mp.all_reduce(t, group) for t in leaves + [stacked]]
+    out = [t if s else mp.all_reduce(t, group)
+           for t, s in zip(leaves, summed, strict=True)]
+    out.append(mp.all_reduce(stacked, group))
     torch._foreach_div_(out, group.size)
     loss, *rest = out[-1].unbind()
     return loss, dict(zip(METRICS, rest)), tree_unflatten(grads, out[:-1])
 
 
 def step_grads(params, cfg, batch, remat: bool = True,
-               accum_steps: int = 1, group=None, axis=None):
+               accum_steps: int = 1, group=None, axis=None, fsdp=None):
     """((loss, metrics), grads) as :func:`make_train_step`'s step takes
-    them before its update: over ``accum_steps`` microbatches, averaged
-    over the data axis ``group`` where given, on a model ``axis``'s
-    shards."""
+    them before its update: over ``accum_steps`` microbatches (an FSDP
+    layout's shards summed), averaged over the data axis ``group`` where
+    given, on a model ``axis``'s shards and an FSDP layout's."""
     # with no axis, value_and_grad's four-argument call of one card
     # (tests/test_torch_train.py's microbatch spy takes no more)
-    on_axis = () if axis is None else (axis,)
+    on_axis = () if axis is None and fsdp is None else (axis, fsdp)
     if accum_steps == 1:
         (loss, metrics), grads = value_and_grad(params, cfg, batch, remat,
                                                 *on_axis)
@@ -154,12 +174,16 @@ def step_grads(params, cfg, batch, remat: bool = True,
         loss = loss / a
         metrics = {k: v / a for k, v in metrics.items()}
     if group is not None:
-        loss, metrics, grads = mean_over(group, loss, metrics, grads)
+        summed = None if not mp.fsdp_active(fsdp) else [
+            d is not None for d in tree_leaves(fsdp.dims)]
+        loss, metrics, grads = mean_over(group, loss, metrics, grads,
+                                         summed)
     return (loss, metrics), grads
 
 
 def make_train_step(cfg, opt_cfg: AdamWConfig, remat: bool = True,
-                    accum_steps: int = 1, group=None, axis=None):
+                    accum_steps: int = 1, group=None, axis=None, fsdp=None,
+                    in_place: bool = False):
     """accum_steps > 1 runs the microbatches in turn (the global batch
     must divide), accumulating the gradients in f32 and dividing by
     ``accum_steps``. The batch is split as the reference splits it:
@@ -182,33 +206,54 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, remat: bool = True,
     state and the batch rows of its data index (module docstring). The
     leaves the axis
     splits are read from ``launch.sharding.param_pspecs`` at the first
-    call. An axis of size 1 is no axis, bit for bit."""
-    sharded = []
+    call. An axis of size 1 is no axis, bit for bit.
+
+    ``fsdp``, the rank's FSDP layout (``mp.Fsdp``): the params and the
+    optimizer state are its shards of ``param_pspecs(fsdp=True)`` /
+    ``opt_pspecs`` (module docstring). Its data axis is ``group`` where
+    the batch splits over it (``fsdp.sums``), else ``group`` is None and
+    each replica steps on the whole batch. A layout over a data axis of
+    size 1 is no layout, bit for bit.
+
+    ``in_place``: the update writes the new params and moments into the
+    trees the step was handed and returns them (``adamw_update``), the
+    same bits as a step that makes new trees: an eager rank program's
+    donation, without a second copy of the state at its peak."""
+    split = []
     if group is not None and not isinstance(group, mp.ModelAxis):
         group = mp.group_axis(group)
+    if mp.fsdp_active(fsdp) and fsdp.sums != (group is not None):
+        raise ValueError("an FSDP layout sums its gradients over its data "
+                         "axis exactly where the step averages over it "
+                         f"(sums {fsdp.sums}, group {group})")
+    axes = (axis, fsdp.axis if fsdp is not None else None)
 
     def train_step(params, opt_state, batch):
-        if mp.active(axis) and not sharded:
-            from repro_torch.launch.sharding import model_sharded
-            sharded.append(model_sharded(cfg, params, axis.size))
+        if any(map(mp.active, axes)) and not split:
+            from repro_torch.launch.sharding import split_axes
+            split.append(split_axes(cfg, params, mp.size(axis),
+                                    fsdp.dims if mp.fsdp_active(fsdp)
+                                    else None))
         (loss, metrics), grads = step_grads(params, cfg, batch, remat,
-                                            accum_steps, group, axis)
+                                            accum_steps, group, axis, fsdp)
         params, opt_state, opt_metrics = adamw_update(
-            opt_cfg, params, grads, opt_state, axis,
-            sharded[0] if sharded else None)
+            opt_cfg, params, grads, opt_state, axes,
+            split[0] if split else None, in_place)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return params, opt_state, metrics
 
-    train_step.axis = axis
+    train_step.axis, train_step.fsdp = axis, fsdp
     return train_step
 
 
-def make_eval_step(cfg, axis=None):
-    """The loss metrics of a batch, no gradient; over a model ``axis``,
-    one rank's program on its shards."""
+def make_eval_step(cfg, axis=None, fsdp=None):
+    """The loss metrics of a batch, no gradient; over a model ``axis``
+    and an FSDP layout ``fsdp``, one rank's program on its shards (the
+    leaves gathered as the train step's forward gathers them)."""
     def eval_step(params, batch):
         with torch.no_grad():
-            _, metrics = lm_loss(params, cfg, batch, remat=False, axis=axis)
+            _, metrics = lm_loss(params, cfg, batch, remat=False, axis=axis,
+                                 fsdp=fsdp)
         return metrics
 
     return eval_step

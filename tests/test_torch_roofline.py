@@ -247,10 +247,11 @@ def test_roofline_terms():
                            model_axis=16, model_flops=989e12 * 128)
     assert pod.t_collective == pytest.approx(27.0) and pod.model_link == "nic"
     assert pod.useful_flop_frac == pytest.approx(0.5)
-    unsplit = analysis.analyze(summary, arch="a", shape="s", chips=256,
-                               model_axis=16, coll_note="train")
-    assert unsplit.t_collective is None and not unsplit.rank_program
-    assert unsplit.to_dict()["coll_note"] == "train"
+    whole = analysis.analyze(op_cost.CostSummary(flops=989e12,
+                                                 bytes=6.7e12),
+                             arch="a", shape="s", chips=256)
+    assert whole.t_collective is None and not whole.rank_program
+    assert whole.to_dict()["coll_links"] is None
 
 
 def test_collective_term_by_axis():
@@ -344,7 +345,7 @@ def test_dryrun_writes_a_record_per_combo(tmp_path):
     assert pod["arg_bytes_per_card"] == sum(
         t.numel() * t.element_size() for t in tree_leaves(spec.args))
     assert pod["t_collective"] > 0 and pod["rank_program"]
-    assert pod["model_link"] == "nic" and pod["coll_note"] is None
+    assert pod["model_link"] == "nic"
     assert set(pod["coll_breakdown"]) == {"all-reduce", "all-gather",
                                           "all-to-all"}
     assert host["t_collective"] is None and host["coll_gbytes"] is None
