@@ -1851,9 +1851,9 @@ def profile_steps(torch, step, steps: int, watch=(),
     ``steps`` calls of ``step`` — device busy time (the sum of kernel and
     memcpy durations on the card), the idle share of the wall time, device
     events per step and the costliest device consumers; with ``watch``,
-    also the device ms per step of the events whose name holds each of
-    those strings. ``cpu=False`` traces the card alone (no host ops: a
-    cheaper trace to take and to read)."""
+    also the device ms and the events per step of the events whose name
+    holds each of those strings. ``cpu=False`` traces the card alone (no
+    host ops: a cheaper trace to take and to read)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA]
@@ -1887,6 +1887,8 @@ def profile_steps(torch, step, steps: int, watch=(),
         out["watched_device_ms_per_step"] = {
             w: sum(us for n, us in by_name.items() if w in n) / steps / 1e3
             for w in watch}
+        out["watched_events_per_step"] = {
+            w: sum(w in e.name for e in dev) / steps for w in watch}
     return out
 
 
@@ -4675,8 +4677,9 @@ def mp_rank(rank, world, group, cases):
     a decode step on the prompt's last token after it (its blocks of both
     logits kept), ``launch.serve.generate`` over the model axis (tokens,
     step wall, the last step's block of logits) and ``profile_steps``
-    over 2 decode steps (NCCL's device ms), each counter and the peak
-    reserved GB read after."""
+    over 2 decode steps (NCCL's device ms), each counter read after; on
+    NCCL ranks (after ``watchdog_captures`` on the axis's group) the
+    graphed twin (``serve_graph_twin``), and the peak reserved GB."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import ops
@@ -4689,14 +4692,15 @@ def mp_rank(rank, world, group, cases):
     mesh = make_mesh(1, world)
     axis = mp.make_axis(mesh, rank, group)
     nccl = dist.get_backend(group) == "nccl"
+    watchdog = watchdog_captures(torch, axis.group, RANK_WATCHDOG) \
+        if nccl else None
     out = {}
     for case in cases:
         name, arch, layers, quant, b, s, gen, _ = case
         cfg = mp_config(arch, layers)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in ops.KERNELS.values():
-            fn.launches = 0
+        zero_counters(torch, ops)
         for turn in range(world):
             if turn == rank:
                 full, prompt = mp_weights(torch, cfg, quant, b, s)
@@ -4711,13 +4715,19 @@ def mp_rank(rank, world, group, cases):
         step, _ = T.decode_step(params, cfg, prompt[:, -1:], caches, s,
                                 axis=step_axis)
         stats = {}
-        toks = generate(params, cfg, prompt, s + gen, gen, graphs=False,
-                        stats=stats, axis=axis)
+
+        def run(st, graphs):
+            return generate(params, cfg, prompt, s + gen, gen,
+                            graphs=graphs, stats=st, axis=axis)
+
+        toks = run(stats, False)
         tok = toks[:, -1:]
         prof = profile_steps(torch, lambda: T.decode_step(
             params, cfg, tok, caches, s, axis=step_axis), 2,
             watch=("nccl",), cpu=False)
-        torch.cuda.synchronize()
+        launches = read_counters(torch, ops)
+        graphed = serve_graph_twin(torch, ops, run, toks, stats) \
+            if nccl else None
         out[name] = {
             "rank": rank, "card": torch.cuda.current_device(),
             "prefill": logits.cpu(), "step": step.cpu(),
@@ -4730,7 +4740,9 @@ def mp_rank(rank, world, group, cases):
             "nccl_device_ms_per_step":
                 prof["watched_device_ms_per_step"]["nccl"] if nccl else None,
             "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
-            "launches": {k: f.launches for k, f in ops.KERNELS.items()}}
+            "launches": launches,
+            "watchdog_captures": watchdog if nccl and not out else None,
+            "graphed": graphed}
         del params, caches, logits
         torch.cuda.empty_cache()
     return out
@@ -4772,10 +4784,15 @@ def model_parallel_phase(torch, ops) -> dict:
     ``mp_held`` holds the ranks to it. One ``model_parallel`` line per
     case: per rank the logits' error, step wall ms (``generate``'s
     eager steps), a profiled step's busy ms and NCCL's device ms, peak
-    reserved GB and launches per kernel. Returns the launches of each
-    case summed over its ranks."""
+    reserved GB and launches per kernel; on NCCL ranks the graphed twin
+    (``serve_graph_twin``: tokens and last logits bit for bit, one
+    capture a call, launches equal, ``generate`` graphed and eager in
+    turns);
+    with one card a ``rank_graphs_cards`` line. Returns the launches of
+    each case summed over its ranks."""
     from repro_torch.launch import distributed
     cards = torch.cuda.device_count()
+    rank_graphs_cards(torch, "9b")
     m = 4 if cards >= 4 else 2
     groups = collections.defaultdict(list)
     for case in MP_CASES:
@@ -4800,10 +4817,10 @@ def model_parallel_phase(torch, ops) -> dict:
                    "ranks": [{k: r[k] for k in (
                        "rank", "card", "prefill_s", "step_ms",
                        "profiled_step", "nccl_device_ms_per_step",
-                       "peak_reserved_gb", "launches")} for r in recs]}
+                       "peak_reserved_gb", "launches", "watchdog_captures",
+                       "graphed")} for r in recs]}
             emit({"model_parallel": rec})
-            runs[name] = {k: sum(r["launches"].get(k, 0) for r in recs)
-                          for k in counters(ops)}
+            runs[name] = case_launches(ops, recs)
     return runs
 
 
@@ -4859,7 +4876,9 @@ FSDP_CASES = (
     ("fsdp_olmoe_whole", "olmoe-1b-7b", None, 4, 1, "4", "eval", "bf16",
      True),
     ("fsdp_olmoe_2x2", "olmoe-1b-7b", None, 2, 2, "4", "eval", "bf16", True),
-    ("fsdp_smollm_4", "smollm-135m", None, 4, 1, "4", "train", "bf16", True))
+    ("fsdp_smollm_4", "smollm-135m", None, 4, 1, "4", "train", "bf16", True),
+    ("fsdp_smollm_serve_2x2", "smollm-135m", None, 2, 2, "4", "serve", "bf16",
+     True))
 # the serving case's batch, prompt and new tokens: each of its decode
 # steps gathers smollm-135m's 0.72 GB through the host on one card's gloo
 # ranks (about 1 s a step on one H100)
@@ -5051,11 +5070,13 @@ def mpt_rank(rank, world, group, cases, paths):
     ``mpt_leaf_errors``); a sha256 of the leaves no model axis splits
     (under the layout, of those it leaves whole over the data axis);
     the last step profiled (NCCL's device ms), and the peak allocated
-    and reserved GB; under the layout the steps update in place and, on
-    NCCL ranks, an eval forward's peak over the shards follows
-    (``fsdp_eval_peak``). A
-    "serve" case runs ``mpt_serve``. Returns {"cases": ..., "shapes":
-    the flash kernels' signatures}."""
+    and reserved GB; the steps update in place and, on NCCL ranks under
+    the layout, an eval forward's peak over the shards follows
+    (``fsdp_eval_peak``). On NCCL ranks each active axis's group first
+    takes ``watchdog_captures``, and the steps' graphed twin follows
+    from the same start (``mpt_graphed``). A "serve" case runs
+    ``mpt_serve``. Returns {"cases": ..., "shapes": the flash kernels'
+    signatures}."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import ops
@@ -5086,23 +5107,33 @@ def mpt_rank(rank, world, group, cases, paths):
         where = coords(mesh, rank)
         layout = mp.Fsdp(data_axis, fsdp_dims(cfg, T.param_shapes(cfg),
                                               mesh)) if fsdp else None
+        watchdog = {a.name: watchdog_captures(torch, a.group, RANK_WATCHDOG)
+                    for a in (axis, data_axis) if nccl and mp.active(a)}
+
+        def shards():
+            """The seeded weights cut to this rank's shards (the same
+            start for the eager steps and their graphed twin)."""
+            if kind == "serve":
+                full, prompt = mp_weights(torch, cfg, 0, *FSDP_SERVE[:2])
+            else:
+                full, prompt = mpt_weights(torch, cfg), None
+            params = shard_tree(full, param_pspecs(
+                cfg, full, fsdp=fsdp, mesh=mesh), mesh, where)
+            del full
+            torch.cuda.empty_cache()
+            return params, prompt
+
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for turn in range(1 if nccl else world):
             if nccl or turn == rank:
-                if kind == "serve":
-                    full, prompt = mp_weights(torch, cfg, 0, *FSDP_SERVE[:2])
-                else:
-                    full = mpt_weights(torch, cfg)
-                params = shard_tree(full, param_pspecs(
-                    cfg, full, fsdp=fsdp, mesh=mesh), mesh, where)
-                del full
-                torch.cuda.empty_cache()
+                params, prompt = shards()
             if not nccl:
                 dist.barrier(group)
         if kind == "serve":
             out[name] = mpt_serve(torch, ops, cfg, params, prompt, mesh,
                                   where, axis, layout, moved, nccl, rank)
+            out[name]["watchdog_captures"] = watchdog
             del params, prompt
             torch.cuda.empty_cache()
             continue
@@ -5117,12 +5148,12 @@ def mpt_rank(rank, world, group, cases, paths):
         rows = batch_rows(mesh, 8, where["data"])
         batch = {k: v[rows] for k, v in batch.items()}
         # the layout's program as ZeRO-3 runs it: remat (each block
-        # gathered again in the backward; FSDP_NO_REMAT's keep it) and the
-        # update in place
+        # gathered again in the backward; FSDP_NO_REMAT's keep it); every
+        # rank program updates in place (a graphed one copies nothing back)
         remat = fsdp and name not in FSDP_NO_REMAT
         step = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS),
                                remat=remat, group=data_axis, axis=axis,
-                               fsdp=layout, in_place=fsdp)
+                               fsdp=layout, in_place=True)
         # the initial shards and step-0 gradients on the host: OLMoE's
         # (2 layers) two ranks fill the card with their training state
         p0 = grads = None
@@ -5187,8 +5218,18 @@ def mpt_rank(rank, world, group, cases, paths):
         if fsdp and nccl:
             rec.update(fsdp_eval_peak(torch, cfg, state[0], batch, axis,
                                       layout))
+        if nccl:      # the graphed twin, from the same start
+            rec["watchdog_captures"] = watchdog
+            kept = [t.cpu() for t in tree_leaves(state)]
+            del state, params
+            torch.cuda.empty_cache()
+            rec["graphed"] = mpt_graphed(torch, ops, lambda: shards()[0],
+                                         step, batch, metrics, kept, launches)
+            del kept
+        else:
+            del state, params
         out[name] = rec
-        del state, params, batch, step
+        del batch, step
         torch.cuda.empty_cache()
     return {"cases": out, "shapes": {n: SHAPES[n].seen
                                      for n in MP_TRAIN_KERNELS}}
@@ -5220,6 +5261,136 @@ def fsdp_eval_peak(torch, cfg, params, batch, axis, layout) -> dict:
                             for t in tree_leaves(shapes)) / 1e9}
 
 
+def mpt_graphed(torch, ops, shards, step, batch, eager_metrics: list,
+                kept: list, eager_launches: dict) -> dict:
+    """A rank case's graphed twin on an NCCL rank: from the same start
+    (``shards()``, fresh optimizer state) the case's in-place step through
+    ``DonatedStep`` for RANK_GRAPH_STEPS steps (eager, capture + replay,
+    replay) with every launch counter zeroed before and read after,
+    held to the eager steps' metrics (``eager_metrics``), every leaf of
+    params, ``mu``, ``nu`` and ``step`` (``kept``, on the host) and
+    launches bit for bit, and the peak allocated and reserved GB from the
+    start (the graphed program's: its capture empties the eager warm-up's
+    cached blocks); then, the ranks met at a barrier, RANK_TURNS turns of
+    a replay and an eager step on the same state (the in-place step
+    writes the graph's buffers, so the two modes share them), each
+    timed, one more replay profiled (busy and NCCL's device ms), and the
+    peaks over the turns (``turns_peak_*``: the eager steps' blocks
+    cached beside the graph's pool). Raises on a miss."""
+    from repro_torch.train.graphs import DonatedStep
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.tree import tree_leaves
+    params = shards()
+    state = [params, init_opt_state(params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    graphed = DonatedStep(step)
+
+    def one(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state[0], state[1], m = fn(state[0], state[1], batch)
+        torch.cuda.synchronize()
+        metrics.append({k: float(v) for k, v in m.items()})
+        return (time.perf_counter() - t0) * 1e3
+
+    metrics = []
+    zero_counters(torch, ops)
+    first = [one(graphed) for _ in range(RANK_GRAPH_STEPS)]
+    launches = read_counters(torch, ops)
+    got = tree_leaves(state)
+    rec = {"metrics_bitwise": metrics == eager_metrics,
+           "state_bitwise": len(got) == len(kept) and all(
+               torch.equal(a.cpu(), b) for a, b in zip(got, kept)),
+           "launches_equal": launches == eager_launches,
+           "captures": graphed.captures, "write_back": graphed.write_back,
+           "first_steps_ms": first, "graphed_step_ms": [],
+           "eager_step_ms": [], "launches": launches,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    del got
+    # the ranks compared their state on the host, each at its own pace:
+    # met again before the timed turns, whose first collective would
+    # otherwise wait for the slowest
+    torch.distributed.barrier()
+    for _ in range(RANK_TURNS):
+        rec["graphed_step_ms"].append(one(graphed))
+        rec["eager_step_ms"].append(one(step))
+    prof = profile_steps(torch, lambda: one(graphed), 1, watch=("nccl",),
+                         cpu=False)
+    rec.update(profiled_step={k: prof[k] for k in (
+        "wall_ms_per_step", "device_busy_ms_per_step", "idle_share")},
+        nccl_device_ms_per_step=prof["watched_device_ms_per_step"]["nccl"],
+        turns_peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        turns_peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    del graphed, state, params    # the graph before any group goes
+    torch.cuda.empty_cache()
+    if not (rec["metrics_bitwise"] and rec["state_bitwise"]
+            and rec["launches_equal"]) or rec["captures"] != 1 or \
+            rec["write_back"] != [0]:
+        raise AssertionError(f"a graphed rank step against its eager twin: "
+                             f"{rec}")
+    return rec
+
+
+def serve_graph_twin(torch, ops, run, toks, stats) -> dict:
+    """A serving rank's graphed twin on an NCCL rank: ``run(stats,
+    graphs)`` (``launch.serve.generate`` over the rank's axes) graphed
+    (the default on CUDA) and with ``graphs=False`` in RANK_SERVE_TURNS
+    turns (graphed, eager, graphed, ...), each call's launch counters
+    zeroed just before it (``counted``). Held: every call's tokens and
+    last logits bit for bit those of the case's ``graphs=False`` call
+    (``toks``, ``stats``), one capture a graphed call, every call's
+    launches equal. Per call, the wall ms a decode step after the
+    second (``steady_s``: a graphed call's replays) and over all its
+    decode steps (``decode_s``: a graphed call's capture included);
+    then one call of each mode profiled (busy, idle share and NCCL's
+    device ms a call). Raises on a miss."""
+    gen = toks.shape[1]
+    modes = (("graphed", None), ("eager", False))
+    rec = {"tokens_bitwise": True, "last_logits_bitwise": True,
+           "captures": [], "launches": None, "launches_equal": True,
+           **{f"{mode}_{k}": [] for mode, _ in modes
+              for k in ("steady_step_ms", "decode_step_ms")}}
+    for _ in range(RANK_SERVE_TURNS):
+        for mode, graphs in modes:
+            got = {}
+            out, counts = counted(torch, ops, lambda: run(got, graphs))
+            rec["tokens_bitwise"] &= torch.equal(out, toks)
+            rec["last_logits_bitwise"] &= torch.equal(
+                got["last_logits"], stats["last_logits"])
+            rec["launches"] = rec["launches"] or counts
+            rec["launches_equal"] &= counts == rec["launches"]
+            if graphs is None:
+                rec["captures"].append(got["captures"])
+            rec[f"{mode}_steady_step_ms"].append(
+                got["steady_s"] / (gen - 3) * 1e3)
+            rec[f"{mode}_decode_step_ms"].append(
+                got["decode_s"] / (gen - 1) * 1e3)
+    for mode, graphs in modes:
+        prof = profile_steps(torch, lambda: run({}, graphs), 1,
+                             watch=("nccl",), cpu=False)
+        rec[f"{mode}_profiled_call"] = {
+            "wall_ms": prof["wall_ms_per_step"],
+            "device_busy_ms": prof["device_busy_ms_per_step"],
+            "idle_share": prof["idle_share"],
+            "nccl_device_ms": prof["watched_device_ms_per_step"]["nccl"]}
+    if not (rec["tokens_bitwise"] and rec["last_logits_bitwise"]
+            and rec["launches_equal"]) or \
+            rec["captures"] != [1] * RANK_SERVE_TURNS:
+        raise AssertionError(f"a graphed serving rank against its eager "
+                             f"twin: {rec}")
+    return rec
+
+
+def case_launches(ops, recs) -> dict:
+    """Every counter summed over a case's ranks: the main path's launches
+    and, on NCCL ranks, those of the graphed twin's run (its replays)."""
+    return {k: sum(r["launches"].get(k, 0) + (
+        r["graphed"]["launches"].get(k, 0) if r.get("graphed") else 0)
+        for r in recs) for k in counters(ops)}
+
+
 def mpt_serve(torch, ops, cfg, params, prompt, mesh, where, axis, layout,
               moved, nccl, rank) -> dict:
     """Phase 9d's serving case on one rank: its rows of the prompt
@@ -5227,7 +5398,9 @@ def mpt_serve(torch, ops, cfg, params, prompt, mesh, where, axis, layout,
     it and ``launch.serve.generate``, each leaf gathered over the data
     axis where read, the launch counters zeroed before and read after and
     the bytes of the collectives the decode step ran; then 2 decode steps
-    profiled (NCCL's device ms) and the peak allocated and reserved GB."""
+    profiled (NCCL's device ms), on NCCL ranks the graphed twin
+    (``serve_graph_twin``), and the peak allocated and reserved GB. The
+    logits are kept gathered over the model axis."""
     from repro_torch.launch import model_parallel as mp
     from repro_torch.launch.serve import generate
     from repro_torch.launch.sharding import batch_rows
@@ -5244,17 +5417,28 @@ def mpt_serve(torch, ops, cfg, params, prompt, mesh, where, axis, layout,
                             axis=step_axis, fsdp=layout)
     moved.on = False
     stats = {}
-    toks = generate(params, cfg, prompt, s + gen, gen, graphs=False,
-                    stats=stats, axis=axis, fsdp=layout)
+
+    def run(st, graphs):
+        return generate(params, cfg, prompt, s + gen, gen, graphs=graphs,
+                        stats=st, axis=axis, fsdp=layout)
+
+    toks = run(stats, False)
     launches = read_counters(torch, ops)
     tok = toks[:, -1:]
     prof = profile_steps(torch, lambda: T.decode_step(
         params, cfg, tok, caches, s, axis=step_axis, fsdp=layout), 2,
         watch=("nccl",), cpu=False)
+    graphed = serve_graph_twin(torch, ops, run, toks, stats) if nccl \
+        else None
+
+    def whole(t):       # the logits gathered over the model axis
+        return mp.all_gather(t, axis, -1).cpu()
+
     rec = {"rank": rank, "card": torch.cuda.current_device(),
            "where": where, "rows": [rows.start, rows.stop],
-           "prefill": logits.cpu(), "step": step.cpu(), "tokens": toks.cpu(),
-           "last": stats["last_logits"].cpu(),
+           "prefill": whole(logits), "step": whole(step),
+           "tokens": toks.cpu(), "last": whole(stats["last_logits"]),
+           "graphed": graphed,
            "prefill_s": stats["prefill_s"],
            "step_ms": stats["decode_s"] / (gen - 1) * 1e3,
            "collective_gb_per_step": {k: v / 1e9 for k, v in
@@ -5398,7 +5582,8 @@ def mpt_emit(case, twin: dict, recs: list, world: int, backend: str,
     keys = ("rank", "card", "where", "rows", "step_ms", "profiled_step",
             "nccl_device_ms_per_step", "collective_gb_per_step",
             "peak_allocated_gb", "peak_reserved_gb", "launches",
-            "eval_peak_over_shards_gb", "largest_block_gb", "model_gb")
+            "eval_peak_over_shards_gb", "largest_block_gb", "model_gb",
+            "watchdog_captures", "graphed")
     if case[6] == "serve":
         b, s, gen = FSDP_SERVE
         rec.update(batch=b, prompt=s, gen=gen,
@@ -5428,7 +5613,11 @@ def model_parallel_train_phase(torch, ops, cases=MP_TRAIN_CASES) -> dict:
     (``make_train_step(fsdp=)``): on one card smollm-135m at (2, 1) and
     (2, 2), OLMoE-1B-7B at 2 of 16 layers at (2, 1) and smollm-135m's
     prefill and 8 decode tokens at (2, 1); on four, OLMoE-1B-7B whole at
-    (4, 1) and (2, 2) and smollm-135m at (2, 2) and (4, 1). Cases of one
+    (4, 1) and (2, 2), smollm-135m at (2, 2) and (4, 1) and its serving
+    at (2, 2). On NCCL ranks (one a card) each case's graphed twin
+    follows its eager steps (``mpt_graphed``, ``serve_graph_twin``), held
+    bit for bit; with one card a ``rank_graphs_cards`` line says why
+    none runs. Cases of one
     world size share one spawn and one twin per model and kind. Each
     case's twin (``mpt_twin``; a serving case's ``mp_twin``) runs first
     and is freed; ``mpt_held`` (``fsdp_serve_held``) holds the ranks to
@@ -5443,6 +5632,7 @@ def model_parallel_train_phase(torch, ops, cases=MP_TRAIN_CASES) -> dict:
     import tempfile
     from repro_torch.launch import distributed
     cards = torch.cuda.device_count()
+    rank_graphs_cards(torch, "9c / 9d")
     four = cards >= 4
     groups = collections.defaultdict(list)
     for case in cases:
@@ -5482,8 +5672,7 @@ def model_parallel_train_phase(torch, ops, cases=MP_TRAIN_CASES) -> dict:
             for case, key in zip(group, keys):
                 recs = [r["cases"][case[0]] for r in ranks]
                 mpt_emit(case, made[key][0], recs, world, backend, wall)
-                runs[case[0]] = {k: sum(r["launches"].get(k, 0)
-                                        for r in recs) for k in counters(ops)}
+                runs[case[0]] = case_launches(ops, recs)
     emit({"model_parallel_train_path_checks": check_path_shapes(
         torch, ops, seen)})
     return runs
@@ -5493,6 +5682,108 @@ def fsdp_phase(torch, ops) -> dict:
     """Phase 9d alone: ``model_parallel_train_phase`` over
     ``FSDP_CASES``."""
     return model_parallel_train_phase(torch, ops, FSDP_CASES)
+
+
+# ---------------------------------------------------------------------------
+# The rank programs as CUDA graphs (phases 9b-9d on NCCL ranks, and the
+# in-place step's graph on one card)
+
+RANK_GRAPH_STEPS = 3     # steps of a graphed rank case held to its eager twin:
+                         # eager, capture + replay, replay
+RANK_TURNS = 3           # then a replay and an eager step, timed in turns
+RANK_SERVE_TURNS = 3     # a serving rank's generate calls, graphed then eager
+RANK_WATCHDOG = 10       # watchdog captures on each active subgroup
+# the copies a graph's write-back launches (a DtoD memcpy, or foreach's
+# copy kernel): a replay of an in-place step's graph holds no more than
+# its eager twin's step (the update's own copy_ of each new leaf)
+COPY_EVENTS = ("Memcpy DtoD", "CopyFunctor")
+
+
+def rank_graphs_cards(torch, phase: str) -> bool:
+    """Whether this card count runs the rank programs graphed (one NCCL
+    rank a card needs two cards or more); with one card, a line saying
+    why none is."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"rank_graphs_cards": {
+            "phase": phase, "count": cards, "ran": False,
+            "why": "one card: NCCL takes one rank a card and a CUDA graph "
+                   "cannot capture gloo's collectives (they run on the "
+                   "host), so this card's gloo ranks step eagerly "
+                   "(graphs=False); the graphed rank programs and their "
+                   "eager twins need two cards or more"}})
+    return cards >= 2
+
+
+def in_place_twin(torch, ops) -> dict:
+    """The one-card check of the graphs' write-back: smollm-135m's step at
+    B 8 x S 256 made with ``make_train_step(in_place=True)`` (no remat),
+    three steps of the plain step from seeded weights, then three through
+    ``DonatedStep`` (eager, capture + replay, replay) from the same
+    start, each run's third step profiled. Held: every step's metrics
+    and every leaf of params, ``mu``, ``nu`` and ``step`` bit for bit,
+    the launches equal, one capture, no leaf written back
+    (``write_back``), and a replay's copies (``COPY_EVENTS``) no more
+    than the eager step's, where a write-back would add one a leaf.
+    Returns the graphed run's launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.graphs import DonatedStep
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("smollm-135m")
+    batch = stream_batch(torch, cfg.vocab_size, 8, 256, SEED + 11)
+    step = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS),
+                           remat=False, in_place=True)
+    t0 = time.perf_counter()
+    runs = {}
+    for mode in ("eager", "graphed"):
+        fn = step if mode == "eager" else DonatedStep(step)
+        params = T.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(SEED + 13), device="cuda")
+        state, metrics = [params, init_opt_state(params)], []
+
+        def one():
+            state[0], state[1], m = fn(state[0], state[1], batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+
+        zero_counters(torch, ops)
+        one()
+        one()
+        launches = read_counters(torch, ops)
+        prof = profile_steps(torch, one, 1, watch=COPY_EVENTS, cpu=False)
+        runs[mode] = {"metrics": metrics, "launches": launches,
+                      "leaves": [t.cpu() for t in tree_leaves(state)],
+                      "copy_events": prof["watched_events_per_step"],
+                      "busy_ms": prof["device_busy_ms_per_step"]}
+        if mode == "graphed":
+            runs[mode].update(captures=fn.captures,
+                              write_back=fn.write_back)
+        del fn, state, params
+        torch.cuda.empty_cache()
+    eager, graphed = runs["eager"], runs["graphed"]
+    rec = {"arch": "smollm-135m", "batch": 8, "seq": 256, "steps": 3,
+           "in_place": True,
+           "metrics_bitwise": eager["metrics"] == graphed["metrics"],
+           "state_bitwise": all(torch.equal(a, b) for a, b in zip(
+               eager["leaves"], graphed["leaves"], strict=True)),
+           "launches_equal": eager["launches"] == graphed["launches"],
+           "captures": graphed["captures"],
+           "write_back": graphed["write_back"],
+           "copy_events_per_step": {"eager": eager["copy_events"],
+                                    "graphed": graphed["copy_events"]},
+           "busy_ms": {"eager": eager["busy_ms"],
+                       "graphed": graphed["busy_ms"]},
+           "wall_s": time.perf_counter() - t0}
+    emit({"rank_graphs_in_place_twin": rec})
+    if not (rec["metrics_bitwise"] and rec["state_bitwise"]
+            and rec["launches_equal"]) or rec["captures"] != 1 or \
+            rec["write_back"] != [0] or any(
+                graphed["copy_events"][k] > eager["copy_events"][k]
+                for k in COPY_EVENTS):
+        raise AssertionError(f"the in-place step's graph: {rec}")
+    return graphed["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -6711,7 +7002,10 @@ EXPECTED = {"request_loop": ("qmatmul", "qmatmul4", "decode_attention",
             # both kernels)
             **{run: MP_TRAIN_KERNELS
                for run in ("fsdp_smollm", "fsdp_smollm_2x2", "fsdp_olmoe")},
-            "fsdp_smollm_serve": ("flash_attention", "decode_attention")}
+            "fsdp_smollm_serve": ("flash_attention", "decode_attention"),
+            "fsdp_smollm_serve_2x2": ("flash_attention", "decode_attention"),
+            # the one-card in-place step, graphed and eager
+            "in_place_twin": MP_TRAIN_KERNELS}
 
 
 # the kernels' instantiations that ptxas reports entry by entry, by
@@ -7080,6 +7374,9 @@ def main(argv=None) -> int:
                                            MP_TRAIN_CASES + FSDP_CASES))
     emit({"model_parallel_train_phase_s": time.perf_counter() - t0,
           "phases": "9c and 9d"})
+    t0 = time.perf_counter()
+    runs["in_place_twin"] = in_place_twin(torch, ops)
+    emit({"in_place_twin_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     runs["zoo_reduced"] = zoo_reduced(torch, ops)
     runs.update(olmoe_phase(torch, ops))

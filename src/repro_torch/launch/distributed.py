@@ -22,7 +22,12 @@ the intra-op threads.
 If a rank raises, the others are ended and :func:`spawn` raises
 (``torch.multiprocessing.ProcessRaisedException``, with the traceback of
 the first failed rank the join sees: the one that raised, or a peer
-whose collective lost it): there is no fallback to fewer ranks.
+whose collective lost it): there is no fallback to fewer ranks. Every
+group has a timeout (``RANK_TIMEOUT``): a collective that a peer never
+joins (one that raised inside a CUDA graph's capture, say) fails its
+rank after it rather than holding it, so :func:`spawn` raises then at
+the latest. A rank drops its graphs (the steps that hold
+them) before ``fn`` returns: a graph outlives no group it captured.
 
 :func:`process_group` makes the calling process the one rank of a
 world of one (the training launcher's single card, asked for a group).
@@ -30,6 +35,7 @@ world of one (the training launcher's single card, asked for a group).
 from __future__ import annotations
 
 import contextlib
+import datetime
 import hashlib
 import tempfile
 from pathlib import Path
@@ -40,15 +46,20 @@ import torch.multiprocessing as mp
 
 from repro_torch.tree import tree_leaves
 
+# a group's collective timeout: far above any step's wait for a
+# peer (a rank that builds its shards while the others wait), far below
+# a caller's own time limit
+RANK_TIMEOUT = datetime.timedelta(seconds=300)
+
 
 @contextlib.contextmanager
 def process_group(device, rank: int = 0, world: int = 1, backend=None,
                   rendezvous=None):
     """This process as rank ``rank`` of ``world`` (on CUDA on card
     ``rank % device_count``), the group's ``file://`` rendezvous at
-    ``rendezvous`` (a fresh temporary file when None); yields the group
-    and destroys it on the way out. A group already made in this
-    process raises."""
+    ``rendezvous`` (a fresh temporary file when None) and its collectives'
+    timeout ``RANK_TIMEOUT``; yields the group and destroys it on the way
+    out. A group already made in this process raises."""
     device = torch.device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     kw = {}
@@ -62,7 +73,8 @@ def process_group(device, rank: int = 0, world: int = 1, backend=None,
             rendezvous = Path(stack.enter_context(tempfile.TemporaryDirectory(
                 prefix="repro_torch_mesh_"))) / "rendezvous"
         dist.init_process_group(backend, init_method=f"file://{rendezvous}",
-                                rank=rank, world_size=world, **kw)
+                                rank=rank, world_size=world,
+                                timeout=RANK_TIMEOUT, **kw)
         try:
             yield dist.group.WORLD
             # every rank done before any tears its transport down (a gloo

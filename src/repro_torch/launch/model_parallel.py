@@ -52,6 +52,11 @@ heads do not divide the axis is laid out by it
 (``models.attention.ring_of``), and a step raises where a cache's slots
 are not what that layout gives (``models.attention.cache_ring``).
 
+A rank program is captured as a CUDA graph only where every process
+group it uses is NCCL's (:func:`require_capturable`): one rank a card.
+Its subgroups' communicators are made by its first, eager call, which
+runs every collective of the program before the capture.
+
 Every collective, the backward's included, goes through
 :func:`_collective`. On fake tensors (the dry run's ``FakeTensorMode``)
 it is a stand-in: ``roofline.op_cost.count`` swaps it for one that
@@ -133,6 +138,29 @@ def make_axis(mesh, rank: int, group=None) -> ModelAxis:
         if first <= rank < first + m:
             mine = sub
     return ModelAxis(mi, m, mine)
+
+
+def require_capturable(graphs, device, axes) -> None:
+    """Where ``graphs`` asks for a CUDA graph of a rank program over
+    ``axes`` (model axes, data axes, None) on ``device`` (``True``, or
+    ``None`` on CUDA: the default of ``serving.decode.graphs.
+    use_graphs``), every active axis's process group must be NCCL's,
+    whose collectives are kernels on the card's streams; raises naming
+    the backend of the first that is not (gloo's collectives run on the
+    host, so a capture cannot hold them). The check comes before
+    ``use_graphs``'s, so a gloo rank on the CPU hears of its backend.
+    There is no fallback to eager: a gloo rank passes ``graphs=False``."""
+    import torch.distributed as dist
+    if not (graphs or (graphs is None
+                       and torch.device(device).type == "cuda")):
+        return
+    for a in axes:
+        if active(a) and dist.get_backend(a.group) != "nccl":
+            raise ValueError(
+                f"a CUDA graph of the rank program needs NCCL over the "
+                f"{a.name} axis, whose group is "
+                f"{dist.get_backend(a.group)}'s (its collectives run on "
+                f"the host): pass graphs=False")
 
 
 def data_index(mesh, where) -> tuple:

@@ -35,8 +35,10 @@ columns by the distributed argmax (or, sampled, from the logits
 gathered over the axis); every rank returns the same tokens. Under the
 FSDP layout (``fsdp=``, ``launch.model_parallel.Fsdp``) the params are
 also split over the data axis and gathered where read, and ``prompt``
-is the rank's rows of the batch. The rank program steps eagerly: its
-CUDA graphs are not built yet. ``main`` serves on one card.
+is the rank's rows of the batch. The rank program's decode step is one
+CUDA graph a call as on one card, its collectives captured with it,
+where every axis it runs over is NCCL's (one rank a card); a ``gloo``
+rank passes ``graphs=False``. ``main`` serves on one card.
 """
 from __future__ import annotations
 
@@ -77,20 +79,22 @@ def generate(params, cfg, prompt, max_len: int, gen: int, *,
     ``graphs`` (default: on for a CUDA prompt) replays the decode step
     as one CUDA graph from the second step on; ``graphs=False`` runs
     every step eagerly through the same code, and ``graphs=True`` on
-    the CPU raises. ``stats``, when a dict, receives ``prefill_s`` and
-    ``decode_s`` (wall seconds, each ended by a device synchronisation),
-    ``captures`` (1 for a graphed call of ``gen`` >= 3, else 0) and
-    ``last_logits`` (a copy of the last step's logits (B, 1, V); over a
-    model ``axis``, the rank's block of them). Over an axis whose size
+    the CPU raises. ``stats``, when a dict, receives ``prefill_s``,
+    ``decode_s`` and ``steady_s`` (wall seconds, each ended by a device
+    synchronisation; ``steady_s`` the decode steps after the second: a
+    graphed call's replays after its capture), ``captures`` (1 for a
+    graphed call of ``gen`` >= 3, else 0) and ``last_logits`` (a copy
+    of the last step's logits (B, 1, V); over a model ``axis``, the
+    rank's block of them). Over an axis whose size
     is larger than 1, or an FSDP layout ``fsdp`` over a data axis larger
-    than 1, the steps run eagerly (``graphs=True`` raises); the ranks
-    must all call it."""
+    than 1, the ranks must all call it, and a graph captures the step's
+    collectives: it needs NCCL's groups (``graphs=True``, or the default
+    on CUDA, over a gloo group raises: pass ``graphs=False``); the
+    prefill and the token choice (the distributed argmax's gathers) stay
+    outside the graph."""
     b, s = prompt.shape
-    if mp.active(axis) or mp.fsdp_active(fsdp):
-        if graphs:
-            raise ValueError("the rank program (model axis or FSDP) runs "
-                             "eagerly: its CUDA graphs are not built yet")
-        graphs = False
+    mp.require_capturable(graphs, prompt.device,
+                          (axis, fsdp.axis if fsdp is not None else None))
     graphs = use_graphs(graphs, prompt.device)
     prefill_step = make_prefill_step(cfg, max_len, axis, fsdp)
     serve_step = make_serve_step(cfg, mp.with_len(axis, max_len), fsdp)
@@ -105,6 +109,9 @@ def generate(params, cfg, prompt, max_len: int, gen: int, *,
     graph = None
     out = [tok]
     for i in range(gen - 1):
+        if stats is not None and i == 2:
+            _sync(prompt.device)
+            t2 = time.perf_counter()
         pos.fill_(s + i)
         if not graphs or i == 0:
             logits, caches = serve_step(params, tok, caches, pos)
@@ -119,7 +126,9 @@ def generate(params, cfg, prompt, max_len: int, gen: int, *,
     toks = torch.cat(out, dim=1)
     if stats is not None:
         _sync(prompt.device)
-        stats["decode_s"] = time.perf_counter() - t1
+        t3 = time.perf_counter()
+        stats["decode_s"] = t3 - t1
+        stats["steady_s"] = t3 - t2 if gen > 3 else 0.0
         stats["captures"] = int(graph is not None)
         stats["last_logits"] = logits.clone() if gen > 1 else None
     return toks
@@ -132,7 +141,7 @@ def run(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
     structs -> a seeded random prompt -> :func:`generate` (``graphs`` as
     there). Returns the tokens, the prompt, both weight trees, the
     phases' seconds (``quantize_s``, ``prefill_s``, ``decode_s``,
-    ``generate_s``), ``captures`` and ``last_logits``."""
+    ``steady_s``, ``generate_s``), ``captures`` and ``last_logits``."""
     use_graphs(graphs, device)
     g = torch.Generator(device=device).manual_seed(seed)
     weights = T.init_params(cfg, g, device=device)

@@ -16,7 +16,9 @@ On CUDA, per key:
     (``torch.cuda.empty_cache``, so the eager step's blocks do not stay
     reserved beside the graph's private pool), captures ``fn`` with the
     new state written back into those same buffers at the end of the
-    graph (one ``torch._foreach_copy_``), and replays it once to carry
+    graph (one ``torch._foreach_copy_`` of the leaves whose new tensor
+    is not already that buffer: none for a step that updates in place,
+    ``make_train_step(in_place=True)``), and replays it once to carry
     out the step;
   * every later call replays the graph and returns the static state
     trees, so a loop that threads the returned state back in copies
@@ -39,12 +41,23 @@ call.
 counters follow ``StageGraph``: a capture launches nothing and puts the
 counters back, every replay adds the launches the capture recorded.
 
+``write_back`` lists, capture by capture, how many state leaves each
+replay copies back.
+
 On a CPU tensor, ``graphs=None`` runs ``fn`` eagerly every call;
 ``graphs=False`` does so on CUDA (the eager twin); ``graphs=True`` off
-the card raises. There is no fallback: a capture that fails raises. A
-step over an active model axis (``make_train_step(axis=)``) or an FSDP
-layout (``fsdp=``) is refused:
-the rank program runs eagerly, as ``launch.serve.generate(axis=)`` does.
+the card raises. There is no fallback: a capture that fails raises.
+
+A rank program's step (``make_train_step`` over a model ``axis``, a data
+axis ``group`` or an FSDP layout ``fsdp``, read from the step's
+attributes) is captured with its collectives, as the reference's
+``jax.jit`` of the sharded step compiles them in: only where every
+active axis's process group is NCCL's (``launch.model_parallel.
+require_capturable``; over gloo ``graphs=True``, or the default on CUDA,
+raises). Every rank must call it alike, so that each captures and
+replays the same collectives in the same order. Such a step should be
+made with ``in_place=True``: its new state is then its buffers, nothing
+is copied back, and the graph's private pool holds no second state.
 """
 from __future__ import annotations
 
@@ -77,19 +90,19 @@ class DonatedStep:
     ``fn``'s output as it is)."""
 
     def __init__(self, fn, donate: int = 2, graphs=None):
-        if mp.active(getattr(fn, "axis", None)) or \
-                mp.fsdp_active(getattr(fn, "fsdp", None)):
-            raise NotImplementedError(
-                "a rank-program train step (model axis or FSDP) runs "
-                "eagerly: the rank program as CUDA graphs is ROADMAP "
-                "Queue 1 item 3")
         self.fn, self.donate, self.graphs = fn, donate, graphs
+        fsdp = getattr(fn, "fsdp", None)
+        self.axes = (getattr(fn, "axis", None), getattr(fn, "group", None),
+                     fsdp.axis if fsdp is not None else None)
         self.captures = 0
+        self.write_back = []
         self._uses = collections.Counter()
         self._graphs = {}
 
     def __call__(self, *args):
-        if not use_graphs(self.graphs, tree_leaves(args)[0].device):
+        device = tree_leaves(args)[0].device
+        mp.require_capturable(self.graphs, device, self.axes)
+        if not use_graphs(self.graphs, device):
             return self.fn(*args)
         key = (signature(args[:self.donate]), signature(args[self.donate:]))
         entry = self._graphs.get(key)
@@ -118,9 +131,13 @@ class DonatedStep:
             if signature(new) != signature(static):
                 raise ValueError("a donated step must return its state "
                                  "trees with the leaves it was given")
-            if new:
-                torch._foreach_copy_(list(leaves[:n]), new)
+            copies = [(s, x) for s, x in zip(leaves[:n], new) if x is not s]
+            if copies:
+                torch._foreach_copy_([s for s, _ in copies],
+                                     [x for _, x in copies])
             outputs = out[d:] if d else out
+            if not template:
+                self.write_back.append(len(copies))
             template.append(outputs)
             return tuple(tree_leaves(outputs))
 

@@ -4,7 +4,8 @@ reference's ``train/optimizer.py`` step for step, so both agree to f32
 rounding (``torch.optim`` orders its arithmetic differently).
 
 The moments are float32 trees and ``step`` an int32 scalar tensor, as
-the reference keeps them; updates return new trees.
+the reference keeps them; updates return new trees (in place, the
+trees they were handed).
 """
 from __future__ import annotations
 
@@ -95,11 +96,11 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, axes=(),
     :func:`global_norm`'s over the axes that split each leaf
     (``split``). Leaf by leaf: the clipped gradient, the moments and the
     new value of one leaf before the next, so no whole tree of clipped
-    gradients is ever held. ``in_place`` writes the new params and
-    moments into the trees it was given (the same ops, so the same bits)
-    and returns those trees: the caller's old state is gone, and so is
-    the memory a second copy of it would take."""
-    step = state["step"] + 1
+    gradients is ever held. ``in_place`` writes the new params, moments
+    and ``step`` into the trees it was given (the same ops, so the same
+    bits) and returns those trees: the caller's old state is gone, and
+    so is the memory a second copy of it would take."""
+    step = state["step"].add_(1) if in_place else state["step"] + 1
     gnorm = global_norm(grads, axes, split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)

@@ -215,10 +215,13 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, remat: bool = True,
     each replica steps on the whole batch. A layout over a data axis of
     size 1 is no layout, bit for bit.
 
-    ``in_place``: the update writes the new params and moments into the
-    trees the step was handed and returns them (``adamw_update``), the
+    ``in_place``: the update writes the new params, moments and ``step``
+    into the trees the step was handed and returns them (``adamw_update``), the
     same bits as a step that makes new trees: an eager rank program's
-    donation, without a second copy of the state at its peak."""
+    donation, without a second copy of the state at its peak. A rank
+    program graphed through ``train.graphs.DonatedStep`` should be made
+    with it: a step that makes new trees has them copied back into the
+    graph's buffers, so its private pool holds a second state."""
     split = []
     if group is not None and not isinstance(group, mp.ModelAxis):
         group = mp.group_axis(group)
@@ -242,7 +245,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, remat: bool = True,
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return params, opt_state, metrics
 
-    train_step.axis, train_step.fsdp = axis, fsdp
+    train_step.axis, train_step.group, train_step.fsdp = axis, group, fsdp
     return train_step
 
 

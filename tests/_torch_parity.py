@@ -19,10 +19,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs.base import get_config as jax_get_config
 from repro_torch.configs.base import get_config as torch_get_config
+from _torch_host_reads import NoHostReads, exempting_one_hot  # noqa: F401
 
 WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
 THREADS = max(1, (os.cpu_count() or 1) // WORKERS)
@@ -171,36 +171,10 @@ def stage_graphs(backend) -> dict:
             for name, g in entry.graphs.items()}
 
 
-class NoHostReads(TorchDispatchMode):
-    """Fails an op that reads a tensor's value on the host (``int()``,
-    ``.item()``, ``bool()``, a data-dependent shape), except inside
-    ``F.one_hot``: on the CPU it checks its classes' range on the host,
-    on CUDA it leaves that to its scatter's device assert and reads
-    nothing (``exempt`` counts the ``one_hot`` calls under way)."""
-
-    def __init__(self):
-        super().__init__()
-        self.exempt = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if not self.exempt and func in (
-                torch.ops.aten._local_scalar_dense.default,
-                torch.ops.aten.nonzero.default):
-            raise AssertionError(f"{func} read a tensor on the host")
-        return func(*args, **(kwargs or {}))
-
-
 def no_host_reads(monkeypatch) -> NoHostReads:
     """A ``NoHostReads`` mode with ``F.one_hot`` exempted through
     ``monkeypatch`` (the body of the tests' ``no_host_reads`` fixtures)."""
-    mode, one_hot = NoHostReads(), torch.nn.functional.one_hot
-
-    def exempt_one_hot(*args, **kwargs):
-        mode.exempt += 1
-        try:
-            return one_hot(*args, **kwargs)
-        finally:
-            mode.exempt -= 1
-
-    monkeypatch.setattr(torch.nn.functional, "one_hot", exempt_one_hot)
+    mode = NoHostReads()
+    monkeypatch.setattr(torch.nn.functional, "one_hot",
+                        exempting_one_hot(mode))
     return mode

@@ -48,7 +48,10 @@ classifier's programs (the MNIST MLP) bitwise their eager twin, one
 capture per program and argument, the reference's segment cache keyed
 by p, and a program that cannot be captured raising. The host mesh's
 train step at one rank over NCCL, its all-reduces inside the captured
-graph, bitwise the ungrouped graphed step (dense and MoE).
+graph, bitwise the ungrouped graphed step (dense and MoE); on two cards
+or more, the rank programs (the in-place train step over the model axis
+and under the FSDP layout, ``generate``'s decode step) graphed on NCCL
+ranks, bitwise their eager twins.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
@@ -2081,6 +2084,28 @@ def test_train_step_one_nccl_rank_bitwise_ungrouped(gen, kind):
         assert _trees_equal(mw, mg)
     assert _trees_equal(want[1], got[1])
     assert want[2] == got[2] and got[2]["flash_attention_bwd"] > 0
+
+
+def test_rank_programs_graphed_bitwise_eager_on_nccl(gen):
+    """On two cards or more, one NCCL rank a card (two ranks): the
+    in-place train step over the model axis and under the FSDP layout,
+    graphed through ``DonatedStep`` with its collectives inside, gives
+    its eager twin's metrics and every leaf bit for bit, captures once,
+    copies nothing back and launches the flash kernels as often (through
+    the replays' counters); ``generate``'s graphed decode step gives the
+    ``graphs=False`` tokens and last logits, one capture a call."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes one rank a card")
+    from repro_torch.launch import distributed
+    import _torch_fsdp_ranks as ranks
+    for by_program in distributed.spawn(ranks.graphed_twins, 2, "cuda"):
+        for name, rec in by_program.items():
+            eager, graphed = rec["launches"]
+            assert rec["metrics_bitwise"] and rec["state_bitwise"], name
+            assert rec["captures"] == 1 and rec["write_back"] == [0], name
+            assert eager == graphed and graphed["flash_attention_bwd"] > 0
+            assert rec["tokens_bitwise"] and rec["logits_bitwise"], name
+            assert rec["generate_captures"] == 1, name
 
 
 def test_train_step_captures_once_per_key(gen):

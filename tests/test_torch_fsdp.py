@@ -49,6 +49,13 @@ one on model only, one on both and one on neither, each counted once.
 was handed) bitwise the step that makes new trees, with and without a
 layout.
 
+The rank programs as CUDA graphs, on the CPU's two gloo ranks, over the
+model axis at (1, 2) and under the layout at (2, 1), smollm-8m and
+reduced OLMoE (the experts' all-to-all, the router): ``DonatedStep``
+takes the in-place step and runs it eagerly, bitwise the plain step;
+``graphs=True`` over gloo raises there and in ``launch.serve.generate``;
+the train and decode steps read nothing on the host (``NoHostReads``).
+
 One spawn per world size (module fixture: two ranks for the (2, 1)
 cases, four for the (2, 2) ones and the norm); the reference runs
 meanwhile."""
@@ -86,6 +93,11 @@ CASES = {"dense": (DENSE, 2, 1, False, 1),
          "remat": (DENSE, 2, 1, True, 1)}
 # serving case -> (data, model, int-N bits or 0)
 SERVE = {"serve": (2, 1, 0), "serve_2x2": (2, 2, 0), "serve_q4_2x2": (2, 2, 4)}
+# the rank programs as CUDA graphs take them (``ranks.graph_case``):
+# program -> (configs, data, FSDP layout), on two ranks
+GRAPHS = {"model_axis": (DENSE, 1, False), "fsdp": (DENSE, 2, True),
+          "moe_model_axis": (zoo_configs("olmoe-1b-7b"), 1, False),
+          "moe_fsdp": (zoo_configs("olmoe-1b-7b"), 2, True)}
 
 
 def _world(data, model) -> int:
@@ -109,6 +121,11 @@ def runs():
     serving = {name: (tcfg, tree, prompt, mpserve.MAX_LEN, mpserve.STEPS,
                       data, quant)
                for name, (data, _, quant) in SERVE.items()}
+    graphing = {name: (t, mptrain._weights(t, 30), OPT, data,
+                       mptrain._batch(t, 30), np.random.default_rng(4).integers(
+                           0, t.vocab_size, (mpserve.B, mpserve.S)).astype(
+                               np.int32), mpserve.MAX_LEN, fsdp)
+                for name, ((_, t), data, fsdp) in GRAPHS.items()}
     by_world = {}
     for name, case in port.items():
         by_world.setdefault(_world(*CASES[name][1:3]), ({}, {}))[0][name] = \
@@ -118,7 +135,8 @@ def runs():
             case
     with concurrent.futures.ThreadPoolExecutor(len(by_world)) as pool:
         spawned = {w: pool.submit(distributed.spawn, ranks.run_all, w, "cpu",
-                                  train, serve, w == 4)
+                                  train, serve, w == 4,
+                                  graphing if w == 2 else None)
                    for w, (train, serve) in by_world.items()}
         with concurrent.futures.ThreadPoolExecutor(4) as jit_pool:
             ref = dict(zip(ref_args, jit_pool.map(
@@ -132,6 +150,11 @@ def runs():
 
 def _ranks(got, case):
     return [r["train"][case] for r in got[_world(*CASES[case][1:3])]]
+
+
+def _graphs(runs, program):
+    """Both ranks' ``ranks.graph_case`` records of ``program``."""
+    return [r["graphs"][program] for r in runs[2][2]]
 
 
 def _specs(case, mesh):
@@ -275,17 +298,37 @@ def test_data_axis_of_one_is_bitwise_no_layout(case):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_donated_step_refuses_an_fsdp_layout():
-    """The FSDP rank program runs eagerly: ``DonatedStep`` refuses a step
-    over an active layout."""
-    from repro_torch.train.graphs import DonatedStep
-    tcfg = DENSE[1]
-    layout = mp.Fsdp(mp.ModelAxis(0, 2, None, name=DATA_AXIS), None)
-    step = tloop.make_train_step(tcfg, topt.AdamWConfig(**OPT), group=mp.
-                                 ModelAxis(0, 2, None, name=DATA_AXIS),
-                                 fsdp=layout)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        DonatedStep(step)
+@pytest.mark.parametrize("program", sorted(GRAPHS))
+def test_donated_step_refuses_an_fsdp_layout(runs, program):
+    """``DonatedStep`` takes a rank program's in-place step, over the
+    model axis or under the FSDP layout: on CPU tensors it runs it
+    eagerly, two calls bitwise the plain step's (metrics and trees, no
+    capture); it refuses ``graphs=True`` over gloo, naming the backend
+    (a capture cannot hold a collective that runs on the host)."""
+    for rec in _graphs(runs, program):
+        assert rec["eager_bitwise"] and rec["captures"] == 0
+        assert rec["graphs_true"] is not None
+        assert "gloo" in rec["graphs_true"]
+
+
+@pytest.mark.parametrize("program", sorted(GRAPHS))
+@pytest.mark.parametrize("step", ["train", "serve"])
+def test_rank_programs_read_nothing_on_the_host(runs, program, step):
+    """The in-place train step (after its first call) and the decode step
+    of a rank program, over the model axis or under the FSDP layout,
+    read no tensor on the host on either rank (``NoHostReads``): the
+    CPU's proxy for a capture taking them."""
+    for rec in _graphs(runs, program):
+        assert rec[f"{step}_host_read"] is None, rec[f"{step}_host_read"]
+
+
+@pytest.mark.parametrize("program", sorted(GRAPHS))
+def test_generate_graphs_true_over_gloo_raises(runs, program):
+    """``launch.serve.generate(graphs=True)`` over a gloo rank's axis
+    raises, naming the backend, on every rank: no fallback to eager."""
+    for rec in _graphs(runs, program):
+        assert rec["generate_graphs_true"] is not None
+        assert "gloo" in rec["generate_graphs_true"]
 
 
 @pytest.mark.parametrize("layout", ["none", "data_axis_of_one"])

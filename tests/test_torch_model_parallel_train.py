@@ -334,14 +334,27 @@ def test_axis_of_one_is_bitwise_no_axis(case):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_donated_step_refuses_a_model_axis():
-    """The rank program runs eagerly: ``DonatedStep`` refuses a step over
-    an active model axis, and takes one over an axis of size 1."""
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_donated_step_refuses_a_model_axis(backend, monkeypatch):
+    """``DonatedStep`` takes a step over an active model axis, and over
+    an axis of size 1. Asked for a graph, it refuses an axis whose group
+    is gloo's, naming the backend (a capture cannot hold a collective
+    that runs on the host); over NCCL it refuses only the CPU, as it
+    does a one-card step (the group's backend read through a stand-in
+    for ``torch.distributed.get_backend``: no process group here)."""
+    import torch.distributed as dist
+    monkeypatch.setattr(dist, "get_backend", lambda group: backend)
     tcfg = lm_configs(tp_pad=16)[1]
     opt = topt.AdamWConfig(**OPT)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        DonatedStep(tloop.make_train_step(tcfg, opt,
-                                          axis=mp.ModelAxis(0, 2, None)))
+    step = tloop.make_train_step(tcfg, opt,
+                                 axis=mp.ModelAxis(0, 2, "model group"))
+    params = TT.params_from_numpy(_weights(tcfg, 0), tcfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg, 0).items()}
+    want = "NCCL over the model axis" if backend == "gloo" else \
+        "CUDA graphs need a CUDA device"
+    with pytest.raises(ValueError, match=want):
+        DonatedStep(step, graphs=True)(params, topt.init_opt_state(params),
+                                       batch)
     DonatedStep(tloop.make_train_step(tcfg, opt, axis=mp.ModelAxis(0, 1)))
 
 

@@ -329,6 +329,47 @@ def test_undonated_step_copies_its_inputs_in(dense, graphed, one_thread):
     assert donated.captures == 1
 
 
+def _one_leaf_step(state, x):
+    """A donated step that hands its ``kept`` leaf back as it is and
+    replaces its ``moved`` leaf."""
+    return {"kept": state["kept"], "moved": state["moved"] + x}, x.sum()
+
+
+@pytest.mark.parametrize("kind", ["new_trees", "in_place", "one_leaf"])
+def test_write_back_skips_the_leaves_that_are_their_buffers(dense, graphed,
+                                                            one_thread, kind):
+    """Through the stand-in, the capture copies back exactly the state
+    leaves whose new tensor is not the graph's buffer: every leaf of a
+    step that makes new trees (params, ``mu``, ``nu``, ``step``), none of
+    an in-place step (``make_train_step(in_place=True)``: the update and
+    the ``step`` counter written into the trees it was handed), one of a
+    step that hands one leaf back; four calls bitwise the plain step."""
+    if kind == "one_leaf":
+        step, n = _one_leaf_step, 1
+        state, want = ({"kept": torch.ones(3), "moved": torch.zeros(2)}
+                       for _ in range(2))
+        args = [torch.full((2,), float(i)) for i in range(4)]
+        donated = graphs.DonatedStep(step, donate=1)
+    else:
+        _, tcfg, tree = dense
+        step = make_train_step(tcfg, AdamWConfig(**OPT), remat=False,
+                               in_place=kind == "in_place")
+        p, q = _params(tcfg, tree), _params(tcfg, tree)
+        state, want = (p, init_opt_state(p)), (q, init_opt_state(q))
+        n = 0 if kind == "in_place" else len(tree_leaves(state))
+        args = [_tbatch(b) for b in _batches(tcfg.vocab_size, 4)]
+        donated = graphs.DonatedStep(step)
+    for x in args:
+        if kind == "one_leaf":
+            state, got = donated(state, x)
+            want, out = step(want, x)
+        else:
+            *state, got = donated(*state, x)
+            *want, out = step(*want, x)
+        assert _same((state, got), (want, out))
+    assert donated.captures == 1 and donated.write_back == [n]
+
+
 def test_a_step_that_changes_its_state_leaves_raises(graphed):
     def bad(state, x):
         return {"w": state["w"].double()}, x.sum()
